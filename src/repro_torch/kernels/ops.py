@@ -1,0 +1,88 @@
+"""The kernels' router, mirroring ``repro/kernels/ops.py``.
+
+A call whose fleet tensor lies on a CUDA device launches the hand-written
+Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd``), which raises
+on anything it does not take.  A call on CPU tensors runs the plain
+PyTorch version in ``kernels/ref``.  There is no switch that sends CUDA
+tensors to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import dual_proximal_sgd as _dps
+from repro_torch.kernels import masked_hier_agg as _mha
+from repro_torch.kernels import ref
+
+
+def dual_proximal_sgd(w, g, a1, a2, *, lr: float, mu1: float, mu2: float,
+                      scale: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 6 step; ``out=w`` updates in place."""
+    if w.is_cuda:
+        return _dps.dual_proximal_sgd(w, g, a1, a2, lr=lr, mu1=mu1, mu2=mu2,
+                                      scale=scale, out=out)
+    res = ref.dual_proximal_sgd_ref(w, g, a1, a2, lr=lr, mu1=mu1, mu2=mu2,
+                                    scale=scale)
+    return res if out is None else out.copy_(res)
+
+
+def weighted_agg_matmul(weight_matrix, stacked) -> torch.Tensor:
+    if stacked.is_cuda:
+        return _mha.weighted_agg_matmul(weight_matrix, stacked)
+    return ref.weighted_agg_matmul_ref(weight_matrix, stacked)
+
+
+def masked_hier_agg(stacked_flat, weights, mask, rsu_assign, n_rsus: int):
+    """(rsu (R, N) in the fleet dtype, mass (R,)), no blend."""
+    if stacked_flat.is_cuda:
+        return _mha.masked_hier_agg(stacked_flat, weights, mask, rsu_assign,
+                                    n_rsus)
+    return ref.masked_hier_agg_ref(stacked_flat, weights, mask, rsu_assign,
+                                   n_rsus)
+
+
+def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:
+    """(R, N) -> (N,) weighted mean, no keep guard."""
+    if rsu_flat.is_cuda:
+        return _mha.cloud_agg(rsu_flat, rsu_weights)
+    return ref.cloud_agg_ref(rsu_flat, rsu_weights)
+
+
+def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
+    """Fused RSU aggregation + mass guard; (rsu' in prev's dtype, mass)."""
+    if stacked_flat.is_cuda:
+        return _mha.agg_blend(stacked_flat, weights, mask, rsu_assign,
+                              n_rsus, prev)
+    return ref.agg_blend_ref(stacked_flat, weights, mask, rsu_assign, n_rsus,
+                             prev)
+
+
+def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
+               keep=0.0):
+    """Fused multi-cohort absorb; (buf', total mass, new mass)."""
+    if buf.is_cuda:
+        return _mha.agg_absorb(arrivals, rsu_assign, n_rsus, buf, buf_mass,
+                               keep=keep)
+    return ref.agg_absorb_ref(arrivals, rsu_assign, n_rsus, buf, buf_mass,
+                              keep=keep)
+
+
+def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
+    """Fused cloud aggregation + keep guard; out dtype follows ``prev``."""
+    if rsu_flat.is_cuda:
+        return _mha.cloud_blend(rsu_flat, rsu_weights, prev)
+    return ref.cloud_blend_ref(rsu_flat, rsu_weights, prev)
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, per wrapper entry point."""
+    return {**_mha.launches, **_dps.launches}
+
+
+def reset_launch_counts() -> None:
+    for counts in (_mha.launches, _dps.launches):
+        for k in counts:
+            counts[k] = 0

@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each mirrors its kernel's contract and the JAX package's
+``repro/kernels/ref.py``.  The CPU route of ``kernels/ops`` runs them, the
+tests hold them against the JAX Pallas kernels, and ``chip_smoke.py``
+holds each CUDA kernel against them on the card.  They repeat the
+kernels' arithmetic in straightforward form and are no yardstick of speed.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.aggregation import (buffer_absorb, normalized_weights,
+                                          scatter_accumulate)
+
+
+def dual_proximal_sgd_ref(w, g, a1, a2, *, lr: float, mu1: float,
+                          mu2: float, scale=None) -> torch.Tensor:
+    """w - lr*(g + mu1*(w - a1) + mu2*(w - a2)); ``scale`` (A,) multiplies
+    each row's lr (the flat engine's ``live`` mask), and ``a1`` / ``a2``
+    broadcast against ``w`` (an (N,) row serves every agent)."""
+    wf = w.float()
+    step = g.float() + mu1 * (wf - a1.float()) + mu2 * (wf - a2.float())
+    lr_t = lr if scale is None else lr * scale.float()[:, None]
+    return (wf - lr_t * step).to(w.dtype)
+
+
+def weighted_agg_matmul_ref(weight_matrix, stacked) -> torch.Tensor:
+    """(R, A) @ (A, N) in fp32, out in the stacked dtype."""
+    return (weight_matrix.float() @ stacked.float()).to(stacked.dtype)
+
+
+def masked_hier_agg_ref(stacked_flat, weights, mask, rsu_assign, n_rsus):
+    """Segment-sum reference for the RSU aggregation."""
+    w = weights.float() * mask.float()
+    num, mass = scatter_accumulate(stacked_flat, w, rsu_assign, n_rsus)
+    denom = torch.where(mass > 0, mass, torch.ones_like(mass))[:, None]
+    return (num / denom).to(stacked_flat.dtype), mass
+
+
+def agg_blend_ref(stacked_flat, weights, mask, rsu_assign, n_rsus, prev):
+    """The un-fused two-pass composition the fused kernel reproduces:
+    normalized aggregation, then the mass-guard blend; out dtype follows
+    ``prev``."""
+    new, mass = masked_hier_agg_ref(stacked_flat, weights, mask, rsu_assign,
+                                    n_rsus)
+    out = torch.where((mass > 0)[:, None], new.float(), prev.float())
+    return out.to(prev.dtype), mass
+
+
+def agg_absorb_ref(arrivals, rsu_assign, n_rsus, buf, buf_mass, *,
+                   keep=0.0):
+    """Per-cohort scatter-accumulate, numerator add, then
+    ``buffer_absorb``.  Returns (buf', total mass, new mass)."""
+    num = torch.zeros(buf.shape, dtype=torch.float32, device=buf.device)
+    new_mass = torch.zeros(n_rsus, dtype=torch.float32, device=buf.device)
+    for x, w in arrivals:
+        n, m = scatter_accumulate(x, w, rsu_assign, n_rsus)
+        num = num + n
+        new_mass = new_mass + m
+    out, total = buffer_absorb(buf, buf_mass, num, new_mass, keep=keep)
+    return out, total, new_mass
+
+
+def cloud_agg_ref(rsu_flat, rsu_weights) -> torch.Tensor:
+    wn, _ = normalized_weights(rsu_weights)
+    return (rsu_flat.float() * wn[:, None]).sum(dim=0).to(rsu_flat.dtype)
+
+
+def cloud_blend_ref(rsu_flat, rsu_weights, prev) -> torch.Tensor:
+    """Cloud aggregation + keep-guard; out dtype follows ``prev``."""
+    new = cloud_agg_ref(rsu_flat, rsu_weights)
+    total = rsu_weights.float().sum()
+    return torch.where(total > 0, new.float(), prev.float()).to(prev.dtype)

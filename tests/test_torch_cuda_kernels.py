@@ -1,0 +1,91 @@
+"""Each CUDA kernel against its plain PyTorch version, on the card.
+
+These tests need an NVIDIA GPU and skip elsewhere; they import no JAX, so
+they run on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
+
+Tolerances: fp32 1e-5 absolute / relative for the normalized
+aggregations (weighted means of O(1) values summed in another order; the
+plain version's ``index_add_`` sums with atomics in a varying order), the
+unnormalized matmul against an fp64 product (see below), and 2e-6 for the
+elementwise update (one fused multiply-add against two roundings); bf16
+outputs within one bf16 ulp of the stored value (2**-7 relative), since
+an fp32 sum that differs in its last bit can round either way.
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.kernels import dual_proximal_sgd as tdps
+from repro_torch.kernels import masked_hier_agg as tmha
+from repro_torch.kernels import ref
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=2 ** -7, atol=1e-5)
+UPDATE = dict(rtol=2e-6, atol=2e-6)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,R,N", [(20, 4, 31_810), (100, 10, 31_810),
+                                   (7, 9, 1001), (3, 1, 700), (2, 2, 5),
+                                   (1000, 20, 513)])
+def test_cuda_aggregation_kernels_match_plain(cuda, dtype, A, R, N):
+    g = torch.Generator(device=cuda).manual_seed(A + R)
+    x = torch.randn(A, N, device=cuda, generator=g).to(dtype)
+    prev = torch.randn(R, N, device=cuda, generator=g).to(dtype)
+    w = torch.rand(A, device=cuda, generator=g) + 0.5
+    mask = (torch.rand(A, device=cuda, generator=g) < 0.6).float()
+    assign = torch.arange(A, device=cuda) % R
+    mask[assign == 0] = 0.0
+    tol = F32 if dtype == torch.float32 else BF16
+    got, mass = tmha.agg_blend(x, w, mask, assign, R, prev)
+    want, mass_r = ref.agg_blend_ref(x, w, mask, assign, R, prev)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got[0], prev[0])
+    # unnormalized weights: held against the fp64 product, within 1e-6 of
+    # the sum of |terms| (a few fp32 ulps of it, whatever the order) plus,
+    # for bf16, one ulp of the stored value
+    W = torch.randn(R, A, device=cuda, generator=g)
+    got_mm = tmha.weighted_agg_matmul(W, x).double()
+    exact = W.double() @ x.double()
+    lim = 1e-6 * (W.double().abs() @ x.double().abs())
+    if dtype == torch.bfloat16:
+        lim += 2 ** -7 * exact.abs()
+    assert bool(((got_mm - exact).abs() <= lim).all())
+    cloud = torch.randn(N, device=cuda, generator=g)
+    torch.testing.assert_close(tmha.cloud_blend(prev, mass_r + 1, cloud),
+                               ref.cloud_blend_ref(prev, mass_r + 1, cloud),
+                               **tol)
+    arrivals = [(x, w * mask), (x.flip(0).contiguous(), w)]
+    bm = torch.rand(R, device=cuda, generator=g)
+    got3 = tmha.agg_absorb(arrivals, assign, R, prev, bm, keep=0.5)
+    want3 = ref.agg_absorb_ref(arrivals, assign, R, prev, bm, keep=0.5)
+    torch.testing.assert_close(got3[0].float(), want3[0].float(), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anchor_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dual_proximal_sgd_matches_plain(cuda, anchor_dtype):
+    g_ = torch.Generator(device=cuda).manual_seed(0)
+    A, N = 20, 31_810
+    w, g, a1 = (torch.randn(A, N, device=cuda, generator=g_) for _ in range(3))
+    a1 = a1.to(anchor_dtype)
+    a2 = torch.randn(N, device=cuda, generator=g_).to(anchor_dtype)
+    live = (torch.rand(A, device=cuda, generator=g_) < 0.5).float()
+    kw = dict(lr=0.1, mu1=0.01, mu2=0.005)
+    for scale, anchor2 in ((None, a2.expand(A, N).contiguous()), (live, a2)):
+        got = tdps.dual_proximal_sgd(w, g, a1, anchor2, scale=scale, **kw)
+        want = ref.dual_proximal_sgd_ref(w, g, a1, anchor2, scale=scale, **kw)
+        torch.testing.assert_close(got, want, **UPDATE)
+    torch.cuda.synchronize()

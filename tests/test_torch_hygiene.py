@@ -1,0 +1,77 @@
+"""The port stands alone: no file of ``src/repro_torch/`` or
+``chip_smoke.py`` imports JAX or the JAX package, importing the port
+leaves JAX unloaded, and the entry points refuse to run on the CPU unless
+asked to."""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.fedsim, "
+            "repro_torch.kernels.ops, repro_torch.convert; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without ``device`` the entry points take cuda and raise when it is
+    absent; nothing carries on quietly on the CPU."""
+    from repro_torch.configs.mnist_mlp import CONFIG
+    from repro_torch.core.scenario import ScenarioSpec
+    from repro_torch.fedsim import pretrain_to_target, run_scenario
+    from repro_torch.models import mlp
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ScenarioSpec(n_agents=4, n_rsus=2, n_train=300, n_test=60,
+                        rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario(spec)
+    params = mlp.init_params(CONFIG, torch.Generator().manual_seed(0))
+    res = spec.resolve()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain_to_target(params, res.pretrain_pool, res.test.x, res.test.y)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("engine", "async"), ("engine", "tree"), ("fleet_store", "host"),
+    ("chunk_agents", 4), ("chunk_params", 128), ("serve_events", 10),
+    ("rsu_sharded", True), ("model_shards", 2), ("faults", object())])
+def test_unported_features_refuse(field, value):
+    from repro_torch.core.scenario import ScenarioSpec
+    with pytest.raises(NotImplementedError):
+        ScenarioSpec(**{field: value}).validate()
+

@@ -1,0 +1,205 @@
+"""The kernels' plain PyTorch versions against the JAX Pallas kernels run
+in interpret mode (each CUDA kernel against its plain version is in
+test_torch_cuda_kernels.py, which runs on a GPU).
+
+Tolerances: fp32 2e-6 absolute / relative (sums of at most a few dozen
+O(1) products in another order); bf16 outputs within one bf16 ulp of the
+stored value (2**-7 relative), since an fp32 sum that differs in its last
+bit can round to either neighbour.  Rows with zero mass keep the previous
+buffer exactly on every route.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dual_proximal_sgd as jdps
+from repro.kernels import masked_hier_agg as jmha
+
+from repro_torch import convert
+from repro_torch.kernels import dual_proximal_sgd as tdps
+from repro_torch.kernels import masked_hier_agg as tmha
+from repro_torch.kernels import ops
+
+F32 = dict(rtol=2e-6, atol=2e-6)
+BF16 = dict(rtol=2 ** -7, atol=2 ** -126)
+INTERP = dict(interpret=True)
+JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+def _pair(arr, dtype):
+    """The same values as a JAX array and a torch tensor in ``dtype``."""
+    j = jnp.asarray(arr).astype(JAX_DTYPES[dtype])
+    return j, convert.tensor_from_numpy(np.asarray(j))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(convert.tensor_to_numpy(got),
+                               np.asarray(want, np.float32),
+                               **(F32 if dtype == "f32" else BF16))
+
+
+def _agg_inputs(A, R, N, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((A, N)).astype(np.float32)
+    w = rng.uniform(1, 5, A).astype(np.float32)
+    mask = rng.integers(0, 2, A).astype(np.float32)
+    assign = (np.arange(A) % R).astype(np.int32)
+    mask[assign == R - 1] = 0.0                   # one zero-mass RSU row
+    prev = rng.standard_normal((R, N)).astype(np.float32)
+    return x, w, mask, assign, prev
+
+
+AGG_CASES = [(4, 2, 64, "f32"), (32, 4, 777, "f32"), (20, 4, 1000, "f32"),
+             (16, 4, 512, "bf16"), (20, 4, 1001, "bf16")]
+
+
+@pytest.mark.parametrize("A,R,N,dtype", AGG_CASES)
+def test_agg_blend_ref_matches_pallas(A, R, N, dtype):
+    x, w, mask, assign, prev = _agg_inputs(A, R, N, A + N)
+    jx, tx = _pair(x, dtype)
+    jprev, tprev = _pair(prev, dtype)
+    want, jmass = jmha.agg_blend(jx, jnp.asarray(w), jnp.asarray(mask),
+                                 jnp.asarray(assign), R, jprev, **INTERP)
+    got, mass = ops.agg_blend(tx, torch.from_numpy(w), torch.from_numpy(mask),
+                              torch.from_numpy(assign).long(), R, tprev)
+    assert got.dtype == tprev.dtype
+    _close(got, want, dtype)
+    np.testing.assert_allclose(mass.numpy(), np.asarray(jmass), rtol=1e-6)
+    dead = mass.numpy() == 0
+    assert dead.any()
+    assert torch.equal(got[torch.from_numpy(dead)],
+                       tprev[torch.from_numpy(dead)])
+
+
+@pytest.mark.parametrize("A,R,N,dtype", AGG_CASES)
+def test_weighted_agg_matmul_and_masked_agg_match_pallas(A, R, N, dtype):
+    x, w, mask, assign, _ = _agg_inputs(A, R, N, 3 * A + N)
+    jx, tx = _pair(x, dtype)
+    W = np.random.default_rng(N).standard_normal((R, A)).astype(np.float32)
+    _close(ops.weighted_agg_matmul(torch.from_numpy(W), tx),
+           jmha.weighted_agg_matmul(jnp.asarray(W), jx, **INTERP), dtype)
+    got, mass = ops.masked_hier_agg(tx, torch.from_numpy(w),
+                                    torch.from_numpy(mask),
+                                    torch.from_numpy(assign).long(), R)
+    want, jmass = jmha.masked_hier_agg(jx, jnp.asarray(w), jnp.asarray(mask),
+                                       jnp.asarray(assign), R, **INTERP)
+    assert got.dtype == tx.dtype
+    _close(got, want, dtype)
+    np.testing.assert_allclose(mass.numpy(), np.asarray(jmass), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dead", [False, True])
+def test_cloud_blend_and_agg_match_pallas(dtype, dead):
+    rng = np.random.default_rng(11)
+    R, N = 4, 1001
+    rsu = rng.standard_normal((R, N)).astype(np.float32)
+    mass = (np.zeros(R) if dead else rng.uniform(0, 3, R)).astype(np.float32)
+    prev = rng.standard_normal(N).astype(np.float32)
+    jr, tr = _pair(rsu, dtype)
+    got = ops.cloud_blend(tr, torch.from_numpy(mass), torch.from_numpy(prev))
+    want = jmha.cloud_blend(jr, jnp.asarray(mass), jnp.asarray(prev), **INTERP)
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    _close(got, want, "f32" if dead else dtype)
+    if dead:
+        assert torch.equal(got, torch.from_numpy(prev))
+    _close(ops.cloud_agg(tr, torch.from_numpy(mass)),
+           jmha.cloud_agg(jr, jnp.asarray(mass), **INTERP), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_agg_absorb_ref_matches_pallas(dtype):
+    """The two-pair form: two arrival cohorts plus the retained buffer,
+    with one RSU that has neither (kept exactly)."""
+    rng = np.random.default_rng(5)
+    A, R, N = 12, 4, 777
+    arr_j, arr_t = [], []
+    for c in range(2):
+        x = rng.standard_normal((A, N)).astype(np.float32)
+        w = (rng.uniform(0, 2, A) * (np.arange(A) % R != R - 1)).astype(
+            np.float32)
+        jx, tx = _pair(x, dtype)
+        arr_j.append((jx, jnp.asarray(w)))
+        arr_t.append((tx, torch.from_numpy(w)))
+    buf = rng.standard_normal((R, N)).astype(np.float32)
+    bm = np.array([1.0, 0.5, 2.0, 0.0], np.float32)
+    jb, tb = _pair(buf, dtype)
+    assign = (np.arange(A) % R).astype(np.int32)
+    want, jtot, jnew = jmha.agg_absorb(arr_j, jnp.asarray(assign), R, jb,
+                                       jnp.asarray(bm), keep=0.5, **INTERP)
+    got, tot, new = ops.agg_absorb(arr_t, torch.from_numpy(assign).long(), R,
+                                   tb, torch.from_numpy(bm), keep=0.5)
+    _close(got, want, dtype)
+    np.testing.assert_allclose(tot.numpy(), np.asarray(jtot), rtol=1e-6)
+    np.testing.assert_allclose(new.numpy(), np.asarray(jnew), rtol=1e-6)
+    assert torch.equal(got[R - 1], tb[R - 1])
+
+
+@pytest.mark.parametrize("mu1,mu2", [(0.0, 0.0), (0.3, 0.0), (0.0, 0.3),
+                                     (0.01, 0.005), (1.0, 1.0)])
+@pytest.mark.parametrize("shape", [(17,), (1000, 3), (8, 333)])
+def test_dual_proximal_sgd_ref_matches_pallas(mu1, mu2, shape):
+    rng = np.random.default_rng(len(shape) + shape[0])
+    w, g, a1, a2 = (rng.standard_normal(shape).astype(np.float32)
+                    for _ in range(4))
+    kw = dict(lr=0.05, mu1=mu1, mu2=mu2)
+    want = jdps.dual_proximal_sgd(*map(jnp.asarray, (w, g, a1, a2)), **kw,
+                                  **INTERP)
+    got = ops.dual_proximal_sgd(*map(torch.from_numpy, (w, g, a1, a2)), **kw)
+    _close(got, want, "f32")
+
+
+def test_dual_proximal_sgd_bf16_anchors_match_pallas():
+    rng = np.random.default_rng(9)
+    shape = (6, 129)
+    w, g, a1, a2 = (rng.standard_normal(shape).astype(np.float32)
+                    for _ in range(4))
+    (ja1, ta1), (ja2, ta2) = _pair(a1, "bf16"), _pair(a2, "bf16")
+    kw = dict(lr=0.1, mu1=0.2, mu2=0.3)
+    want = jdps.dual_proximal_sgd(jnp.asarray(w), jnp.asarray(g), ja1, ja2,
+                                  **kw, **INTERP)
+    got = ops.dual_proximal_sgd(torch.from_numpy(w), torch.from_numpy(g),
+                                ta1, ta2, **kw)
+    _close(got, want, "f32")
+
+
+def test_dual_proximal_sgd_scaled_broadcast_is_flat_engine_step():
+    """Per-row ``live`` scale + (N,) cloud anchor == the flat engine's
+    inline step (src/repro/fedsim/simulator.py, _local_train_flat), and
+    ``out=w`` updates in place."""
+    rng = np.random.default_rng(4)
+    A, N, lr, mu1, mu2 = 5, 257, 0.1, 0.01, 0.005
+    w, g, a1 = (rng.standard_normal((A, N)).astype(np.float32)
+                for _ in range(3))
+    a2 = rng.standard_normal(N).astype(np.float32)
+    live = np.array([1, 0, 1, 1, 0], np.float32)
+    want = (jnp.asarray(w) - lr * jnp.asarray(live)[:, None]
+            * (jnp.asarray(g) + mu1 * (jnp.asarray(w) - jnp.asarray(a1))
+               + mu2 * (jnp.asarray(w) - jnp.asarray(a2))))
+    tw = torch.from_numpy(w.copy())
+    out = ops.dual_proximal_sgd(tw, torch.from_numpy(g), torch.from_numpy(a1),
+                                torch.from_numpy(a2), lr=lr, mu1=mu1, mu2=mu2,
+                                scale=torch.from_numpy(live), out=tw)
+    assert out is tw
+    _close(tw, want, "f32")
+    assert torch.equal(tw[1], torch.from_numpy(w[1]))   # live = 0 rows
+
+
+def test_cpu_route_launches_nothing_and_wrappers_refuse_cpu():
+    """A CPU tensor takes the plain version (no launch is counted); the
+    CUDA wrappers themselves never fall back, they raise."""
+    ops.reset_launch_counts()
+    x = torch.randn(4, 50)
+    w, m, a = torch.ones(4), torch.ones(4), torch.tensor([0, 1, 0, 1])
+    ops.agg_blend(x, w, m, a, 2, torch.zeros(2, 50))
+    ops.dual_proximal_sgd(x, x, x, x, lr=0.1, mu1=0.1, mu2=0.1)
+    assert not any(ops.launch_counts().values())
+    with pytest.raises(ValueError):
+        tmha.agg_blend(x, w, m, a, 2, torch.zeros(2, 50))
+    with pytest.raises(ValueError):
+        tmha.weighted_agg_matmul(torch.ones(2, 4), x)
+    with pytest.raises(ValueError):
+        tdps.dual_proximal_sgd(x, x, x, x, lr=0.1, mu1=0.1, mu2=0.1)
