@@ -7,22 +7,41 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), and
    the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-2. Every kernel against its plain PyTorch version on the card, in fp32 and
-   bf16 fleets, at the main path's shape (A=20, R=4, N=31,810), the paper
-   fleet (A=100, R=10) and perception scale (A=100, R=10, N=9,540,010, the
-   784-12000-10 MLP): max error, the kernel's time (CUDA events, median of
-   11 timed runs of 10 launches after warm-up), its bound at the H100's
-   3.35 TB/s and 67 TFLOP/s fp32, the plain version's time and, for the
-   aggregation kernels, one PyTorch call's time (``library_ms``).
-3. The main path: the ``examples/quickstart.py`` scenario through
-   ``ScenarioSpec -> pretrain_to_target -> run_scenario`` on the card, with
-   the launch counts set to 0 just before and read just after; the mean
-   final accuracy of that run and four more draw realizations must beat
-   the pre-trained model by 0.05.  Then 2 rounds with a
-   bf16 fleet, 1 round with ``fused=False`` (the ``weighted_agg_matmul``
-   path), and 2 rounds on the card against the same 2 rounds on the host
-   (plain versions) with the same injected draws.
-4. The kernels' JSON line, the card's line, and the result line.
+2. The aggregation and update kernels against their plain PyTorch versions
+   on the card, in fp32 and bf16 fleets, at the main path's shape (A=20,
+   R=4, N=31,810), the paper fleet (A=100, R=10) and perception scale
+   (A=100, R=10, N=9,540,010, the 784-12000-10 MLP): max error, the
+   kernel's time (CUDA events, median of 11 timed runs of 10 launches after
+   warm-up), its bound at the H100's 3.35 TB/s and 67 TFLOP/s fp32, the
+   plain version's time and, for the aggregation kernels, one PyTorch
+   call's time (``library_ms``).
+2b. flash_attention against its plain version in bf16 and fp32: a small
+   ragged case (B=2, S=200, H=4, KV=2, D=64), the qwen3-0.6b layer (B=1,
+   S=4096, H=16, KV=8, D=128) causal and with a 1024 window; bound at
+   989 TFLOP/s bf16 / 67 TFLOP/s fp32 over the live (query, key) pairs;
+   ``library_ms`` is one ``scaled_dot_product_attention`` call (timed only,
+   the port never calls it).  Then the serving path's shape (B=4, S=8192)
+   in bf16, the plain version run one batch row at a time.
+3. The flat-round main path: the ``examples/quickstart.py`` scenario
+   through ``ScenarioSpec -> pretrain_to_target -> run_scenario`` on the
+   card, with the launch counts set to 0 just before and read just after;
+   the mean final accuracy of that run and four more draw realizations
+   must beat the pre-trained model by 0.05.  Then 2 rounds with a bf16
+   fleet, 1 round with ``fused=False`` (the ``weighted_agg_matmul`` path),
+   and 2 rounds on the card against the same 2 rounds on the host (plain
+   versions) with the same injected draws.
+4. The serving path: qwen3-0.6b at full width in bf16 with params drawn on
+   the card.  ``make_prefill_step`` at B=4, S=8192 (exactly 28
+   flash_attention launches a call; ms, tokens/s, peak memory); the serve
+   launcher at its defaults with ``--full-config`` (batch 8, prompt 32, gen
+   32; decode tok/s, finite logits); decode against prefill logits at every
+   position of 1x64 tokens (atol 0.15, rtol 0.05); a reduced qwen3 on the
+   card against the host's plain versions with the same params (fp32:
+   logits within 1e-3 and equal greedy tokens; bf16: atol 0.15, rtol
+   0.05); one prefill with a 1024 window at S=4096; ``torch.profiler``
+   over one prefill call and 8 decode steps (kernel launches a call,
+   device busy share of the wall, top kernels by device time).
+5. The kernels' JSON line, the card's line, and the result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -36,11 +55,13 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, dense bf16 tensor cores
 SHAPES = (("main", 20, 4, 31_810), ("paper", 100, 10, 31_810),
           ("perception", 100, 10, 9_540_010))
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 2.0 ** -7)}
@@ -48,10 +69,18 @@ SOURCES = {"fused_agg_blend": "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
            "weighted_agg_matmul":
                "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
            "dual_proximal_sgd":
-               "src/repro_torch/kernels/csrc/dual_proximal_sgd.cu"}
+               "src/repro_torch/kernels/csrc/dual_proximal_sgd.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
 REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             "weighted_agg_matmul": "src/repro/kernels/masked_hier_agg.py:86",
-            "dual_proximal_sgd": "src/repro/kernels/dual_proximal_sgd.py:44"}
+            "dual_proximal_sgd": "src/repro/kernels/dual_proximal_sgd.py:44",
+            "flash_attention": "src/repro/kernels/flash_attention.py:93"}
+# (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's
+ATTN_CASES = (("small", 2, 200, 4, 2, 64, True, 0),
+              ("layer", 1, 4096, 16, 8, 128, True, 0),
+              ("layer_w1024", 1, 4096, 16, 8, 128, True, 1024))
+PREFILL_B, PREFILL_S = 4, 8192
 
 
 def gpu_line() -> str:
@@ -63,8 +92,17 @@ def gpu_line() -> str:
 
 def cuda_ms(fn, reps: int = 11, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, bracketed by CUDA events, after a warm-up."""
-    for _ in range(3):
+    calls, bracketed by CUDA events, after a warm-up.  A call that takes
+    over 100 ms is timed 3 times, one call each."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) > 100.0:
+        reps, inner = 3, 1
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -80,8 +118,9 @@ def cuda_ms(fn, reps: int = 11, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -354,6 +393,315 @@ def main_path(dev):
         raise AssertionError("the card's round disagrees with the host's")
     return paths
 
+def live_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep: keys t < S, t <= s when causal,
+    t > s - window when window > 0."""
+    total = 0
+    for s in range(S):
+        hi = s if causal else S - 1
+        lo = max(0, s - window + 1) if window else 0
+        total += hi - lo + 1
+    return total
+
+
+def attention_bound(B, S, H, KV, D, causal, window, dtype):
+    """(bound ms, bound_by): q, k, v read and out written once; 4*D flops
+    per live pair and head (QK^T and PV), at the dtype's peak."""
+    sx = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * sx
+    flops = 4 * B * H * D * live_pairs(S, causal, window)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    return bound(nbytes, flops, peak)
+
+
+def sdpa_call(q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call on the same inputs (the
+    library yardstick, timed only); k/v repeated to H heads first."""
+    import torch.nn.functional as F
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    if not window:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] > pos[:, None] - window
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+
+
+def attention_cases(dev):
+    """Phase 2b; returns result rows.  Launches made here are comparisons,
+    not the serving path's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = []
+    for name, B, S, H, KV, D, causal, window in ATTN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(S + H)
+            q, k, v = (torch.randn(B, S, n, D, device=dev,
+                                   generator=gen).to(dtype)
+                       for n in (H, KV, KV))
+            kw = dict(causal=causal, window=window)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err = compare(got, want, dtype, f"flash_attention {name} {dtype}")
+            del got, want
+            b_ms, b_by = attention_bound(B, S, H, KV, D, causal, window,
+                                         dtype)
+            rows.append({
+                "kernel": "flash_attention", "entry": name,
+                "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
+                          "causal": causal, "window": window},
+                "dtype": str(dtype)[6:], "max_abs_err": err,
+                "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                "plain_ms": cuda_ms(
+                    lambda: ref.flash_attention_ref(q, k, v, **kw)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(sdpa_call(q, k, v, causal, window))})
+            print("kernel " + json.dumps(rows[-1]))
+            del q, k, v
+            torch.cuda.empty_cache()
+    # the serving path's shape (B=4, S=8192): the plain version runs one
+    # batch row at a time (about 4.3 GB of fp32 scores a row, some 13-17 GB
+    # with its intermediates), against the kernel's output at full B
+    B, S, H, KV, D = PREFILL_B, PREFILL_S, 16, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(
+        torch.bfloat16) for n in (H, KV, KV))
+
+    def plain_by_row():
+        return torch.cat([ref.flash_attention_ref(q[b:b + 1], k[b:b + 1],
+                                                  v[b:b + 1])
+                          for b in range(B)])
+    got = fa.flash_attention(q, k, v)
+    err = max(compare(got[b:b + 1], ref.flash_attention_ref(
+        q[b:b + 1], k[b:b + 1], v[b:b + 1]), torch.bfloat16,
+        f"flash_attention prefill row {b}") for b in range(B))
+    del got
+    torch.cuda.empty_cache()
+    b_ms, b_by = attention_bound(B, S, H, KV, D, True, 0, torch.bfloat16)
+    rows.append({
+        "kernel": "flash_attention", "entry": "prefill",
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": True,
+                  "window": 0},
+        "dtype": "bfloat16", "max_abs_err": err,
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=5, inner=2),
+        "plain_ms": cuda_ms(plain_by_row), "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": cuda_ms(sdpa_call(q, k, v, True, 0), reps=5, inner=2)})
+    print("kernel " + json.dumps(rows[-1]))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def device_profile(fn, n: int):
+    """``fn`` run ``n`` times under ``torch.profiler``: (wall s, kernel
+    launches, device busy s, {kernel: device s}).  Wall includes the
+    profiler's own cost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.key] = e.self_device_time_total / 1e6
+        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += e.count
+    return wall, launches, sum(kernels.values()), kernels
+
+
+def print_profile(what: str, n: int, wall, launches, busy, kernels) -> None:
+    if not busy:
+        print(f"profile: {what}: the profiler saw no device time (not "
+              f"measured)")
+        return
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile: {what}: {wall / n * 1e3:.2f} ms wall a call, "
+          f"{launches / n:.0f} kernel launches a call, device busy "
+          f"{busy / wall:.1%} of wall; top kernels by device time: "
+          + "; ".join(f"{k[:60]} {v / busy:.1%}" for k, v in top))
+
+
+def _logits_check(got, want, what, atol, rtol):
+    """Max |got - want| of fp32 logits; raises unless finite and
+    |d| <= atol + rtol*|want|."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    d = (g - w).abs()
+    if (d > atol + rtol * w.abs()).any():
+        raise AssertionError(f"{what}: max abs diff {d.max().item():.3e} "
+                             f"exceeds atol {atol} + rtol {rtol}")
+    return d.max().item()
+
+
+def serving_path(dev):
+    """Phase 4; returns the flash_attention launches of the counted
+    prefill call."""
+    from repro_torch.configs.registry import get_config, get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+    from repro_torch import tree
+
+    cfg = get_config("qwen3-0.6b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"serving: qwen3-0.6b full width, {n_params} params "
+          f"({cfg.param_dtype}), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # prefill at B=4, S=8192: one counted call, then timed calls
+    prefill = make_prefill_step(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           device=dev, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = prefill_counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill: {counts['flash_attention']} "
+                             f"flash_attention launches, want "
+                             f"{cfg.n_layers}")
+    if (tuple(logits.shape) != (PREFILL_B, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill: bad logits {tuple(logits.shape)}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    print(f"serving: prefill B={PREFILL_B} S={PREFILL_S}: {ms:.1f} ms a call "
+          f"(median of 3, host clock), "
+          f"{PREFILL_B * PREFILL_S / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {counts}")
+    prof = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    print_profile(f"prefill B={PREFILL_B} S={PREFILL_S}", 1, *prof)
+    attn = sum(v for k, v in prof[3].items() if "flash_attention" in k)
+    if prof[2]:
+        print(f"profile: prefill: flash_attention kernels {attn * 1e3:.1f} "
+              f"ms of {prof[2] * 1e3:.1f} ms device time "
+              f"({attn / prof[2]:.1%})")
+    del tokens, logits
+    torch.cuda.empty_cache()
+
+    # the serve launcher at its defaults, full width (decode path: no
+    # flash_attention launch)
+    ops.reset_launch_counts()
+    res = serve.main(["--full-config"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"serving: serve launcher --full-config: decode "
+          f"{res['tok_per_s']:.1f} tok/s, launches {counts}")
+    if not torch.isfinite(res["logits"]).all():
+        raise AssertionError("serve: non-finite logits")
+
+    # decode == prefill at every position, full width (1 x 64 tokens)
+    s = 64
+    toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                         generator=gen)
+    with torch.no_grad():
+        full, _ = M.forward(cfg, params, {"tokens": toks})
+        cache = M.init_cache(cfg, 1, s, device=dev)
+        outs = []
+        for t in range(s):
+            lg, cache = M.decode_step(cfg, params, cache, toks[:, t:t + 1],
+                                      torch.tensor([t], dtype=torch.int32,
+                                                   device=dev))
+            outs.append(lg[:, 0])
+    err = _logits_check(torch.stack(outs, 1), full, "decode vs prefill",
+                        0.15, 0.05)
+    print(f"serving: decode vs prefill logits, 1x{s} tokens, full width: "
+          f"max abs diff {err:.4f} (limit 0.15 + 0.05|logit|)")
+    del full, cache, outs
+
+    # where a decode step's time goes: batch 8, as the serve launcher
+    B, n = 8, 8
+    step = make_serve_step(cfg, device=dev)
+    cache = M.init_cache(cfg, B, 2 * n, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
+    pos = [0]
+
+    def decode_once():
+        nonlocal cache
+        _, cache = step(params, cache, tok, torch.full(
+            (B,), pos[0], dtype=torch.int32, device=dev))
+        pos[0] += 1
+    decode_once()
+    print_profile(f"decode step, batch {B}", n, *device_profile(decode_once,
+                                                                 n))
+    del cache
+
+    # one prefill with a 1024 window at S=4096
+    wcfg = cfg.replace(attn_window=1024)
+    wtoks = torch.randint(0, cfg.vocab_size, (1, 4096), device=dev,
+                          generator=gen)
+    ops.reset_launch_counts()
+    wlogits = make_prefill_step(wcfg, device=dev)(params, {"tokens": wtoks})
+    torch.cuda.synchronize()
+    if (ops.launch_counts()["flash_attention"] != cfg.n_layers
+            or not torch.isfinite(wlogits).all()):
+        raise AssertionError("window prefill: launches or logits wrong")
+    print(f"serving: window 1024 prefill at S=4096: "
+          f"{cfg.n_layers} launches, finite logits")
+    del params
+    torch.cuda.empty_cache()
+
+    # a reduced qwen3 on the card against the host's plain versions
+    for dtype, atol, rtol in (("float32", 1e-3, 0.0),
+                              ("bfloat16", 0.15, 0.05)):
+        rcfg = get_reduced_config("qwen3-0.6b").replace(dtype=dtype,
+                                                        param_dtype=dtype)
+        host = M.init_params(rcfg, torch.Generator().manual_seed(3),
+                             device="cpu")
+        card = tree.map_tree(lambda t: t.to(dev), host)
+        ptoks = torch.from_numpy(np.random.default_rng(4).integers(
+            0, rcfg.vocab_size, (2, 48)))
+        lg_card = make_prefill_step(rcfg, device=dev)(card, {"tokens": ptoks})
+        lg_host = make_prefill_step(rcfg, device="cpu")(host,
+                                                        {"tokens": ptoks})
+        err = _logits_check(lg_card.cpu(), lg_host, f"card vs host {dtype}",
+                            atol, rtol)
+        dec_card = serve.greedy_decode(rcfg, card, ptoks, 8, device=dev)
+        dec_host = serve.greedy_decode(rcfg, host, ptoks, 8, device="cpu")
+        same = bool(np.array_equal(dec_card["tokens"], dec_host["tokens"]))
+        print(f"serving: reduced qwen3 {dtype}, card vs host: prefill "
+              f"logits max abs diff {err:.3e}, greedy tokens equal: {same}")
+        if dtype == "float32":
+            if not same:
+                raise AssertionError(f"fp32 greedy tokens differ: "
+                                     f"{dec_card['tokens']} vs "
+                                     f"{dec_host['tokens']}")
+            err = _logits_check(dec_card["logits"].cpu(), dec_host["logits"],
+                                "card vs host fp32 decode", atol, rtol)
+            print(f"serving: reduced qwen3 float32, card vs host: last "
+                  f"decode logits max abs diff {err:.3e}")
+    return prefill_counts["flash_attention"]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -383,8 +731,10 @@ def main() -> int:
             for r in kernel_cases(dev, name, A, R, N, dtype):
                 print("kernel " + json.dumps(r))
                 rows.append(r)
+    attn_rows = attention_cases(dev)
 
     paths = main_path(dev)
+    flash_launches = serving_path(dev)
 
     def pick(kernel, entry):
         return next(r for r in rows if r["kernel"] == kernel and
@@ -411,6 +761,16 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "entry": entry,
             "shape": {"A": r["A"], "R": r["R"], "N": r["N"]}})
+    # the serving path's shape: what each of its prefill launches computes
+    r = next(x for x in attn_rows if x["entry"] == "prefill")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": flash_launches,
+        "max_abs_err": max(x["max_abs_err"] for x in attn_rows),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "entry": "prefill", "shape": r["shape"], "dtype": r["dtype"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,35 @@
+"""Architecture registry: ``--arch <id>`` -> ArchConfig, for the archs the
+port runs.  The other ids of the JAX package's registry raise
+``NotImplementedError``: their models are still to port."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ArchConfig, reduced
+
+_MODULES = {
+    "qwen3-0.6b": "qwen3_0_6b",
+}
+
+# ids the JAX package knows and the port does not run yet
+UNPORTED = ("phi-3-vision-4.2b", "xlstm-125m", "zamba2-2.7b",
+            "command-r-35b", "kimi-k2-1t-a32b", "yi-34b", "whisper-tiny",
+            "deepseek-v2-lite-16b", "nemotron-4-340b")
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in UNPORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported to PyTorch yet (ROADMAP queue 1 "
+            f"item 15, model zoo); ported: {sorted(_MODULES)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG
+
+
+def get_reduced_config(arch_id: str, **kw) -> ArchConfig:
+    """Smoke-test variant: 2 layers, d_model<=512, <=4 experts."""
+    return reduced(get_config(arch_id), **kw)

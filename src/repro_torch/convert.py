@@ -1,8 +1,9 @@
 """Carry weights across from the JAX package.
 
 The JAX package's parameters and flat buffers cross as numpy arrays
-(``np.asarray`` of a JAX array), so this module needs no JAX.  bf16 arrays
-(numpy's ``ml_dtypes`` bfloat16) keep their bits.
+(``np.asarray`` of a JAX array, or ``jax.tree.map(np.asarray, params)`` for
+a nested params tree), so this module needs no JAX.  bf16 arrays (numpy's
+``ml_dtypes`` bfloat16) keep their bits.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch import tree
 
 
 def tensor_from_numpy(arr, *, device="cpu") -> torch.Tensor:
@@ -40,3 +43,10 @@ def flat_from_jax(np_flat, *, device="cpu") -> torch.Tensor:
     port's.  The leaf order of both packages' ravel is the sorted key
     order, so the columns line up."""
     return tensor_from_numpy(np_flat, device=device)
+
+
+def tree_from_jax(np_tree, *, device="cpu"):
+    """The JAX package's nested params tree (dicts and lists of numpy
+    arrays, fp32 or bf16) as the port's tree of tensors, bits kept."""
+    return tree.map_tree(lambda a: tensor_from_numpy(a, device=device),
+                         np_tree)

@@ -1,10 +1,10 @@
 """The kernels' router, mirroring ``repro/kernels/ops.py``.
 
-A call whose fleet tensor lies on a CUDA device launches the hand-written
-Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd``), which raises
-on anything it does not take.  A call on CPU tensors runs the plain
-PyTorch version in ``kernels/ref``.  There is no switch that sends CUDA
-tensors to the plain version.
+A call whose fleet tensor (or query) lies on a CUDA device launches the
+hand-written Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd`` /
+``flash_attention``), which raises on anything it does not take.  A call
+on CPU tensors runs the plain PyTorch version in ``kernels/ref``.  There
+is no switch that sends CUDA tensors to the plain version.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dual_proximal_sgd as _dps
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_hier_agg as _mha
 from repro_torch.kernels import ref
 
@@ -77,12 +78,21 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
     return ref.cloud_blend_ref(rsu_flat, rsu_weights, prev)
 
 
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Online-softmax attention; q (B,S,H,D), k/v (B,S,KV,D); out in q's
+    dtype."""
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, per wrapper entry point."""
-    return {**_mha.launches, **_dps.launches}
+    return {**_mha.launches, **_dps.launches, **_fa.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_mha.launches, _dps.launches):
+    for counts in (_mha.launches, _dps.launches, _fa.launches):
         for k in counts:
             counts[k] = 0

@@ -13,6 +13,30 @@ import torch
 from repro_torch.core.aggregation import (buffer_absorb, normalized_weights,
                                           scatter_accumulate)
 
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Dense-softmax attention in fp32.  q: (B,S,H,D); k/v: (B,S,KV,D)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qg = q.reshape(B, S, KV, G, D).float()
+    s = torch.einsum("bskgd,btkd->bskgt", qg, k.float()) * scale
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bskgt,btkd->bskgd", p, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
 
 def dual_proximal_sgd_ref(w, g, a1, a2, *, lr: float, mu1: float,
                           mu2: float, scale=None) -> torch.Tensor:

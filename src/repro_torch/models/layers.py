@@ -1,0 +1,163 @@
+"""Core layers: init helpers, norms, MLPs, RoPE, embeddings and the head
+(``repro/models/layers.py``).  Plain functions on tensors; params are dicts
+of tensors; initialisers draw from an explicit ``torch.Generator`` that
+lies on the target device."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ArchConfig
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated normal at +-2 std, std = fan_in**-0.5, fan_in = shape[-2]
+    (so a layer-stacked (L, d_in, d_out) weight has the fan-in of one
+    layer's), drawn in fp32 on ``gen``'s device and cast."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int],
+               dtype) -> torch.Tensor:
+    t = torch.randn(tuple(shape), generator=gen, device=gen.device)
+    return (t * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def norm_init(cfg: ArchConfig, d: int, *, lead: Sequence[int] = (),
+              device=None):
+    """``lead`` stacks the params (a leading L axis)."""
+    shape = tuple(lead) + (d,)
+    p = {"scale": torch.ones(shape, dtype=cfg.weight_dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=cfg.weight_dtype, device=device)
+    return p
+
+
+def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """rmsnorm or layernorm in fp32, out in x's dtype."""
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Parameter-free RMS normalization (qk-norm)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP variants
+# --------------------------------------------------------------------------
+
+def mlp_init(cfg: ArchConfig, gen: torch.Generator, *,
+             lead: Sequence[int] = ()):
+    d, f, wd = cfg.d_model, cfg.d_ff, cfg.weight_dtype
+    lead = tuple(lead)
+    if cfg.mlp_type == "swiglu":
+        return {"w_gate": dense_init(gen, lead + (d, f), wd),
+                "w_up": dense_init(gen, lead + (d, f), wd),
+                "w_down": dense_init(gen, lead + (f, d), wd)}
+    p = {"w_up": dense_init(gen, lead + (d, f), wd),
+         "w_down": dense_init(gen, lead + (f, d), wd)}
+    if cfg.mlp_bias:
+        p["b_up"] = torch.zeros(lead + (f,), dtype=wd, device=gen.device)
+        p["b_down"] = torch.zeros(lead + (d,), dtype=wd, device=gen.device)
+    return p
+
+
+def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_type == "swiglu":
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        h = F.silu(g.float()).to(x.dtype) * u
+    else:
+        h = x @ p["w_up"]
+        if "b_up" in p:
+            h = h + p["b_up"]
+        if cfg.mlp_type == "squared_relu":
+            h = torch.relu(h).square()
+        else:    # gelu, tanh form (jax.nn.gelu's default)
+            h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    y = h @ p["w_down"]
+    if "b_down" in p:
+        y = y + p["b_down"]
+    return y
+
+
+# --------------------------------------------------------------------------
+# rotary position embedding
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Split-half
+    rotation (not interleaved) with fp32 angles, out in x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    angles = positions[..., :, None].float() * freqs     # (..., s, hd/2)
+    angles = angles[..., None, :]                        # (..., s, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# embeddings / head
+# --------------------------------------------------------------------------
+
+def embedding_init(cfg: ArchConfig, gen: torch.Generator):
+    p = {"tok": embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                           cfg.weight_dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                               cfg.weight_dtype)
+    if cfg.pos_embed == "learned":
+        p["pos"] = embed_init(gen, (cfg.max_seq_len, cfg.d_model),
+                              cfg.weight_dtype)
+    return p
+
+
+def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = p["tok"][tokens.long()].to(cfg.activation_dtype)
+    if cfg.pos_embed == "learned":
+        pos = positions if positions is not None else torch.arange(
+            tokens.shape[-1], device=tokens.device)
+        x = x + p["pos"][pos.long()].to(x.dtype)
+    return x
+
+
+def lm_logits(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Logits in fp32; the tied head is ``tok.T``."""
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return (x @ w.to(x.dtype)).float()

@@ -1,0 +1,88 @@
+"""Top-level model (``repro/models/model.py``) for text-only configs:
+embeddings + block stack + LM head; loss and KV-cache decode.
+
+Params are the JAX tree's structure as dicts and lists of tensors:
+``{"embed": {"tok"}, "final_norm": {"scale"}, "stack": {"segments":
+[...]}}``, so a JAX checkpoint or params tree maps leaf by leaf in JAX's
+leaf order (``repro_torch.tree``).  The VLM and audio front ends are not
+ported and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (embed_tokens, embedding_init,
+                                       lm_logits, norm_apply, norm_init)
+
+
+def _check_text_only(cfg: ArchConfig) -> None:
+    if cfg.encoder.kind != "none":
+        raise NotImplementedError(
+            f"the {cfg.encoder.kind} front end of {cfg.name} is not ported "
+            f"to PyTorch yet (ROADMAP queue 1 item 15, model zoo)")
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, *,
+                device=None) -> Dict[str, Any]:
+    """Random params on ``device`` (``cuda`` when None; raises without a
+    GPU), drawn from ``gen``, which must lie on that device."""
+    _check_text_only(cfg)
+    dev = resolve_device(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"init_params: generator on {gen.device}, params "
+                         f"on {dev}")
+    return {
+        "embed": embedding_init(cfg, gen),
+        "stack": tf.stack_init(cfg, gen),
+        "final_norm": norm_init(cfg, cfg.d_model, device=gen.device),
+    }
+
+
+def hidden_states(cfg: ArchConfig, params, batch: Dict[str, Any]):
+    """The final-normed hidden states (B, S, d) of a token batch."""
+    _check_text_only(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params["embed"], tokens)
+    positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    x = tf.stack_prefill(cfg, params["stack"], x, positions)
+    return norm_apply(cfg, params["final_norm"], x)
+
+
+def forward(cfg: ArchConfig, params, batch: Dict[str, Any]):
+    """Full-sequence forward.  Returns (fp32 logits (B, S, V), aux); aux is
+    0 (no MoE is ported)."""
+    x = hidden_states(cfg, params, batch)
+    return (lm_logits(cfg, params["embed"], x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(cfg: ArchConfig, params, batch: Dict[str, Any]):
+    """Mean next-token cross-entropy over valid labels (labels >= 0)."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    task = (nll * valid).sum() / valid.sum().clamp(min=1)
+    return task, {"task_loss": task, "aux_loss": aux}
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device=None):
+    return tf.stack_init_cache(cfg, batch, cache_len,
+                               device=resolve_device(device))
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, cur_pos):
+    """One decode step.  tokens: (B, 1); cur_pos: (B,).  Returns (fp32
+    logits (B, 1, V), cache); the cache is updated in place."""
+    _check_text_only(cfg)
+    x = embed_tokens(cfg, params["embed"], tokens,
+                     cur_pos[:, None] if cfg.pos_embed == "learned" else None)
+    x, cache = tf.stack_decode(cfg, params["stack"], cache, x, cur_pos)
+    x = norm_apply(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params["embed"], x), cache

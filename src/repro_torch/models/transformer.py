@@ -1,0 +1,172 @@
+"""Block assembly (``repro/models/transformer.py``) for the ``decoder``
+pattern: attention + MLP residual sub-blocks, layer params stacked on a
+leading L axis as ``stack_init`` builds them in JAX, applied by a Python
+loop over that axis where JAX scans.  No remat: ``jax.checkpoint`` changes
+no forward value.
+
+Every other pattern (encdec with its cross-attention, mamba, mlstm,
+slstm, zamba_super) and the MoE and MLA kinds raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (mlp_apply, mlp_init, norm_apply,
+                                       norm_init)
+
+PATTERNS = {"decoder": ("attn", "ffn")}     # the ported layer patterns
+
+
+def _unported(what: str):
+    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP "
+                              f"queue 1 item 15, model zoo)")
+
+
+def _check(cfg: ArchConfig, kind: str) -> None:
+    if kind == "attn" and cfg.attn_impl == "mla":
+        _unported("MLA attention")
+    if kind == "ffn" and cfg.moe is not None:
+        _unported("the MoE feed-forward")
+    if kind not in ("attn", "ffn"):
+        _unported(f"the {kind!r} block")
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of a layer-stacked params dict, as views."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------------
+# sub-block init / apply
+# --------------------------------------------------------------------------
+
+def sub_init(cfg: ArchConfig, kind: str, gen: torch.Generator, *, lead=()):
+    if kind == "attn":
+        inner = (attn_mod.mla_init if cfg.attn_impl == "mla"
+                 else attn_mod.gqa_init)(cfg, gen, lead=lead)
+    else:
+        _check(cfg, kind)
+        inner = mlp_init(cfg, gen, lead=lead)
+    return {"norm": norm_init(cfg, cfg.d_model, lead=lead, device=gen.device),
+            "inner": inner}
+
+
+def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions):
+    """Returns the residual delta (the JAX version also returns an aux
+    loss, which is zero for these kinds)."""
+    _check(cfg, kind)
+    xn = norm_apply(cfg, p["norm"], x)
+    if kind == "attn":
+        return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions)
+    return mlp_apply(cfg, p["inner"], xn)
+
+
+def sub_init_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, *,
+                   lead=(), device=None):
+    _check(cfg, kind)
+    if kind != "attn":
+        return None
+    length = (min(cache_len, cfg.attn_window) if cfg.attn_window
+              else cache_len)
+    return attn_mod.init_kv_cache(batch, length, cfg.n_kv_heads,
+                                  cfg.head_dim_, cfg.activation_dtype,
+                                  lead=lead, device=device)
+
+
+def sub_decode(cfg: ArchConfig, kind: str, p, x, cache, cur_pos):
+    """Returns (residual delta, cache); the cache is updated in place."""
+    _check(cfg, kind)
+    xn = norm_apply(cfg, p["norm"], x)
+    if kind == "attn":
+        return attn_mod.gqa_decode(cfg, p["inner"], xn, cache, cur_pos)
+    return mlp_apply(cfg, p["inner"], xn), None
+
+
+# --------------------------------------------------------------------------
+# layer (pattern) level
+# --------------------------------------------------------------------------
+
+def _kinds(pattern: str):
+    if pattern not in PATTERNS:
+        _unported(f"the {pattern!r} layer pattern")
+    return PATTERNS[pattern]
+
+
+def layer_init(cfg: ArchConfig, pattern: str, gen, *, lead=()):
+    return {k: sub_init(cfg, k, gen, lead=lead) for k in _kinds(pattern)}
+
+
+def layer_prefill(cfg, pattern, p, x, positions):
+    for kind in _kinds(pattern):
+        x = x + sub_prefill(cfg, kind, p[kind], x, positions)
+    return x
+
+
+def layer_init_cache(cfg, pattern, batch, cache_len, *, lead=(),
+                     device=None):
+    caches = {k: sub_init_cache(cfg, k, batch, cache_len, lead=lead,
+                                device=device) for k in _kinds(pattern)}
+    return {k: c for k, c in caches.items() if c is not None}
+
+
+def layer_decode(cfg, pattern, p, x, cache, cur_pos):
+    for kind in _kinds(pattern):
+        delta, _ = sub_decode(cfg, kind, p[kind], x, cache.get(kind),
+                              cur_pos)
+        x = x + delta
+    return x
+
+
+# --------------------------------------------------------------------------
+# stack level
+# --------------------------------------------------------------------------
+
+def stack_init(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
+    """{"segments": [per-segment layer params stacked on a leading L
+    axis]}, the JAX tree's structure and keys."""
+    params: Dict[str, Any] = {"segments": []}
+    for pattern, repeat in cfg.layout_:
+        if pattern == "zamba_super":
+            _unported("the zamba_super hybrid pattern")
+        params["segments"].append(layer_init(cfg, pattern, gen,
+                                             lead=(repeat,)))
+    return params
+
+
+def stack_prefill(cfg: ArchConfig, params, x, positions):
+    for seg_params, (pattern, repeat) in zip(params["segments"], cfg.layout_):
+        for i in range(repeat):
+            x = layer_prefill(cfg, pattern, _index(seg_params, i), x,
+                              positions)
+    return x
+
+
+def stack_init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
+                     device=None) -> List[Dict[str, Any]]:
+    """Per segment, each sub-block's cache stacked on a leading L axis."""
+    caches = []
+    for pattern, repeat in cfg.layout_:
+        if pattern == "zamba_super":
+            _unported("the zamba_super hybrid pattern")
+        caches.append(layer_init_cache(cfg, pattern, batch, cache_len,
+                                       lead=(repeat,), device=device))
+    return caches
+
+
+def stack_decode(cfg: ArchConfig, params, caches, x, cur_pos):
+    """One token through every layer; the caches are updated in place and
+    returned."""
+    for seg_params, seg_cache, (pattern, repeat) in zip(
+            params["segments"], caches, cfg.layout_):
+        for i in range(repeat):
+            layer_cache = {k: c.layer(i) for k, c in seg_cache.items()}
+            x = layer_decode(cfg, pattern, _index(seg_params, i), x,
+                             layer_cache, cur_pos)
+    return x, caches

@@ -7,7 +7,9 @@ they run on a machine that has only PyTorch:
 
 Tolerances: fp32 1e-5 absolute / relative for the normalized
 aggregations (weighted means of O(1) values summed in another order; the
-plain version's ``index_add_`` sums with atomics in a varying order), the
+plain version's ``index_add_`` sums with atomics in a varying order) and
+for attention (softmax-weighted means of O(1) values, exponentials and
+sums taken in another order), the
 unnormalized matmul against an fp64 product (see below), and 2e-6 for the
 elementwise update (one fused multiply-add against two roundings); bf16
 outputs within one bf16 ulp of the stored value (2**-7 relative), since
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import dual_proximal_sgd as tdps
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import masked_hier_agg as tmha
 from repro_torch.kernels import ref
 
@@ -88,4 +91,73 @@ def test_cuda_dual_proximal_sgd_matches_plain(cuda, anchor_dtype):
         got = tdps.dual_proximal_sgd(w, g, a1, anchor2, scale=scale, **kw)
         want = ref.dual_proximal_sgd_ref(w, g, a1, anchor2, scale=scale, **kw)
         torch.testing.assert_close(got, want, **UPDATE)
+    torch.cuda.synchronize()
+
+
+# (B, S, H, KV, D, causal, window): chip_smoke's cases (a small ragged one,
+# the qwen3-0.6b layer, the same with a 1024 window), then odd shapes: one
+# token, one row past a tile, a ragged thousand, a window wider than S,
+# no GQA, non-causal with and without a window, and D = 32
+ATTN_CASES = [(2, 200, 4, 2, 64, True, 0), (1, 4096, 16, 8, 128, True, 0),
+              (1, 4096, 16, 8, 128, True, 1024), (3, 1, 4, 2, 64, True, 0),
+              (1, 65, 2, 1, 128, True, 0), (2, 1000, 4, 2, 64, True, 100),
+              (1, 300, 4, 4, 32, True, 5000), (1, 257, 4, 1, 64, False, 0),
+              (2, 130, 6, 3, 128, False, 33)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", ATTN_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D,
+                                            causal, window):
+    g = torch.Generator(device=cuda).manual_seed(S + H + D)
+    q, k, v = (torch.randn(B, S, n, D, device=cuda, generator=g).to(dtype)
+               for n in (H, KV, KV))
+    tol = F32 if dtype == torch.float32 else BF16
+    before = tfa.launches["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert tfa.launches["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_prefill_shape_by_row(cuda):
+    """The serving path's shape (qwen3-0.6b, B=4, S=8192) in bf16: one
+    launch at full B, each batch row held against the plain version run on
+    that row alone (its dense fp32 scores take about 4.3 GB a row)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, S, H, KV, D = 4, 8192, 16, 8, 128
+    q, k, v = (torch.randn(B, S, n, D, device=cuda, generator=g).to(
+        torch.bfloat16) for n in (H, KV, KV))
+    got = tfa.flash_attention(q, k, v, causal=True)
+    for b in range(B):
+        want = ref.flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+        torch.testing.assert_close(got[b:b + 1].float(), want.float(), **BF16)
+        del want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_reads_strided_views(cuda):
+    """q/k/v as views into one fused (B, S, H + 2 KV, D) projection, as a
+    caller that never copies would hand them over."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S, H, KV, D = 2, 333, 8, 2, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(B, S, H + 2 * KV, D, device=cuda,
+                          generator=g).to(dtype)
+        q, k, v = qkv.split([H, KV, KV], dim=2)
+        got = tfa.flash_attention(q, k, v, causal=True, window=64)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=64)
+        torch.testing.assert_close(
+            got.float(), want.float(),
+            **(F32 if dtype == torch.float32 else BF16))
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q[..., :48].contiguous(), k[..., :48],
+                            v[..., :48])
     torch.cuda.synchronize()

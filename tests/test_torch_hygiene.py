@@ -75,3 +75,73 @@ def test_unported_features_refuse(field, value):
     with pytest.raises(NotImplementedError):
         ScenarioSpec(**{field: value}).validate()
 
+
+
+def test_serve_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.serve, "
+            "repro_torch.checkpoint.ckpt; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch):
+    """The serve launcher, the step builders and ``init_params`` take cuda
+    unless told otherwise, and raise when it is absent."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced_config("qwen3-0.6b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_serve_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(SystemExit, match="not ported"):
+        serve.main(["--serve-loop"])
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "xlstm-125m",
+                                  "zamba2-2.7b", "command-r-35b",
+                                  "kimi-k2-1t-a32b", "yi-34b", "whisper-tiny",
+                                  "deepseek-v2-lite-16b", "nemotron-4-340b"])
+def test_unported_archs_refuse(arch):
+    from repro_torch.configs.registry import get_config, get_reduced_config
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        get_config(arch)
+    with pytest.raises(NotImplementedError):
+        get_reduced_config(arch)
+
+
+def _unported_variants():
+    from repro_torch.models.config import (EncoderStub, MLAConfig, MoEConfig,
+                                           SSMConfig)
+    return {"moe": dict(moe=MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)),
+            "mla": dict(attn_impl="mla", mla=MLAConfig()),
+            "mamba": dict(layout=(("mamba", 2),), ssm=SSMConfig()),
+            "mlstm": dict(layout=(("mlstm", 2),)),
+            "slstm": dict(layout=(("slstm", 2),)),
+            "xattn": dict(layout=(("encdec", 2),)),
+            "zamba_super": dict(layout=(("zamba_super", 1),),
+                                shared_every=2, ssm=SSMConfig()),
+            "vision": dict(encoder=EncoderStub("vision", 16, 64))}
+
+
+@pytest.mark.parametrize("kind", ["moe", "mla", "mamba", "mlstm", "slstm",
+                                  "xattn", "zamba_super", "vision"])
+def test_unported_kinds_refuse(kind):
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models import model
+    cfg = get_reduced_config("qwen3-0.6b").replace(
+        **_unported_variants()[kind])
+    with pytest.raises(NotImplementedError):
+        model.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
