@@ -22,6 +22,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``library_ms`` is one ``scaled_dot_product_attention`` call (timed only,
    the port never calls it).  Then the serving path's shape (B=4, S=8192)
    in bf16, the plain version run one batch row at a time.
+2c. slstm_scan against its plain version with R in bf16 and fp32: the
+   shapes of the JAX package's kernel tests, saturated gates (inputs x25)
+   and the xlstm-125m layer (B=4, S=8192, H=4, P=192); bound at 67 TFLOP/s
+   fp32 (a recurrence cannot reach it: beside it the same S steps at the
+   smallest width, H=1, P=8, as the kernel's latency floor); no
+   ``library_ms`` (PyTorch has no sLSTM call).
 3. The flat-round main path: the ``examples/quickstart.py`` scenario
    through ``ScenarioSpec -> pretrain_to_target -> run_scenario`` on the
    card, with the launch counts set to 0 just before and read just after;
@@ -41,6 +47,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    0.05); one prefill with a 1024 window at S=4096; ``torch.profiler``
    over one prefill call and 8 decode steps (kernel launches a call,
    device busy share of the wall, top kernels by device time).
+4b. xlstm-125m serving at full width in bf16 with params drawn on the
+   card: ``make_prefill_step`` at B=4, S=8192 (exactly 3 slstm_scan and no
+   flash_attention launches a call; ms, tokens/s, peak memory); the serve
+   launcher with ``--arch xlstm-125m --full-config`` (batch 8, 32 + 32
+   tokens; decode tok/s, finite logits); decode against prefill logits at
+   every position of 1x64 tokens: in bf16 against the per-step mLSTM
+   prefill (atol 0.15, rtol 0.05), in fp32 against the full config's
+   chunkwise prefill (atol 1e-3); a reduced xlstm
+   on the card against the host's plain versions (fp32: logits within 1e-3
+   and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
+   over one prefill call and 8 decode steps.
 5. The kernels' JSON line, the card's line, and the result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
@@ -71,16 +88,25 @@ SOURCES = {"fused_agg_blend": "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
            "dual_proximal_sgd":
                "src/repro_torch/kernels/csrc/dual_proximal_sgd.cu",
            "flash_attention":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu"}
 REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             "weighted_agg_matmul": "src/repro/kernels/masked_hier_agg.py:86",
             "dual_proximal_sgd": "src/repro/kernels/dual_proximal_sgd.py:44",
-            "flash_attention": "src/repro/kernels/flash_attention.py:93"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:93",
+            "slstm_scan": "src/repro/kernels/slstm_scan.py:90"}
 # (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's
 ATTN_CASES = (("small", 2, 200, 4, 2, 64, True, 0),
               ("layer", 1, 4096, 16, 8, 128, True, 0),
               ("layer_w1024", 1, 4096, 16, 8, 128, True, 1024))
 PREFILL_B, PREFILL_S = 4, 8192
+# (name, B, S, H, P, input scale): the JAX kernel tests' shapes, saturated
+# gates, and "layer", xlstm-125m's (d = 768)
+SLSTM_CASES = (("test_1", 1, 17, 2, 32, 1.0), ("test_2", 2, 100, 4, 64, 1.0),
+               ("test_3", 3, 256, 4, 32, 1.0), ("test_4", 1, 64, 8, 16, 1.0),
+               ("saturated", 2, 48, 4, 32, 25.0),
+               ("layer", PREFILL_B, PREFILL_S, 4, 192, 1.0))
+SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 
 
 def gpu_line() -> str:
@@ -124,9 +150,10 @@ def bound(nbytes: float, flops: float,
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def compare(got, want, dtype, what):
-    """Max |got - want|; raises unless |d| <= atol + rtol*|want|."""
-    atol, rtol = TOL[dtype]
+def compare(got, want, dtype, what, tol=None):
+    """Max |got - want|; raises unless |d| <= atol + rtol*|want| (``tol``
+    (atol, rtol), else the dtype's)."""
+    atol, rtol = tol or TOL[dtype]
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{what}: non-finite kernel output")
@@ -501,6 +528,56 @@ def attention_cases(dev):
     return rows
 
 
+def slstm_inputs(dev, B, S, H, P, r_dtype, scale=1.0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = H * P
+    wx = torch.randn(B, S, 4 * d, device=dev, generator=gen) * scale
+    r = (torch.randn(H, P, 4 * P, device=dev, generator=gen)
+         * P ** -0.5).to(r_dtype)
+    b = torch.randn(4 * d, device=dev, generator=gen) * 0.1
+    return wx, r, b
+
+
+def slstm_cases(dev):
+    """Phase 2c; returns result rows.  Launches made here are comparisons,
+    not the serving path's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as ss
+
+    rows = []
+    for name, B, S, H, P, scale in SLSTM_CASES:
+        for r_dtype in (torch.bfloat16, torch.float32):
+            wx, r, b = slstm_inputs(dev, B, S, H, P, r_dtype, scale, seed=S)
+            got = ss.slstm_scan(wx, r, b)
+            want = ref.slstm_scan_ref(wx, r, b)
+            err = compare(got, want, torch.float32,
+                          f"slstm_scan {name} {r_dtype}", SLSTM_TOL[scale])
+            del got, want
+            d = H * P
+            nbytes = (B * S * 4 * d + B * S * d + 4 * d) * 4 \
+                + r.numel() * r.element_size()
+            b_ms, b_by = bound(nbytes, 2 * B * S * d * 4 * P)
+            row = {"kernel": "slstm_scan", "entry": name,
+                   "shape": {"B": B, "S": S, "H": H, "P": P, "scale": scale},
+                   "r_dtype": str(r_dtype)[6:], "plan": ss.plan(d, P, r_dtype),
+                   "max_abs_err": err,
+                   "ms": cuda_ms(lambda: ss.slstm_scan(wx, r, b)),
+                   "plain_ms": cuda_ms(lambda: ref.slstm_scan_ref(wx, r, b),
+                                       reps=3, inner=1),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if name == "layer":
+                # the same S steps at the smallest width the kernel runs
+                fw, fr, fb = slstm_inputs(dev, 1, S, 1, 8, r_dtype)
+                row["latency_floor_ms"] = cuda_ms(
+                    lambda: ss.slstm_scan(fw, fr, fb))
+                row["us_per_step"] = row["ms"] / S * 1e3
+            rows.append(row)
+            print("kernel " + json.dumps(row))
+            del wx, r, b
+    torch.cuda.empty_cache()
+    return rows
+
+
 def device_profile(fn, n: int):
     """``fn`` run ``n`` times under ``torch.profiler``: (wall s, kernel
     launches, device busy s, {kernel: device s}).  Wall includes the
@@ -703,6 +780,167 @@ def serving_path(dev):
     return prefill_counts["flash_attention"]
 
 
+def xlstm_serving(dev):
+    """Phase 4b; returns the slstm_scan launches of the counted prefill
+    call."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config, get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    cfg = get_config("xlstm-125m")
+    n_slstm = sum(r for p, r in cfg.layout_ if p == "slstm")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"xlstm: xlstm-125m full width, {n_params} params "
+          f"({cfg.param_dtype}), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # prefill at B=4, S=8192: one counted call, then timed calls
+    prefill = make_prefill_step(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           device=dev, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = prefill_counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts["slstm_scan"] != n_slstm or counts["flash_attention"]:
+        raise AssertionError(f"xlstm prefill launches {counts}, want "
+                             f"{n_slstm} slstm_scan and no flash_attention")
+    if (tuple(logits.shape) != (PREFILL_B, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"xlstm prefill: bad logits "
+                             f"{tuple(logits.shape)}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    print(f"xlstm: prefill B={PREFILL_B} S={PREFILL_S}: {ms:.1f} ms a call "
+          f"(median of 3, host clock), "
+          f"{PREFILL_B * PREFILL_S / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {counts}")
+    prof = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    print_profile(f"xlstm prefill B={PREFILL_B} S={PREFILL_S}", 1, *prof)
+    scan = sum(v for k, v in prof[3].items() if "slstm_scan" in k)
+    if prof[2]:
+        print(f"profile: xlstm prefill: slstm_scan kernels {scan * 1e3:.1f} "
+              f"ms of {prof[2] * 1e3:.1f} ms device time "
+              f"({scan / prof[2]:.1%})")
+    del tokens, logits
+    torch.cuda.empty_cache()
+
+    # the serve launcher, full width (decode path: no slstm_scan launch)
+    ops.reset_launch_counts()
+    res = serve.main(["--arch", "xlstm-125m", "--full-config"])
+    torch.cuda.synchronize()
+    print(f"xlstm: serve launcher --arch xlstm-125m --full-config: decode "
+          f"{res['tok_per_s']:.1f} tok/s, launches {ops.launch_counts()}")
+    if not torch.isfinite(res["logits"]).all():
+        raise AssertionError("xlstm serve: non-finite logits")
+
+    # decode == prefill at every position, full width (1 x 64 tokens).
+    # Decode runs the per-step mLSTM; the full config's prefill runs the
+    # chunkwise form, equal in exact arithmetic.  In bf16 their rounding
+    # differs by more than the bf16 tolerance, so bf16 decode is held to the
+    # per-step prefill and the chunkwise prefill to decode in fp32 (the same
+    # weights, widened); the bf16 gap between the two forms is printed.
+    s = 64
+    toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                         generator=gen)
+
+    def decode_all(c, p):
+        cache = M.init_cache(c, 1, s, device=dev)
+        outs = []
+        for t in range(s):
+            lg, cache = M.decode_step(c, p, cache, toks[:, t:t + 1],
+                                      torch.tensor([t], dtype=torch.int32,
+                                                   device=dev))
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1)
+    with torch.no_grad():
+        dec = decode_all(cfg, params)
+        step_pre, _ = M.forward(cfg.replace(mlstm_chunk=0), params,
+                                {"tokens": toks})
+        chunk_pre, _ = M.forward(cfg, params, {"tokens": toks})
+        err = _logits_check(dec, step_pre, "xlstm decode vs prefill", 0.15,
+                            0.05)
+        gap = (dec - chunk_pre).abs().max().item()
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        p32 = tree.map_tree(lambda t: t.float(), params)
+        err32 = _logits_check(decode_all(cfg32, p32),
+                              M.forward(cfg32, p32, {"tokens": toks})[0],
+                              "xlstm fp32 decode vs chunkwise prefill",
+                              1e-3, 0.0)
+    print(f"xlstm: decode vs prefill logits, 1x{s} tokens, full width: bf16 "
+          f"vs the per-step prefill max abs diff {err:.4f} (limit 0.15 + "
+          f"0.05|logit|); fp32 vs the chunkwise prefill {err32:.3e} (limit "
+          f"1e-3); bf16 vs the chunkwise prefill {gap:.4f} (not a check)")
+    del dec, step_pre, chunk_pre, p32
+
+    # where a decode step's time goes: batch 8, as the serve launcher
+    B, n = 8, 8
+    step = make_serve_step(cfg, device=dev)
+    cache = M.init_cache(cfg, B, 2 * n, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
+
+    def decode_once():
+        step(params, cache, tok, torch.zeros((B,), dtype=torch.int32,
+                                             device=dev))
+    decode_once()
+    print_profile(f"xlstm decode step, batch {B}", n,
+                  *device_profile(decode_once, n))
+    del cache, params
+    torch.cuda.empty_cache()
+
+    # a reduced xlstm on the card (the kernel) against the host (the plain
+    # per-step scan), same params
+    for dtype, atol, rtol in (("float32", 1e-3, 0.0),
+                              ("bfloat16", 0.15, 0.05)):
+        rcfg = get_reduced_config("xlstm-125m").replace(dtype=dtype,
+                                                        param_dtype=dtype)
+        host = M.init_params(rcfg, torch.Generator().manual_seed(3),
+                             device="cpu")
+        card = tree.map_tree(lambda t: t.to(dev), host)
+        ptoks = torch.from_numpy(np.random.default_rng(4).integers(
+            0, rcfg.vocab_size, (2, 48)))
+        ops.reset_launch_counts()
+        lg_card = make_prefill_step(rcfg, device=dev)(card, {"tokens": ptoks})
+        if ops.launch_counts()["slstm_scan"] != 3:
+            raise AssertionError(f"reduced xlstm prefill launches "
+                                 f"{ops.launch_counts()}")
+        lg_host = make_prefill_step(rcfg, device="cpu")(host,
+                                                        {"tokens": ptoks})
+        err = _logits_check(lg_card.cpu(), lg_host,
+                            f"xlstm card vs host {dtype}", atol, rtol)
+        dec_card = serve.greedy_decode(rcfg, card, ptoks, 8, device=dev)
+        dec_host = serve.greedy_decode(rcfg, host, ptoks, 8, device="cpu")
+        same = bool(np.array_equal(dec_card["tokens"], dec_host["tokens"]))
+        print(f"xlstm: reduced xlstm {dtype}, card vs host: prefill logits "
+              f"max abs diff {err:.3e}, greedy tokens equal: {same}")
+        if dtype == "float32":
+            if not same:
+                raise AssertionError(f"xlstm fp32 greedy tokens differ: "
+                                     f"{dec_card['tokens']} vs "
+                                     f"{dec_host['tokens']}")
+            err = _logits_check(dec_card["logits"].cpu(), dec_host["logits"],
+                                "xlstm card vs host fp32 decode", atol, rtol)
+            print(f"xlstm: reduced xlstm float32, card vs host: last decode "
+                  f"logits max abs diff {err:.3e}")
+    return prefill_counts["slstm_scan"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -732,9 +970,11 @@ def main() -> int:
                 print("kernel " + json.dumps(r))
                 rows.append(r)
     attn_rows = attention_cases(dev)
+    scan_rows = slstm_cases(dev)
 
     paths = main_path(dev)
     flash_launches = serving_path(dev)
+    scan_launches = xlstm_serving(dev)
 
     def pick(kernel, entry):
         return next(r for r in rows if r["kernel"] == kernel and
@@ -771,6 +1011,17 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "entry": "prefill", "shape": r["shape"], "dtype": r["dtype"]})
+    # the xlstm-125m layer with bf16 R, as each of its prefill launches
+    r = next(x for x in scan_rows
+             if x["entry"] == "layer" and x["r_dtype"] == "bfloat16")
+    kernels.append({
+        "name": "slstm_scan", "route": "cuda", "source": SOURCES["slstm_scan"],
+        "replaces": REPLACES["slstm_scan"], "launches": scan_launches,
+        "max_abs_err": max(x["max_abs_err"] for x in scan_rows),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "entry": "layer",
+        "shape": r["shape"], "r_dtype": r["r_dtype"],
+        "latency_floor_ms": r["latency_floor_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

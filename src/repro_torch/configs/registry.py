@@ -9,10 +9,11 @@ from repro_torch.models.config import ArchConfig, reduced
 
 _MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 # ids the JAX package knows and the port does not run yet
-UNPORTED = ("phi-3-vision-4.2b", "xlstm-125m", "zamba2-2.7b",
+UNPORTED = ("phi-3-vision-4.2b", "zamba2-2.7b",
             "command-r-35b", "kimi-k2-1t-a32b", "yi-34b", "whisper-tiny",
             "deepseek-v2-lite-16b", "nemotron-4-340b")
 

@@ -1,10 +1,11 @@
 """The kernels' router, mirroring ``repro/kernels/ops.py``.
 
-A call whose fleet tensor (or query) lies on a CUDA device launches the
-hand-written Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd`` /
-``flash_attention``), which raises on anything it does not take.  A call
-on CPU tensors runs the plain PyTorch version in ``kernels/ref``.  There
-is no switch that sends CUDA tensors to the plain version.
+A call whose fleet tensor (or query, or wx) lies on a CUDA device launches
+the hand-written Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd``
+/ ``flash_attention`` / ``slstm_scan``), which raises on anything it does
+not take.  A call on CPU tensors runs the plain PyTorch version in
+``kernels/ref``.  There is no switch that sends CUDA tensors to the plain
+version.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.kernels import dual_proximal_sgd as _dps
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_hier_agg as _mha
 from repro_torch.kernels import ref
+from repro_torch.kernels import slstm_scan as _ss
 
 
 def dual_proximal_sgd(w, g, a1, a2, *, lr: float, mu1: float, mu2: float,
@@ -87,12 +89,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
+def slstm_scan(wx, r_gates, b_gates) -> torch.Tensor:
+    """Forward sLSTM recurrence; wx (B,S,4d) fp32, r_gates (H,P,4P), b_gates
+    (4d,) fp32; hidden states (B,S,d) fp32."""
+    if wx.is_cuda:
+        return _ss.slstm_scan(wx, r_gates, b_gates)
+    return ref.slstm_scan_ref(wx, r_gates, b_gates)
+
+
+_COUNTS = (_mha.launches, _dps.launches, _fa.launches, _ss.launches)
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, per wrapper entry point."""
-    return {**_mha.launches, **_dps.launches, **_fa.launches}
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_mha.launches, _dps.launches, _fa.launches):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

@@ -38,6 +38,42 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def slstm_scan_ref(wx, r_gates, b_gates) -> torch.Tensor:
+    """Per-step scan for the sLSTM kernel, all fp32 (R cast to fp32).
+
+    wx: (B, S, 4d); r_gates: (H, P, 4P); b_gates: (4d,) -> (B, S, d) fp32.
+    Mirrors ``models/xlstm._slstm_step`` with h kept in fp32, gate soft cap
+    included; h @ R is flattened head-major before the gate split."""
+    B, S, _ = wx.shape
+    H, P, _ = r_gates.shape
+    d = H * P
+    rf = r_gates.float()
+    bf = b_gates.float()
+    c = torch.zeros((B, d), dtype=torch.float32, device=wx.device)
+    n, h = torch.zeros_like(c), torch.zeros_like(c)
+    m = torch.full_like(c, NEG_INF)
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhp,hpq->bhq", h.reshape(B, H, P),
+                           rf).reshape(B, 4 * d)
+        g = wx[:, t].float() + rec + bf
+        gi, gf, gz, go = g.chunk(4, dim=-1)
+        gi = 15.0 * torch.tanh(gi / 15.0)
+        gf = 15.0 * torch.tanh(gf / 15.0)
+        logf = torch.nn.functional.logsigmoid(gf)
+        m_new = torch.maximum(logf + m, gi)
+        i_p = torch.exp(gi - m_new)
+        f_p = torch.exp(logf + m - m_new)
+        c = f_p * c + i_p * torch.tanh(gz)
+        n = f_p * n + i_p
+        h = torch.sigmoid(go) * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h)
+    if not hs:
+        return torch.zeros((B, 0, d), dtype=torch.float32, device=wx.device)
+    return torch.stack(hs, dim=1)
+
+
 def dual_proximal_sgd_ref(w, g, a1, a2, *, lr: float, mu1: float,
                           mu2: float, scale=None) -> torch.Tensor:
     """w - lr*(g + mu1*(w - a1) + mu2*(w - a2)); ``scale`` (A,) multiplies

@@ -6,7 +6,7 @@ calls its jnp ``chunked_attention``: the hand-written Hopper kernel on the
 card, the dense plain version on the host.  Decode attends one new token
 over the cache in plain PyTorch, as the JAX package computes it outside
 any Pallas kernel.  MLA and cross-attention are not ported yet
-(``mla_init`` raises; ``models/transformer`` refuses the encdec pattern).
+(``models/transformer`` refuses the MLA kind and the encdec pattern).
 """
 from __future__ import annotations
 
@@ -152,15 +152,3 @@ def gqa_decode(cfg: ArchConfig, p, x, cache: KVCache, cur_pos):
     B = x.shape[0]
     return out.reshape(B, 1, -1) @ p["wo"], cache
 
-
-# --------------------------------------------------------------------------
-# not ported yet
-# --------------------------------------------------------------------------
-
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP "
-                              f"queue 1 item 15, model zoo)")
-
-
-def mla_init(cfg: ArchConfig, gen, *, lead=()):
-    _unported("MLA attention")

@@ -62,6 +62,11 @@ def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Bounded pre-activation ``cap * tanh(x / cap)`` (the xLSTM gates')."""
+    return cap * torch.tanh(x / cap)
+
+
 def rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Parameter-free RMS normalization (qk-norm)."""
     xf = x.float()

@@ -1,12 +1,13 @@
 """Block assembly (``repro/models/transformer.py``) for the ``decoder``
-pattern: attention + MLP residual sub-blocks, layer params stacked on a
-leading L axis as ``stack_init`` builds them in JAX, applied by a Python
-loop over that axis where JAX scans.  No remat: ``jax.checkpoint`` changes
-no forward value.
+pattern (attention + MLP residual sub-blocks) and the xLSTM ``mlstm`` and
+``slstm`` patterns: layer params stacked on a leading L axis as
+``stack_init`` builds them in JAX, applied by a Python loop over that axis
+where JAX scans.  No remat: ``jax.checkpoint`` changes no forward value.
+The per-layer decode caches (the KV cache, the mLSTM and sLSTM states) are
+stacked on L too and updated in place.
 
-Every other pattern (encdec with its cross-attention, mamba, mlstm,
-slstm, zamba_super) and the MoE and MLA kinds raise
-``NotImplementedError``.
+Every other pattern (encdec with its cross-attention, mamba, zamba_super)
+and the MoE and MLA kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,11 +16,19 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (mlp_apply, mlp_init, norm_apply,
                                        norm_init)
 
-PATTERNS = {"decoder": ("attn", "ffn")}     # the ported layer patterns
+PATTERNS = {"decoder": ("attn", "ffn"),     # the ported layer patterns
+            "mlstm": ("mlstm",),
+            "slstm": ("slstm",)}
+_INIT = {"attn": attn_mod.gqa_init, "ffn": mlp_init,
+         "mlstm": xlstm_mod.mlstm_init, "slstm": xlstm_mod.slstm_init}
+_STATE = {"mlstm": xlstm_mod.init_mlstm_state,
+          "slstm": xlstm_mod.init_slstm_state}
+_DECODE = {"mlstm": xlstm_mod.mlstm_decode, "slstm": xlstm_mod.slstm_decode}
 
 
 def _unported(what: str):
@@ -32,7 +41,7 @@ def _check(cfg: ArchConfig, kind: str) -> None:
         _unported("MLA attention")
     if kind == "ffn" and cfg.moe is not None:
         _unported("the MoE feed-forward")
-    if kind not in ("attn", "ffn"):
+    if kind not in _INIT:
         _unported(f"the {kind!r} block")
 
 
@@ -48,12 +57,8 @@ def _index(tree, i: int):
 # --------------------------------------------------------------------------
 
 def sub_init(cfg: ArchConfig, kind: str, gen: torch.Generator, *, lead=()):
-    if kind == "attn":
-        inner = (attn_mod.mla_init if cfg.attn_impl == "mla"
-                 else attn_mod.gqa_init)(cfg, gen, lead=lead)
-    else:
-        _check(cfg, kind)
-        inner = mlp_init(cfg, gen, lead=lead)
+    _check(cfg, kind)
+    inner = _INIT[kind](cfg, gen, lead=lead)
     return {"norm": norm_init(cfg, cfg.d_model, lead=lead, device=gen.device),
             "inner": inner}
 
@@ -65,12 +70,18 @@ def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions):
     xn = norm_apply(cfg, p["norm"], x)
     if kind == "attn":
         return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_prefill(cfg, p["inner"], xn)
+    if kind == "slstm":
+        return xlstm_mod.slstm_prefill(cfg, p["inner"], xn)
     return mlp_apply(cfg, p["inner"], xn)
 
 
 def sub_init_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, *,
                    lead=(), device=None):
     _check(cfg, kind)
+    if kind in _STATE:
+        return _STATE[kind](cfg, batch, lead=lead, device=device)
     if kind != "attn":
         return None
     length = (min(cache_len, cfg.attn_window) if cfg.attn_window
@@ -86,6 +97,8 @@ def sub_decode(cfg: ArchConfig, kind: str, p, x, cache, cur_pos):
     xn = norm_apply(cfg, p["norm"], x)
     if kind == "attn":
         return attn_mod.gqa_decode(cfg, p["inner"], xn, cache, cur_pos)
+    if kind in _DECODE:
+        return _DECODE[kind](cfg, p["inner"], xn, cache)
     return mlp_apply(cfg, p["inner"], xn), None
 
 

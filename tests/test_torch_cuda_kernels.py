@@ -13,7 +13,10 @@ sums taken in another order), the
 unnormalized matmul against an fp64 product (see below), and 2e-6 for the
 elementwise update (one fused multiply-add against two roundings); bf16
 outputs within one bf16 ulp of the stored value (2**-7 relative), since
-an fp32 sum that differs in its last bit can round either way.
+an fp32 sum that differs in its last bit can round either way.  The sLSTM
+scan: atol 2e-5 / rtol 1e-5, and 5e-5 / 1e-4 with saturated gates (fp32
+sums of P terms in another order, carried through the recurrence; the
+tolerances of tests/test_slstm_kernel.py).
 """
 from __future__ import annotations
 
@@ -24,10 +27,13 @@ from repro_torch.kernels import dual_proximal_sgd as tdps
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import masked_hier_agg as tmha
 from repro_torch.kernels import ref
+from repro_torch.kernels import slstm_scan as tss
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2 ** -7, atol=1e-5)
 UPDATE = dict(rtol=2e-6, atol=2e-6)
+SCAN = dict(rtol=1e-5, atol=2e-5)
+SCAN_SATURATED = dict(rtol=1e-4, atol=5e-5)
 
 
 @pytest.fixture
@@ -161,3 +167,85 @@ def test_cuda_flash_attention_reads_strided_views(cuda):
         tfa.flash_attention(q[..., :48].contiguous(), k[..., :48],
                             v[..., :48])
     torch.cuda.synchronize()
+
+
+def _scan_inputs(dev, B, S, H, P, r_dtype, seed=0, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = H * P
+    wx = torch.randn(B, S, 4 * d, device=dev, generator=g) * scale
+    r = (torch.randn(H, P, 4 * P, device=dev, generator=g)
+         * P ** -0.5).to(r_dtype)
+    b = torch.randn(4 * d, device=dev, generator=g) * 0.1
+    return wx, r, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,scale", [(1, 17, 2, 32, 1.0),
+                                           (2, 100, 4, 64, 1.0),
+                                           (3, 256, 4, 32, 1.0),
+                                           (1, 64, 8, 16, 1.0),
+                                           (2, 48, 4, 32, 25.0)])
+def test_cuda_slstm_scan_matches_plain(cuda, r_dtype, B, S, H, P, scale):
+    wx, r, b = _scan_inputs(cuda, B, S, H, P, r_dtype, seed=S, scale=scale)
+    before = tss.launches["slstm_scan"]
+    got = tss.slstm_scan(wx, r, b)
+    want = ref.slstm_scan_ref(wx, r, b)
+    assert got.shape == (B, S, H * P) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **(SCAN if scale == 1.0
+                                              else SCAN_SATURATED))
+    assert tss.launches["slstm_scan"] == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_slstm_scan_layer_shape(cuda, r_dtype):
+    """The xlstm-125m layer (B=4, S=8192, H=4, P=192): one cluster of 8
+    CTAs a row; bf16 R stays in shared memory, fp32 R is read through L2."""
+    wx, r, b = _scan_inputs(cuda, 4, 8192, 4, 192, r_dtype, seed=3)
+    assert tss.plan(768, 192, r_dtype) == {
+        "cluster": 8, "r_in_shared_memory": r_dtype == torch.bfloat16}
+    got = tss.slstm_scan(wx, r, b)
+    torch.testing.assert_close(got, ref.slstm_scan_ref(wx, r, b), **SCAN)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_slstm_scan_refuses_what_it_does_not_take(cuda):
+    wx, r, b = _scan_inputs(cuda, 2, 10, 2, 32, torch.float32)
+    with pytest.raises(ValueError):
+        tss.slstm_scan(wx.to(torch.bfloat16), r, b)
+    with pytest.raises(ValueError):
+        tss.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), r, b)
+    with pytest.raises(ValueError):
+        tss.slstm_scan(wx, r.cpu(), b)
+    with pytest.raises(ValueError):
+        tss.slstm_scan(wx[..., :-4], r, b)
+    w12, r12, b12 = _scan_inputs(cuda, 1, 4, 2, 12, torch.float32)
+    with pytest.raises(ValueError):
+        tss.slstm_scan(w12, r12, b12)
+    assert tss.slstm_scan(wx[:, :0], r, b).shape == (2, 0, 64)
+
+
+@pytest.mark.gpu
+def test_cuda_xlstm_prefill_runs_the_scan(cuda):
+    """A reduced xlstm's forward on the card launches the kernel once for
+    each of its three sLSTM layers and agrees with the host's."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = get_reduced_config("xlstm-125m").replace(dtype="float32",
+                                                   param_dtype="float32")
+    host = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree.map_tree(lambda t: t.to(cuda), host)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got, _ = M.forward(cfg, card, {"tokens": toks.to(cuda)})
+        want, _ = M.forward(cfg, host, {"tokens": toks})
+    assert ops.launch_counts()["slstm_scan"] == 3
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -109,8 +109,7 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         serve.main(["--serve-loop"])
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "xlstm-125m",
-                                  "zamba2-2.7b", "command-r-35b",
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "zamba2-2.7b", "command-r-35b",
                                   "kimi-k2-1t-a32b", "yi-34b", "whisper-tiny",
                                   "deepseek-v2-lite-16b", "nemotron-4-340b"])
 def test_unported_archs_refuse(arch):
@@ -127,16 +126,14 @@ def _unported_variants():
     return {"moe": dict(moe=MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)),
             "mla": dict(attn_impl="mla", mla=MLAConfig()),
             "mamba": dict(layout=(("mamba", 2),), ssm=SSMConfig()),
-            "mlstm": dict(layout=(("mlstm", 2),)),
-            "slstm": dict(layout=(("slstm", 2),)),
             "xattn": dict(layout=(("encdec", 2),)),
             "zamba_super": dict(layout=(("zamba_super", 1),),
                                 shared_every=2, ssm=SSMConfig()),
             "vision": dict(encoder=EncoderStub("vision", 16, 64))}
 
 
-@pytest.mark.parametrize("kind", ["moe", "mla", "mamba", "mlstm", "slstm",
-                                  "xattn", "zamba_super", "vision"])
+@pytest.mark.parametrize("kind", ["moe", "mla", "mamba", "xattn",
+                                  "zamba_super", "vision"])
 def test_unported_kinds_refuse(kind):
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.models import model
@@ -145,3 +142,28 @@ def test_unported_kinds_refuse(kind):
     with pytest.raises(NotImplementedError):
         model.init_params(cfg, torch.Generator().manual_seed(0),
                           device="cpu")
+
+
+def test_xlstm_entry_points_default_to_cuda(monkeypatch):
+    """The xlstm serving path takes cuda unless asked for the CPU, raises
+    when it is absent, and runs on the CPU when asked."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced_config("xlstm-125m")
+    argv = ["--arch", "xlstm-125m", "--batch", "1", "--prompt-len", "2",
+            "--gen", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main([*argv, "--full-config"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_serve_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(cfg, 1, 4)
+    assert serve.main([*argv, "--device", "cpu"])["tokens"].shape == (1, 1)

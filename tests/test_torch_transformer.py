@@ -233,4 +233,5 @@ def test_registry_knows_every_jax_arch():
                              for f in ("n_layers", "d_model", "n_heads",
                                        "n_kv_heads", "d_ff", "vocab_size",
                                        "head_dim", "max_seq_len",
-                                       "attn_chunk")})
+                                       "attn_chunk", "attn_window",
+                                       "layout", "mlstm_chunk")})
