@@ -17,7 +17,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    call's time (``library_ms``).
 2b. flash_attention against its plain version in bf16 and fp32: a small
    ragged case (B=2, S=200, H=4, KV=2, D=64), the qwen3-0.6b layer (B=1,
-   S=4096, H=16, KV=8, D=128) causal and with a 1024 window; bound at
+   S=4096, H=16, KV=8, D=128) causal and with a 1024 window, and two ragged
+   cases at its heads (S=129 causal, S=1000 non-causal); bound at
    989 TFLOP/s bf16 / 67 TFLOP/s fp32 over the live (query, key) pairs;
    ``library_ms`` is one ``scaled_dot_product_attention`` call (timed only,
    the port never calls it).  Then the serving path's shape (B=4, S=8192)
@@ -60,12 +61,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    over one prefill call and 8 decode steps.
 5. The kernels' JSON line, the card's line, and the result line.
 
+``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
+flash-attention kernel's build report, checks and times) and prints no
+result line.
+
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -95,10 +101,13 @@ REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             "dual_proximal_sgd": "src/repro/kernels/dual_proximal_sgd.py:44",
             "flash_attention": "src/repro/kernels/flash_attention.py:93",
             "slstm_scan": "src/repro/kernels/slstm_scan.py:90"}
-# (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's
+# (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's; the
+# two ragged D = 128 cases end one row past a 128-row tile and mid-tile
 ATTN_CASES = (("small", 2, 200, 4, 2, 64, True, 0),
               ("layer", 1, 4096, 16, 8, 128, True, 0),
-              ("layer_w1024", 1, 4096, 16, 8, 128, True, 1024))
+              ("layer_w1024", 1, 4096, 16, 8, 128, True, 1024),
+              ("s129", 2, 129, 16, 8, 128, True, 0),
+              ("s1000", 1, 1000, 16, 8, 128, False, 0))
 PREFILL_B, PREFILL_S = 4, 8192
 # (name, B, S, H, P, input scale): the JAX kernel tests' shapes, saturated
 # gates, and "layer", xlstm-125m's (d = 768)
@@ -941,7 +950,29 @@ def xlstm_serving(dev):
     return prefill_counts["slstm_scan"]
 
 
+def ptxas_by_kernel(log: str) -> list:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its name
+    (demangled where ``c++filt`` is present), then its stack and spill line
+    and its register and shared-memory line."""
+    entries = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entries.append((line.split("'")[1], []))
+        elif entries and ("spill" in line or "Used" in line):
+            entries[-1][1].append(
+                line.strip().removeprefix("ptxas info    : "))
+    names = [e[0] for e in entries]
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and names:
+        out = subprocess.run([cxxfilt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    return [f"{n}: {'; '.join(e[1])}" for n, e in zip(names, entries)]
+
+
 def main() -> int:
+    attention_only = "--attention" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -959,9 +990,11 @@ def main() -> int:
     report = _lib.build_report()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{report['build_seconds']} s)")
-    for line in report["ptxas_log"].splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+    for line in ptxas_by_kernel(report["ptxas_log"]):
+        print(f"ptxas: {line}")
+    if attention_only:
+        attention_cases(dev)
+        return 0
 
     rows = []
     for name, A, R, N in SHAPES:

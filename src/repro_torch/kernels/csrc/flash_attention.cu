@@ -18,30 +18,38 @@
 //
 // Bound: operations.  At prefill lengths (S in the thousands, D = 128)
 // attention does 4*S*D flops per (q, live key) pair against a few bytes per
-// pair of q/k/v/out traffic, far above the card's ridge.  What the design
-// does about it (simple first):
-// - bf16 inputs run on the tensor cores through mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate), flash-attention-2 style: one block of 4 warps per
-//   (b, h, 64-row query tile), each warp owning 16 query rows; K and V tiles
-//   of 64 keys stream through padded shared memory with cp.async, the next
-//   K tile loading while this tile's softmax and PV product run.  The score
-//   fragment is reused in registers as the A operand of the PV product.
-//   The probabilities stay fp32 as in the TPU kernel: each is split into a
-//   bf16 high part and a bf16 remainder, and both go through the tensor
-//   cores (PV costs two products; the error is about 2^-16 of p, against
-//   2^-9 for a single bf16 rounding).
+// pair of q/k/v/out traffic, far above the card's ridge.  The probabilities
+// stay fp32 as in the TPU kernel: each is split into a bf16 high part and a
+// bf16 remainder, and both go through the tensor cores, so PV costs two
+// products and the work is three products where a bf16 P would need two
+// (the error is about 2^-16 of p, against 2^-9 for one bf16 rounding).
+// Three kernels:
+// - bf16, D = 128 (the serving path, qwen3-0.6b): Hopper's shape of a fast
+//   kernel.  One block of three warpgroups per (b, h, 128-row query tile):
+//   a producer warpgroup whose one elected thread issues TMA copies of Q
+//   and of 128-key K/V tiles into a 2-stage ring guarded by mbarriers, and
+//   two consumer warpgroups (64 query rows each, registers raised with
+//   setmaxnreg) that run QK^T and PV as wgmma.mma_async m64n128k16, with
+//   the online softmax on the fp32 accumulator in registers.
+// - bf16, D = 32 or 64 (test shapes): mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate), flash-attention-2 style: one block of 4 warps per
+//   (b, h, 64-row query tile), each warp owning 16 query rows; K and V
+//   tiles of 64 keys stream through padded shared memory with cp.async,
+//   the next K tile loading while this tile's softmax and PV product run.
+//   The score fragment is reused in registers as the A operand of PV.
 // - fp32 inputs (the fp32 test configurations) run on the FMA units: one
 //   block of 4 warps per (b, h, 32-row tile), a lane per key for the scores
 //   and a lane per output column for the PV product.
-// wgmma, TMA and warp specialisation are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps in both kernels
+constexpr int kThreads = 128;  // 4 warps in the mma.sync and FMA kernels
 
 struct Params {
   void* out;
@@ -328,6 +336,443 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, D = 128: TMA ring, wgmma, warp-specialised (the serving path)
+// ---------------------------------------------------------------------------
+//
+// One block of three warpgroups per (b, h, 128-row query tile).  Warpgroup 0
+// is the producer: it gives up registers (setmaxnreg) and one of its
+// threads issues every copy.  Q arrives once; K and V tiles of 128 keys
+// stream through a ring of kWsStages stages, each operand of each stage
+// guarded by a "full" mbarrier (the TMA's transaction bytes) and an
+// "empty" one that the 256 consumer threads arrive on once they are done
+// with it.  Warpgroups 1 and 2 are consumers, 64 query rows each: S = Q K^T
+// is a wgmma with both operands in shared memory, the online softmax runs
+// on the fp32 accumulator in registers, and O += P V is a wgmma with P
+// taken from registers (hi and lo bf16 parts, as in the mma.sync kernel)
+// and V read key-major (the MN-major B operand).  The consumers take turns
+// to issue their products, so that one's softmax runs under the other's
+// products.  Every tile is a 128-row box of 128-byte rows written by the
+// TMA with the 128-byte swizzle, which is the layout the wgmma descriptors
+// name; rows past S are zero-filled by the TMA.  Tensor maps are 4-D over
+// (D, S, heads, B) with q/k/v's own strides, so views are read in place.
+
+constexpr int kWsD = 128;
+constexpr int kWsBQ = 128;          // query rows a block, 64 a consumer
+constexpr int kWsBK = 128;          // keys a KV tile
+constexpr int kWsStages = 2;        // depth of the K/V ring
+constexpr int kWsConsumers = 2;     // consumer warpgroups
+constexpr int kWsThreads = 128 * (1 + kWsConsumers);
+constexpr int kBoxCols = 64;        // bf16 in a 128-byte swizzled row
+constexpr uint32_t kBoxBytes = kWsBK * 128;     // one 128-row box
+constexpr uint32_t kTileBytes = 2 * kBoxBytes;  // 128 rows of D = 128
+static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one tensor-map box");
+// Q, K[kWsStages], V[kWsStages], the barriers, and room to align to 1 KB
+constexpr int kWsSmem = (1 + 2 * kWsStages) * kTileBytes + 128 + 1024;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits for the phase of ``bar`` with this parity to complete.  A wait
+// that outlasts some 2^26 polls traps (the launch fails with an error)
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map into shared memory; completion is counted in
+// bytes on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads): bar.sync waits for
+// ``count`` threads to have arrived, bar.arrive arrives without waiting.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of wgmma operands across
+// the asynchronous product's wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+// (SWIZZLE_128B).  K-major (Q, K): 8-row groups 1024 bytes apart, the
+// leading offset unused.  MN-major (V): 8-key groups 1024 bytes apart,
+// 64-column halves of D one box (16 KB) apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead,
+                                              uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= A B for a 64 x 128 tile over k = 16: A and B both K-major in
+// shared memory (S = Q K^T).  scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A B for a 64 x 128 tile over k = 16: A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B MN-major in shared
+// memory (O += P V, V stored key-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S = Q K^T for 64 rows x 128 keys: 8 k-steps of 16 over D; k-steps 0-3
+// walk 32 bytes at a time through the first 64-column box, 4-7 the second.
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < kWsD / 16; ++ks) {
+    const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
+    wgmma_ss(s, smem_desc(q_rows + off, 16, 1024),
+             smem_desc(k_tile + off, 16, 1024), ks > 0);
+  }
+}
+
+// O += P V for 64 rows: P as hi + lo A fragments (one set of 4 registers
+// per 16 keys), V rows are keys (the k of this product), D contiguous.
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         const uint32_t (&pa_hi)[8][4],
+                                         const uint32_t (&pa_lo)[8][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kWsBK / 16; ++kk) {
+    const uint64_t vd = smem_desc(v_tile + kk * 16 * 128, kBoxBytes, 1024);
+    wgmma_rs(o, pa_hi[kk], vd);
+    wgmma_rs(o, pa_lo[kk], vd);
+  }
+}
+
+// The online softmax of one score tile in place, on the wgmma accumulator:
+// s[4n + e] is row row0 + 8(e/2), key k0 + 8n + 2 tig + (e%2), and a row's
+// 128 keys lie in one quad.  s becomes the fp32 probabilities, (m, l) move
+// on, and alpha is the factor for O.  Masked scores become -inf without a
+// branch per score (with one, the kernel ran markedly slower on the H100);
+// the max is taken on the raw scores (the scale is positive).
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2],
+                                               const Params& p, bool masked,
+                                               int row0, int base) {
+  if (masked) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the live keys of this row as [first, last], counted from base
+      const int row = row0 + 8 * r;
+      const int last = (p.causal ? min(row, p.S - 1) : p.S - 1) - base;
+      const int first = (p.window > 0 ? row - p.window + 1 : 0) - base;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = 8 * n + c;
+          if (key < first || key > last) s[4 * n + 2 * r + c] = -INFINITY;
+        }
+      }
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 64; ++n) mx[(n >> 1) & 1] = fmaxf(mx[(n >> 1) & 1], s[n]);
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * p.scale_log2);
+    m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2(m[r] - m_use[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < 64; ++n) {
+    const float pe = ex2(fmaf(s[n], p.scale_log2, -m_use[(n >> 1) & 1]));
+    s[n] = pe;
+    l[(n >> 1) & 1] += pe;
+  }
+}
+
+// O *= alpha (skipped when no row of the warp moved its max), then P as A
+// fragments, each p split into a bf16 high part and a bf16 remainder.
+__device__ __forceinline__ void rescale_and_split(float (&o)[64],
+                                                  const float (&alpha)[2],
+                                                  const float (&s)[64],
+                                                  uint32_t (&pa_hi)[8][4],
+                                                  uint32_t (&pa_lo)[8][4]) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int n = 0; n < 64; ++n) o[n] *= alpha[(n >> 1) & 1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pa_hi[kk][r],
+                 pa_lo[kk][r]);
+    }
+  }
+}
+
+// The two consumers take turns to issue their products (named barrier
+// 1 + c is consumer c's turn; consumer 0 goes first, and every arrival on
+// the other's barrier is matched by one of its waits).
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_attention_bf16_ws_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   Params p, int B) {
+  extern __shared__ __align__(16) unsigned char smem_ws[];
+  const uint32_t sQ = (smem_addr(smem_ws) + 1023u) & ~1023u;  // swizzle atoms
+  const uint32_t sK = sQ + kTileBytes;                // stage st at st*tile
+  const uint32_t sV = sK + kWsStages * kTileBytes;
+  const uint32_t full_q = sV + kWsStages * kTileBytes;  // 8 bytes a barrier
+  const uint32_t full_k = full_q + 8;       // TMA bytes of K, per stage
+  const uint32_t full_v = full_k + 8 * kWsStages;
+  const uint32_t empty_k = full_v + 8 * kWsStages;  // consumers done with K
+  const uint32_t empty_v = empty_k + 8 * kWsStages;
+
+  // longest rows first across the whole grid: the query tile is the
+  // slowest-varying index of blockIdx.x
+  const int nq = (p.S + kWsBQ - 1) / kWsBQ;
+  int idx = blockIdx.x;
+  const int h = idx % p.H;
+  idx /= p.H;
+  const int b = idx % B;
+  const int q0 = (nq - 1 - idx / B) * kWsBQ;
+  const int kvh = h / p.group;
+  int lo, hi;
+  kv_tiles(p, q0, kWsBQ, kWsBK, lo, hi);
+  const int n_tiles = hi - lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < kWsStages; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty_k + 8 * st, 128 * kWsConsumers);
+      mbar_init(empty_v + 8 * st, 128 * kWsConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, kTileBytes);
+      tma_load(sQ, &tq, full_q, 0, q0, h, b);
+      tma_load(sQ + kBoxBytes, &tq, full_q, kBoxCols, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kWsStages, k0 = (lo + i) * kWsBK;
+        const uint32_t ph = (i / kWsStages) & 1;
+        const uint32_t k_st = sK + st * kTileBytes, v_st = sV + st * kTileBytes;
+        // a fresh barrier passes a wait on parity 1
+        mbar_wait(empty_k + 8 * st, ph ^ 1);
+        mbar_expect_tx(full_k + 8 * st, kTileBytes);
+        tma_load(k_st, &tk, full_k + 8 * st, 0, k0, kvh, b);
+        tma_load(k_st + kBoxBytes, &tk, full_k + 8 * st, kBoxCols, k0, kvh, b);
+        mbar_wait(empty_v + 8 * st, ph ^ 1);
+        mbar_expect_tx(full_v + 8 * st, kTileBytes);
+        tma_load(v_st, &tv, full_v + 8 * st, 0, k0, kvh, b);
+        tma_load(v_st + kBoxBytes, &tv, full_v + 8 * st, kBoxCols, k0, kvh, b);
+      }
+    }
+  } else {
+    // consumer: 64 query rows, warp w owning rows 16w..16w+15 of them
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane >> 2, tig = lane & 3;
+    const int rq0 = q0 + 64 * cw;            // this warpgroup's first row
+    const int row0 = rq0 + 16 * warp + g;    // this thread's rows: +0, +8
+    const uint32_t q_rows = sQ + 64 * cw * 128;
+    const int my_turn = 1 + cw, their_turn = 2 - cw;
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // rows g and g+8, log2 units
+    float l[2] = {0.f, 0.f};              // this thread's part of the sums
+    float alpha[2];
+    float s[64];                          // scores, then probabilities
+    uint32_t pa_hi[8][4], pa_lo[8][4];    // P of the tile before
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa_hi[kk][r] = pa_lo[kk][r] = 0u;
+    if (cw == 1) named_arrive(1, 2 * 128);
+    mbar_wait(full_q, 0);
+
+    // Step i is one turn: the PV product of tile i - 1, then S_i; the
+    // softmax of S_i then runs while the other consumer's turn keeps the
+    // tensor cores busy.  The PV product is waited for before S_i is
+    // issued: P as hi and lo parts takes 64 registers, and with S and O
+    // beside it the consumer would spill.  No wgmma sits in a branch (that
+    // makes ptxas serialize them all): step 0 multiplies a zero P by V_0,
+    // which step 1 reads anyway, and the last step computes a discarded S
+    // from the Q tile.
+    for (int i = 0; i <= n_tiles; ++i) {
+      const bool has_s = i < n_tiles, has_pv = i > 0;
+      const int pv = has_pv ? i - 1 : 0;  // the tile whose V is read
+      const int st = i % kWsStages, sp = pv % kWsStages;
+      const int k0 = (lo + i) * kWsBK;
+      mbar_wait(full_v + 8 * sp, (pv / kWsStages) & 1);
+      if (has_s) mbar_wait(full_k + 8 * st, (i / kWsStages) & 1);
+      named_sync(my_turn, 2 * 128);
+      wgmma_fence();
+      issue_pv(o, pa_hi, pa_lo, sV + sp * kTileBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa_hi);
+      fence_regs(pa_lo);
+      if (has_pv) mbar_arrive(empty_v + 8 * sp);
+      wgmma_fence();
+      issue_qk(s, q_rows, has_s ? sK + st * kTileBytes : sQ);
+      wgmma_commit();
+      if (cw == 0 || has_s) named_arrive(their_turn, 2 * 128);
+      wgmma_wait_all();
+      fence_regs(s);
+      if (has_s) {
+        mbar_arrive(empty_k + 8 * st);
+        online_softmax(s, m, l, alpha, p,
+                       tile_needs_mask(p, rq0, 64, k0, kWsBK), row0,
+                       k0 + 2 * tig);
+        rescale_and_split(o, alpha, s, pa_hi, pa_lo);
+      }
+    }
+
+    // out = O / l, rows past S are not stored
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+    const int64_t o_ss = (int64_t)p.H * kWsD;
+    const int64_t o_sb = (int64_t)p.S * o_ss;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float inv = 1.f / fmaxf(lr, 1e-30f);
+      const int row = row0 + r * 8;
+      if (row < p.S) {
+        __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * kWsD + tig * 2;
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          *reinterpret_cast<uint32_t*>(dst + n * 8) =
+              pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: FMA units
 // ---------------------------------------------------------------------------
 
@@ -444,16 +889,76 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// cuTensorMapEncodeTiled, fetched once from the driver through the runtime
+// (the link line needs no -lcuda).
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                         12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+    }
+  }
+  return fn;
+}
+
+// The (D, S, heads, B) tensor map of a bf16 (B, S, heads, D) tensor with
+// strides in elements: boxes of 64 columns x 128 rows with the 128-byte
+// swizzle; rows past S read as zeros.
+bool encode_map(CUtensorMap* map, const void* base, int S, int heads, int B,
+                int64_t ss, int64_t sh, int64_t sb) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kWsD, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {kBoxCols, kWsBK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
+  const int KV = p.H / p.group;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, p.q, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb) ||
+      !encode_map(&tk, p.k, p.S, KV, B, p.k_ss, p.k_sh, p.k_sb) ||
+      !encode_map(&tv, p.v, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb)) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t blocks = (int64_t)((p.S + kWsBQ - 1) / kWsBQ) * p.H * B;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bf16_ws_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmem);
+  if (e != cudaSuccess) return e;
+  flash_attention_bf16_ws_kernel<<<(unsigned)blocks, kWsThreads, kWsSmem,
+                                   stream>>>(tq, tk, tv, p, B);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((p.S + kBQ - 1) / kBQ, p.H, B);
-    flash_attention_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    if constexpr (D == kWsD) {
+      return launch_ws(p, B, stream);
+    } else {
+      const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
+      cudaError_t e = cudaFuncSetAttribute(
+          flash_attention_bf16_kernel<D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      const dim3 grid((p.S + kBQ - 1) / kBQ, p.H, B);
+      flash_attention_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    }
   } else {
     const int smem = (kFBQ * D + kFBK * (D + 1) + kFBK * D) * 4;
     cudaError_t e = cudaFuncSetAttribute(
@@ -469,7 +974,8 @@ cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 == cudaSuccess), or
-// cudaErrorInvalidValue for a head dim without a template.  Strides are in
+// cudaErrorInvalidValue for a head dim without a template, a tensor map the
+// driver refuses or a grid of 2^31 blocks or more.  Strides are in
 // elements; the caller checks devices, dtypes (q/k/v/out all bf16 or all
 // fp32), shapes, a unit stride on the last axis, 16-byte aligned rows for
 // bf16, S >= 1, H % KV == 0 and 1 <= B, H <= 65535.

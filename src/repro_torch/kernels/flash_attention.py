@@ -9,7 +9,8 @@ with ``t <= s`` when causal, ``t > s - window`` when ``window > 0``; fp32
 scores and accumulation, the output in q's dtype.  q is (B, S, H, D) and
 k / v are (B, S, KV, D), all bf16 or all fp32, read in place through their
 strides: the last axis must be contiguous and, for bf16, every row must
-start on 16 bytes.  D is 32, 64 or 128.
+start on 16 bytes (what the TMA copies of the bf16 D = 128 kernel need).
+D is 32, 64 or 128.
 
 Takes CUDA tensors only and raises on anything else; ``kernels/ops``
 routes CPU tensors to ``kernels/ref.flash_attention_ref``.  ``launches``

@@ -103,12 +103,20 @@ def test_cuda_dual_proximal_sgd_matches_plain(cuda, anchor_dtype):
 # (B, S, H, KV, D, causal, window): chip_smoke's cases (a small ragged one,
 # the qwen3-0.6b layer, the same with a 1024 window), then odd shapes: one
 # token, one row past a tile, a ragged thousand, a window wider than S,
-# no GQA, non-causal with and without a window, and D = 32
+# no GQA, non-causal with and without a window, and D = 32; then the edges
+# of the D = 128 kernel's 128-row tiles: S = 1, 127, 128, 129 and 1000 over
+# groups 1, 2 and 4, a window of 1, windows of S and more, non-causal
 ATTN_CASES = [(2, 200, 4, 2, 64, True, 0), (1, 4096, 16, 8, 128, True, 0),
               (1, 4096, 16, 8, 128, True, 1024), (3, 1, 4, 2, 64, True, 0),
               (1, 65, 2, 1, 128, True, 0), (2, 1000, 4, 2, 64, True, 100),
               (1, 300, 4, 4, 32, True, 5000), (1, 257, 4, 1, 64, False, 0),
-              (2, 130, 6, 3, 128, False, 33)]
+              (2, 130, 6, 3, 128, False, 33),
+              (2, 1, 4, 1, 128, True, 0), (1, 127, 4, 2, 128, True, 0),
+              (2, 128, 4, 4, 128, True, 1), (1, 128, 8, 2, 128, False, 0),
+              (2, 129, 8, 2, 128, True, 0), (1, 129, 4, 4, 128, True, 129),
+              (1, 1000, 8, 2, 128, True, 0), (2, 1000, 4, 1, 128, True, 1),
+              (1, 1000, 4, 4, 128, True, 4096),
+              (1, 1000, 8, 4, 128, False, 0)]
 
 
 @pytest.mark.gpu
@@ -149,23 +157,32 @@ def test_cuda_flash_attention_prefill_shape_by_row(cuda):
 @pytest.mark.gpu
 def test_cuda_flash_attention_reads_strided_views(cuda):
     """q/k/v as views into one fused (B, S, H + 2 KV, D) projection, as a
-    caller that never copies would hand them over."""
+    caller that never copies would hand them over: at D = 64 (mma.sync) and
+    D = 128 (the tensor maps of the TMA kernel)."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    B, S, H, KV, D = 2, 333, 8, 2, 64
-    for dtype in (torch.float32, torch.bfloat16):
-        qkv = torch.randn(B, S, H + 2 * KV, D, device=cuda,
-                          generator=g).to(dtype)
-        q, k, v = qkv.split([H, KV, KV], dim=2)
-        got = tfa.flash_attention(q, k, v, causal=True, window=64)
-        want = ref.flash_attention_ref(q, k, v, causal=True, window=64)
-        torch.testing.assert_close(
-            got.float(), want.float(),
-            **(F32 if dtype == torch.float32 else BF16))
+    B, S, H, KV = 2, 333, 8, 2
+    for D in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B, S, H + 2 * KV, D, device=cuda,
+                              generator=g).to(dtype)
+            q, k, v = qkv.split([H, KV, KV], dim=2)
+            got = tfa.flash_attention(q, k, v, causal=True, window=64)
+            want = ref.flash_attention_ref(q, k, v, causal=True, window=64)
+            torch.testing.assert_close(
+                got.float(), want.float(),
+                **(F32 if dtype == torch.float32 else BF16))
     with pytest.raises(ValueError):
         tfa.flash_attention(q.float(), k, v)
     with pytest.raises(ValueError):
         tfa.flash_attention(q[..., :48].contiguous(), k[..., :48],
                             v[..., :48])
+    # a bf16 view whose strides are whole 16-byte units but whose rows
+    # start 8 bytes past a 16-byte boundary
+    wide = torch.randn(B, S, H + 2 * KV, D + 8, device=cuda,
+                       generator=g).to(torch.bfloat16)
+    q, k, v = (t[..., 4:4 + D] for t in wide.split([H, KV, KV], dim=2))
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.flash_attention(q, k, v)
     torch.cuda.synchronize()
 
 
