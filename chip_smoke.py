@@ -14,7 +14,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel's time (CUDA events, median of 11 timed runs of 10 launches after
    warm-up), its bound at the H100's 3.35 TB/s and 67 TFLOP/s fp32, the
    plain version's time and, for the aggregation kernels, one PyTorch
-   call's time (``library_ms``).
+   call's time (``library_ms``).  For ``weighted_agg_matmul``, its
+   library call and ``agg_blend``, the time split into device time a call
+   (``device_ms``, ``torch.profiler``) and host time a call (``host_us``:
+   1,000 calls enqueued without a synchronise, on the host clock); at the
+   main shape also the host time of the launch path's pieces.
 2b. flash_attention against its plain version in bf16 and fp32: a small
    ragged case (B=2, S=200, H=4, KV=2, D=64), the qwen3-0.6b layer (B=1,
    S=4096, H=16, KV=8, D=128) causal and with a 1024 window, and two ragged
@@ -52,17 +56,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    card: ``make_prefill_step`` at B=4, S=8192 (exactly 3 slstm_scan and no
    flash_attention launches a call; ms, tokens/s, peak memory); the serve
    launcher with ``--arch xlstm-125m --full-config`` (batch 8, 32 + 32
-   tokens; decode tok/s, finite logits); decode against prefill logits at
-   every position of 1x64 tokens: in bf16 against the per-step mLSTM
-   prefill (atol 0.15, rtol 0.05), in fp32 against the full config's
-   chunkwise prefill (atol 1e-3); a reduced xlstm
+   tokens; decode tok/s, finite logits); at every position of 1x64
+   tokens, fp32 decode against the per-step and the chunkwise mLSTM
+   prefill (atol 1e-3), and the bf16 per-step prefill with the scan kernel
+   against the same with the plain scan (atol 0.15, rtol 0.05); the bf16
+   gaps between decode and the prefills are printed; a reduced xlstm
    on the card against the host's plain versions (fp32: logits within 1e-3
    and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
    over one prefill call and 8 decode steps.
 5. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
-flash-attention kernel's build report, checks and times) and prints no
+flash-attention kernel's build report, checks and times), ``--scan`` phase
+1 and phase 2c only (the sLSTM scan kernel's), and ``--agg`` phase 1 and
+phase 2 only (the aggregation and update kernels'); none of them prints a
 result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
@@ -118,6 +125,22 @@ SLSTM_CASES = (("test_1", 1, 17, 2, 32, 1.0), ("test_2", 2, 100, 4, 64, 1.0),
 SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 
 
+# phases a run goes through; a mode flag runs the build and one kernel's
+# phase alone, with no result line (which only the full run prints)
+FULL_RUN = ("1", "2", "2b", "2c", "3", "4", "4b", "5")
+MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
+         "--agg": ("1", "2")}
+
+
+def selected_phases(argv) -> tuple:
+    """The phases that ``argv`` asks for: every phase, or one mode's."""
+    unknown = [a for a in argv if a not in MODES]
+    if unknown or len(argv) > 1:
+        raise SystemExit(f"chip_smoke: usage: chip_smoke.py "
+                         f"[{' | '.join(MODES)}], got {argv}")
+    return MODES[argv[0]] if argv else FULL_RUN
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -151,6 +174,32 @@ def cuda_ms(fn, reps: int = 11, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def host_device_split(fn, n_host: int = 1000, n_prof: int = 20) -> dict:
+    """Where a call's time goes: ``device_ms``, its kernels' device time a
+    call over ``n_prof`` calls under ``torch.profiler`` (None when the
+    profiler sees no device time), and ``host_us``, the host time a call of
+    ``n_host`` calls enqueued without a synchronise, then one synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_host):
+        fn()
+    host_us = (time.perf_counter() - t0) / n_host * 1e6
+    torch.cuda.synchronize()
+    busy = device_profile(fn, n_prof)[2]
+    return {"device_ms": busy / n_prof * 1e3 if busy else None,
+            "host_us": host_us}
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host time of one call of ``fn`` (no device work), mean of ``n``."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def bound(nbytes: float, flops: float,
@@ -197,13 +246,21 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
                         (mass > 0).float()], dim=1)
     rows, small = [], A * 16 + R * A * 4
 
-    def row(kernel, entry, err, ms, plain_ms, nbytes, flops, library_ms):
+    def row(kernel, entry, err, ms, plain_ms, nbytes, flops, library_ms,
+            **split):
         b_ms, b_by = bound(nbytes, flops)
         rows.append({"kernel": kernel, "entry": entry, "shape": shape_name,
                      "A": A, "R": R, "N": N, "dtype": str(dtype)[6:],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": library_ms})
+                     "library_ms": library_ms, **split})
+
+    def split(kernel_fn, library_fn, ms):
+        n = 1000 if ms < 1.0 else 100
+        k, lib = (host_device_split(f, n) for f in (kernel_fn, library_fn))
+        return {"device_ms": k["device_ms"], "host_us": k["host_us"],
+                "library_device_ms": lib["device_ms"],
+                "library_host_us": lib["host_us"]}
 
     # fused_agg_blend, RSU layer (agg_blend): the kernel with its operands
     # ready, the plain two-pass version, and one matmul + where
@@ -212,14 +269,17 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
     err = compare(got, want, dtype, f"agg_blend {shape_name} {dtype}")
     if not torch.equal(got[0], prev[0]):
         raise AssertionError("agg_blend: a zero-mass row was not kept")
-    row("fused_agg_blend", "agg_blend", err,
-        cuda_ms(lambda: mha._fused_agg_blend(coef, (W,), (x,), prev,
-                                             entry="agg_blend")),
+    def blend():
+        return mha._fused_agg_blend(coef, (W,), (x,), prev, entry="agg_blend")
+
+    def blend_library():
+        return torch.where((mass > 0)[:, None], torch.matmul(W, x.float()),
+                           prev.float())
+    ms = cuda_ms(blend)
+    row("fused_agg_blend", "agg_blend", err, ms,
         cuda_ms(lambda: ref.agg_blend_ref(x, w, mask, assign, R, prev)),
         A * N * sx + 2 * R * N * sx + small, 2 * R * A * N,
-        cuda_ms(lambda: torch.where((mass > 0)[:, None],
-                                    torch.matmul(W, x.float()),
-                                    prev.float())))
+        cuda_ms(blend_library), **split(blend, blend_library, ms))
 
     # fused_agg_blend, cloud layer (cloud_blend): R -> 1 into fp32
     cloud = torch.randn(N, device=dev, generator=gen)
@@ -263,11 +323,41 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
     got = mha.weighted_agg_matmul(W, x)
     want = ref.weighted_agg_matmul_ref(W, x)
     err = compare(got, want, dtype, f"weighted_agg_matmul {shape_name}")
-    row("weighted_agg_matmul", "weighted_agg_matmul", err,
-        cuda_ms(lambda: mha.weighted_agg_matmul(W, x)),
+    def matmul():
+        return mha.weighted_agg_matmul(W, x)
+
+    def matmul_library():
+        return torch.matmul(W, x.float())
+    ms = cuda_ms(matmul)
+    row("weighted_agg_matmul", "weighted_agg_matmul", err, ms,
         cuda_ms(lambda: ref.weighted_agg_matmul_ref(W, x)),
         A * N * sx + R * N * sx + R * A * 4, 2 * R * A * N,
-        cuda_ms(lambda: torch.matmul(W, x.float())))
+        cuda_ms(matmul_library), **split(matmul, matmul_library, ms))
+    if shape_name == "main":
+        # the host time of the wrapper's pieces: the output's allocation,
+        # the stream lookup (a Stream object or the raw handle) and, where
+        # the kernel has its own matmul entry, the ctypes call and launch
+        # with every operand ready
+        from repro_torch.kernels import _lib
+        out = torch.empty((R, N), dtype=dtype, device=dev)
+        stream = torch._C._cuda_getCurrentRawStream(dev.index or 0)
+        pieces = {
+            "torch.empty": lambda: torch.empty((R, N), dtype=dtype,
+                                               device=dev),
+            "new_empty": lambda: x.new_empty((R, N)),
+            "current_stream": lambda: torch.cuda.current_stream(
+                dev).cuda_stream,
+            "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+                dev.index or 0),
+        }
+        if "repro_weighted_agg_matmul" in _lib._SIGNATURES:
+            args = (W.data_ptr(), x.data_ptr(), out.data_ptr(), R, A, N,
+                    dtype == torch.bfloat16, stream)
+            pieces["ctypes call and launch"] = (
+                lambda: _lib.library().repro_weighted_agg_matmul(*args))
+        print(f"host: {shape_name} {str(dtype)[6:]} launch-path pieces, us "
+              f"a call: " + json.dumps({k: host_us(f)
+                                        for k, f in pieces.items()}))
     del got, want, x, prev
     torch.cuda.empty_cache()
 
@@ -794,7 +884,7 @@ def xlstm_serving(dev):
     call."""
     from repro_torch import tree
     from repro_torch.configs.registry import get_config, get_reduced_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import model as M
@@ -860,11 +950,15 @@ def xlstm_serving(dev):
         raise AssertionError("xlstm serve: non-finite logits")
 
     # decode == prefill at every position, full width (1 x 64 tokens).
-    # Decode runs the per-step mLSTM; the full config's prefill runs the
-    # chunkwise form, equal in exact arithmetic.  In bf16 their rounding
-    # differs by more than the bf16 tolerance, so bf16 decode is held to the
-    # per-step prefill and the chunkwise prefill to decode in fp32 (the same
-    # weights, widened); the bf16 gap between the two forms is printed.
+    # Decode runs the per-step mLSTM and the reference's sLSTM step, which
+    # rounds h and h @ R to bf16; the full config's prefill runs the
+    # chunkwise mLSTM and the scan kernel, which keeps h in fp32 as its
+    # plain version does.  The forms are equal in exact arithmetic, but in
+    # bf16 their rounding differs by about the bf16 tolerance, the plain
+    # scan's prefill as much as the kernel's.  So decode is held to both
+    # prefills in fp32 (the same weights, widened), the kernel's bf16
+    # prefill to the same prefill with the plain scan in its place, and
+    # the bf16 gaps between decode and the prefills are printed.
     s = 64
     toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
                          generator=gen)
@@ -878,25 +972,41 @@ def xlstm_serving(dev):
                                                    device=dev))
             outs.append(lg[:, 0])
         return torch.stack(outs, 1)
+
+    def prefill_logits(c, p):
+        return M.forward(c, p, {"tokens": toks})[0]
+    step_cfg = cfg.replace(mlstm_chunk=0)
     with torch.no_grad():
         dec = decode_all(cfg, params)
-        step_pre, _ = M.forward(cfg.replace(mlstm_chunk=0), params,
-                                {"tokens": toks})
-        chunk_pre, _ = M.forward(cfg, params, {"tokens": toks})
-        err = _logits_check(dec, step_pre, "xlstm decode vs prefill", 0.15,
+        step_pre = prefill_logits(step_cfg, params)
+        kernel_scan = ops.slstm_scan
+        ops.slstm_scan = ref.slstm_scan_ref
+        try:
+            plain_pre = prefill_logits(step_cfg, params)
+        finally:
+            ops.slstm_scan = kernel_scan
+        err = _logits_check(step_pre, plain_pre,
+                            "xlstm bf16 prefill, kernel vs plain scan", 0.15,
                             0.05)
-        gap = (dec - chunk_pre).abs().max().item()
+        chunk_pre = prefill_logits(cfg, params)
+        gaps = [(dec - x).abs().max().item()
+                for x in (step_pre, plain_pre, chunk_pre)]
         cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
         p32 = tree.map_tree(lambda t: t.float(), params)
-        err32 = _logits_check(decode_all(cfg32, p32),
-                              M.forward(cfg32, p32, {"tokens": toks})[0],
-                              "xlstm fp32 decode vs chunkwise prefill",
-                              1e-3, 0.0)
-    print(f"xlstm: decode vs prefill logits, 1x{s} tokens, full width: bf16 "
-          f"vs the per-step prefill max abs diff {err:.4f} (limit 0.15 + "
-          f"0.05|logit|); fp32 vs the chunkwise prefill {err32:.3e} (limit "
-          f"1e-3); bf16 vs the chunkwise prefill {gap:.4f} (not a check)")
-    del dec, step_pre, chunk_pre, p32
+        dec32 = decode_all(cfg32, p32)
+        err32 = [_logits_check(dec32, prefill_logits(c, p32),
+                               f"xlstm fp32 decode vs {name} prefill", 1e-3,
+                               0.0)
+                 for name, c in (("per-step", cfg32.replace(mlstm_chunk=0)),
+                                 ("chunkwise", cfg32))]
+    print(f"xlstm: 1x{s} tokens, full width: bf16 prefill with the scan "
+          f"kernel vs with the plain scan max abs diff {err:.4f} (limit 0.15 "
+          f"+ 0.05|logit|); fp32 decode vs the per-step and the chunkwise "
+          f"prefill {err32[0]:.3e}, {err32[1]:.3e} (limit 1e-3); bf16 decode "
+          f"vs the per-step prefill with the kernel {gaps[0]:.4f}, with the "
+          f"plain scan {gaps[1]:.4f}, vs the chunkwise prefill {gaps[2]:.4f} "
+          f"(not checks)")
+    del dec, step_pre, plain_pre, chunk_pre, p32, dec32
 
     # where a decode step's time goes: batch 8, as the serve launcher
     B, n = 8, 8
@@ -971,11 +1081,8 @@ def ptxas_by_kernel(log: str) -> list:
     return [f"{n}: {'; '.join(e[1])}" for n, e in zip(names, entries)]
 
 
-def main() -> int:
-    attention_only = "--attention" in sys.argv[1:]
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+def device_and_build():
+    """Phase 1: (device, the card's nvidia-smi line)."""
     sys.path.insert(0, str(SRC))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _lib
@@ -992,18 +1099,31 @@ def main() -> int:
           f"{report['build_seconds']} s)")
     for line in ptxas_by_kernel(report["ptxas_log"]):
         print(f"ptxas: {line}")
-    if attention_only:
-        attention_cases(dev)
-        return 0
+    return dev, card
 
+
+def aggregation_cases(dev):
+    """Phase 2 at every shape and fleet dtype; returns result rows."""
     rows = []
     for name, A, R, N in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for r in kernel_cases(dev, name, A, R, N, dtype):
                 print("kernel " + json.dumps(r))
                 rows.append(r)
-    attn_rows = attention_cases(dev)
-    scan_rows = slstm_cases(dev)
+    return rows
+
+
+def main(argv=None) -> int:
+    phases = selected_phases(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    dev, card = device_and_build()
+    rows = aggregation_cases(dev) if "2" in phases else []
+    attn_rows = attention_cases(dev) if "2b" in phases else []
+    scan_rows = slstm_cases(dev) if "2c" in phases else []
+    if phases != FULL_RUN:
+        return 0
 
     paths = main_path(dev)
     flash_launches = serving_path(dev)
@@ -1033,7 +1153,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "entry": entry,
-            "shape": {"A": r["A"], "R": r["R"], "N": r["N"]}})
+            "shape": {"A": r["A"], "R": r["R"], "N": r["N"]},
+            **{k: r[k] for k in ("device_ms", "host_us", "library_device_ms",
+                                 "library_host_us") if k in r}})
     # the serving path's shape: what each of its prefill launches computes
     r = next(x for x in attn_rows if x["entry"] == "prefill")
     kernels.append({

@@ -34,6 +34,7 @@ from repro_torch.core.aggregation import (build_weight_matrix, cohort_mass,
 from repro_torch.kernels import _lib
 
 FLEET_DTYPES = (torch.float32, torch.bfloat16)
+_W_DTYPES = (torch.float32,)
 SMEM_BYTES = 232_448    # shared memory a block may opt into on sm_90
 
 launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
@@ -41,16 +42,28 @@ launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
 
 
 def _require(t: torch.Tensor, name: str, shape: Tuple[int, ...],
-             dtypes: Sequence[torch.dtype], device: torch.device) -> None:
-    if t.device != device or t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a tensor on {device} (cuda), "
-                         f"got {t.device}")
+             dtypes: Sequence[torch.dtype], index: int) -> None:
+    """Raise unless ``t`` lies on CUDA device ``index`` with one of
+    ``dtypes``, this shape, contiguous (get_device is -1 on the CPU)."""
+    if t.get_device() != index:
+        raise ValueError(f"{name}: expected a tensor on cuda:{index}, got "
+                         f"{t.device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype} not in {tuple(dtypes)}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.shape != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_smem(entry: str, R: int, n_agents: int) -> None:
+    """The kernel stages a (row chunk x agents) weight tile in shared
+    memory, the chunk the smallest of 1, 2, 4, 8, 16 that holds R."""
+    row_chunk = 1 if R <= 1 else 2 if R <= 2 else 4 if R <= 4 else (
+        8 if R <= 8 else 16)
+    if row_chunk * n_agents * 4 > SMEM_BYTES:
+        raise ValueError(f"{entry}: {n_agents} agents x {row_chunk} rows of "
+                         f"weights exceed {SMEM_BYTES} bytes of shared memory")
 
 
 def _launch(entry: str, coef: Optional[torch.Tensor],
@@ -58,24 +71,32 @@ def _launch(entry: str, coef: Optional[torch.Tensor],
             stackeds: Sequence[torch.Tensor], buf: Optional[torch.Tensor],
             out: torch.Tensor) -> torch.Tensor:
     """Check every operand and launch ``repro_fused_agg_blend`` on the
-    current stream; the caller allocated ``out``."""
+    current stream.  The caller allocated ``out`` (contiguous, (R, N), on
+    X's device), so only its dtype is checked.  The launch path of the
+    three fused entry points: it makes each check once and nothing more,
+    and reads the stream raw rather than through a Stream object."""
     n_pairs = len(weight_mats)
     if n_pairs not in (1, 2) or len(stackeds) != n_pairs:
         raise ValueError(f"{entry}: want 1 or 2 (W, X) pairs")
-    dev = out.device
+    dev = out.get_device()
+    if dev < 0:
+        raise ValueError(f"{entry}: expected CUDA tensors, got {out.device}")
     R, N = out.shape
     x_dtype = stackeds[0].dtype
     if R < 1 or N < 1:
         raise ValueError(f"{entry}: empty output {tuple(out.shape)}")
-    _require(out, "out", (R, N), FLEET_DTYPES, dev)
+    if out.dtype not in FLEET_DTYPES:
+        raise ValueError(f"{entry}: dtype {out.dtype} not in {FLEET_DTYPES}")
+    n_agents = 0
     for i, (w, x) in enumerate(zip(weight_mats, stackeds)):
         a = w.shape[1] if w.dim() == 2 else -1
         if a < 1:
             raise ValueError(f"{entry}: W_{i} must be (R, A) with A >= 1")
-        _require(w, f"W_{i}", (R, a), (torch.float32,), dev)
+        _require(w, f"W_{i}", (R, a), _W_DTYPES, dev)
         _require(x, f"X_{i}", (a, N), (x_dtype,), dev)
+        n_agents += a
     if buf is not None:
-        _require(coef, "coef", (R, 3), (torch.float32,), dev)
+        _require(coef, "coef", (R, 3), _W_DTYPES, dev)
         _require(buf, "buf", (R, N), (out.dtype,), dev)
         if out.dtype not in (x_dtype, torch.float32):
             raise ValueError(f"{entry}: out dtype {out.dtype} must be X's "
@@ -83,24 +104,18 @@ def _launch(entry: str, coef: Optional[torch.Tensor],
     elif n_pairs != 1 or out.dtype != x_dtype:
         raise ValueError(f"{entry}: without a buffer the kernel takes one "
                          f"pair and writes X's dtype")
-    # the kernel stages a (row chunk x agents) weight tile in shared memory
-    n_agents = sum(w.shape[1] for w in weight_mats)
-    row_chunk = next(c for c in (1, 2, 4, 8, 16) if c >= min(R, 16))
-    if row_chunk * n_agents * 4 > SMEM_BYTES:
-        raise ValueError(f"{entry}: {n_agents} agents x {row_chunk} rows of "
-                         f"weights exceed {SMEM_BYTES} bytes of shared memory")
-    pair2 = n_pairs == 2
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _check_smem(entry, R, n_agents)
+    w2, x2 = (weight_mats[1], stackeds[1]) if n_pairs == 2 else (None, None)
     rc = _lib.library().repro_fused_agg_blend(
-        ptr(coef), weight_mats[0].data_ptr(), stackeds[0].data_ptr(),
+        None if coef is None else coef.data_ptr(),
+        weight_mats[0].data_ptr(), stackeds[0].data_ptr(),
         weight_mats[0].shape[1],
-        weight_mats[1].data_ptr() if pair2 else None,
-        stackeds[1].data_ptr() if pair2 else None,
-        weight_mats[1].shape[1] if pair2 else 0,
-        ptr(buf), out.data_ptr(), R, N,
-        int(x_dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
-        n_pairs, int(buf is not None),
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if w2 is None else w2.data_ptr(),
+        None if x2 is None else x2.data_ptr(),
+        0 if w2 is None else w2.shape[1],
+        None if buf is None else buf.data_ptr(), out.data_ptr(), R, N,
+        x_dtype == torch.bfloat16, out.dtype == torch.bfloat16,
+        torch._C._cuda_getCurrentRawStream(dev))
     _lib.check(rc, "fused_agg_blend")
     launches[entry] += 1
     return out
@@ -117,11 +132,40 @@ def _fused_agg_blend(coef: torch.Tensor, weight_mats, stackeds,
 
 def weighted_agg_matmul(weight_matrix: torch.Tensor,
                         stacked: torch.Tensor) -> torch.Tensor:
-    """(R, A) @ (A, N) with fp32 accumulation, out in the stacked dtype."""
-    R, N = weight_matrix.shape[0], stacked.shape[1]
-    out = torch.empty((R, N), dtype=stacked.dtype, device=stacked.device)
-    return _launch("weighted_agg_matmul", None,
-                   [weight_matrix.float().contiguous()], [stacked], None, out)
+    """(R, A) @ (A, N) with fp32 accumulation, out in the stacked dtype.
+
+    Its own launch path, the shortest: the checks of ``_launch`` for one
+    pair and no buffer, inline, and the kernel's 8-argument entry."""
+    w, x = weight_matrix, stacked
+    dev = x.get_device()
+    if dev < 0:
+        raise ValueError(f"weighted_agg_matmul: expected CUDA tensors, got "
+                         f"{x.device}")
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        w = w.float().contiguous()
+    if w.dim() != 2 or x.dim() != 2 or w.shape[1] != x.shape[0]:
+        raise ValueError(f"weighted_agg_matmul: W {tuple(w.shape)} and X "
+                         f"{tuple(x.shape)} must be (R, A) and (A, N)")
+    (R, A), N = w.shape, x.shape[1]
+    if R < 1 or A < 1 or N < 1:
+        raise ValueError(f"weighted_agg_matmul: empty operand W "
+                         f"{tuple(w.shape)}, X {tuple(x.shape)}")
+    if w.get_device() != dev:
+        raise ValueError(f"weighted_agg_matmul: W on {w.device}, X on "
+                         f"{x.device}")
+    if x.dtype not in FLEET_DTYPES:
+        raise ValueError(f"weighted_agg_matmul: X dtype {x.dtype} not in "
+                         f"{FLEET_DTYPES}")
+    if not x.is_contiguous():
+        raise ValueError("weighted_agg_matmul: X must be contiguous")
+    _check_smem("weighted_agg_matmul", R, A)
+    out = x.new_empty((R, N))
+    rc = _lib.library().repro_weighted_agg_matmul(
+        w.data_ptr(), x.data_ptr(), out.data_ptr(), R, A, N,
+        x.dtype == torch.bfloat16, torch._C._cuda_getCurrentRawStream(dev))
+    _lib.check(rc, "weighted_agg_matmul")
+    launches["weighted_agg_matmul"] += 1
+    return out
 
 
 def masked_hier_agg(stacked_flat, weights, mask, rsu_assign, n_rsus: int):

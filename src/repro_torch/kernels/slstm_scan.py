@@ -11,8 +11,12 @@ All fp32; the output is h at every step, (B, S, d) fp32.
 
 wx is (B, S, 4d) fp32, R is (H, P, 4P) bf16 or fp32, bias is (4d,) fp32,
 all contiguous on one CUDA device; P is a multiple of 8 and d = H*P is at
-most 2048.  One launch runs the whole scan (``plan`` says how the kernel
-lays a shape out).
+most 2048.  One launch runs the whole scan, one thread-block cluster a
+batch row.  ``plan`` says how the kernel lays a shape out: at P = 8, 16,
+32, 64 and 192 (xlstm-125m's layer: 16 CTAs a row) each CTA keeps its
+columns of R in registers and the CTAs exchange h through mbarriers; at
+other P, R stays in shared memory (or, where 8 CTAs cannot hold it, is
+read from device memory) and a cluster barrier publishes h each step.
 
 Takes CUDA tensors only and raises on anything else; ``kernels/ops``
 routes CPU tensors to ``kernels/ref.slstm_scan_ref``.  ``launches`` counts
@@ -28,7 +32,7 @@ import torch
 from repro_torch.kernels import _lib
 
 R_DTYPES = (torch.bfloat16, torch.float32)
-MAX_D = 2048          # 4d/8 gate columns, one thread each, in 8 CTAs
+MAX_D = 2048          # 4d gate columns over at most 8 CTAs of 1024 threads
 
 launches: Dict[str, int] = {"slstm_scan": 0}
 
@@ -48,16 +52,20 @@ def _check(t: torch.Tensor, name: str, device: torch.device,
         raise ValueError(f"slstm_scan: {name} must be contiguous")
 
 
+R_LIVES_IN = {1: "registers", 2: "shared memory", 3: "device memory"}
+
+
 def plan(d: int, P: int, r_dtype: torch.dtype) -> dict:
     """The kernel's layout for a shape on the current card: the cluster
-    size (CTAs a batch row) and whether R stays in shared memory."""
-    cluster, resident = ctypes.c_int(0), ctypes.c_int(0)
+    size (CTAs a batch row) and where R lives during the scan
+    (``R_LIVES_IN``); cluster 0 where the shape is not supported."""
+    cluster, where = ctypes.c_int(0), ctypes.c_int(0)
     rc = _lib.library().repro_slstm_scan_plan(
         d, P, int(r_dtype == torch.bfloat16), ctypes.byref(cluster),
-        ctypes.byref(resident))
+        ctypes.byref(where))
     _lib.check(rc, "slstm_scan plan")
-    return {"cluster": cluster.value, "r_in_shared_memory": bool(
-        resident.value)}
+    return {"cluster": cluster.value,
+            "r_lives_in": R_LIVES_IN.get(where.value)}
 
 
 def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor,

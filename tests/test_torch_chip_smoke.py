@@ -1,11 +1,15 @@
-"""``chip_smoke.py``'s report of the compiler's per-kernel resources: each
-``Used N registers`` line of ``nvcc -Xptxas -v`` is printed with the name
-of the kernel it belongs to, and with that kernel's stack and spill line.
-Runs on the CPU: only the parsing is checked here."""
+"""``chip_smoke.py`` on the CPU: its report of the compiler's per-kernel
+resources (each ``Used N registers`` line of ``nvcc -Xptxas -v`` printed
+with the name of the kernel it belongs to, and with that kernel's stack and
+spill line), and which phases each of its modes runs.  Only the parsing
+and the phase selection are checked here, with the card and the phases
+faked."""
 from __future__ import annotations
 
 import importlib.util
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -42,3 +46,48 @@ def test_ptxas_lines_name_their_kernel():
     assert second.startswith(("other(float*)", "_Z5otherPf"))
     assert "Used 40 registers" in second and "16 bytes smem" in second
     assert "168" not in second
+
+
+# the functions that run each phase after the build, by name
+PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
+                 "main_path", "serving_path", "xlstm_serving")
+
+
+@pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
+                                       ("--scan", ["slstm_cases"]),
+                                       ("--agg", ["aggregation_cases"])])
+def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
+                                                   flag, runs):
+    """A mode runs the build and its kernel's phase, nothing else, and
+    exits 0 without the result line; checked with the card and the
+    phases faked, so no card is needed."""
+    cs = _chip_smoke()
+    called = []
+    monkeypatch.setattr(cs.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cs, "device_and_build",
+                        lambda: ("cuda", "NVIDIA H100 80GB HBM3, 700.00 W"))
+    for name in PHASE_RUNNERS:
+        monkeypatch.setattr(cs, name,
+                            lambda dev, name=name: called.append(name) or [])
+    assert cs.main([flag]) == 0
+    assert called == runs
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_phase_selection():
+    cs = _chip_smoke()
+    assert cs.selected_phases([]) == cs.FULL_RUN
+    assert "5" in cs.FULL_RUN
+    assert cs.selected_phases(["--scan"]) == ("1", "2c")
+    assert cs.selected_phases(["--attention"]) == ("1", "2b")
+    with pytest.raises(SystemExit):
+        cs.selected_phases(["--scan", "--attention"])
+    with pytest.raises(SystemExit):
+        cs.selected_phases(["--fast"])
+
+
+def test_no_card_exits_nonzero_without_a_result(monkeypatch, capsys):
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs.torch.cuda, "is_available", lambda: False)
+    assert cs.main([]) != 0
+    assert '"ok"' not in capsys.readouterr().out

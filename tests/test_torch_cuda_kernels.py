@@ -43,11 +43,19 @@ def cuda():
     return torch.device("cuda")
 
 
+# (A, R, N): the main and paper fleets, odd shapes, then the edges of the
+# agent split (at R = 4 and small N a block covers 128 columns in 16 agent
+# groups): N below one block, one block and one column either side, A = 1
+# (no split), A = 7 over 4 groups, and N large enough that no split is
+# taken (K = 1), ragged
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("A,R,N", [(20, 4, 31_810), (100, 10, 31_810),
                                    (7, 9, 1001), (3, 1, 700), (2, 2, 5),
-                                   (1000, 20, 513)])
+                                   (1000, 20, 513), (20, 4, 100),
+                                   (20, 4, 127), (20, 4, 128), (20, 4, 129),
+                                   (1, 1, 5000), (1, 3, 31_810),
+                                   (7, 2, 40_000), (3, 2, 600_001)])
 def test_cuda_aggregation_kernels_match_plain(cuda, dtype, A, R, N):
     g = torch.Generator(device=cuda).manual_seed(A + R)
     x = torch.randn(A, N, device=cuda, generator=g).to(dtype)
@@ -80,6 +88,25 @@ def test_cuda_aggregation_kernels_match_plain(cuda, dtype, A, R, N):
     got3 = tmha.agg_absorb(arrivals, assign, R, prev, bm, keep=0.5)
     want3 = ref.agg_absorb_ref(arrivals, assign, R, prev, bm, keep=0.5)
     torch.testing.assert_close(got3[0].float(), want3[0].float(), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_weighted_agg_matmul_refuses_what_it_does_not_take(cuda):
+    """The matmul's own launch path keeps every check of the shared one;
+    a weight matrix in another dtype or layout is converted, as before."""
+    x = torch.randn(6, 300, device=cuda)
+    W = torch.randn(3, 6, device=cuda)
+    for bad_w, bad_x in ((W, x.half()), (W, x.t().contiguous().t()),
+                         (W[:, :5], x), (W.cpu(), x), (W[0], x),
+                         (W[:, :0], x[:0])):
+        with pytest.raises(ValueError):
+            tmha.weighted_agg_matmul(bad_w, bad_x)
+    want = W.double() @ x.double()
+    for w in (W.double(), W.t().contiguous().t()):
+        got = tmha.weighted_agg_matmul(w, x).double()
+        assert bool(((got - want).abs()
+                     <= 1e-6 * (W.double().abs() @ x.double().abs())).all())
     torch.cuda.synchronize()
 
 
@@ -196,13 +223,26 @@ def _scan_inputs(dev, B, S, H, P, r_dtype, seed=0, scale=1.0):
     return wx, r, b
 
 
+# (B, S, H, P, scale): the JAX kernel tests' shapes and saturated gates;
+# then S = 1, 2, 3 (the first phases of each h buffer's mbarrier) at the
+# layer's width and at P = 32, B = 5 rows at the layer's width, the latency
+# floor's width (P = 8), and P = 24, which the shared-memory kernel runs
 @pytest.mark.gpu
 @pytest.mark.parametrize("r_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,P,scale", [(1, 17, 2, 32, 1.0),
                                            (2, 100, 4, 64, 1.0),
                                            (3, 256, 4, 32, 1.0),
                                            (1, 64, 8, 16, 1.0),
-                                           (2, 48, 4, 32, 25.0)])
+                                           (2, 48, 4, 32, 25.0),
+                                           (1, 1, 4, 192, 1.0),
+                                           (2, 2, 4, 192, 1.0),
+                                           (1, 3, 4, 192, 1.0),
+                                           (2, 1, 2, 32, 1.0),
+                                           (1, 2, 2, 32, 1.0),
+                                           (3, 3, 2, 32, 1.0),
+                                           (5, 300, 4, 192, 1.0),
+                                           (2, 40, 1, 8, 1.0),
+                                           (2, 30, 2, 24, 1.0)])
 def test_cuda_slstm_scan_matches_plain(cuda, r_dtype, B, S, H, P, scale):
     wx, r, b = _scan_inputs(cuda, B, S, H, P, r_dtype, seed=S, scale=scale)
     before = tss.launches["slstm_scan"]
@@ -219,14 +259,30 @@ def test_cuda_slstm_scan_matches_plain(cuda, r_dtype, B, S, H, P, scale):
 @pytest.mark.gpu
 @pytest.mark.parametrize("r_dtype", [torch.bfloat16, torch.float32])
 def test_cuda_slstm_scan_layer_shape(cuda, r_dtype):
-    """The xlstm-125m layer (B=4, S=8192, H=4, P=192): one cluster of 8
-    CTAs a row; bf16 R stays in shared memory, fp32 R is read through L2."""
+    """The xlstm-125m layer (B=4, S=8192, H=4, P=192): one cluster of 16
+    CTAs a row, each keeping its columns of R (bf16 or fp32) in registers
+    as fp32."""
     wx, r, b = _scan_inputs(cuda, 4, 8192, 4, 192, r_dtype, seed=3)
-    assert tss.plan(768, 192, r_dtype) == {
-        "cluster": 8, "r_in_shared_memory": r_dtype == torch.bfloat16}
+    assert tss.plan(768, 192, r_dtype) == {"cluster": 16,
+                                           "r_lives_in": "registers"}
     got = tss.slstm_scan(wx, r, b)
     torch.testing.assert_close(got, ref.slstm_scan_ref(wx, r, b), **SCAN)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,P,r_dtype,want", [
+    (64, 32, torch.float32, (1, "registers")),
+    (256, 64, torch.bfloat16, (2, "registers")),
+    (8, 8, torch.float32, (1, "registers")),
+    (48, 24, torch.bfloat16, (1, "shared memory")),
+    (1536, 192, torch.bfloat16, (8, "device memory"))])
+def test_cuda_slstm_scan_plans(cuda, d, P, r_dtype, want):
+    """Registers where the register kernel has the head size and whole
+    warps fit its thread limit; else the shared-memory kernel, with R in
+    device memory where 8 CTAs cannot hold it."""
+    got = tss.plan(d, P, r_dtype)
+    assert (got["cluster"], got["r_lives_in"]) == want
 
 
 @pytest.mark.gpu
