@@ -14,11 +14,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel's time (CUDA events, median of 11 timed runs of 10 launches after
    warm-up), its bound at the H100's 3.35 TB/s and 67 TFLOP/s fp32, the
    plain version's time and, for the aggregation kernels, one PyTorch
-   call's time (``library_ms``).  For ``weighted_agg_matmul``, its
-   library call and ``agg_blend``, the time split into device time a call
-   (``device_ms``, ``torch.profiler``) and host time a call (``host_us``:
-   1,000 calls enqueued without a synchronise, on the host clock); at the
-   main shape also the host time of the launch path's pieces.
+   call's time (``library_ms``).  ``agg_blend`` and ``cloud_blend`` are
+   timed as the whole entry the engine calls (the weights built in the
+   kernel) and in the coef form with their operands ready; ``agg_blend``'s
+   bound counts prev only for its zero-mass rows, the only rows it reads.
+   For the whole entries, ``dual_proximal_sgd`` in the engine's form,
+   ``weighted_agg_matmul`` and the coef forms, the time split into device
+   time a call (``device_ms``, ``torch.profiler``) and host time a call
+   (``host_us``: 1,000 calls enqueued without a synchronise, on the host
+   clock); at the main shape also the host time of the matmul's launch
+   path's pieces.
 2b. flash_attention against its plain version in bf16 and fp32: a small
    ragged case (B=2, S=200, H=4, KV=2, D=64), the qwen3-0.6b layer (B=1,
    S=4096, H=16, KV=8, D=128) causal and with a 1024 window, and two ragged
@@ -40,7 +45,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    must beat the pre-trained model by 0.05.  Then 2 rounds with a bf16
    fleet, 1 round with ``fused=False`` (the ``weighted_agg_matmul`` path),
    and 2 rounds on the card against the same 2 rounds on the host (plain
-   versions) with the same injected draws.
+   versions) with the same injected draws.  Last, three global rounds on
+   the host clock and under ``torch.profiler`` (wall, launches and device
+   busy share a round), and 20 calls each of ``agg_blend``,
+   ``cloud_blend`` and ``dual_proximal_sgd`` under it: each call must be
+   one launch of its kernel and nothing else.
 4. The serving path: qwen3-0.6b at full width in bf16 with params drawn on
    the card.  ``make_prefill_step`` at B=4, S=8192 (exactly 28
    flash_attention launches a call; ms, tokens/s, peak memory); the serve
@@ -69,8 +78,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
 1 and phase 2c only (the sLSTM scan kernel's), and ``--agg`` phase 1 and
-phase 2 only (the aggregation and update kernels'); none of them prints a
-result line.
+phase 2 only (the aggregation and update kernels'), and ``--round`` phase
+1 and the quickstart scenario's global round alone (wall, launches and
+device busy share a round, from the MLP's initial weights); none of them
+prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -129,7 +140,7 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 # phase alone, with no result line (which only the full run prints)
 FULL_RUN = ("1", "2", "2b", "2c", "3", "4", "4b", "5")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
-         "--agg": ("1", "2")}
+         "--agg": ("1", "2"), "--round": ("1", "3r")}
 
 
 def selected_phases(argv) -> tuple:
@@ -238,12 +249,13 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
     prev = torch.randn(R, N, device=dev, generator=gen).to(dtype)
     w = torch.rand(A, device=dev, generator=gen) + 0.5
     assign = torch.arange(A, device=dev) % R
-    mask = (torch.rand(A, device=dev, generator=gen) < 0.6).float()
-    mask[assign == 0] = 0.0                       # RSU 0 keeps its row
+    mask = torch.rand(A, device=dev, generator=gen) < 0.6   # the engine's
+    mask[assign == 0] = False                     # RSU 0 keeps its row
     W = build_weight_matrix(w, mask, assign, R)
     mass = cohort_mass(w, mask, assign, R)
     coef = torch.stack([torch.zeros_like(mass), torch.ones_like(mass),
                         (mass > 0).float()], dim=1)
+    dead = int((mass <= 0).sum())
     rows, small = [], A * 16 + R * A * 4
 
     def row(kernel, entry, err, ms, plain_ms, nbytes, flops, library_ms,
@@ -257,31 +269,52 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
 
     def split(kernel_fn, library_fn, ms):
         n = 1000 if ms < 1.0 else 100
-        k, lib = (host_device_split(f, n) for f in (kernel_fn, library_fn))
-        return {"device_ms": k["device_ms"], "host_us": k["host_us"],
-                "library_device_ms": lib["device_ms"],
-                "library_host_us": lib["host_us"]}
+        k = host_device_split(kernel_fn, n)
+        out = {"device_ms": k["device_ms"], "host_us": k["host_us"]}
+        if library_fn is not None:
+            lib = host_device_split(library_fn, n)
+            out.update(library_device_ms=lib["device_ms"],
+                       library_host_us=lib["host_us"])
+        return out
 
-    # fused_agg_blend, RSU layer (agg_blend): the kernel with its operands
-    # ready, the plain two-pass version, and one matmul + where
-    got, _ = mha.agg_blend(x, w, mask, assign, R, prev)
+    # fused_agg_blend, RSU layer: the whole agg_blend entry (one launch
+    # that builds W, mass and the guard on the device), the same kernel
+    # with its operands ready (the coef form), the plain two-pass version,
+    # and one matmul + where.  Bytes: X, out, and prev's zero-mass rows
+    # (a row with mass reads no prev)
+    got, got_mass = mha.agg_blend(x, w, mask, assign, R, prev)
     want, _ = ref.agg_blend_ref(x, w, mask, assign, R, prev)
     err = compare(got, want, dtype, f"agg_blend {shape_name} {dtype}")
     if not torch.equal(got[0], prev[0]):
         raise AssertionError("agg_blend: a zero-mass row was not kept")
+    mass_err = ((got_mass - mass).abs() / mass.abs().clamp_min(1e-30)).max()
+    if mass_err > 1e-6:
+        raise AssertionError(f"agg_blend: mass off by {mass_err:.3e} "
+                             f"relative")
+
+    def whole():
+        return mha.agg_blend(x, w, mask, assign, R, prev)
+
     def blend():
         return mha._fused_agg_blend(coef, (W,), (x,), prev, entry="agg_blend")
 
     def blend_library():
         return torch.where((mass > 0)[:, None], torch.matmul(W, x.float()),
                            prev.float())
+    agg_bytes = A * N * sx + (R + dead) * N * sx + A * 9 + R * 4
+    plain_ms = cuda_ms(lambda: ref.agg_blend_ref(x, w, mask, assign, R, prev))
+    library_ms = cuda_ms(blend_library)
+    ms = cuda_ms(whole)
+    row("fused_agg_blend", "agg_blend", err, ms, plain_ms, agg_bytes,
+        2 * R * A * N, library_ms, **split(whole, blend_library, ms))
+    err = compare(blend(), want, dtype, f"agg_blend coef {shape_name}")
     ms = cuda_ms(blend)
-    row("fused_agg_blend", "agg_blend", err, ms,
-        cuda_ms(lambda: ref.agg_blend_ref(x, w, mask, assign, R, prev)),
-        A * N * sx + 2 * R * N * sx + small, 2 * R * A * N,
-        cuda_ms(blend_library), **split(blend, blend_library, ms))
+    row("fused_agg_blend", "agg_blend_coef", err, ms, plain_ms,
+        agg_bytes + small, 2 * R * A * N, library_ms,
+        **split(blend, None, ms))
 
-    # fused_agg_blend, cloud layer (cloud_blend): R -> 1 into fp32
+    # fused_agg_blend, cloud layer: R -> 1 into fp32, the whole cloud_blend
+    # entry and the coef form
     cloud = torch.randn(N, device=dev, generator=gen)
     rmass = torch.rand(R, device=dev, generator=gen)
     got = mha.cloud_blend(prev, rmass, cloud)
@@ -294,15 +327,29 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
         raise AssertionError("cloud_blend: zero total mass must keep prev")
     wn = (rmass / rmass.sum())[None, :]
     ccoef = torch.tensor([[0.0, 1.0, 1.0]], device=dev)
-    row("fused_agg_blend", "cloud_blend", err,
-        cuda_ms(lambda: mha._fused_agg_blend(ccoef, (wn,), (prev,),
-                                             cloud[None, :],
-                                             entry="cloud_blend")),
-        cuda_ms(lambda: ref.cloud_blend_ref(prev, rmass, cloud)),
-        R * N * sx + 2 * N * 4 + R * 4, 2 * R * N,
-        cuda_ms(lambda: torch.where(rmass.sum() > 0,
-                                    torch.matmul(wn, prev.float())[0],
-                                    cloud)))
+
+    def cloud_whole():
+        return mha.cloud_blend(prev, rmass, cloud)
+
+    def cloud_coef():
+        return mha._fused_agg_blend(ccoef, (wn,), (prev,), cloud[None, :],
+                                    entry="cloud_blend")
+
+    def cloud_library():
+        return torch.where(rmass.sum() > 0, torch.matmul(wn, prev.float())[0],
+                           cloud)
+    cloud_bytes = R * N * sx + N * 4 + R * 4
+    plain_ms = cuda_ms(lambda: ref.cloud_blend_ref(prev, rmass, cloud))
+    library_ms = cuda_ms(cloud_library)
+    ms = cuda_ms(cloud_whole)
+    row("fused_agg_blend", "cloud_blend", err, ms, plain_ms, cloud_bytes,
+        2 * R * N, library_ms, **split(cloud_whole, cloud_library, ms))
+    err = compare(cloud_coef()[0], want, dtype,
+                  f"cloud_blend coef {shape_name}")
+    ms = cuda_ms(cloud_coef)
+    row("fused_agg_blend", "cloud_blend_coef", err, ms, plain_ms,
+        cloud_bytes + 12, 2 * R * N, library_ms,
+        **split(cloud_coef, None, ms))
 
     # fused_agg_blend, two pairs (agg_absorb): two cohorts + retained buf
     x2 = x.flip(0).contiguous()
@@ -362,24 +409,36 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
     torch.cuda.empty_cache()
 
     # dual_proximal_sgd: fp32 w/g, anchors in the fleet dtype; the flat
-    # engine's form (per-row scale, broadcast cloud row) and the TPU
-    # kernel's form (no scale, full-shape anchors)
+    # engine's form (per-row live mask from active_steps and the step, the
+    # broadcast cloud row, in place) and the TPU kernel's form (no scale,
+    # full-shape anchors)
     wt = torch.randn(A, N, device=dev, generator=gen)
     g = torch.randn(A, N, device=dev, generator=gen) * 0.1
     a1 = torch.randn(A, N, device=dev, generator=gen).to(dtype)
     a2 = torch.randn(N, device=dev, generator=gen).to(dtype)
-    live = (torch.rand(A, device=dev, generator=gen) < 0.5).float()
+    active = torch.randint(0, 3, (A,), device=dev, generator=gen,
+                           dtype=torch.int32)
     kw = dict(lr=0.1, mu1=0.01, mu2=0.005)
-    got = dps.dual_proximal_sgd(wt, g, a1, a2, scale=live, **kw)
-    want = ref.dual_proximal_sgd_ref(wt, g, a1, a2, scale=live, **kw)
+    got = dps.dual_proximal_sgd(wt, g, a1, a2, active_steps=active, step=1,
+                                **kw)
+    want = ref.dual_proximal_sgd_ref(wt, g, a1, a2, active_steps=active,
+                                     step=1, **kw)
     err = compare(got, want, torch.float32, f"dual_proximal_sgd {shape_name}")
+    if not torch.equal(got, dps.dual_proximal_sgd(
+            wt, g, a1, a2, scale=(1 < active).float(), **kw)):
+        raise AssertionError("dual_proximal_sgd: the active_steps form "
+                             "differs from the scale form")
     del got, want
-    row("dual_proximal_sgd", "scaled_broadcast", err,
-        cuda_ms(lambda: dps.dual_proximal_sgd(wt, g, a1, a2, scale=live,
-                                              out=wt, **kw)),
-        cuda_ms(lambda: ref.dual_proximal_sgd_ref(wt, g, a1, a2, scale=live,
-                                                  **kw)),
-        A * N * (4 + 4 + sx + 4) + N * sx + A * 4, 8 * A * N, None)
+
+    def update():
+        return dps.dual_proximal_sgd(wt, g, a1, a2, active_steps=active,
+                                     step=1, out=wt, **kw)
+    ms = cuda_ms(update)
+    row("dual_proximal_sgd", "scaled_broadcast", err, ms,
+        cuda_ms(lambda: ref.dual_proximal_sgd_ref(
+            wt, g, a1, a2, active_steps=active, step=1, **kw)),
+        A * N * (4 + 4 + sx + 4) + N * sx + A * 4, 8 * A * N, None,
+        **split(update, None, ms))
     a2 = a2.expand(A, N).contiguous()
     got = dps.dual_proximal_sgd(wt, g, a1, a2, **kw)
     want = ref.dual_proximal_sgd_ref(wt, g, a1, a2, **kw)
@@ -517,7 +576,92 @@ def main_path(dev):
           f"(limit 2e-3)")
     if err > 1e-4 or acc_err > 2e-3:
         raise AssertionError("the card's round disagrees with the host's")
+    entry_launches(dev, res, round_profile(dev, res, pre))
     return paths
+
+
+def round_profile(dev, res, params, n: int = 3):
+    """``n`` global rounds of the flat engine on ``res``'s scenario: wall a
+    round on the host clock (synchronised, no profiler), then the same
+    rounds under ``torch.profiler`` (launches and device busy share a
+    round).  Returns the state after them."""
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.fedsim.simulator import (_make_flat_round_body,
+                                              init_flat_state)
+    s = res.spec
+    fspec = spec_of(params, storage_dtype=s.fleet_dtype)
+    round_fn = _make_flat_round_body(res.cfg, s.hp, s.het, res.fed, fspec,
+                                     device=dev, fused=s.fused)
+    state = [round_fn(init_flat_state(res.cfg, fspec, params, dev))]
+
+    def one_round():
+        state[0] = round_fn(state[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_round()
+    torch.cuda.synchronize()
+    print(f"round: {(time.perf_counter() - t0) / n * 1e3:.2f} ms a global "
+          f"round (host clock, synchronised, {n} rounds, eval excluded)")
+    print_profile("flat round (main path)", n, *device_profile(one_round, n))
+    return state[0]
+
+
+def flat_round(dev) -> None:
+    """``--round``: the quickstart scenario's global round alone, from
+    the MLP's initial weights (no pre-training)."""
+    from repro_torch.configs.mnist_mlp import CONFIG
+    from repro_torch.models import mlp
+    spec = quickstart_spec()
+    params = mlp.init_params(CONFIG, torch.Generator().manual_seed(spec.seed),
+                             device=dev)
+    round_profile(dev, spec.resolve(), params, n=10)
+
+
+def entry_launches(dev, res, st) -> None:
+    """One launch a call: 20 calls each of ``agg_blend``, ``cloud_blend``
+    and ``dual_proximal_sgd`` on the round's own buffers under
+    ``torch.profiler``."""
+    from repro_torch.kernels import ops
+    s = res.spec
+    A, R = res.cfg.n_agents, res.cfg.n_rsus
+    assign = torch.from_numpy(res.fed.rsu_assign).to(dev, torch.long)
+    weights = torch.from_numpy(np.asarray(res.fed.n_per_agent,
+                                          np.float32)).to(dev)
+    mask = torch.arange(A, device=dev) % 3 != 0
+    active = torch.full((A,), 2, dtype=torch.int32, device=dev)
+    rsu_mass = torch.rand(R, device=dev)
+    w = st.agent_flat.float().clone()
+    g = torch.randn_like(w)
+    hp = s.hp
+    # (entry, its kernel's symbol, the call)
+    calls = (
+        ("agg_blend", "agg_blend_ring_kernel",
+         lambda: ops.agg_blend(st.agent_flat, weights, mask, assign, R,
+                               st.rsu_flat)),
+        ("cloud_blend", "agg_blend_ring_kernel",
+         lambda: ops.cloud_blend(st.rsu_flat, rsu_mass, st.cloud_flat)),
+        ("dual_proximal_sgd", "dual_proximal_sgd_kernel",
+         lambda: ops.dual_proximal_sgd(
+             w, g, st.agent_flat, st.cloud_flat, lr=hp.lr, mu1=hp.mu1,
+             mu2=hp.mu2, active_steps=active, step=1, out=w)))
+    n = 20
+    for name, symbol, fn in calls:
+        fn()
+        before = ops.launch_counts()[name]
+        _, launches, _, _, runs = device_profile(fn, n)
+        counted = ops.launch_counts()[name] - before
+        print(f"profile: {n} {name} calls: {counted} wrapper launches, "
+              f"{launches} host-API launches, device activity {runs}")
+        # one launch a call: the wrapper launched its kernel once a call,
+        # the host API saw no other launch, and whatever device activity
+        # the profiler recorded is that kernel (it does not always record
+        # the device side of a kernel launched from the ctypes library)
+        if (counted != n or launches != n
+                or any(symbol not in k for k in runs)):
+            raise AssertionError(f"{name}: want one launch of {symbol} a "
+                                 f"call and no other device work")
+
 
 def live_pairs(S: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks keep: keys t < S, t <= s when causal,
@@ -679,8 +823,9 @@ def slstm_cases(dev):
 
 def device_profile(fn, n: int):
     """``fn`` run ``n`` times under ``torch.profiler``: (wall s, kernel
-    launches, device busy s, {kernel: device s}).  Wall includes the
-    profiler's own cost."""
+    launches the host API saw, device busy s, {kernel: device s},
+    {device activity: executions}).  Wall includes the profiler's own
+    cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -691,24 +836,27 @@ def device_profile(fn, n: int):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, launches = {}, 0
+    kernels, runs, launches = {}, {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             kernels[e.key] = e.self_device_time_total / 1e6
+            runs[e.key] = e.count
         elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
             launches += e.count
-    return wall, launches, sum(kernels.values()), kernels
+    return wall, launches, sum(kernels.values()), kernels, runs
 
 
-def print_profile(what: str, n: int, wall, launches, busy, kernels) -> None:
+def print_profile(what: str, n: int, wall, launches, busy, kernels,
+                  runs) -> None:
     if not busy:
         print(f"profile: {what}: the profiler saw no device time (not "
               f"measured)")
         return
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     print(f"profile: {what}: {wall / n * 1e3:.2f} ms wall a call, "
-          f"{launches / n:.0f} kernel launches a call, device busy "
-          f"{busy / wall:.1%} of wall; top kernels by device time: "
+          f"{launches / n:.0f} kernel launches a call (host API), "
+          f"{sum(runs.values()) / n:.0f} device executions a call, device "
+          f"busy {busy / wall:.1%} of wall; top kernels by device time: "
           + "; ".join(f"{k[:60]} {v / busy:.1%}" for k, v in top))
 
 
@@ -1122,6 +1270,8 @@ def main(argv=None) -> int:
     rows = aggregation_cases(dev) if "2" in phases else []
     attn_rows = attention_cases(dev) if "2b" in phases else []
     scan_rows = slstm_cases(dev) if "2c" in phases else []
+    if "3r" in phases:
+        flat_round(dev)
     if phases != FULL_RUN:
         return 0
 

@@ -118,15 +118,16 @@ def _local_train_flat(spec: FlatSpec, x: torch.Tensor, y: torch.Tensor,
 
     x: (A, n, D), y: (A, n); w_start: (A, N) storage dtype, also the
     agent->RSU anchor; w_cloud: (N,) fp32, the anchor every row shares."""
-    a1 = w_start.float()
     w = w_start.to(torch.float32, copy=True)
     for step in range(n_steps):
         xb, yb = agent_minibatch(x, y, step, batch)
         g = mlp.grad_stacked(spec, w, xb, yb)
-        live = (step < active_steps).float()
-        # in place: w is this function's own buffer (the JAX scan carry)
-        ops.dual_proximal_sgd(w, g, a1, w_cloud, lr=hp.lr, mu1=hp.mu1,
-                              mu2=hp.mu2, scale=live, out=w)
+        # in place: w is this function's own buffer (the JAX scan carry);
+        # the anchor w_start is widened in the update, and the kernel forms
+        # live = (step < active_steps) itself
+        ops.dual_proximal_sgd(w, g, w_start, w_cloud, lr=hp.lr, mu1=hp.mu1,
+                              mu2=hp.mu2, active_steps=active_steps,
+                              step=step, out=w)
     return w
 
 
@@ -173,7 +174,6 @@ def _make_flat_round_body(cfg: SimConfig, hp: H2FedParams,
                     state.gen, conn, het, hp, cfg.n_agents, spe)
             else:
                 mask, active_steps = (t.to(device) for t in draws[i])
-            maskf = mask.float()
             # Alg. 2 l.5 / Alg. 1 l.1: every agent starts from its RSU row
             w_start = rsu_flat.index_select(0, rsu_assign)       # (A, N)
             agent_flat = spec.to_storage(_local_train_flat(
@@ -181,12 +181,12 @@ def _make_flat_round_body(cfg: SimConfig, hp: H2FedParams,
                 active_steps, cfg.batch))
             # Alg. 2 l.8: one (R, A) @ (A, N) pass over the fleet
             if fused:
-                rsu_flat, mass = ops.agg_blend(agent_flat, n_per_agent, maskf,
+                rsu_flat, mass = ops.agg_blend(agent_flat, n_per_agent, mask,
                                                rsu_assign, cfg.n_rsus,
                                                rsu_flat)
             else:
                 new_rsu, mass = ops.masked_hier_agg(agent_flat, n_per_agent,
-                                                    maskf, rsu_assign,
+                                                    mask, rsu_assign,
                                                     cfg.n_rsus)
                 rsu_flat = torch.where((mass > 0)[:, None], new_rsu,
                                        rsu_flat).to(rsu_flat.dtype)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface.  At first use each one is compiled
+The sources have a plain C interface (headers they share, ``csrc/*.cuh``,
+count towards the build's hash).  At first use each one is compiled
 by its own ``nvcc`` process for ``sm_90a`` (all started together), the
 objects are linked into one shared library under ``kernels/build/``
 (listed in ``.gitignore``), and the library is loaded with ``ctypes``.
@@ -34,9 +35,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fused_agg_blend": (_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _LL,
                               _I, _I, _P),
+    "repro_agg_blend": (_P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _I, _P),
     "repro_weighted_agg_matmul": (_P, _P, _P, _I, _I, _LL, _I, _P),
-    "repro_dual_proximal_sgd": (_P, _P, _P, _P, _LL, _I, _P, _LL, _I, _P,
-                                _I, _LL, _F, _F, _F, _P),
+    "repro_dual_proximal_sgd": (_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _F,
+                                _F, _F, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               *(_LL,) * 9, _I, _I, _I, _P),
     "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -69,7 +71,8 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

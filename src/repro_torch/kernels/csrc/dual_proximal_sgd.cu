@@ -6,95 +6,172 @@
 // Replaces the Pallas kernel dual_proximal_sgd (body _update_kernel) of
 // src/repro/kernels/dual_proximal_sgd.py, and computes the flat engine's
 // inline step (src/repro/fedsim/simulator.py, _local_train_flat) exactly:
-// scale[a] is the per-agent step mask `live` (null means 1), and a1 / a2
-// may each be a full (A, N) array or one (N,) row broadcast over the A rows
-// (row stride 0; the cloud master).  w, g and out are fp32; a1 and a2 are
-// fp32 or bf16; arithmetic is fp32.  A term whose mu is 0 is dropped and its
-// anchor not read, as in the TPU kernel.
+// scale[a] is the per-agent step mask, given either as a float (A,) tensor
+// or as the integer (A,) active_steps with the step index, from which the
+// kernel forms live = (step < active_steps[a]) itself, as the reference
+// does (no scale means 1).  a1 / a2 may each be a full (A, N) array or one
+// (N,) row broadcast over the A rows (the cloud master).  w, g and out are
+// fp32; a1 and a2 are fp32 or bf16 (widened exactly, as .float() does);
+// arithmetic is fp32.  A term whose mu is 0 is dropped and its anchor not
+// read, as in the TPU kernel.
 //
 // Bound: bytes.  w, g and a1 are read once and out written once, 4*A*N*4
 // bytes for fp32, plus a2 (N*4 bytes when broadcast); about nine flops an
 // element are far below the fp32 ridge.
 //
-// Design (simple first): blockIdx.y is the agent row, so the per-row scale
-// and the broadcast row need no division; each thread updates one element
-// with coalesced scalar loads.  It gives up 16-byte vector loads (rows of a
-// ragged N are not 16-byte aligned) and a grid-stride loop.  w and out may
-// alias (the in-place update of the training loop): each element is read and
-// then written by the same thread.
+// Design.  The first version put one row of 256 scalar columns on a block,
+// the grid x-fastest, so the card streamed one row at a time: the order
+// HBM serves best (94% of the bound with full-shape anchors at perception
+// scale, NVIDIA H100 80GB HBM3, 700 W), but a perception-scale row (4 x 38
+// MB of w, g, a1, out) evicted the broadcast 38 MB a2 from the 50 MB L2
+// between rows, so a2 was re-read from device memory once a row (75% of
+// the bound).  Blocks that walk all rows of a column tile, with a2 held in
+// registers, read a2 once but scatter the card's accesses over every row
+// at once (79%: step 3 of PERF.md's table).  So the grid keeps the row
+// streaming order inside super-tiles of kSuperCols columns: the grid is
+// (tile in super-tile, row, super-tile), dispatched x-fastest, so all rows
+// of one super-tile run before the next, each row streams 1 MB a stream, and the
+// 1 MB a2 slice is re-read from L2 by every row (4 MB of other traffic
+// between two reads of it).  Each thread takes V = 2 adjacent columns with
+// 8-byte loads (4-byte bf16x2 for bf16 anchors).  Alignment: with N even
+// every row of an fp32 (A, N) array starts 8-byte aligned and every bf16
+// row 4-byte aligned; N % 4 == 2 at the engines' shapes, so 16-byte loads
+// are not taken.  The host takes V = 2 only when N is even and every
+// pointer is aligned to its pair, else the scalar variant V = 1.  w and out
+// may alias (the in-place update of the training loop): each element is
+// read and then written by the same thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pairs.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using repro::F2;
+using repro::Vec;
+using repro::widen;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kThreads = 256;
+constexpr int64_t kSuperCols = 262144;   // columns a super-tile (1 MB fp32)
+
+// flags of repro_dual_proximal_sgd
+constexpr int kA1Bf16 = 1, kA2Bf16 = 2, kA1Bcast = 4, kA2Bcast = 8;
+constexpr int kScaleShift = 4;  // 0 none, 1 fp32 scale, 2 int32, 3 int64 steps
 
 struct Args {
   float* out;
   const float* w;
   const float* g;
   const void* a1;
-  int64_t a1_stride;  // N for a full (A, N) anchor, 0 for one broadcast row
+  int64_t a1_stride;   // units a row: a full (A, N) anchor; 0: broadcast
   const void* a2;
   int64_t a2_stride;
-  const float* scale;  // (A,) or null
-  int64_t N;
+  const void* scale;   // fp32 scale, int32 / int64 active_steps, or null
+  int scale_kind;
+  long long step;
+  int A;
+  int64_t units;       // N / V
   float lr, mu1, mu2;
 };
 
-template <typename TA1, typename TA2>
+__device__ __forceinline__ float row_scale(const Args& p, int a) {
+  switch (p.scale_kind) {
+    case 1: return static_cast<const float*>(p.scale)[a];
+    case 2: return p.step < static_cast<const int32_t*>(p.scale)[a] ? 1.f : 0.f;
+    case 3: return p.step < static_cast<const int64_t*>(p.scale)[a] ? 1.f : 0.f;
+    default: return 1.f;
+  }
+}
+
+template <typename TA1, typename TA2, int V>
 __global__ void __launch_bounds__(kThreads) dual_proximal_sgd_kernel(Args p) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
-  const int64_t row = blockIdx.y;
-  const int64_t i = row * p.N + n;
-  const float wv = p.w[i];
-  float step = p.g[i];
+  using WV = typename Vec<float, V>::type;
+  using A1V = typename Vec<TA1, V>::type;
+  using A2V = typename Vec<TA2, V>::type;
+  // grid (tile in super-tile, row, super-tile), dispatched x-fastest
+  const int row = blockIdx.y;
+  const int64_t j =
+      ((int64_t)blockIdx.z * gridDim.x + blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= p.units) return;
+  const int64_t o = (int64_t)row * p.units + j;
+  const F2 wv = widen(reinterpret_cast<const WV*>(p.w)[o]);
+  const F2 gv = widen(reinterpret_cast<const WV*>(p.g)[o]);
+  F2 v1{}, v2{};
   if (p.mu1 != 0.f) {
-    step += p.mu1 * (wv - to_f32(static_cast<const TA1*>(p.a1)[row * p.a1_stride + n]));
+    v1 = widen(static_cast<const A1V*>(p.a1)[row * p.a1_stride + j]);
   }
   if (p.mu2 != 0.f) {
-    step += p.mu2 * (wv - to_f32(static_cast<const TA2*>(p.a2)[row * p.a2_stride + n]));
+    v2 = widen(static_cast<const A2V*>(p.a2)[row * p.a2_stride + j]);
   }
-  const float lr = p.scale ? p.lr * p.scale[row] : p.lr;
-  p.out[i] = wv - lr * step;
+  const float lr = p.lr * row_scale(p, row);
+  float r[2];
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    float step = gv.v[c];
+    if (p.mu1 != 0.f) step += p.mu1 * (wv.v[c] - v1.v[c]);
+    if (p.mu2 != 0.f) step += p.mu2 * (wv.v[c] - v2.v[c]);
+    r[c] = wv.v[c] - lr * step;
+  }
+  WV* out = reinterpret_cast<WV*>(p.out);
+  if constexpr (V == 2) {
+    out[o] = make_float2(r[0], r[1]);
+  } else {
+    out[o] = r[0];
+  }
 }
 
 template <typename TA1, typename TA2>
-cudaError_t launch(const Args& p, int A, cudaStream_t stream) {
-  const dim3 grid((unsigned)((p.N + kThreads - 1) / kThreads), (unsigned)A);
-  dual_proximal_sgd_kernel<TA1, TA2><<<grid, kThreads, 0, stream>>>(p);
+cudaError_t launch(Args p, int flags, bool vec2, cudaStream_t stream) {
+  const int V = vec2 ? 2 : 1;
+  p.units /= V;
+  p.a1_stride = flags & kA1Bcast ? 0 : p.units;
+  p.a2_stride = flags & kA2Bcast ? 0 : p.units;
+  const int64_t tiles = (p.units + kThreads - 1) / kThreads;
+  const int64_t per_super = kSuperCols / (kThreads * V);
+  const int64_t supers = (tiles + per_super - 1) / per_super;
+  if (p.A > 65535 || supers > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(tiles < per_super ? tiles : per_super),
+                  (unsigned)p.A, (unsigned)supers);
+  if (vec2) {
+    dual_proximal_sgd_kernel<TA1, TA2, 2>
+        <<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    dual_proximal_sgd_kernel<TA1, TA2, 1>
+        <<<grid, kThreads, 0, stream>>>(p);
+  }
   return cudaGetLastError();
+}
+
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 == cudaSuccess).
-// a1_bf16 / a2_bf16 select the anchors' dtypes (0: fp32, 1: bf16); the
-// caller checks shapes, dtypes, devices and contiguity and guarantees
-// 1 <= A <= 65535 and N >= 1.
+// flags: bit 0 / 1 a1 / a2 in bf16 (else fp32); bit 2 / 3 a1 / a2 one
+// broadcast (N,) row (else (A, N)); bits 4-5 the scale's kind: 0 none,
+// 1 fp32 scale (A,), 2 / 3 int32 / int64 active_steps (A,), compared with
+// step.  The caller checks shapes, dtypes, devices and contiguity and
+// guarantees 1 <= A <= 65535 and N >= 1.
 extern "C" int repro_dual_proximal_sgd(void* out, const void* w, const void* g,
-                                       const void* a1, long long a1_stride,
-                                       int a1_bf16, const void* a2,
-                                       long long a2_stride, int a2_bf16,
-                                       const void* scale, int A, long long N,
-                                       float lr, float mu1, float mu2,
-                                       void* stream) {
+                                       const void* a1, const void* a2,
+                                       const void* scale, long long step,
+                                       int A, long long N, float lr, float mu1,
+                                       float mu2, int flags, void* stream) {
   Args p{static_cast<float*>(out), static_cast<const float*>(w),
-         static_cast<const float*>(g), a1, (int64_t)a1_stride, a2,
-         (int64_t)a2_stride, static_cast<const float*>(scale), (int64_t)N,
-         lr, mu1, mu2};
+         static_cast<const float*>(g), a1, 0, a2, 0, scale,
+         (flags >> kScaleShift) & 3, step, A, (int64_t)N, lr, mu1, mu2};
+  const int s1 = flags & kA1Bf16 ? 4 : 8, s2 = flags & kA2Bf16 ? 4 : 8;
+  const bool vec2 = N % 2 == 0 && aligned(out, 8) && aligned(w, 8) &&
+                    aligned(g, 8) && aligned(a1, s1) && aligned(a2, s2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a1_bf16) {
-    return a2_bf16 ? (int)launch<__nv_bfloat16, __nv_bfloat16>(p, A, s)
-                   : (int)launch<__nv_bfloat16, float>(p, A, s);
+  if (flags & kA1Bf16) {
+    return flags & kA2Bf16
+               ? (int)launch<__nv_bfloat16, __nv_bfloat16>(p, flags, vec2, s)
+               : (int)launch<__nv_bfloat16, float>(p, flags, vec2, s);
   }
-  return a2_bf16 ? (int)launch<float, __nv_bfloat16>(p, A, s)
-                 : (int)launch<float, float>(p, A, s);
+  return flags & kA2Bf16 ? (int)launch<float, __nv_bfloat16>(p, flags, vec2, s)
+                         : (int)launch<float, float>(p, flags, vec2, s);
 }

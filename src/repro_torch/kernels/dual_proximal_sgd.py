@@ -5,9 +5,11 @@ wrapper around the CUDA kernel ``csrc/dual_proximal_sgd.cu``.
 
 The contract is the TPU kernel's (``repro.kernels.dual_proximal_sgd``)
 plus two things the flat engine's inline step needs: a per-row step scale
-(its ``live`` mask) and anchors that may be one ``(N,)`` row broadcast over
-the ``A`` rows of ``w`` (the cloud master).  With no scale and full-shape
-anchors it is the TPU kernel.
+and anchors that may be one ``(N,)`` row broadcast over the ``A`` rows of
+``w`` (the cloud master).  The scale is either a float ``(A,)`` tensor or
+the engine's integer ``active_steps`` with the step index, from which the
+kernel forms ``live = (step < active_steps)`` itself.  With no scale and
+full-shape anchors it is the TPU kernel.
 
 Takes CUDA tensors only and raises on anything else; ``kernels/ops``
 routes CPU tensors to ``kernels/ref``.  ``launches`` counts launches.
@@ -21,22 +23,31 @@ import torch
 from repro_torch.kernels import _lib
 
 ANCHOR_DTYPES = (torch.float32, torch.bfloat16)
-MAX_ROWS = 65535        # the kernel puts rows on gridDim.y
+STEP_DTYPES = {torch.int32: 2, torch.int64: 3}   # the kernel's scale kinds
+MAX_ROWS = 65535        # row groups go on gridDim.y, at least one row each
 
 launches: Dict[str, int] = {"dual_proximal_sgd": 0}
 
+# flags of repro_dual_proximal_sgd: a1's bf16 and broadcast bits; a2's
+# are the same shifted left by one; the scale's kind from bit 4
+_A1_BF16, _A1_BCAST = 1, 4
+_SCALE_SHIFT = 4
 
-def _anchor_stride(a: torch.Tensor, name: str, rows: int, n: int,
-                   device: torch.device) -> int:
-    if a.device != device:
-        raise ValueError(f"{name}: expected {device}, got {a.device}")
+
+def _anchor_flags(a: torch.Tensor, name: str, rows: int, n: int,
+                  dev: int) -> int:
+    """0 for a full (rows, n) fp32 anchor, plus _A1_BF16 for bf16 and
+    _A1_BCAST for one broadcast (n,) row (shifted by the caller for a2)."""
+    if a.get_device() != dev:
+        raise ValueError(f"{name}: expected cuda:{dev}, got {a.device}")
     if a.dtype not in ANCHOR_DTYPES or not a.is_contiguous():
         raise ValueError(f"{name}: want a contiguous fp32|bf16 tensor, got "
                          f"{a.dtype} (contiguous={a.is_contiguous()})")
-    if tuple(a.shape) == (rows, n):
-        return n
-    if tuple(a.shape) in ((n,), (1, n)):
-        return 0
+    flags = _A1_BF16 if a.dtype == torch.bfloat16 else 0
+    if a.shape == (rows, n):
+        return flags
+    if a.shape in ((n,), (1, n)):
+        return flags | _A1_BCAST
     raise ValueError(f"{name}: shape {tuple(a.shape)} is neither "
                      f"{(rows, n)} nor a broadcast ({n},) row")
 
@@ -44,44 +55,62 @@ def _anchor_stride(a: torch.Tensor, name: str, rows: int, n: int,
 def dual_proximal_sgd(w: torch.Tensor, g: torch.Tensor, a1: torch.Tensor,
                       a2: torch.Tensor, *, lr: float, mu1: float, mu2: float,
                       scale: Optional[torch.Tensor] = None,
+                      active_steps: Optional[torch.Tensor] = None,
+                      step: int = 0,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused update of fp32 ``w`` (any shape; rows are its first axis when
-    2-D).  ``out`` may be ``w`` itself (in-place update); otherwise a new
-    tensor is allocated."""
-    dev = w.device
-    if dev.type != "cuda":
-        raise ValueError(f"dual_proximal_sgd: w must be on cuda, got {dev}")
+    2-D).  The row scale is ``scale`` (float32 (A,)), or ``step <
+    active_steps`` (int32 or int64 (A,)), or 1; not both.  ``out`` may be
+    ``w`` itself (in-place update); otherwise a new tensor is allocated.
+    One launch; each operand is checked once."""
+    dev = w.get_device()
+    if dev < 0:
+        raise ValueError(f"dual_proximal_sgd: w must be on cuda, got "
+                         f"{w.device}")
     if w.dtype != torch.float32 or g.dtype != torch.float32:
         raise ValueError("dual_proximal_sgd: w and g must be float32")
-    if g.shape != w.shape or g.device != dev:
+    if g.shape != w.shape or g.get_device() != dev:
         raise ValueError("dual_proximal_sgd: g must match w")
     if not (w.is_contiguous() and g.is_contiguous()):
         raise ValueError("dual_proximal_sgd: w and g must be contiguous")
-    rows, n = (w.shape[0], w[0].numel()) if w.dim() == 2 else (1, w.numel())
+    rows, n = (w.shape[0], w.shape[1]) if w.dim() == 2 else (1, w.numel())
     if not (1 <= rows <= MAX_ROWS and n >= 1):
         raise ValueError(f"dual_proximal_sgd: unsupported shape "
                          f"{tuple(w.shape)}")
     if w.dim() != 2:        # one row: anchors must match w's shape
         a1, a2 = a1.reshape(-1), a2.reshape(-1)
-    s1 = _anchor_stride(a1, "a1", rows, n, dev)
-    s2 = _anchor_stride(a2, "a2", rows, n, dev)
+    flags = (_anchor_flags(a1, "a1", rows, n, dev)
+             | _anchor_flags(a2, "a2", rows, n, dev) << 1)
+    if scale is not None and active_steps is not None:
+        raise ValueError("dual_proximal_sgd: pass scale or active_steps, "
+                         "not both")
     if scale is not None:
-        if (tuple(scale.shape) != (rows,) or scale.dtype != torch.float32
-                or scale.device != dev or not scale.is_contiguous()):
-            raise ValueError(f"dual_proximal_sgd: scale must be a "
-                             f"contiguous float32 ({rows},) tensor on {dev}")
+        row_scale, what = scale, "float32 scale"
+        kind = 1 if scale.dtype == torch.float32 else 0
+    elif active_steps is not None:
+        row_scale, what = active_steps, "int32|int64 active_steps"
+        kind = STEP_DTYPES.get(active_steps.dtype, 0)
+    else:
+        row_scale = None
+    if row_scale is not None:
+        if (not kind or row_scale.shape != (rows,)
+                or row_scale.get_device() != dev
+                or not row_scale.is_contiguous()):
+            raise ValueError(
+                f"dual_proximal_sgd: want a contiguous ({rows},) {what} on "
+                f"cuda:{dev}, got {row_scale.dtype} "
+                f"{tuple(row_scale.shape)} on {row_scale.device}")
+        flags |= kind << _SCALE_SHIFT
     if out is None:
         out = torch.empty_like(w)
     elif (out.shape != w.shape or out.dtype != torch.float32
-          or out.device != dev or not out.is_contiguous()):
+          or out.get_device() != dev or not out.is_contiguous()):
         raise ValueError("dual_proximal_sgd: out must match w")
     rc = _lib.library().repro_dual_proximal_sgd(
-        out.data_ptr(), w.data_ptr(), g.data_ptr(),
-        a1.data_ptr(), s1, int(a1.dtype == torch.bfloat16),
-        a2.data_ptr(), s2, int(a2.dtype == torch.bfloat16),
-        None if scale is None else scale.data_ptr(), rows, n,
-        float(lr), float(mu1), float(mu2),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), w.data_ptr(), g.data_ptr(), a1.data_ptr(),
+        a2.data_ptr(), None if row_scale is None else row_scale.data_ptr(),
+        int(step), rows, n, float(lr), float(mu1), float(mu2), flags,
+        torch._C._cuda_getCurrentRawStream(dev))
     _lib.check(rc, "dual_proximal_sgd")
     launches["dual_proximal_sgd"] += 1
     return out

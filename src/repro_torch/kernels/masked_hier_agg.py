@@ -1,22 +1,23 @@
 """Masked hierarchical aggregation on the card (paper Alg. 2 l.8 / Alg. 3
-l.6): wrappers around the CUDA kernel ``csrc/fused_agg_blend.cu``.
+l.6): wrappers around the CUDA kernels of ``csrc/fused_agg_blend.cu``.
 
-One kernel serves every entry point here.  With a previous buffer it is
-the fused aggregate-and-blend of ``repro.kernels.masked_hier_agg.
-_fused_agg_blend``,
+The ring kernel serves the entry points with a previous buffer: the fused
+aggregate-and-blend of ``repro.kernels.masked_hier_agg._fused_agg_blend``,
 
     out[r, n] = guard[r] ? (retained[r]*buf[r, n] + sum_i W_i[r, :] @ X_i[:, n])
                              / safe[r]
                          : buf[r, n]
 
-(``agg_blend``: RSU layer plus mass guard; ``cloud_blend``: R -> 1 plus
-keep guard into the fp32 master; ``agg_absorb``: the async tick's two
-cohorts plus the retained buffer).  Without one it is the plain
-``(R, A) @ (A, N)`` of ``weighted_agg_matmul`` (``masked_hier_agg`` and
-``cloud_agg``, the ``fused=False`` path).  The small weight matrices and
-the ``coef`` rows ``[retained | safe | guard]`` come from
-``core.aggregation`` on the device; W stays fp32 and the kernel
-accumulates in fp32 whatever the fleet dtype.
+``agg_blend`` (RSU layer plus mass guard) and ``cloud_blend`` (R -> 1 plus
+keep guard into the fp32 master) are one launch each: the kernel builds
+the normalized weights, the masses and the guard on the device from the
+engine's (weights, mask, rsu_assign) or RSU masses.  ``agg_absorb`` (the
+async tick's two cohorts plus the retained buffer) hands it the weight
+matrices and the ``coef`` rows ``[retained | safe | guard]`` from
+``core.aggregation``.  The matmul kernels serve the plain ``(R, A) @ (A,
+N)`` of ``weighted_agg_matmul`` (``masked_hier_agg`` and ``cloud_agg``,
+the ``fused=False`` path).  W stays fp32 and the kernels accumulate in
+fp32 whatever the fleet dtype.
 
 Every function takes CUDA tensors only and raises on anything else; the
 CPU route is ``kernels/ops``' choice of ``kernels/ref``.  ``launches``
@@ -36,6 +37,10 @@ from repro_torch.kernels import _lib
 FLEET_DTYPES = (torch.float32, torch.bfloat16)
 _W_DTYPES = (torch.float32,)
 SMEM_BYTES = 232_448    # shared memory a block may opt into on sm_90
+RING_MIN_BYTES = 8192   # the ring kernel's copy ring at its fewest threads
+_MASK_KINDS = {torch.float32: 1, torch.bool: 2}      # the kernel's codes
+_ASSIGN_KINDS = {torch.int32: 1, torch.int64: 2}
+_MASK_DTYPES, _ASSIGN_DTYPES = tuple(_MASK_KINDS), tuple(_ASSIGN_KINDS)
 
 launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
                             "agg_absorb": 0, "weighted_agg_matmul": 0}
@@ -56,25 +61,44 @@ def _require(t: torch.Tensor, name: str, shape: Tuple[int, ...],
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _row_chunk(R: int, sizes) -> int:
+    """The kernels' chunk of rows: the smallest of ``sizes`` that holds R,
+    else the largest (R is then done in chunks)."""
+    return next((c for c in sizes if R <= c), sizes[-1])
+
+
 def _check_smem(entry: str, R: int, n_agents: int) -> None:
-    """The kernel stages a (row chunk x agents) weight tile in shared
-    memory, the chunk the smallest of 1, 2, 4, 8, 16 that holds R."""
-    row_chunk = 1 if R <= 1 else 2 if R <= 2 else 4 if R <= 4 else (
-        8 if R <= 8 else 16)
+    """The matmul kernels stage a (row chunk x agents) weight tile in
+    shared memory, the chunk the smallest of 1, 2, 4, 8, 16 that holds R."""
+    row_chunk = _row_chunk(R, (1, 2, 4, 8, 16))
     if row_chunk * n_agents * 4 > SMEM_BYTES:
         raise ValueError(f"{entry}: {n_agents} agents x {row_chunk} rows of "
                          f"weights exceed {SMEM_BYTES} bytes of shared memory")
 
 
-def _launch(entry: str, coef: Optional[torch.Tensor],
+def _check_ring_smem(entry: str, R: int, n_agents: int,
+                     build: bool) -> None:
+    """The ring kernel keeps a (row chunk x agents) weight tile, 4 floats a
+    row, (``build``) 8 bytes an agent and its ring (at least
+    RING_MIN_BYTES) in shared memory, the chunk the smallest of 1, 2, 4,
+    8, 12, 16 that holds R."""
+    row_chunk = _row_chunk(R, (1, 2, 4, 8, 12, 16))
+    need = ((row_chunk + 2 * build) * n_agents + 4 * row_chunk) * 4
+    if need + RING_MIN_BYTES > SMEM_BYTES:
+        raise ValueError(f"{entry}: {n_agents} agents x {row_chunk} rows of "
+                         f"weights and the copy ring exceed {SMEM_BYTES} "
+                         f"bytes of shared memory")
+
+
+def _launch(entry: str, coef: torch.Tensor,
             weight_mats: Sequence[torch.Tensor],
-            stackeds: Sequence[torch.Tensor], buf: Optional[torch.Tensor],
+            stackeds: Sequence[torch.Tensor], buf: torch.Tensor,
             out: torch.Tensor) -> torch.Tensor:
-    """Check every operand and launch ``repro_fused_agg_blend`` on the
-    current stream.  The caller allocated ``out`` (contiguous, (R, N), on
-    X's device), so only its dtype is checked.  The launch path of the
-    three fused entry points: it makes each check once and nothing more,
-    and reads the stream raw rather than through a Stream object."""
+    """Check every operand and launch ``repro_fused_agg_blend`` (the coef
+    form) on the current stream.  The caller allocated ``out`` (contiguous,
+    (R, N), on X's device), so only its dtype is checked.  It makes each
+    check once and nothing more, and reads the stream raw rather than
+    through a Stream object."""
     n_pairs = len(weight_mats)
     if n_pairs not in (1, 2) or len(stackeds) != n_pairs:
         raise ValueError(f"{entry}: want 1 or 2 (W, X) pairs")
@@ -95,25 +119,20 @@ def _launch(entry: str, coef: Optional[torch.Tensor],
         _require(w, f"W_{i}", (R, a), _W_DTYPES, dev)
         _require(x, f"X_{i}", (a, N), (x_dtype,), dev)
         n_agents += a
-    if buf is not None:
-        _require(coef, "coef", (R, 3), _W_DTYPES, dev)
-        _require(buf, "buf", (R, N), (out.dtype,), dev)
-        if out.dtype not in (x_dtype, torch.float32):
-            raise ValueError(f"{entry}: out dtype {out.dtype} must be X's "
-                             f"({x_dtype}) or float32")
-    elif n_pairs != 1 or out.dtype != x_dtype:
-        raise ValueError(f"{entry}: without a buffer the kernel takes one "
-                         f"pair and writes X's dtype")
-    _check_smem(entry, R, n_agents)
+    _require(coef, "coef", (R, 3), _W_DTYPES, dev)
+    _require(buf, "buf", (R, N), (out.dtype,), dev)
+    if out.dtype not in (x_dtype, torch.float32):
+        raise ValueError(f"{entry}: out dtype {out.dtype} must be X's "
+                         f"({x_dtype}) or float32")
+    _check_ring_smem(entry, R, n_agents, build=False)
     w2, x2 = (weight_mats[1], stackeds[1]) if n_pairs == 2 else (None, None)
     rc = _lib.library().repro_fused_agg_blend(
-        None if coef is None else coef.data_ptr(),
-        weight_mats[0].data_ptr(), stackeds[0].data_ptr(),
+        coef.data_ptr(), weight_mats[0].data_ptr(), stackeds[0].data_ptr(),
         weight_mats[0].shape[1],
         None if w2 is None else w2.data_ptr(),
         None if x2 is None else x2.data_ptr(),
         0 if w2 is None else w2.shape[1],
-        None if buf is None else buf.data_ptr(), out.data_ptr(), R, N,
+        buf.data_ptr(), out.data_ptr(), R, N,
         x_dtype == torch.bfloat16, out.dtype == torch.bfloat16,
         torch._C._cuda_getCurrentRawStream(dev))
     _lib.check(rc, "fused_agg_blend")
@@ -128,6 +147,56 @@ def _fused_agg_blend(coef: torch.Tensor, weight_mats, stackeds,
     return _launch(entry, coef.contiguous(),
                    [w.contiguous() for w in weight_mats], list(stackeds),
                    buf, torch.empty_like(buf))
+
+
+def _agg_blend_launch(entry: str, x: torch.Tensor, weights: torch.Tensor,
+                      mask: Optional[torch.Tensor],
+                      assign: Optional[torch.Tensor], R: int,
+                      prev: torch.Tensor, out: torch.Tensor,
+                      mass: Optional[torch.Tensor]) -> None:
+    """Check every operand once and launch ``repro_agg_blend``, which
+    builds the normalized weights on the device: ``out = where(mass > 0,
+    (wm / mass) @ X, prev)`` with ``wm[r, a] = [assign[a] == r] *
+    weights[a] * mask[a]`` (``assign`` None: every row of X on row 0;
+    ``mask`` None: ones), ``mass`` its row sums.  ``prev`` is (R, N), or
+    (N,) when R is 1; ``out`` was allocated like it."""
+    dev = x.get_device()
+    if dev < 0:
+        raise ValueError(f"{entry}: expected CUDA tensors, got {x.device}")
+    if x.dim() != 2 or x.dtype not in FLEET_DTYPES or not x.is_contiguous():
+        raise ValueError(f"{entry}: X must be a contiguous (A, N) "
+                         f"{FLEET_DTYPES} tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    A, N = x.shape
+    if A < 1 or N < 1 or R < 1:
+        raise ValueError(f"{entry}: empty operand X {tuple(x.shape)}, "
+                         f"{R} rows")
+    _require(weights, "weights", (A,), _W_DTYPES, dev)
+    flags = int(x.dtype == torch.bfloat16) | (
+        int(prev.dtype == torch.bfloat16) << 1)
+    if mask is not None:
+        _require(mask, "mask", (A,), _MASK_DTYPES, dev)
+        flags |= _MASK_KINDS[mask.dtype] << 2
+    if assign is not None:
+        _require(assign, "rsu_assign", (A,), _ASSIGN_DTYPES, dev)
+        flags |= _ASSIGN_KINDS[assign.dtype] << 4
+    _require(prev, "prev", (R, N) if prev.dim() == 2 else (N,),
+             FLEET_DTYPES, dev)
+    if prev.dim() == 1 and R != 1:
+        raise ValueError(f"{entry}: a 1-D prev needs one row, got {R}")
+    if prev.dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"{entry}: prev dtype {prev.dtype} must be X's "
+                         f"({x.dtype}) or float32")
+    _check_ring_smem(entry, R, A, build=True)
+    rc = _lib.library().repro_agg_blend(
+        x.data_ptr(), weights.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if assign is None else assign.data_ptr(), A, R, N,
+        prev.data_ptr(), out.data_ptr(),
+        None if mass is None else mass.data_ptr(), flags,
+        torch._C._cuda_getCurrentRawStream(dev))
+    _lib.check(rc, "agg_blend")
+    launches[entry] += 1
 
 
 def weighted_agg_matmul(weight_matrix: torch.Tensor,
@@ -183,14 +252,18 @@ def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:
 
 def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
     """Fused RSU aggregation + mass guard:
-    ``out[r] = mass[r] > 0 ? W_norm[r] @ X : prev[r]``.
+    ``out[r] = mass[r] > 0 ? W_norm[r] @ X : prev[r]``, one launch that
+    builds W_norm and mass on the device.  ``weights`` (A,) float32,
+    ``mask`` (A,) bool or float32, ``rsu_assign`` (A,) int64 or int32.
     Returns (rsu' (R, N) in prev's dtype, mass (R,))."""
-    W = build_weight_matrix(weights, mask, rsu_assign, n_rsus)
-    mass = cohort_mass(weights, mask, rsu_assign, n_rsus)
-    coef = torch.stack([torch.zeros_like(mass), torch.ones_like(mass),
-                        (mass > 0).float()], dim=1)
-    out = _fused_agg_blend(coef, (W,), (stacked_flat,), prev,
-                           entry="agg_blend")
+    if weights.dtype != torch.float32:
+        weights = weights.float()
+    if mask.dtype not in _MASK_KINDS:
+        mask = mask.float()
+    out = torch.empty_like(prev)
+    mass = prev.new_empty(n_rsus, dtype=torch.float32)
+    _agg_blend_launch("agg_blend", stacked_flat, weights, mask, rsu_assign,
+                      n_rsus, prev, out, mass)
     return out, mass
 
 
@@ -222,14 +295,12 @@ def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
 
 def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
     """Fused cloud aggregation + keep guard:
-    ``sum(mass) > 0 ? wn @ rsu_flat : prev``; out dtype follows ``prev``
-    (the fp32 cloud master)."""
-    w = rsu_weights.float()
-    total = w.sum()
-    wn = torch.where(total > 0,
-                     w / torch.where(total > 0, total, torch.ones_like(total)),
-                     torch.zeros_like(w))
-    coef = torch.stack([torch.zeros_like(total), torch.ones_like(total),
-                        (total > 0).float()])[None, :]
-    return _fused_agg_blend(coef, (wn[None, :],), (rsu_flat,), prev[None, :],
-                            entry="cloud_blend")[0]
+    ``sum(mass) > 0 ? wn @ rsu_flat : prev``, one launch that normalizes
+    the RSU masses on the device; out dtype follows ``prev`` (the fp32
+    cloud master)."""
+    if rsu_weights.dtype != torch.float32:
+        rsu_weights = rsu_weights.float()
+    out = torch.empty_like(prev)
+    _agg_blend_launch("cloud_blend", rsu_flat, rsu_weights, None, None, 1,
+                      prev, out, None)
+    return out

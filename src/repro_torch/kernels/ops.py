@@ -22,13 +22,18 @@ from repro_torch.kernels import slstm_scan as _ss
 
 def dual_proximal_sgd(w, g, a1, a2, *, lr: float, mu1: float, mu2: float,
                       scale: Optional[torch.Tensor] = None,
+                      active_steps: Optional[torch.Tensor] = None,
+                      step: int = 0,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Eq. 6 step; ``out=w`` updates in place."""
+    """Eq. 6 step; the row scale is ``scale`` or ``step < active_steps``;
+    ``out=w`` updates in place."""
     if w.is_cuda:
         return _dps.dual_proximal_sgd(w, g, a1, a2, lr=lr, mu1=mu1, mu2=mu2,
-                                      scale=scale, out=out)
+                                      scale=scale, active_steps=active_steps,
+                                      step=step, out=out)
     res = ref.dual_proximal_sgd_ref(w, g, a1, a2, lr=lr, mu1=mu1, mu2=mu2,
-                                    scale=scale)
+                                    scale=scale, active_steps=active_steps,
+                                    step=step)
     return res if out is None else out.copy_(res)
 
 

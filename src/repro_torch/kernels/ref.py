@@ -75,14 +75,19 @@ def slstm_scan_ref(wx, r_gates, b_gates) -> torch.Tensor:
 
 
 def dual_proximal_sgd_ref(w, g, a1, a2, *, lr: float, mu1: float,
-                          mu2: float, scale=None) -> torch.Tensor:
+                          mu2: float, scale=None, active_steps=None,
+                          step: int = 0) -> torch.Tensor:
     """w - lr*(g + mu1*(w - a1) + mu2*(w - a2)); ``scale`` (A,) multiplies
-    each row's lr (the flat engine's ``live`` mask), and ``a1`` / ``a2``
-    broadcast against ``w`` (an (N,) row serves every agent)."""
+    each row's lr, or ``active_steps`` (A,) with ``step`` gives the flat
+    engine's inline mask ``live = (step < active_steps)`` in its place;
+    ``a1`` / ``a2`` broadcast against ``w`` (an (N,) row serves every
+    agent)."""
+    if active_steps is not None:
+        scale = (step < active_steps).float()
     wf = w.float()
-    step = g.float() + mu1 * (wf - a1.float()) + mu2 * (wf - a2.float())
+    step_v = g.float() + mu1 * (wf - a1.float()) + mu2 * (wf - a2.float())
     lr_t = lr if scale is None else lr * scale.float()[:, None]
-    return (wf - lr_t * step).to(w.dtype)
+    return (wf - lr_t * step_v).to(w.dtype)
 
 
 def weighted_agg_matmul_ref(weight_matrix, stacked) -> torch.Tensor:

@@ -7,6 +7,7 @@ faked."""
 from __future__ import annotations
 
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
@@ -50,12 +51,13 @@ def test_ptxas_lines_name_their_kernel():
 
 # the functions that run each phase after the build, by name
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
-                 "main_path", "serving_path", "xlstm_serving")
+                 "flat_round", "main_path", "serving_path", "xlstm_serving")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
                                        ("--scan", ["slstm_cases"]),
-                                       ("--agg", ["aggregation_cases"])])
+                                       ("--agg", ["aggregation_cases"]),
+                                       ("--round", ["flat_round"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -80,6 +82,7 @@ def test_phase_selection():
     assert "5" in cs.FULL_RUN
     assert cs.selected_phases(["--scan"]) == ("1", "2c")
     assert cs.selected_phases(["--attention"]) == ("1", "2b")
+    assert cs.selected_phases(["--round"]) == ("1", "3r")
     with pytest.raises(SystemExit):
         cs.selected_phases(["--scan", "--attention"])
     with pytest.raises(SystemExit):
@@ -91,3 +94,64 @@ def test_no_card_exits_nonzero_without_a_result(monkeypatch, capsys):
     monkeypatch.setattr(cs.torch.cuda, "is_available", lambda: False)
     assert cs.main([]) != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
+
+
+def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
+    """The full run's kernels line has all five kernels with every key the
+    contract names, the launches of the main path's run beside each, then
+    the card's line and the result line; checked with the card and the
+    phases faked."""
+    cs = _chip_smoke()
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+    def agg_row(kernel, entry, **extra):
+        return {"kernel": kernel, "entry": entry, "shape": "main", "A": 20,
+                "R": 4, "N": 31_810, "dtype": "float32", "max_abs_err": 1e-7,
+                "ms": 0.02, "plain_ms": 0.1, "bound_ms": 0.001,
+                "bound_by": "bytes", "library_ms": None, "device_ms": 0.003,
+                "host_us": 12.0, **extra}
+    rows = [agg_row("fused_agg_blend", "agg_blend", library_ms=0.06),
+            agg_row("fused_agg_blend", "agg_blend_coef"),
+            agg_row("weighted_agg_matmul", "weighted_agg_matmul",
+                    library_ms=0.016),
+            agg_row("dual_proximal_sgd", "scaled_broadcast")]
+    attn = [{"entry": "prefill", "max_abs_err": 4e-3, "ms": 2.6,
+             "plain_ms": 126.0, "bound_ms": 1.1, "bound_by": "operations",
+             "library_ms": 1.7, "shape": {}, "dtype": "bfloat16"}]
+    scan = [{"entry": "layer", "r_dtype": "bfloat16", "max_abs_err": 4e-7,
+             "ms": 8.7, "plain_ms": 3000.0, "bound_ms": 0.58,
+             "bound_by": "operations", "shape": {}, "latency_floor_ms": 4.3}]
+    counts = {"agg_blend": 40, "cloud_blend": 10, "agg_absorb": 0,
+              "weighted_agg_matmul": 0, "dual_proximal_sgd": 120}
+    monkeypatch.setattr(cs.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cs.torch.cuda, "get_device_name", lambda i=0: card)
+    monkeypatch.setattr(cs.torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(cs, "device_and_build", lambda: ("cuda", card))
+    monkeypatch.setattr(cs, "aggregation_cases", lambda dev: rows)
+    monkeypatch.setattr(cs, "attention_cases", lambda dev: attn)
+    monkeypatch.setattr(cs, "slstm_cases", lambda dev: scan)
+    monkeypatch.setattr(cs, "main_path", lambda dev: {
+        "main": counts, "unfused": dict(counts, weighted_agg_matmul=5)})
+    monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
+    monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
+    monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
+        "the full run profiles its round inside the main path"))
+    assert cs.main([]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2] == card
+    assert json.loads(lines[-1])["device"] == {"platform": "gpu",
+                                               "kind": card, "count": 1}
+    kernels = json.loads(lines[-3])["kernels"]
+    assert [k["name"] for k in kernels] == [
+        "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
+        "flash_attention", "slstm_scan"]
+    for k in kernels:
+        assert KERNEL_KEYS <= set(k), k["name"]
+    assert [k["launches"] for k in kernels] == [50, 5, 120, 28, 3]
+    assert kernels[0]["entry"] == "agg_blend"
+    assert kernels[2]["host_us"] == 12.0

@@ -110,11 +110,14 @@ def test_cuda_weighted_agg_matmul_refuses_what_it_does_not_take(cuda):
     torch.cuda.synchronize()
 
 
+# N % 4 == 2 (the engines' shapes), N % 4 == 0, and odd N (the scalar
+# variant)
 @pytest.mark.gpu
+@pytest.mark.parametrize("N", [31_810, 31_812, 31_811])
 @pytest.mark.parametrize("anchor_dtype", [torch.float32, torch.bfloat16])
-def test_cuda_dual_proximal_sgd_matches_plain(cuda, anchor_dtype):
+def test_cuda_dual_proximal_sgd_matches_plain(cuda, anchor_dtype, N):
     g_ = torch.Generator(device=cuda).manual_seed(0)
-    A, N = 20, 31_810
+    A = 20
     w, g, a1 = (torch.randn(A, N, device=cuda, generator=g_) for _ in range(3))
     a1 = a1.to(anchor_dtype)
     a2 = torch.randn(N, device=cuda, generator=g_).to(anchor_dtype)
@@ -124,6 +127,133 @@ def test_cuda_dual_proximal_sgd_matches_plain(cuda, anchor_dtype):
         got = tdps.dual_proximal_sgd(w, g, a1, anchor2, scale=scale, **kw)
         want = ref.dual_proximal_sgd_ref(w, g, a1, anchor2, scale=scale, **kw)
         torch.testing.assert_close(got, want, **UPDATE)
+    torch.cuda.synchronize()
+
+
+# A = 1, the largest A the wrapper takes (MAX_ROWS, at a small N), a row
+# count that leaves a partial group of rows in flight, and a perception-
+# wide row (one row group, the broadcast anchor read once)
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,N", [(1, 1000), (1, 999), (tdps.MAX_ROWS, 6),
+                                 (7, 40_002), (3, 1_000_002)])
+def test_cuda_dual_proximal_sgd_rows_in_place_and_steps(cuda, A, N):
+    """In place (``out=w``), the flat engine's ``active_steps``/``step``
+    form bitwise equal to the float ``scale`` form it replaces, int32 and
+    int64 steps, and a w whose rows are not 8-byte aligned (the scalar
+    variant)."""
+    g_ = torch.Generator(device=cuda).manual_seed(A)
+    w, g, a1 = (torch.randn(A, N, device=cuda, generator=g_) for _ in range(3))
+    a2 = torch.randn(N, device=cuda, generator=g_)
+    active = torch.randint(0, 4, (A,), device=cuda, generator=g_,
+                           dtype=torch.int32)
+    kw = dict(lr=0.1, mu1=0.01, mu2=0.005)
+    for step in (0, 2, 5):
+        live = (step < active).float()
+        want = ref.dual_proximal_sgd_ref(w, g, a1, a2, scale=live, **kw)
+        by_scale = tdps.dual_proximal_sgd(w, g, a1, a2, scale=live, **kw)
+        torch.testing.assert_close(by_scale, want, **UPDATE)
+        for steps in (active, active.long()):
+            got = tdps.dual_proximal_sgd(w, g, a1, a2, active_steps=steps,
+                                         step=step, **kw)
+            assert torch.equal(got, by_scale)
+        torch.testing.assert_close(
+            ref.dual_proximal_sgd_ref(w, g, a1, a2, active_steps=active,
+                                      step=step, **kw), want, rtol=0, atol=0)
+        w_in = w.clone()
+        assert tdps.dual_proximal_sgd(w_in, g, a1, a2, active_steps=active,
+                                      step=step, out=w_in, **kw) is w_in
+        assert torch.equal(w_in, by_scale)
+    flat = torch.empty(A * N + 1, device=cuda)[1:]       # 4 bytes off
+    w_off = flat.view(A, N).copy_(w)
+    got = tdps.dual_proximal_sgd(w_off, g, a1, a2, active_steps=active,
+                                 step=0, **kw)
+    torch.testing.assert_close(
+        got, ref.dual_proximal_sgd_ref(w, g, a1, a2, active_steps=active,
+                                       step=0, **kw), **UPDATE)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_dual_proximal_sgd_refuses_what_it_does_not_take(cuda):
+    w = torch.randn(4, 10, device=cuda)
+    a2 = torch.randn(10, device=cuda)
+    steps = torch.ones(4, dtype=torch.int32, device=cuda)
+    kw = dict(lr=0.1, mu1=0.1, mu2=0.1)
+    for bad in (dict(scale=steps.float(), active_steps=steps),
+                dict(active_steps=steps.float()),
+                dict(active_steps=steps[:3]), dict(active_steps=steps.cpu()),
+                dict(scale=steps)):
+        with pytest.raises(ValueError):
+            tdps.dual_proximal_sgd(w, w, w, a2, **kw, **bad)
+    with pytest.raises(ValueError):
+        tdps.dual_proximal_sgd(w, w, w.half(), a2, **kw)
+    with pytest.raises(ValueError):
+        tdps.dual_proximal_sgd(w, w, w, a2[:9], **kw)
+
+
+def _agg_inputs(dev, A, R, N, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(A, N, device=dev, generator=g).to(dtype)
+    prev = torch.randn(R, N, device=dev, generator=g).to(dtype)
+    w = torch.rand(A, device=dev, generator=g) + 0.5
+    mask = torch.rand(A, device=dev, generator=g) < 0.6
+    assign = torch.arange(A, device=dev) % R
+    if R > 1:
+        mask[assign == 0] = False               # RSU 0 keeps its row
+    return x, prev, w, mask, assign
+
+
+# R = 1, the main path's 4, the paper's 10 (12 rows a pass), 16 (one full
+# pass) and 17 (two passes); even and odd N
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,R,N", [(5, 1, 3001), (20, 4, 31_810),
+                                   (100, 10, 31_810), (48, 16, 1000),
+                                   (51, 17, 777), (40, 10, 100_001)])
+def test_cuda_agg_blend_builds_weights_on_device(cuda, dtype, A, R, N):
+    """One launch builds W, mass and the guard from (weights, mask,
+    rsu_assign): the blend matches the plain version, a zero-mass RSU keeps
+    its row bit for bit, mass agrees with ``cohort_mass`` within 1e-6
+    relative, for a bool and a float mask and int64 and int32 RSU ids; an
+    all-zero mask keeps every row."""
+    from repro_torch.core.aggregation import cohort_mass
+    x, prev, w, mask, assign = _agg_inputs(cuda, A, R, N, dtype, A + R + N)
+    tol = F32 if dtype == torch.float32 else BF16
+    want, _ = ref.agg_blend_ref(x, w, mask, assign, R, prev)
+    want_mass = cohort_mass(w, mask, assign, R)
+    for m, a in ((mask, assign), (mask.float(), assign.int())):
+        before = tmha.launches["agg_blend"]
+        got, mass = tmha.agg_blend(x, w, m, a, R, prev)
+        assert tmha.launches["agg_blend"] == before + 1
+        assert got.dtype == dtype and mass.shape == (R,)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if R > 1:
+            assert mass[0] == 0 and torch.equal(got[0], prev[0])
+        torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0)
+    got, mass = tmha.agg_blend(x, w, torch.zeros_like(mask), assign, R, prev)
+    assert torch.equal(got, prev) and not mass.any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", [(4, 31_810), (10, 9_999), (1, 5)])
+def test_cuda_cloud_blend_builds_weights_on_device(cuda, dtype, R, N):
+    """The R -> 1 layer into the fp32 master in one launch: against the
+    plain version, and zero total mass keeps prev bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(R + N)
+    rsu = torch.randn(R, N, device=cuda, generator=g).to(dtype)
+    prev = torch.randn(N, device=cuda, generator=g)
+    mass = torch.rand(R, device=cuda, generator=g)
+    mass[0] = 0.0
+    before = tmha.launches["cloud_blend"]
+    got = tmha.cloud_blend(rsu, mass, prev)
+    assert tmha.launches["cloud_blend"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    torch.testing.assert_close(got, ref.cloud_blend_ref(rsu, mass, prev),
+                               **(F32 if dtype == torch.float32 else BF16))
+    assert torch.equal(tmha.cloud_blend(rsu, torch.zeros_like(mass), prev),
+                       prev)
     torch.cuda.synchronize()
 
 

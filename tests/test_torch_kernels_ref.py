@@ -188,6 +188,35 @@ def test_dual_proximal_sgd_scaled_broadcast_is_flat_engine_step():
     assert torch.equal(tw[1], torch.from_numpy(w[1]))   # live = 0 rows
 
 
+@pytest.mark.parametrize("steps_dtype", [np.int32, np.int64])
+def test_dual_proximal_sgd_active_steps_is_flat_engine_step(steps_dtype):
+    """The ``active_steps``/``step`` form (the kernel forms ``live`` itself)
+    against the reference's inline step, ``live = (step < active_steps)``
+    in jnp, at every step of a local round and in place."""
+    rng = np.random.default_rng(8)
+    A, N, lr, mu1, mu2 = 6, 301, 0.1, 0.01, 0.005
+    w, g, a1 = (rng.standard_normal((A, N)).astype(np.float32)
+                for _ in range(3))
+    a2 = rng.standard_normal(N).astype(np.float32)
+    active = np.array([0, 1, 2, 3, 6, 9], steps_dtype)
+    for step in range(4):
+        live = (step < jnp.asarray(active)).astype(jnp.float32)
+        want = (jnp.asarray(w) - lr * live[:, None]
+                * (jnp.asarray(g) + mu1 * (jnp.asarray(w) - jnp.asarray(a1))
+                   + mu2 * (jnp.asarray(w) - jnp.asarray(a2))))
+        tw = torch.from_numpy(w.copy())
+        out = ops.dual_proximal_sgd(tw, torch.from_numpy(g),
+                                    torch.from_numpy(a1),
+                                    torch.from_numpy(a2), lr=lr, mu1=mu1,
+                                    mu2=mu2,
+                                    active_steps=torch.from_numpy(active),
+                                    step=step, out=tw)
+        assert out is tw
+        _close(tw, want, "f32")
+        dead = torch.from_numpy(step >= active)
+        assert torch.equal(tw[dead], torch.from_numpy(w)[dead])
+
+
 def test_cpu_route_launches_nothing_and_wrappers_refuse_cpu():
     """A CPU tensor takes the plain version (no launch is counted); the
     CUDA wrappers themselves never fall back, they raise."""
@@ -203,3 +232,13 @@ def test_cpu_route_launches_nothing_and_wrappers_refuse_cpu():
         tmha.weighted_agg_matmul(torch.ones(2, 4), x)
     with pytest.raises(ValueError):
         tdps.dual_proximal_sgd(x, x, x, x, lr=0.1, mu1=0.1, mu2=0.1)
+    with pytest.raises(ValueError):
+        tdps.dual_proximal_sgd(x, x, x, x, lr=0.1, mu1=0.1, mu2=0.1,
+                               active_steps=a, step=1, out=x)
+    with pytest.raises(ValueError):
+        tmha.agg_blend(x, w, m.bool(), a, 2, torch.zeros(2, 50))
+    with pytest.raises(ValueError):
+        tmha.cloud_blend(torch.zeros(2, 50), torch.ones(2), torch.zeros(50))
+    with pytest.raises(ValueError):
+        tmha.agg_absorb([(x, w)], a, 2, torch.zeros(2, 50), torch.ones(2))
+    assert not any(ops.launch_counts().values())
