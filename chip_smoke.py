@@ -50,6 +50,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    busy share a round), and 20 calls each of ``agg_blend``,
    ``cloud_blend`` and ``dual_proximal_sgd`` under it: each call must be
    one launch of its kernel and nothing else.
+3b. The semi-async path: the quickstart fleet in the 90%-disconnect
+   regime of ``benchmarks/async_round.py`` (async at CSR 0.25 with
+   max_delay 2, delay_p 0.6, so CSR x P(d=0) = 0.1; staleness decay 0.5,
+   buffer keep 0.5, the per-round cloud cadence; 30 rounds) through
+   ``run_scenario(engine="async")`` on the card, counted: exactly one
+   ``agg_absorb`` launch a tick, one ``cloud_blend`` a round, the update
+   kernel each step.  The mean final accuracy of five draw realizations
+   must not fall below the pre-trained model's (printed beside the flat
+   engine's at CSR 0.1), with every buffer finite.  Then 2 async rounds on
+   the card against the same rounds on the host (plain versions), the
+   card's own draws replayed on both: fp32 buffers within 1e-5, in-flight
+   weights and tick counts equal; again with a bf16 fleet (rounds of one
+   tick, each from the card's state; one bf16 ulp), with ``fused=False``
+   (the scatter-accumulates on the matmul kernel, counted) and with
+   ``cloud_every=3``.  Faults: an empty plan equals ``faults=None`` bit for
+   bit on the card, on the flat and the async engine; under churn, an RSU
+   outage with recovery, NaN poison, scale caught by ``norm_clip`` and
+   stale replay, card and host agree (quarantine counts and blocked mass
+   equal, buffers within 1e-5, the cloud finite) on both engines.  Last,
+   wall, launches and device busy share a round of the async round beside
+   the flat round's at the main and paper fleets, and 20 ``agg_absorb``
+   calls under the profiler: one launch of kernel #1 a call, with the
+   launches and time of the weight building around it.
 4. The serving path: qwen3-0.6b at full width in bf16 with params drawn on
    the card.  ``make_prefill_step`` at B=4, S=8192 (exactly 28
    flash_attention launches a call; ms, tokens/s, peak memory); the serve
@@ -73,15 +96,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    on the card against the host's plain versions (fp32: logits within 1e-3
    and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
    over one prefill call and 8 decode steps.
-5. The kernels' JSON line, the card's line, and the result line.
+5. The kernels' JSON line (each kernel's launches are those of the
+   counted runs of the flat and the async path, also given by path), the
+   card's line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
 1 and phase 2c only (the sLSTM scan kernel's), and ``--agg`` phase 1 and
 phase 2 only (the aggregation and update kernels'), and ``--round`` phase
 1 and the quickstart scenario's global round alone (wall, launches and
-device busy share a round, from the MLP's initial weights); none of them
-prints a result line.
+device busy share a round, from the MLP's initial weights), and
+``--async`` phase 1 and phase 3b; none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -138,9 +163,9 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
-FULL_RUN = ("1", "2", "2b", "2c", "3", "4", "4b", "5")
+FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "4", "4b", "5")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
-         "--agg": ("1", "2"), "--round": ("1", "3r")}
+         "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b")}
 
 
 def selected_phases(argv) -> tuple:
@@ -399,7 +424,7 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
         }
         if "repro_weighted_agg_matmul" in _lib._SIGNATURES:
             args = (W.data_ptr(), x.data_ptr(), out.data_ptr(), R, A, N,
-                    dtype == torch.bfloat16, stream)
+                    3 if dtype == torch.bfloat16 else 0, stream)
             pieces["ctypes call and launch"] = (
                 lambda: _lib.library().repro_weighted_agg_matmul(*args))
         print(f"host: {shape_name} {str(dtype)[6:]} launch-path pieces, us "
@@ -479,23 +504,25 @@ def timed_run(res, params, **kw):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
-    for p in final.cloud_params.values():
-        if not torch.isfinite(p).all():
-            raise AssertionError("non-finite cloud model")
+    if hasattr(final, "cloud_params"):
+        tensors = list(final.cloud_params.values())
+    else:     # the async engine's buffers, in-flight ones included
+        tensors = [final.cloud_flat, final.rsu_flat, final.agent_flat,
+                   final.pending_x, final.rsu_mass, final.cloud_macc]
+    for p in tensors:
+        if not torch.isfinite(p.float()).all():
+            raise AssertionError("non-finite model or buffer")
     if not all(0.0 <= a <= 1.0 for a in hist["acc"]):
         raise AssertionError(f"bad accuracy history {hist['acc']}")
     return final, hist, counts, seconds
 
 
-def main_path(dev):
-    """Phase 3; returns the launch counts of each path's run."""
+def pretrained(dev, spec, what: str):
+    """The biased OEM model of ``spec``'s recipe on the card: (resolved
+    scenario, params, accuracy)."""
     from repro_torch.configs.mnist_mlp import CONFIG
     from repro_torch.fedsim import pretrain_to_target
-    from repro_torch.fedsim.simulator import round_draws
-    from repro_torch.core.heterogeneity import init_conn_state
     from repro_torch.models import mlp
-
-    spec = quickstart_spec()
     res = spec.resolve()
     params = mlp.init_params(CONFIG, torch.Generator().manual_seed(spec.seed),
                              device=dev)
@@ -504,8 +531,18 @@ def main_path(dev):
                                       res.test.y,
                                       target_acc=spec.pretrain_target,
                                       max_epochs=10)
-    print(f"main path: pre-trained (biased) accuracy {pre_acc:.4f} "
+    print(f"{what}: pre-trained (biased) accuracy {pre_acc:.4f} "
           f"({time.perf_counter() - t0:.2f} s)")
+    return res, pre, pre_acc
+
+
+def main_path(dev):
+    """Phase 3; returns the launch counts of each path's run."""
+    from repro_torch.fedsim.simulator import round_draws
+    from repro_torch.core.heterogeneity import init_conn_state
+
+    spec = quickstart_spec()
+    res, pre, pre_acc = pretrained(dev, spec, "main path")
     _, hist, counts, seconds = timed_run(res, pre)
     for r, a in zip(hist["round"], hist["acc"]):
         print(f"main path: global round {int(r):2d}: test acc {a:.4f}")
@@ -580,7 +617,8 @@ def main_path(dev):
     return paths
 
 
-def round_profile(dev, res, params, n: int = 3):
+def round_profile(dev, res, params, n: int = 3,
+                  what: str = "flat round (main path)"):
     """``n`` global rounds of the flat engine on ``res``'s scenario: wall a
     round on the host clock (synchronised, no profiler), then the same
     rounds under ``torch.profiler`` (launches and device busy share a
@@ -603,7 +641,7 @@ def round_profile(dev, res, params, n: int = 3):
     torch.cuda.synchronize()
     print(f"round: {(time.perf_counter() - t0) / n * 1e3:.2f} ms a global "
           f"round (host clock, synchronised, {n} rounds, eval excluded)")
-    print_profile("flat round (main path)", n, *device_profile(one_round, n))
+    print_profile(what, n, *device_profile(one_round, n))
     return state[0]
 
 
@@ -661,6 +699,340 @@ def entry_launches(dev, res, st) -> None:
                 or any(symbol not in k for k in runs)):
             raise AssertionError(f"{name}: want one launch of {symbol} a "
                                  f"call and no other device work")
+
+
+ASYNC_ROUNDS = 30
+
+
+def straggler_specs():
+    """Phase 3b's scenarios: the quickstart fleet in the 90%-disconnect
+    regime of ``benchmarks/async_round.py`` (its defaults: max_delay 2,
+    delay_p 0.6, staleness decay 0.5, buffer keep 0.5).  Async connects at
+    CSR 0.25, so CSR x P(d = 0) = 0.1 arrive on time, as the flat engine's
+    CSR 0.1; 30 rounds (after 10 the plain route's async mean is still
+    below the pre-trained model, after 30 it is above it, PERF.md)."""
+    import dataclasses
+    from repro_torch.core.heterogeneity import HeterogeneityModel
+    spec = quickstart_spec().replace(rounds=ASYNC_ROUNDS)
+    lar = spec.hp.lar
+    het = HeterogeneityModel(csr=0.25, scd=1, lar=lar, max_delay=2,
+                             delay_p=0.6)
+    flat = spec.replace(het=dataclasses.replace(spec.het, csr=0.1))
+    return spec.replace(engine="async", het=het, staleness_decay=0.5,
+                        buffer_keep=0.5, cloud_every=0), flat
+
+
+def fault_plan():
+    """Every fault kind on 2 rounds of 4 ticks: churn, an outage of RSU 1
+    over ticks 2-4 that recovers on tick 5, NaN poison, byzantine scale
+    caught by the norm clip, and stale replay."""
+    from repro_torch.core.faults import (ChurnWindow, CorruptSpec, FaultPlan,
+                                         RsuOutage)
+    return FaultPlan(
+        churn=(ChurnWindow(frac=0.25, start=1, stop=6, seed=1),),
+        outages=(RsuOutage(rsu=1, start=2, stop=5),),
+        corrupt=(CorruptSpec(kind="nan", frac=0.2),
+                 CorruptSpec(kind="scale", frac=0.2, scale=1e4, seed=2),
+                 CorruptSpec(kind="stale", frac=0.2, seed=3)),
+        norm_clip=50.0, seed=4)
+
+
+def card_draws(dev, spec, res, n_rounds):
+    """The card's own per-tick draws for ``n_rounds`` rounds of ``spec``
+    (a CUDA generator): draws[round][tick] = (mask, active_steps,
+    delays) on the card."""
+    from repro_torch.core.heterogeneity import init_conn_state, sample_latency
+    from repro_torch.fedsim.simulator import round_draws
+    A = spec.n_agents
+    spe = res.fed.x.shape[1] // spec.batch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    conn, out = init_conn_state(A, dev), []
+    for _ in range(n_rounds):
+        rd = []
+        for _ in range(spec.hp.lar):
+            conn, mask, act = round_draws(gen, conn, spec.het, spec.hp, A, spe)
+            rd.append((mask, act, sample_latency(gen, A, spec.het, dev)))
+        out.append(rd)
+    return out
+
+
+def _state_diff(card, host, fields, what):
+    """Max |card - host| over ``fields``; raises past (atol, rtol), or on
+    any difference for an exact field (atol None)."""
+    errs = {}
+    for name, (atol, rtol) in fields.items():
+        g = getattr(card, name).cpu().float()
+        w = getattr(host, name).float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite {name} on the card")
+        errs[name] = (g - w).abs().max().item()
+        if atol is None:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: {name} differs ({errs[name]})")
+        elif ((g - w).abs() > atol + rtol * w.abs()).any():
+            raise AssertionError(f"{what}: {name} off by {errs[name]:.3e} "
+                                 f"(atol {atol}, rtol {rtol})")
+    return errs
+
+
+def _to_host(state):
+    """An async state's tensors moved to the host (for the next tick)."""
+    from repro_torch.core.heterogeneity import ConnState
+    return state._replace(
+        conn=ConnState(state.conn.remaining.cpu()),
+        gen=torch.Generator().manual_seed(0),
+        **{k: getattr(state, k).cpu() for k in (
+            "agent_flat", "rsu_flat", "rsu_mass", "cloud_flat", "pending_x",
+            "pending_w", "pending_t", "cloud_macc")})
+
+
+def async_card_vs_host(dev, spec, pre, what, faults=None):
+    """2 rounds of ``spec`` on the card against the same rounds on the
+    host (plain versions), the card's own draws replayed on both, every
+    buffer compared after every round.  fp32: the two rounds run on,
+    buffers within 1e-5.  bf16: rounds of one tick, each from the card's
+    state (a one-ulp difference of a stored row may flip a hidden ReLU
+    unit of an agent that trains from it), buffers within one bf16 ulp.
+    In-flight weights and tick counts exactly equal; with ``faults`` also
+    the quarantine counts and blocked masses.  Returns the card's launch
+    counts."""
+    import dataclasses
+    from repro_torch.core import faults as faults_mod
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.fedsim import async_engine as ae
+    from repro_torch.kernels import ops
+    bf16 = spec.fleet_dtype == "bfloat16"
+    lar = 1 if bf16 else spec.hp.lar
+    s = spec.replace(hp=dataclasses.replace(spec.hp, lar=lar),
+                     het=dataclasses.replace(spec.het, lar=lar),
+                     rounds=2 * spec.hp.lar // lar, faults=faults)
+    res = s.resolve()
+    acfg = ae.AsyncConfig(staleness_decay=s.staleness_decay,
+                          schedule=s.schedule, buffer_keep=s.buffer_keep,
+                          cloud_every=s.cloud_every).validate()
+    fspec = spec_of(pre, storage_dtype=s.fleet_dtype)
+    host_pre = {k: v.cpu() for k, v in pre.items()}
+    body = {d: ae.make_async_global_round(
+        res.cfg, s.hp, s.het, res.fed, fspec, acfg, device=d, fused=s.fused,
+        faults=faults) for d in (dev, "cpu")}
+    card = ae.init_async_state(res.cfg, fspec, pre, dev)
+    host = ae.init_async_state(res.cfg, fspec, host_pre, "cpu")
+    draws = card_draws(dev, s, res, s.rounds)
+    sched = None if faults is None else faults.lower(
+        s.n_agents, s.n_rsus, s.rounds * lar)
+    fields = {k: ((2 ** -9, 2 ** -7) if bf16 else (1e-5, 1e-5)) for k in (
+        "agent_flat", "rsu_flat", "pending_x", "cloud_flat")}
+    fields.update(rsu_mass=(0.0, 1e-5), cloud_macc=(0.0, 1e-5),
+                  pending_w=(None, None), pending_t=(None, None))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    q, blocked, errs = [], [], {}
+    for r in range(s.rounds):
+        if bf16 and r:
+            host = _to_host(card)
+        fr = [None, None] if sched is None else [
+            faults_mod.round_tensors(sched, r, lar, d) for d in (dev, "cpu")]
+        card, cm = body[dev](card, draws[r], fr[0])
+        host, hm = body["cpu"](host, [tuple(t.cpu() for t in tick)
+                                      for tick in draws[r]], fr[1])
+        for k in cm:
+            g, w = cm[k].cpu(), hm[k]
+            if k == "quarantined" or k == "blocked_mass":
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{what}: {k} {g} vs {w}")
+            elif not torch.allclose(g.float(), w.float(), rtol=1e-5, atol=0):
+                raise AssertionError(f"{what}: metric {k} {g} vs {w}")
+        if faults is not None:
+            q.append(int(cm["quarantined"].sum()))
+            blocked.append(float(cm["blocked_mass"].sum()))
+        for k, v in _state_diff(card, host, fields,
+                                f"{what}, round {r + 1}").items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        if card.tick != host.tick:
+            raise AssertionError(f"{what}: tick {card.tick} vs {host.tick}")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    extra = "" if faults is None else (f"; quarantined a round {q}, blocked "
+                                       f"mass {blocked} (card == host)")
+    print(f"async card vs host ({what}): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"{extra}; launches {counts}")
+    return counts
+
+
+def async_round_profile(dev, spec, params, what, n: int = 3):
+    """``n`` async rounds of ``spec``: wall a round on the host clock,
+    then under ``torch.profiler`` (launches, device busy share)."""
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.fedsim import async_engine as ae
+    res = spec.resolve()
+    acfg = ae.AsyncConfig(staleness_decay=spec.staleness_decay,
+                          buffer_keep=spec.buffer_keep,
+                          cloud_every=spec.cloud_every).validate()
+    fspec = spec_of(params, storage_dtype=spec.fleet_dtype)
+    round_fn = ae.make_async_global_round(res.cfg, spec.hp, spec.het,
+                                          res.fed, fspec, acfg, device=dev,
+                                          fused=spec.fused)
+    state = [round_fn(ae.init_async_state(res.cfg, fspec, params, dev))[0]]
+
+    def one_round():
+        state[0] = round_fn(state[0])[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_round()
+    torch.cuda.synchronize()
+    print(f"round: {what}: {(time.perf_counter() - t0) / n * 1e3:.2f} ms a "
+          f"global round (host clock, synchronised, {n} rounds, eval "
+          f"excluded)")
+    print_profile(what, n, *device_profile(one_round, n))
+    return state[0]
+
+
+def absorb_launches(dev, st) -> None:
+    """One launch of kernel #1 an ``agg_absorb`` call: 20 calls on an
+    async round's own buffers under ``torch.profiler``; also what the
+    weight building in small PyTorch ops around it costs a call."""
+    from repro_torch.kernels import ops
+    A, R = st.agent_flat.shape[0], st.rsu_flat.shape[0]
+    assign = torch.arange(A, device=dev) % R
+    w_imm = torch.rand(A, device=dev) * (torch.arange(A, device=dev) % 2)
+    w_due = torch.rand(A, device=dev) * (torch.arange(A, device=dev) % 3 == 0)
+
+    def call():
+        return ops.agg_absorb(((st.agent_flat, w_imm), (st.pending_x, w_due)),
+                              assign, R, st.rsu_flat, st.rsu_mass, keep=0.5)
+    n = 20
+    call()
+    before = ops.launch_counts()["agg_absorb"]
+    _, launches, busy, kernels, runs = device_profile(call, n)
+    counted = ops.launch_counts()["agg_absorb"] - before
+    ring = {k: v for k, v in runs.items() if "agg_blend_ring_kernel" in k}
+    ring_s = sum(v for k, v in kernels.items() if "agg_blend_ring_kernel" in k)
+    split = host_device_split(call, 1000)
+    print(f"profile: {n} agg_absorb calls (A={A}, R={R}): {counted} wrapper "
+          f"launches, ring kernel executions {sum(ring.values())}, "
+          f"{launches / n:.0f} host-API launches a call (the weights, masses "
+          f"and coef built in small PyTorch ops), device time a call: ring "
+          f"{ring_s / n * 1e6:.2f} us, other {(busy - ring_s) / n * 1e6:.2f} "
+          f"us; host time a call {split['host_us']:.1f} us")
+    if counted != n or sum(ring.values()) != n:
+        raise AssertionError("agg_absorb: want one launch of the ring kernel "
+                             "a call")
+
+
+def async_path(dev):
+    """Phase 3b; returns the launch counts of the fused and the
+    ``fused=False`` async runs."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.fedsim import run_scenario
+    a_spec, f_spec = straggler_specs()
+    res, pre, pre_acc = pretrained(dev, a_spec, "async path")
+    _, hist, counts, seconds = timed_run(res, pre)
+    rounds, lar = a_spec.rounds, a_spec.hp.lar
+    n_steps = a_spec.hp.local_epochs * (res.fed.x.shape[1] // a_spec.batch)
+    want = {"agg_absorb": rounds * lar, "cloud_blend": rounds,
+            "dual_proximal_sgd": rounds * lar * n_steps, "agg_blend": 0,
+            "weighted_agg_matmul": 0, "scatter_accumulate": 0}
+    print(f"async path: {seconds / rounds * 1e3:.2f} ms per round (wall, "
+          f"set-up and eval included); launches {counts} (expect {want}); "
+          f"absorbed mass a round {hist['absorbed_mass'].tolist()}, pending "
+          f"{hist['pending_mass'].tolist()}")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"async {k}: {counts[k]} launches, want {v}")
+    paths = {"main": counts}
+    finals = {"async": [float(hist["acc"][-1])], "flat": []}
+    for sim_seed in range(5):
+        if sim_seed:
+            _, h, _, _ = timed_run(a_spec.replace(sim_seed=sim_seed).resolve(),
+                                   pre)
+            finals["async"].append(float(h["acc"][-1]))
+        _, h, _, _ = timed_run(f_spec.replace(sim_seed=sim_seed).resolve(), pre)
+        finals["flat"].append(float(h["acc"][-1]))
+    means = {k: statistics.mean(v) for k, v in finals.items()}
+    print(f"async path: 90% disconnected, {rounds} rounds, final accuracy of "
+          f"sim_seed 0-4: async {finals['async']} mean {means['async']:.4f}; "
+          f"flat at CSR 0.1 {finals['flat']} mean {means['flat']:.4f}; "
+          f"pre-trained {pre_acc:.4f}")
+    if means["async"] < pre_acc:
+        raise AssertionError(f"async mean final accuracy {means['async']:.4f}"
+                             f" below the pre-trained {pre_acc:.4f}")
+
+    # the card against the host, the card's draws replayed on both
+    async_card_vs_host(dev, a_spec, pre, "fp32")
+    async_card_vs_host(dev, a_spec.replace(fleet_dtype="bfloat16"), pre,
+                       "bf16, one tick a round")
+    c = async_card_vs_host(dev, a_spec.replace(fused=False), pre,
+                           "fused=False")
+    want = {"agg_absorb": 0, "cloud_blend": 0,
+            "scatter_accumulate": 4 * lar, "weighted_agg_matmul": 2}
+    if any(c[k] != v for k, v in want.items()):
+        raise AssertionError(f"fused=False async launches {c}, want {want}")
+    paths["unfused"] = c
+    c = async_card_vs_host(dev, a_spec.replace(cloud_every=3), pre,
+                           "cloud_every=3")
+    if c["cloud_blend"] != 2 * lar // 3:
+        raise AssertionError(f"cloud_every=3: {c['cloud_blend']} cloud "
+                             f"launches, want {2 * lar // 3}")
+
+    # faults: an empty plan is faults=None bit for bit on both engines;
+    # under every fault kind the card agrees with the host
+    for engine, spec in (("flat", quickstart_spec()), ("async", a_spec)):
+        spec = spec.replace(rounds=2)
+        runs = [run_scenario(spec.replace(faults=f).resolve(), pre)
+                for f in (None, FaultPlan())]
+        if engine == "flat":
+            pairs = [(runs[0][0].cloud_params[k], runs[1][0].cloud_params[k])
+                     for k in runs[0][0].cloud_params]
+        else:
+            pairs = [(getattr(runs[0][0], k), getattr(runs[1][0], k))
+                     for k in ("agent_flat", "rsu_flat", "cloud_flat",
+                               "pending_x", "pending_w", "rsu_mass")]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{engine}: an empty plan differs from "
+                                 f"faults=None")
+        print(f"faults: {engine}, empty plan == faults=None bit for bit on "
+              f"the card")
+    async_card_vs_host(dev, a_spec, pre, "every fault kind",
+                       faults=fault_plan())
+    flat_faults_card_vs_host(dev, pre)
+
+    # launches, device busy share and wall a round, async beside flat, at
+    # the main (A=20, R=4) and paper (A=100, R=10) fleets
+    for fleet, A, R in (("main", 20, 4), ("paper", 100, 10)):
+        a = a_spec.replace(n_agents=A, n_rsus=R)
+        round_profile(dev, f_spec.replace(n_agents=A, n_rsus=R).resolve(),
+                      pre, what=f"flat round ({fleet} fleet, A={A}, R={R})")
+        st = async_round_profile(dev, a, pre, f"async round ({fleet} fleet, "
+                                 f"A={A}, R={R})")
+        absorb_launches(dev, st)
+    return paths
+
+
+def flat_faults_card_vs_host(dev, pre) -> None:
+    """2 flat rounds under every fault kind, card against host, the same
+    draws: quarantine counts equal, buffers within 1e-5, cloud finite."""
+    from repro_torch.fedsim import run_scenario
+    spec = quickstart_spec().replace(rounds=2, faults=fault_plan())
+    res = spec.resolve()
+    draws = [[(m, a) for m, a, _ in rd]
+             for rd in card_draws(dev, spec, res, 2)]
+    fin, h = run_scenario(res, pre, draws=draws)
+    host, hh = run_scenario(res, {k: v.cpu() for k, v in pre.items()},
+                            device="cpu", draws=[[tuple(t.cpu() for t in x)
+                                                  for x in rd]
+                                                 for rd in draws])
+    err = max((fin.cloud_params[k].cpu() - host.cloud_params[k]).abs().max()
+              .item() for k in host.cloud_params)
+    finite = all(torch.isfinite(v).all() for v in fin.cloud_params.values())
+    print(f"faults: flat, every fault kind, card vs host: quarantined "
+          f"{h['quarantined'].tolist()} vs {hh['quarantined'].tolist()}, "
+          f"cloud max abs err {err:.3e} (limit 1e-5), finite {finite}")
+    if (h["quarantined"].tolist() != hh["quarantined"].tolist() or err > 1e-5
+            or not finite or not h["quarantined"].sum()):
+        raise AssertionError("flat round under faults: card and host "
+                             "disagree")
 
 
 def live_pairs(S: int, causal: bool, window: int) -> int:
@@ -1273,9 +1645,12 @@ def main(argv=None) -> int:
     if "3r" in phases:
         flat_round(dev)
     if phases != FULL_RUN:
+        if "3b" in phases:
+            async_path(dev)
         return 0
 
     paths = main_path(dev)
+    async_paths = async_path(dev)
     flash_launches = serving_path(dev)
     scan_launches = xlstm_serving(dev)
 
@@ -1284,20 +1659,29 @@ def main(argv=None) -> int:
                     r["entry"] == entry and r["shape"] == "main" and
                     r["dtype"] == "float32")
 
-    main_c, unfused_c = paths["main"], paths["unfused"]
+    # launches of each path's counted run: the flat round (fused and
+    # fused=False) and the async round (fused, and fused=False with its
+    # scatter-accumulates on the matmul kernel)
+    by_path = {}
+    for path, fused, unfused in (("flat", paths["main"], paths["unfused"]),
+                                 ("async", async_paths["main"],
+                                  async_paths["unfused"])):
+        by_path[path] = {
+            "fused_agg_blend": sum(fused[k] for k in (
+                "agg_blend", "cloud_blend", "agg_absorb")),
+            "weighted_agg_matmul": unfused["weighted_agg_matmul"]
+            + unfused["scatter_accumulate"],
+            "dual_proximal_sgd": fused["dual_proximal_sgd"]}
     kernels = []
-    for kernel, entry, launches in (
-            ("fused_agg_blend", "agg_blend",
-             main_c["agg_blend"] + main_c["cloud_blend"]
-             + main_c["agg_absorb"]),
-            ("weighted_agg_matmul", "weighted_agg_matmul",
-             unfused_c["weighted_agg_matmul"]),
-            ("dual_proximal_sgd", "scaled_broadcast",
-             main_c["dual_proximal_sgd"])):
+    for kernel, entry in (("fused_agg_blend", "agg_blend"),
+                          ("weighted_agg_matmul", "weighted_agg_matmul"),
+                          ("dual_proximal_sgd", "scaled_broadcast")):
         r = pick(kernel, entry)
         kernels.append({
             "name": kernel, "route": "cuda", "source": SOURCES[kernel],
-            "replaces": REPLACES[kernel], "launches": launches,
+            "replaces": REPLACES[kernel],
+            "launches": sum(c[kernel] for c in by_path.values()),
+            "launches_by_path": {p: c[kernel] for p, c in by_path.items()},
             "max_abs_err": max(x["max_abs_err"] for x in rows
                                if x["kernel"] == kernel),
             "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -58,6 +58,22 @@ def build_weight_matrix(weights: torch.Tensor, mask: torch.Tensor,
     return wm / torch.where(mass > 0, mass, torch.ones_like(mass))
 
 
+def staleness_weights(staleness: torch.Tensor, *, decay=0.5,
+                      schedule: str = "exp") -> torch.Tensor:
+    """Staleness multiplier s(tau) for updates arriving tau ticks late:
+    ``exp``: decay**tau (decay in [0, 1], 1 disables decay); ``poly``:
+    (1 + tau)**-decay (decay >= 0, 0 disables decay).  ``decay`` is a
+    scalar or a tensor that broadcasts against ``staleness`` (a per-RSU
+    rate gathered through the agent -> RSU assignment).  s(0) == 1."""
+    tau = staleness.float()
+    dec = torch.as_tensor(decay, dtype=torch.float32, device=tau.device)
+    if schedule == "exp":
+        return torch.pow(dec, tau)
+    if schedule == "poly":
+        return torch.pow(1.0 + tau, -dec)
+    raise ValueError(f"unknown schedule {schedule!r} (want 'exp'|'poly')")
+
+
 def scatter_accumulate(stacked: torch.Tensor, weights: torch.Tensor,
                        rsu_assign: torch.Tensor, n_rsus: int,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,3 +111,28 @@ def buffer_absorb(buf: torch.Tensor, buf_mass: torch.Tensor,
     merged = (retained[:, None] * buf.float() + num) / safe
     out = torch.where((total > 0)[:, None], merged, buf.float())
     return out.to(buf.dtype), total
+
+
+def screen_updates(payload: torch.Tensor, ref: torch.Tensor,
+                   weights: torch.Tensor, *, nonfinite: bool = True,
+                   norm_clip: float = 0.0,
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quarantine gate for submitted (A, N) rows: ``nonfinite`` rejects a
+    row with any NaN/Inf, ``norm_clip > 0`` a row whose update norm
+    ``||payload - ref||`` exceeds the clip (a non-finite norm fails the
+    comparison too).  Returns ``(clean, okf, n_quarantined)``: rejected
+    rows scrubbed back to ``ref`` (a NaN row at weight 0 would still
+    poison the aggregation's multiply-adds), the (A,) fp32 survival mask,
+    and the count of rejected rows that carried weight.  With every row
+    surviving, ``clean`` equals ``payload`` bitwise and ``okf`` is ones."""
+    p32 = payload.float()
+    ok = torch.ones(payload.shape[0], dtype=torch.bool,
+                    device=payload.device)
+    if nonfinite:
+        ok = ok & torch.isfinite(p32).all(dim=1)
+    if norm_clip > 0.0:
+        delta = p32 - ref.float()
+        ok = ok & ((delta * delta).sum(dim=1).sqrt() <= norm_clip)
+    clean = torch.where(ok[:, None], payload, ref.to(payload.dtype))
+    n_quarantined = ((weights.float() > 0) & ~ok).sum()
+    return clean, ok.float(), n_quarantined

@@ -3,7 +3,8 @@
 Connectivity is a per-round process: an agent that (re)connects stays
 connected for SCD rounds, then re-draws with probability CSR.  FSR draws
 how many of the requested E local epochs each agent completes (0 epochs
-counts as disconnected).  Every draw takes a ``torch.Generator``; the
+counts as disconnected).  The async engine also draws each update's
+arrival latency in ticks (``sample_latency``).  Every draw takes a ``torch.Generator``; the
 numbers differ from the JAX package's threefry draws, so the two packages
 agree on these draws in distribution, not bitwise.
 """
@@ -21,7 +22,7 @@ class HeterogeneityModel:
     scd: int = 1           # Stable Connection Duration (rounds)
     fsr: float = 1.0       # Full-task Success Ratio   in [0, 1]
     lar: int = 1           # Local Aggregation Rounds (per RSU, paper <= 50)
-    max_delay: int = 0     # arrival-latency bound (async engine, not ported)
+    max_delay: int = 0     # arrival-latency bound in ticks (async engine)
     delay_p: float = 0.0   # geometric tail of the latency draw in [0, 1]
 
     def validate(self) -> "HeterogeneityModel":
@@ -65,3 +66,23 @@ def sample_epochs(gen: torch.Generator, n_agents: int,
     partial = torch.randint(0, max(requested_e, 1), (n_agents,),
                             generator=gen, device=device, dtype=torch.int32)
     return torch.where(full, torch.full_like(partial, requested_e), partial)
+
+
+def sample_latency(gen: torch.Generator, n_agents: int,
+                   het: HeterogeneityModel, device=None) -> torch.Tensor:
+    """Arrival latency per agent in ticks, a censored geometric:
+    P(d) = (1-p) p**d below ``max_delay``, the tail mass p**max_delay on
+    ``max_delay`` (inverse CDF, then clip), so P(d = 0) == 1 - p.
+    ``max_delay == 0`` or ``delay_p <= 0`` gives zeros and ``delay_p >= 1``
+    gives ``max_delay`` everywhere; neither draws from ``gen``."""
+    p = het.delay_p
+    if het.max_delay == 0 or p <= 0.0:
+        return torch.zeros(n_agents, dtype=torch.int32, device=device)
+    if p >= 1.0:
+        return torch.full((n_agents,), het.max_delay, dtype=torch.int32,
+                          device=device)
+    u = torch.rand(n_agents, generator=gen, device=device)
+    u = u * (1.0 - 1e-7) + 1e-7                  # in [1e-7, 1)
+    d = torch.floor(torch.log(u) / torch.log(torch.tensor(
+        p, dtype=torch.float32, device=device)))
+    return d.clamp(0, het.max_delay).to(torch.int32)

@@ -9,11 +9,13 @@ pretrain, ``sim_seed`` only the connectivity / FSR draws).  ``resolve()``
 builds the datasets and the partition (numpy, array-equal to the JAX
 package's); ``cache_key`` hashes every field.
 
-The port runs the synchronous ``engine="flat"`` round.  ``validate()``
-raises ``NotImplementedError`` for what it has not ported: other engines,
-fault plans, the host fleet store, cohort / N-tile streaming, serving,
-``model_shards > 1`` and ``rsu_sharded``.  The fields stay, so a spec
-round-trips between the packages.
+The port runs the synchronous ``engine="flat"`` round and the semi-async
+``engine="async"`` tick engine, both with or without a fault plan
+(``faults=FaultPlan(...)``).  ``validate()`` raises ``NotImplementedError``
+for what it has not ported: the ``tree`` and ``sharded`` engines, the host
+fleet store, cohort / N-tile streaming, serving, ``model_shards > 1`` and
+``rsu_sharded``.  The fields stay, so a spec round-trips between the
+packages.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import hashlib
 import json
 from typing import Any, Dict, Optional, Tuple, Union
 
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.h2fed import H2FedParams
 from repro_torch.core.heterogeneity import HeterogeneityModel
 
@@ -81,7 +84,7 @@ class ScenarioSpec:
         default_factory=HeterogeneityModel)
 
     # -- engine ------------------------------------------------------------
-    engine: str = "flat"              # the port runs "flat"
+    engine: str = "flat"              # the port runs "flat" and "async"
     fleet_dtype: str = "float32"      # fleet-buffer storage: float32 | bf16
     fused: bool = True                # one-pass aggregate-and-blend rounds
     rsu_sharded: bool = False         # not ported
@@ -91,7 +94,7 @@ class ScenarioSpec:
     chunk_params: int = 0             # not ported beyond 0
     # model-size knob: non-empty overrides the paper MLP's hidden widths
     hidden_dims: Tuple[int, ...] = ()
-    # semi-async knobs (engine="async", not ported)
+    # semi-async knobs (engine="async")
     staleness_decay: Union[float, Tuple[float, ...]] = 0.5
     schedule: str = "exp"
     buffer_keep: Union[float, Tuple[float, ...]] = 0.0
@@ -104,8 +107,8 @@ class ScenarioSpec:
     overload_policy: str = "drop_oldest"
     serve_trace: str = ""
 
-    # -- fault injection: only None is accepted until faults are ported ----
-    faults: Optional[Any] = None
+    # -- fault injection (engines "flat" and "async") ----------------------
+    faults: Optional[FaultPlan] = None
 
     # -- run ---------------------------------------------------------------
     rounds: int = 24
@@ -141,8 +144,13 @@ class ScenarioSpec:
                f"unknown overload_policy {self.overload_policy!r}")
         _check(self.rounds >= 1 and self.eval_every >= 1,
                "rounds and eval_every must be >= 1")
-        _unported(self.engine != "flat", f"engine {self.engine!r}")
-        _unported(self.faults is not None, "fault injection (faults)")
+        _unported(self.engine not in ("flat", "async"),
+                  f"engine {self.engine!r}")
+        if self.faults is not None:
+            if not isinstance(self.faults, FaultPlan):
+                raise TypeError(f"faults must be a FaultPlan, got "
+                                f"{type(self.faults).__name__}")
+            self.faults.validate(self.n_rsus)
         _unported(self.fleet_store != "device", "the host fleet store")
         _unported(bool(self.chunk_agents), "cohort streaming (chunk_agents)")
         _unported(bool(self.chunk_params), "N-tile streaming (chunk_params)")
@@ -222,6 +230,8 @@ class ScenarioSpec:
             d["hp"] = H2FedParams(**d["hp"])
         if isinstance(d.get("het"), dict):
             d["het"] = HeterogeneityModel(**d["het"])
+        if isinstance(d.get("faults"), dict):
+            d["faults"] = FaultPlan.from_dict(d["faults"])
         for k in ("excluded_labels", "staleness_decay", "buffer_keep",
                   "hidden_dims"):
             if isinstance(d.get(k), list):

@@ -23,6 +23,12 @@ Parity seam: a round takes ``draws``, one ``(mask (A,) bool, active_steps
 (A,) int)`` pair per local round, in place of its own draws.  JAX's
 threefry draws cannot be reproduced by a ``torch.Generator``, so the
 parity tests feed the JAX package's draws through it.
+
+Faults: built with a ``FaultPlan``, the round takes ``fault_r``, its
+slice of the lowered schedule, and returns ``(state, {"quarantined"})``.
+Churn masks the cohort; corrupted payloads enter after training and
+``screen_updates`` scrubs and weight-masks them; uploads to a dark RSU
+are dropped.  An empty plan gives ``faults=None``'s result bit for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
+from repro_torch.core.aggregation import screen_updates
 from repro_torch.core.flatten import FlatSpec, Params, spec_of
 from repro_torch.core.h2fed import H2FedParams
 from repro_torch.core.heterogeneity import (ConnState, HeterogeneityModel,
@@ -146,8 +154,11 @@ def _fed_arrays(cfg: SimConfig, hp: H2FedParams, fed: FederatedData,
 def _make_flat_round_body(cfg: SimConfig, hp: H2FedParams,
                           het: HeterogeneityModel, fed: FederatedData,
                           spec: FlatSpec, *, device, fused: bool = True,
+                          faults: Optional[faults_mod.FaultPlan] = None,
                           ) -> Callable[..., FlatSimState]:
-    """The global round: ``(state, draws=None) -> state``.
+    """The global round: ``(state, draws=None) -> state``; with ``faults``,
+    ``(state, draws=None, fault_r) -> (state, {"quarantined"})``, where
+    ``fault_r`` holds the round's (lar, A)/(lar, R) fault masks.
 
     The round advances the state's generator (the JAX round's input is
     donated; here only the training loop's own buffer is updated in
@@ -160,25 +171,46 @@ def _make_flat_round_body(cfg: SimConfig, hp: H2FedParams,
     x_all, y_all, n_per_agent, rsu_assign, spe, n_steps = _fed_arrays(
         cfg, hp, fed, device)
 
-    def global_round(state: FlatSimState,
-                     draws: Optional[Draws] = None) -> FlatSimState:
+    def global_round(state: FlatSimState, draws: Optional[Draws] = None,
+                     fault_r: Optional[dict] = None):
+        if (faults is None) != (fault_r is None):
+            raise ValueError("fault_r is given exactly when the round was "
+                             "built with a fault plan")
         if draws is not None and len(draws) != hp.lar:
             raise ValueError(f"want {hp.lar} injected draws, got {len(draws)}")
         # Alg. 2 l.2: RSUs replace w_k with the cloud model (materialised)
         rsu_flat = spec.to_storage(state.cloud_flat).expand(
             cfg.n_rsus, spec.n).clone()
-        conn, agent_flat, masses = state.conn, state.agent_flat, []
+        conn, agent_flat, masses, nqs = state.conn, state.agent_flat, [], []
         for i in range(hp.lar):
             if draws is None:
                 conn, mask, active_steps = round_draws(
                     state.gen, conn, het, hp, cfg.n_agents, spe)
             else:
                 mask, active_steps = (t.to(device) for t in draws[i])
+            if faults is not None:
+                f = {k: v[i] for k, v in fault_r.items()}
+                mask = mask & (f["agent_up"] > 0)    # churned agents
             # Alg. 2 l.5 / Alg. 1 l.1: every agent starts from its RSU row
             w_start = rsu_flat.index_select(0, rsu_assign)       # (A, N)
+            agent_prev = agent_flat
             agent_flat = spec.to_storage(_local_train_flat(
                 spec, x_all, y_all, w_start, state.cloud_flat, hp, n_steps,
                 active_steps, cfg.batch))
+            if faults is not None:
+                # corrupted payloads enter after training; the gate scrubs
+                # rejected rows before any kernel reads them, and uploads
+                # to a dark RSU weigh nothing
+                agent_flat = faults_mod.apply_corruption(agent_flat,
+                                                         agent_prev, f)
+                up_a = f["rsu_up"][rsu_assign]                   # (A,)
+                maskf = mask.float()
+                agent_flat, okf, nq = screen_updates(
+                    agent_flat, w_start, n_per_agent * maskf * up_a,
+                    nonfinite=faults.guard_nonfinite,
+                    norm_clip=faults.norm_clip)
+                mask = maskf * up_a * okf
+                nqs.append(nq)
             # Alg. 2 l.8: one (R, A) @ (A, N) pass over the fleet
             if fused:
                 rsu_flat, mass = ops.agg_blend(agent_flat, n_per_agent, mask,
@@ -201,8 +233,12 @@ def _make_flat_round_body(cfg: SimConfig, hp: H2FedParams,
             new_cloud = ops.cloud_agg(rsu_flat, total_mass)
             cloud_flat = torch.where(total_mass.sum() > 0, new_cloud.float(),
                                      state.cloud_flat)
-        return FlatSimState(agent_flat=agent_flat, rsu_flat=rsu_flat,
-                            cloud_flat=cloud_flat, conn=conn, gen=state.gen)
+        new_state = FlatSimState(agent_flat=agent_flat, rsu_flat=rsu_flat,
+                                 cloud_flat=cloud_flat, conn=conn,
+                                 gen=state.gen)
+        if faults is None:
+            return new_state
+        return new_state, {"quarantined": torch.stack(nqs).sum()}
 
     return global_round
 
@@ -229,13 +265,24 @@ def _run_sync(res, init_params: Params, *, device,
     spec = spec_of(init_params, storage_dtype=s.fleet_dtype)
     state = init_flat_state(cfg, spec, init_params, device)
     round_fn = _make_flat_round_body(cfg, hp, het, fed, spec, device=device,
-                                     fused=s.fused)
-    accs, rounds = [], []
+                                     fused=s.fused, faults=s.faults)
+    # the plan lowers once over the run's ticks; each round takes its slice
+    sched = (None if s.faults is None else
+             s.faults.lower(cfg.n_agents, cfg.n_rsus, s.rounds * hp.lar))
+    accs, rounds, quarantined = [], [], []
     for r in range(s.rounds):
-        state = round_fn(state, None if draws is None else draws[r])
+        rd = None if draws is None else draws[r]
+        if sched is None:
+            state = round_fn(state, rd)
+        else:
+            state, fm = round_fn(state, rd, faults_mod.round_tensors(
+                sched, r, hp.lar, device))
+            quarantined.append(int(fm["quarantined"]))
         if eval_fn is not None and (r % cfg.eval_every == 0
                                     or r == s.rounds - 1):
             accs.append(float(eval_fn(spec.unravel(state.cloud_flat))))
             rounds.append(r + 1)
     history = {"round": np.asarray(rounds), "acc": np.asarray(accs)}
+    if sched is not None:
+        history["quarantined"] = np.asarray(quarantined)
     return from_flat_state(spec, state), history

@@ -11,7 +11,8 @@
 //     with the weights built in the kernel from what the engine holds
 //     (repro_agg_blend: agg_blend and cloud_blend, below);
 //   * weighted_agg_matmul (body _agg_kernel), the matmul kernels at the end:
-//       out[r,n] = sum_a W[r,a].X[a,n], out in X's dtype.
+//       out[r,n] = sum_a W[r,a].X[a,n], out in X's dtype or fp32 (the
+//       scatter-accumulate's unnormalized sums).
 // W and coef are fp32, X is fp32 or bf16, accumulation is fp32.
 //
 // Bound: bytes.  A launch must read every X_i once and write out once, and
@@ -527,7 +528,7 @@ struct MatmulArgs {
   const float* w;     // (R, A)
   const void* x;      // (A, N)
   int a;
-  void* out;          // (R, N) in X's dtype
+  void* out;          // (R, N) in X's dtype or fp32
   int R;
   int64_t N;
   int splits;         // K: agent groups a block (1, 2, 4, 8 or 16)
@@ -617,13 +618,13 @@ __device__ __forceinline__ void accumulate_group(float (&acc)[RC][C],
 }
 
 // Every agent for C columns a thread: large N.
-template <typename TX, int RC>
+template <typename TX, typename TO, int RC>
 __global__ void __launch_bounds__(kThreads) matmul_kernel(MatmulArgs p) {
   constexpr int C = cols_per_thread<RC>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const TX* X = static_cast<const TX*>(p.x);
-  TX* out = static_cast<TX*>(p.out);
+  TO* out = static_cast<TO*>(p.out);
   const int64_t base = (int64_t)blockIdx.x * (kThreads * C) + threadIdx.x;
 
   // no early return: every thread takes part in staging and the barriers
@@ -647,7 +648,7 @@ __global__ void __launch_bounds__(kThreads) matmul_kernel(MatmulArgs p) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int64_t n = base + (int64_t)c * kThreads;
-        if (n < p.N) out[(int64_t)r * p.N + n] = from_f32<TX>(acc[j][c]);
+        if (n < p.N) out[(int64_t)r * p.N + n] = from_f32<TO>(acc[j][c]);
       }
     }
   }
@@ -656,14 +657,14 @@ __global__ void __launch_bounds__(kThreads) matmul_kernel(MatmulArgs p) {
 // The agents split over K = p.splits groups of L = 256/K threads: small N.
 // Group s sums agents [s*A/K, (s+1)*A/K) for C columns of the block's L*C,
 // then every thread adds the K partials of some outputs in group order.
-template <typename TX, int RC>
+template <typename TX, typename TO, int RC>
 __global__ void __launch_bounds__(kThreads) matmul_split_kernel(MatmulArgs p) {
   constexpr int C = cols_per_thread<RC>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* partial = smem + RC * p.a;
   const TX* X = static_cast<const TX*>(p.x);
-  TX* out = static_cast<TX*>(p.out);
+  TO* out = static_cast<TO*>(p.out);
   const int K = p.splits, L = kThreads / K;
   const int s = threadIdx.x / L, l = threadIdx.x % L;
   const int64_t col0 = (int64_t)blockIdx.x * (L * C);   // block's first
@@ -697,12 +698,12 @@ __global__ void __launch_bounds__(kThreads) matmul_split_kernel(MatmulArgs p) {
       if (r >= p.R || n >= p.N) continue;
       float v = 0.f;
       for (int g = 0; g < K; ++g) v += partial[g * RC * C * L + e];
-      out[(int64_t)r * p.N + n] = from_f32<TX>(v);
+      out[(int64_t)r * p.N + n] = from_f32<TO>(v);
     }
   }
 }
 
-template <typename TX, int RC>
+template <typename TX, typename TO, int RC>
 cudaError_t matmul_launch(MatmulArgs p, cudaStream_t stream) {
   constexpr int C = cols_per_thread<RC>();
   const size_t stage_bytes = (size_t)RC * p.a * sizeof(float);
@@ -720,8 +721,8 @@ cudaError_t matmul_launch(MatmulArgs p, cudaStream_t stream) {
          2 * p.splits <= p.a && stage_bytes + partial_bytes <= kMaxSmem)
     p.splits *= 2;
   const size_t smem = stage_bytes + (p.splits > 1 ? partial_bytes : 0);
-  auto kernel = p.splits > 1 ? matmul_split_kernel<TX, RC>
-                             : matmul_kernel<TX, RC>;
+  auto kernel = p.splits > 1 ? matmul_split_kernel<TX, TO, RC>
+                             : matmul_kernel<TX, TO, RC>;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -731,13 +732,13 @@ cudaError_t matmul_launch(MatmulArgs p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TX>
+template <typename TX, typename TO>
 cudaError_t matmul_by_rows(const MatmulArgs& p, cudaStream_t s) {
-  if (p.R <= 1) return matmul_launch<TX, 1>(p, s);
-  if (p.R <= 2) return matmul_launch<TX, 2>(p, s);
-  if (p.R <= 4) return matmul_launch<TX, 4>(p, s);
-  if (p.R <= 8) return matmul_launch<TX, 8>(p, s);
-  return matmul_launch<TX, 16>(p, s);
+  if (p.R <= 1) return matmul_launch<TX, TO, 1>(p, s);
+  if (p.R <= 2) return matmul_launch<TX, TO, 2>(p, s);
+  if (p.R <= 4) return matmul_launch<TX, TO, 4>(p, s);
+  if (p.R <= 8) return matmul_launch<TX, TO, 8>(p, s);
+  return matmul_launch<TX, TO, 16>(p, s);
 }
 
 }  // namespace
@@ -798,13 +799,18 @@ extern "C" int repro_fused_agg_blend(const void* coef, const void* w1,
                               static_cast<cudaStream_t>(stream));
 }
 
-// The plain matmul, out = W @ X in X's dtype.  Returns as above; the caller
-// guarantees R, N, A >= 1.
+// The plain matmul, out = W @ X.  dtypes: bit 0 X in bf16, bit 1 out in
+// bf16 (out is in X's dtype, or fp32 for a bf16 X).  Returns as above; the
+// caller guarantees R, N, A >= 1.
 extern "C" int repro_weighted_agg_matmul(const void* w, const void* x,
                                          void* out, int R, int A, long long N,
-                                         int x_bf16, void* stream) {
+                                         int dtypes, void* stream) {
   MatmulArgs p{static_cast<const float*>(w), x, A, out, R, (int64_t)N, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? (int)matmul_by_rows<__nv_bfloat16>(p, s)
-                : (int)matmul_by_rows<float>(p, s);
+  switch (dtypes) {
+    case 0: return (int)matmul_by_rows<float, float>(p, s);
+    case 1: return (int)matmul_by_rows<__nv_bfloat16, float>(p, s);
+    case 3: return (int)matmul_by_rows<__nv_bfloat16, __nv_bfloat16>(p, s);
+    default: return (int)cudaErrorNotSupported;
+  }
 }

@@ -16,8 +16,9 @@ async tick's two cohorts plus the retained buffer) hands it the weight
 matrices and the ``coef`` rows ``[retained | safe | guard]`` from
 ``core.aggregation``.  The matmul kernels serve the plain ``(R, A) @ (A,
 N)`` of ``weighted_agg_matmul`` (``masked_hier_agg`` and ``cloud_agg``,
-the ``fused=False`` path).  W stays fp32 and the kernels accumulate in
-fp32 whatever the fleet dtype.
+the ``fused=False`` path) and, with an fp32 output, the async tick's
+unnormalized ``scatter_accumulate``.  W stays fp32 and the kernels
+accumulate in fp32 whatever the fleet dtype.
 
 Every function takes CUDA tensors only and raises on anything else; the
 CPU route is ``kernels/ops``' choice of ``kernels/ref``.  ``launches``
@@ -43,7 +44,8 @@ _ASSIGN_KINDS = {torch.int32: 1, torch.int64: 2}
 _MASK_DTYPES, _ASSIGN_DTYPES = tuple(_MASK_KINDS), tuple(_ASSIGN_KINDS)
 
 launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
-                            "agg_absorb": 0, "weighted_agg_matmul": 0}
+                            "agg_absorb": 0, "weighted_agg_matmul": 0,
+                            "scatter_accumulate": 0}
 
 
 def _require(t: torch.Tensor, name: str, shape: Tuple[int, ...],
@@ -199,42 +201,57 @@ def _agg_blend_launch(entry: str, x: torch.Tensor, weights: torch.Tensor,
     launches[entry] += 1
 
 
-def weighted_agg_matmul(weight_matrix: torch.Tensor,
-                        stacked: torch.Tensor) -> torch.Tensor:
-    """(R, A) @ (A, N) with fp32 accumulation, out in the stacked dtype.
-
-    Its own launch path, the shortest: the checks of ``_launch`` for one
-    pair and no buffer, inline, and the kernel's 8-argument entry."""
-    w, x = weight_matrix, stacked
+def _matmul(entry: str, w: torch.Tensor, x: torch.Tensor,
+            out_f32: bool) -> torch.Tensor:
+    """(R, A) @ (A, N) with fp32 accumulation, out in X's dtype or (with
+    ``out_f32``) fp32.  The shortest launch path: each check once, inline,
+    and the kernel's 8-argument entry."""
     dev = x.get_device()
     if dev < 0:
-        raise ValueError(f"weighted_agg_matmul: expected CUDA tensors, got "
-                         f"{x.device}")
+        raise ValueError(f"{entry}: expected CUDA tensors, got {x.device}")
     if w.dtype != torch.float32 or not w.is_contiguous():
         w = w.float().contiguous()
     if w.dim() != 2 or x.dim() != 2 or w.shape[1] != x.shape[0]:
-        raise ValueError(f"weighted_agg_matmul: W {tuple(w.shape)} and X "
+        raise ValueError(f"{entry}: W {tuple(w.shape)} and X "
                          f"{tuple(x.shape)} must be (R, A) and (A, N)")
     (R, A), N = w.shape, x.shape[1]
     if R < 1 or A < 1 or N < 1:
-        raise ValueError(f"weighted_agg_matmul: empty operand W "
-                         f"{tuple(w.shape)}, X {tuple(x.shape)}")
+        raise ValueError(f"{entry}: empty operand W {tuple(w.shape)}, X "
+                         f"{tuple(x.shape)}")
     if w.get_device() != dev:
-        raise ValueError(f"weighted_agg_matmul: W on {w.device}, X on "
-                         f"{x.device}")
+        raise ValueError(f"{entry}: W on {w.device}, X on {x.device}")
     if x.dtype not in FLEET_DTYPES:
-        raise ValueError(f"weighted_agg_matmul: X dtype {x.dtype} not in "
-                         f"{FLEET_DTYPES}")
+        raise ValueError(f"{entry}: X dtype {x.dtype} not in {FLEET_DTYPES}")
     if not x.is_contiguous():
-        raise ValueError("weighted_agg_matmul: X must be contiguous")
-    _check_smem("weighted_agg_matmul", R, A)
-    out = x.new_empty((R, N))
+        raise ValueError(f"{entry}: X must be contiguous")
+    _check_smem(entry, R, A)
+    x_bf16 = x.dtype == torch.bfloat16
+    out = x.new_empty((R, N), dtype=torch.float32 if out_f32 else x.dtype)
     rc = _lib.library().repro_weighted_agg_matmul(
         w.data_ptr(), x.data_ptr(), out.data_ptr(), R, A, N,
-        x.dtype == torch.bfloat16, torch._C._cuda_getCurrentRawStream(dev))
-    _lib.check(rc, "weighted_agg_matmul")
-    launches["weighted_agg_matmul"] += 1
+        x_bf16 | ((x_bf16 and not out_f32) << 1),
+        torch._C._cuda_getCurrentRawStream(dev))
+    _lib.check(rc, entry)
+    launches[entry] += 1
     return out
+
+
+def weighted_agg_matmul(weight_matrix: torch.Tensor,
+                        stacked: torch.Tensor) -> torch.Tensor:
+    """(R, A) @ (A, N) with fp32 accumulation, out in the stacked dtype."""
+    return _matmul("weighted_agg_matmul", weight_matrix, stacked, False)
+
+
+def scatter_accumulate(stacked_flat: torch.Tensor, weights: torch.Tensor,
+                       rsu_assign: torch.Tensor, n_rsus: int,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unnormalized per-RSU sums, ``num[r] = sum_{a in r} w_a x_a`` (R, N)
+    in fp32 whatever X's dtype and ``mass[r] = sum_{a in r} w_a`` (R,):
+    the matmul kernel on the (R, A) one-hot weight matrix.  ``weights``
+    carry mask x data volume x staleness decay."""
+    W = unnormalized_weight_matrix(weights, torch.ones_like(weights),
+                                   rsu_assign, n_rsus)
+    return _matmul("scatter_accumulate", W, stacked_flat, True), W.sum(dim=1)
 
 
 def masked_hier_agg(stacked_flat, weights, mask, rsu_assign, n_rsus: int):
@@ -272,7 +289,10 @@ def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
     """Fused multi-cohort scatter-accumulate + staleness-buffer merge for
     ``arrivals`` = sequence of (x (A, N), w (A,)):
     ``out[r] = (keep*M[r]*buf[r] + sum w_a x_a) / (keep*M[r] + m_new[r])``
-    (buf[r] on zero mass).  Returns (buf', total mass, new mass)."""
+    (buf[r] on zero mass); ``keep`` a scalar or (R,).  Returns (buf',
+    total mass, new mass).  The weights of every cohort share the ring's
+    shared memory: at R = 10 the async tick's two cohorts take up to
+    2,334 agents each."""
     mats, xs = [], []
     new_mass = torch.zeros(n_rsus, dtype=torch.float32, device=buf.device)
     for x, w in arrivals:

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.aggregation import scatter_accumulate
 from repro_torch.kernels import dual_proximal_sgd as _dps
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_hier_agg as _mha
@@ -50,6 +51,17 @@ def masked_hier_agg(stacked_flat, weights, mask, rsu_assign, n_rsus: int):
                                     n_rsus)
     return ref.masked_hier_agg_ref(stacked_flat, weights, mask, rsu_assign,
                                    n_rsus)
+
+
+def masked_scatter_accumulate(stacked_flat, weights, rsu_assign,
+                              n_rsus: int):
+    """Unnormalized per-RSU sums for the async tick: (num (R, N) fp32,
+    mass (R,)) = sum_a w_a x_a grouped by RSU (weights carry mask x data
+    volume x staleness decay)."""
+    if stacked_flat.is_cuda:
+        return _mha.scatter_accumulate(stacked_flat, weights, rsu_assign,
+                                       n_rsus)
+    return scatter_accumulate(stacked_flat, weights, rsu_assign, n_rsus)
 
 
 def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:

@@ -51,13 +51,15 @@ def test_ptxas_lines_name_their_kernel():
 
 # the functions that run each phase after the build, by name
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
-                 "flat_round", "main_path", "serving_path", "xlstm_serving")
+                 "flat_round", "main_path", "async_path", "serving_path",
+                 "xlstm_serving")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
                                        ("--scan", ["slstm_cases"]),
                                        ("--agg", ["aggregation_cases"]),
-                                       ("--round", ["flat_round"])])
+                                       ("--round", ["flat_round"]),
+                                       ("--async", ["async_path"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -83,6 +85,8 @@ def test_phase_selection():
     assert cs.selected_phases(["--scan"]) == ("1", "2c")
     assert cs.selected_phases(["--attention"]) == ("1", "2b")
     assert cs.selected_phases(["--round"]) == ("1", "3r")
+    assert cs.selected_phases(["--async"]) == ("1", "3b")
+    assert "3b" in cs.FULL_RUN
     with pytest.raises(SystemExit):
         cs.selected_phases(["--scan", "--attention"])
     with pytest.raises(SystemExit):
@@ -127,7 +131,10 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
              "ms": 8.7, "plain_ms": 3000.0, "bound_ms": 0.58,
              "bound_by": "operations", "shape": {}, "latency_floor_ms": 4.3}]
     counts = {"agg_blend": 40, "cloud_blend": 10, "agg_absorb": 0,
-              "weighted_agg_matmul": 0, "dual_proximal_sgd": 120}
+              "weighted_agg_matmul": 0, "scatter_accumulate": 0,
+              "dual_proximal_sgd": 120}
+    async_counts = dict(counts, agg_blend=0, cloud_blend=30, agg_absorb=120,
+                        dual_proximal_sgd=360)
     monkeypatch.setattr(cs.torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(cs.torch.cuda, "get_device_name", lambda i=0: card)
     monkeypatch.setattr(cs.torch.cuda, "device_count", lambda: 1)
@@ -137,6 +144,9 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     monkeypatch.setattr(cs, "slstm_cases", lambda dev: scan)
     monkeypatch.setattr(cs, "main_path", lambda dev: {
         "main": counts, "unfused": dict(counts, weighted_agg_matmul=5)})
+    monkeypatch.setattr(cs, "async_path", lambda dev: {
+        "main": async_counts, "unfused": dict(
+            async_counts, weighted_agg_matmul=2, scatter_accumulate=16)})
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -152,6 +162,12 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "flash_attention", "slstm_scan"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
-    assert [k["launches"] for k in kernels] == [50, 5, 120, 28, 3]
+    # the flat path's and the async path's counted runs: #1 its agg_blend,
+    # cloud_blend and agg_absorb launches, #2 its matmul and
+    # scatter-accumulate launches
+    assert [k["launches"] for k in kernels] == [50 + 150, 5 + 18, 120 + 360,
+                                                28, 3]
+    assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150}
+    assert kernels[1]["launches_by_path"] == {"flat": 5, "async": 18}
     assert kernels[0]["entry"] == "agg_blend"
     assert kernels[2]["host_us"] == 12.0

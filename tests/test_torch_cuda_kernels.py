@@ -257,6 +257,89 @@ def test_cuda_cloud_blend_builds_weights_on_device(cuda, dtype, R, N):
     torch.cuda.synchronize()
 
 
+# the async tick's shapes (main and paper fleets), one RSU, R past 16 and
+# an odd N
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,R,N", [(20, 4, 31_810), (100, 10, 31_810),
+                                   (7, 1, 1001), (40, 17, 777)])
+def test_cuda_scatter_accumulate_matches_plain(cuda, dtype, A, R, N):
+    """The async tick's unnormalized sums on the matmul kernel: num in fp32
+    whatever the fleet dtype, held against the fp64 sum (within 1e-6 of
+    the sum of |terms|, a few fp32 ulps whatever the order) as the plain
+    version is; mass equal to the plain version's within 1e-6 relative;
+    one launch a call, counted under its own entry."""
+    from repro_torch.core.aggregation import scatter_accumulate
+    from repro_torch.kernels import ops
+    x, _, w, mask, assign = _agg_inputs(cuda, A, R, N, dtype, A + R)
+    w = w * mask                         # zero-weight rows
+    before = tmha.launches["scatter_accumulate"]
+    num, mass = ops.masked_scatter_accumulate(x, w, assign, R)
+    assert tmha.launches["scatter_accumulate"] == before + 1
+    assert num.dtype == torch.float32 and num.shape == (R, N)
+    onehot = (assign[None, :] == torch.arange(R, device=cuda)[:, None])
+    W = (onehot * w[None, :]).double()
+    exact = W @ x.double()
+    lim = 1e-6 * (W.abs() @ x.double().abs()) + 1e-30
+    want_num, want_mass = scatter_accumulate(x, w, assign, R)
+    for got in (num, want_num):
+        assert bool(((got.double() - exact).abs() <= lim).all())
+    torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0)
+    if R > 1:                            # RSU 0's cohort carries no weight
+        assert not num[0].any() and mass[0] == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,R,N", [(20, 4, 31_810), (100, 10, 31_810),
+                                   (2334, 10, 1000)])
+def test_cuda_agg_absorb_two_cohorts_vector_keep(cuda, dtype, A, R, N):
+    """The async tick's RSU layer: two cohorts (fresh rows and due
+    stragglers) and an (R,) keep on the card, in one launch.  Rows that
+    screen_updates scrubbed back to their start (NaN payloads) carry
+    weight 0.  An RSU with no mass and no retained buffer keeps its row
+    bit for bit.  A = 2334 is the largest the tick takes at R = 10 (12 rows of
+    weights for 2A agents and the copy ring in shared memory)."""
+    from repro_torch.core.aggregation import screen_updates
+    x, prev, w, mask, assign = _agg_inputs(cuda, A, R, N, dtype, A * R)
+    g = torch.Generator(device=cuda).manual_seed(N)
+    start = x.flip(0).contiguous()
+    bad = torch.arange(A, device=cuda) % 5 == 1
+    poisoned = torch.where(bad[:, None], torch.full_like(x, float("nan")), x)
+    w_imm = w * mask
+    clean, okf, nq = screen_updates(poisoned, start, w_imm)
+    assert int(nq) == int(((w_imm > 0) & bad).sum()) and torch.isfinite(
+        clean.float()).all()
+    w_imm = w_imm * okf
+    pend = torch.randn(A, N, device=cuda, generator=g).to(dtype)
+    w_due = torch.where(torch.arange(A, device=cuda) % 3 == 0, w * 0.25,
+                        torch.zeros_like(w))
+    w_due[assign == 0] = 0.0
+    keep = torch.linspace(0.1, 0.9, R, device=cuda)
+    bm = torch.rand(R, device=cuda, generator=g)
+    bm[0] = 0.0                          # RSU 0: nothing to keep or absorb
+    arrivals = ((clean, w_imm), (pend, w_due))
+    before = tmha.launches["agg_absorb"]
+    got, total, new = tmha.agg_absorb(arrivals, assign, R, prev, bm,
+                                      keep=keep)
+    assert tmha.launches["agg_absorb"] == before + 1
+    want, want_total, want_new = ref.agg_absorb_ref(arrivals, assign, R,
+                                                    prev, bm, keep=keep)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(total, want_total, rtol=1e-6, atol=0)
+    torch.testing.assert_close(new, want_new, rtol=1e-6, atol=0)
+    assert torch.equal(got[0], prev[0]) and torch.isfinite(got.float()).all()
+    if A == 2334:                        # one agent more does not fit
+        one = torch.zeros(A + 1, device=cuda)
+        more = [(torch.cat([c, c[:1]]), one) for c, _ in arrivals]
+        with pytest.raises(ValueError, match="shared memory"):
+            tmha.agg_absorb(more, torch.cat([assign, assign[:1]]), R, prev,
+                            bm, keep=keep)
+    torch.cuda.synchronize()
+
+
 # (B, S, H, KV, D, causal, window): chip_smoke's cases (a small ragged one,
 # the qwen3-0.6b layer, the same with a 1024 window), then odd shapes: one
 # token, one row past a tile, a ragged thousand, a window wider than S,

@@ -66,13 +66,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pretrain_to_target(params, res.pretrain_pool, res.test.x, res.test.y)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("engine", "async"), ("engine", "tree"), ("fleet_store", "host"),
-    ("chunk_agents", 4), ("chunk_params", 128), ("serve_events", 10),
-    ("rsu_sharded", True), ("model_shards", 2), ("faults", object())])
-def test_unported_features_refuse(field, value):
+@pytest.mark.parametrize("field,value,error", [
+    ("engine", "sharded", NotImplementedError),
+    ("engine", "tree", NotImplementedError),
+    ("fleet_store", "host", NotImplementedError),
+    ("chunk_agents", 4, NotImplementedError),
+    ("chunk_params", 128, NotImplementedError),
+    ("serve_events", 10, NotImplementedError),
+    ("rsu_sharded", True, NotImplementedError),
+    ("model_shards", 2, NotImplementedError),
+    ("faults", object(), TypeError)],
+    ids=["engine-sharded", "engine-tree", "fleet_store-host", "chunk_agents-4",
+         "chunk_params-128", "serve_events-10", "rsu_sharded-True",
+         "model_shards-2", "faults-value8"])
+def test_unported_features_refuse(field, value, error):
+    """What is not ported raises by name; a ``faults`` value that is not a
+    ``FaultPlan`` is refused."""
     from repro_torch.core.scenario import ScenarioSpec
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         ScenarioSpec(**{field: value}).validate()
 
 

@@ -38,3 +38,21 @@ def test_quickstart_twin_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         _quickstart().main(["--rounds", "1"])
+
+
+def test_stragglers_example_runs_on_cpu(capsys):
+    """``examples/stragglers_torch.py`` for one round and one draw
+    realization on the CPU: both engines from the same pre-trained model,
+    the means it returns are the ones it printed."""
+    spec = importlib.util.spec_from_file_location(
+        "stragglers_torch", ROOT / "examples" / "stragglers_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    means = module.main(["--device", "cpu", "--rounds", "1", "--seeds", "1"])
+    out = capsys.readouterr().out
+    m = re.search(r"90% disconnected: async ([0-9.]+), flat ([0-9.]+), "
+                  r"pre-trained ([0-9.]+)", out)
+    assert m, out
+    assert [float(g) for g in m.groups()] == [
+        round(means[k], 4) for k in ("async", "flat", "pre-trained")]
+    assert 0.5 < means["pre-trained"] < 0.75
