@@ -73,6 +73,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    the flat round's at the main and paper fleets, and 20 ``agg_absorb``
    calls under the profiler: one launch of kernel #1 a call, with the
    launches and time of the weight building around it.
+3s. The multi-scenario sweep (``run_scenarios``) on Fig. 2's grid of
+   ``benchmarks/fig2_mu1_csr.py`` at full bench scale (A=100, R=10,
+   N=31,810; LAR 5, E 3, lr 0.15), from the biased OEM model.  Each
+   scenario-axis kernel entry at the sweep shape (S=16, fp32) against its
+   plain version, one launch a call (``agg_blend``, ``cloud_blend``,
+   ``agg_absorb``, the batched matmul of #2 with ``torch.bmm`` as its
+   library call, #3 with per-scenario lr / mu1 / mu2).  Then the sweep
+   against each cell's sequential ``run_scenario`` on the card, 2 rounds,
+   buffers within 1e-5: 4 cells (mixed csr and mu1, one at lar 3), the
+   async equivalent (cloud_every 0 and 3) and a fault grid (different
+   plans, one guard); a 3-cell grid in the quickstart's regime on the card
+   against the host's plain versions with the same card-drawn draws; one
+   16-cell chunk, 5 rounds, counted (#1 and #3 launches a round equal to
+   one scenario's); ``fused=False`` counted (#2); wall, launches and device
+   busy of a sweep round beside two cells' sequential rounds; the whole
+   72-cell grid at ``max_sweep=16``, 1 round: 5 chunks, one program build,
+   histories in input order.
 4. The serving path: qwen3-0.6b at full width in bf16 with params drawn on
    the card.  ``make_prefill_step`` at B=4, S=8192 (exactly 28
    flash_attention launches a call; ms, tokens/s, peak memory); the serve
@@ -97,8 +114,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
    over one prefill call and 8 decode steps.
 5. The kernels' JSON line (each kernel's launches are those of the
-   counted runs of the flat and the async path, also given by path), the
-   card's line, and the result line.
+   counted runs of the flat path, the async path and the sweep, also given
+   by path; beside them the scenario-axis entries at the sweep shape with
+   the sweep's launches), the card's line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
@@ -106,7 +124,8 @@ flash-attention kernel's build report, checks and times), ``--scan`` phase
 phase 2 only (the aggregation and update kernels'), and ``--round`` phase
 1 and the quickstart scenario's global round alone (wall, launches and
 device busy share a round, from the MLP's initial weights), and
-``--async`` phase 1 and phase 3b; none of them prints a result line.
+``--async`` phase 1 and phase 3b, and ``--sweep`` phase 1 and phase 3s;
+none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -163,9 +182,10 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
-FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "4", "4b", "5")
+FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "4", "4b", "5")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
-         "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b")}
+         "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
+         "--sweep": ("1", "3s")}
 
 
 def selected_phases(argv) -> tuple:
@@ -424,7 +444,7 @@ def kernel_cases(dev, shape_name, A, R, N, dtype):
         }
         if "repro_weighted_agg_matmul" in _lib._SIGNATURES:
             args = (W.data_ptr(), x.data_ptr(), out.data_ptr(), R, A, N,
-                    3 if dtype == torch.bfloat16 else 0, stream)
+                    3 if dtype == torch.bfloat16 else 0, 1, stream)
             pieces["ctypes call and launch"] = (
                 lambda: _lib.library().repro_weighted_agg_matmul(*args))
         print(f"host: {shape_name} {str(dtype)[6:]} launch-path pieces, us "
@@ -1033,6 +1053,471 @@ def flat_faults_card_vs_host(dev, pre) -> None:
             or not finite or not h["quarantined"].sum()):
         raise AssertionError("flat round under faults: card and host "
                              "disagree")
+
+
+# -- phase 3s: the multi-scenario sweep -----------------------------------
+
+# Fig. 2's grid (benchmarks/fig2_mu1_csr.py): CSR x mu2 x mu1 x 3 seeds
+FIG2_CSRS, FIG2_MU2S = (1.0, 0.5, 0.2), (0.0, 0.001)
+FIG2_MU1S, FIG2_SEEDS = (0.0, 0.001, 0.004, 0.007), 3
+SWEEP_S = 16        # the benchmarks' max_sweep
+SWEEP_SHAPE = (SWEEP_S, 100, 10, 31_810)
+
+
+def fig2_spec(csr, mu2, mu1, sim_seed=0, rounds=1, lar=5, **kw):
+    """One cell of Fig. 2's grid at full bench scale (``base_spec`` of
+    benchmarks/common.py with REPRO_BENCH_FULL=1: A=100, R=10, n_train
+    22,000, n_test 4,000; the figure's LAR 5, E 3, lr 0.15)."""
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.core.heterogeneity import HeterogeneityModel
+    from repro_torch.core.scenario import ScenarioSpec
+    return ScenarioSpec(
+        n_agents=100, n_rsus=10, batch=32, n_train=22_000, n_test=4_000,
+        noise=0.8, excluded_labels=(7, 8, 9), pretrain_frac=0.12,
+        pretrain_target=0.68, partition="scenario_two",
+        hp=H2FedParams(mu1=mu1, mu2=mu2, lar=lar, local_epochs=3, lr=0.15),
+        het=HeterogeneityModel(csr=csr, scd=1, lar=lar), rounds=rounds,
+        sim_seed=sim_seed, **kw)
+
+
+def fig2_grid(rounds=1):
+    """The figure's 72 cells in its order (seeds innermost)."""
+    return [fig2_spec(csr, mu2, mu1, s, rounds) for csr in FIG2_CSRS
+            for mu2 in FIG2_MU2S for mu1 in FIG2_MU1S
+            for s in range(FIG2_SEEDS)]
+
+
+def sweep_kernel_cases(dev):
+    """Each scenario-axis kernel entry at the sweep shape (Fig. 2's chunk of
+    16 at the paper fleet, fp32) against its plain S-axis version, one
+    launch a call; returns result rows."""
+    from repro_torch.core.aggregation import build_weight_matrix
+    from repro_torch.kernels import dual_proximal_sgd as dps
+    from repro_torch.kernels import masked_hier_agg as mha
+    from repro_torch.kernels import ref
+    S, A, R, N = SWEEP_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(S + A)
+    x = torch.randn(S, A, N, device=dev, generator=gen)
+    prev = torch.randn(S, R, N, device=dev, generator=gen)
+    w = torch.rand(S, A, device=dev, generator=gen) + 0.5
+    assign = torch.arange(A, device=dev) % R       # one partition, shared
+    mask = torch.rand(S, A, device=dev, generator=gen) < 0.6
+    mask[:, assign == 0] = False                  # RSU 0 keeps its row
+    W = build_weight_matrix(w, mask, assign, R)   # (S, R, A)
+    mass = W.new_zeros(S, R).index_add_(1, assign, (w * mask).float())
+    dead = int((mass <= 0).sum())
+    rows = []
+
+    def row(kernel, entry, err, ms, plain_ms, nbytes, flops, library_ms,
+            fn=None, library_fn=None):
+        b_ms, b_by = bound(nbytes, flops)
+        r = {"kernel": kernel, "entry": entry, "shape": "sweep", "S": S,
+             "A": A, "R": R, "N": N, "dtype": "float32", "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": library_ms}
+        if fn is not None:
+            r.update(host_device_split(fn, 1000))
+        if library_fn is not None:
+            lib = host_device_split(library_fn, 1000)
+            r.update(library_device_ms=lib["device_ms"],
+                     library_host_us=lib["host_us"])
+        print("kernel " + json.dumps(r))
+        rows.append(r)
+
+    def one_launch(entry, counts, fn):
+        before = counts[entry]
+        out = fn()
+        if counts[entry] != before + 1:
+            raise AssertionError(f"{entry}: S={S} took "
+                                 f"{counts[entry] - before} launches")
+        return out
+
+    # fused_agg_blend: agg_blend, the weights built in the kernel.  Bytes:
+    # X, out, and prev's zero-mass rows (a row with mass reads no prev)
+    got, got_mass = one_launch("agg_blend", mha.launches, lambda: mha.agg_blend(
+        x, w, mask, assign, R, prev))
+    want, want_mass = ref.agg_blend_ref(x, w, mask, assign, R, prev)
+    err = compare(got, want, torch.float32, "agg_blend, scenario axis")
+    compare(got_mass, want_mass, torch.float32, "agg_blend mass",
+            tol=(0.0, 1e-6))
+
+    def blend():
+        return mha.agg_blend(x, w, mask, assign, R, prev)
+
+    def blend_library():
+        return torch.where((mass > 0)[..., None], torch.bmm(W, x), prev)
+    ms = cuda_ms(blend)
+    row("fused_agg_blend", "agg_blend_sweep", err, ms,
+        cuda_ms(lambda: ref.agg_blend_ref(x, w, mask, assign, R, prev)),
+        S * A * N * 4 + (S * R + dead) * N * 4 + S * A * 5 + A * 8
+        + S * R * 4, 2 * S * R * A * N, cuda_ms(blend_library), blend,
+        blend_library)
+
+    # fused_agg_blend, cloud layer: (S, R, N) -> (S, N) fp32 masters
+    cloud = torch.randn(S, N, device=dev, generator=gen)
+    rmass = torch.rand(S, R, device=dev, generator=gen)
+    got = one_launch("cloud_blend", mha.launches,
+                     lambda: mha.cloud_blend(prev, rmass, cloud))
+    err = compare(got, ref.cloud_blend_ref(prev, rmass, cloud),
+                  torch.float32, "cloud_blend, scenario axis")
+    wn = (rmass / rmass.sum(-1, keepdim=True))[:, None, :]
+
+    def cloud_library():
+        return torch.where(rmass.sum(-1, keepdim=True) > 0,
+                           torch.bmm(wn, prev)[:, 0], cloud)
+    row("fused_agg_blend", "cloud_blend_sweep", err,
+        cuda_ms(lambda: mha.cloud_blend(prev, rmass, cloud)),
+        cuda_ms(lambda: ref.cloud_blend_ref(prev, rmass, cloud)),
+        S * (R * N * 4 + N * 4 + R * 4), 2 * S * R * N,
+        cuda_ms(cloud_library))
+
+    # fused_agg_blend, the async tick's two cohorts and the retained buffer
+    x2 = x.flip(1).contiguous()
+    arrivals = [(x, w * mask), (x2, w)]
+    bm = torch.rand(S, R, device=dev, generator=gen)
+    got3 = one_launch("agg_absorb", mha.launches, lambda: mha.agg_absorb(
+        arrivals, assign, R, prev, bm, keep=0.5))
+    want3 = ref.agg_absorb_ref(arrivals, assign, R, prev, bm, keep=0.5)
+    err = compare(got3[0], want3[0], torch.float32,
+                  "agg_absorb, scenario axis")
+    row("fused_agg_blend", "agg_absorb_sweep", err,
+        cuda_ms(lambda: mha.agg_absorb(arrivals, assign, R, prev, bm,
+                                       keep=0.5)),
+        cuda_ms(lambda: ref.agg_absorb_ref(arrivals, assign, R, prev, bm,
+                                           keep=0.5)),
+        2 * S * A * N * 4 + 2 * S * R * N * 4 + 2 * S * R * A * 4,
+        4 * S * R * A * N, None)
+    del x2, arrivals, got3, want3
+
+    # weighted_agg_matmul: the fused=False path's (S, R, A) @ (S, A, N)
+    got = one_launch("weighted_agg_matmul", mha.launches,
+                     lambda: mha.weighted_agg_matmul(W, x))
+    err = compare(got, ref.weighted_agg_matmul_ref(W, x), torch.float32,
+                  "weighted_agg_matmul, scenario axis")
+
+    def matmul():
+        return mha.weighted_agg_matmul(W, x)
+
+    def matmul_library():
+        return torch.bmm(W, x)
+    ms = cuda_ms(matmul)
+    row("weighted_agg_matmul", "weighted_agg_matmul_sweep", err, ms,
+        cuda_ms(lambda: ref.weighted_agg_matmul_ref(W, x)),
+        S * (A * N * 4 + R * N * 4 + R * A * 4), 2 * S * R * A * N,
+        cuda_ms(matmul_library), matmul, matmul_library)
+    del got, want, x, prev
+    torch.cuda.empty_cache()
+
+    # dual_proximal_sgd: S*A rows, the cloud anchor one row a scenario,
+    # lr / mu1 / mu2 (S,) tensors read by the row's scenario
+    wt = torch.randn(S * A, N, device=dev, generator=gen)
+    g = torch.randn(S * A, N, device=dev, generator=gen) * 0.1
+    a1 = torch.randn(S * A, N, device=dev, generator=gen)
+    a2 = torch.randn(S, N, device=dev, generator=gen)
+    active = torch.randint(0, 3, (S * A,), device=dev, generator=gen,
+                           dtype=torch.int32)
+    hp = dict(lr=torch.rand(S, device=dev, generator=gen) * 0.2,
+              mu1=torch.rand(S, device=dev, generator=gen) * 0.01,
+              mu2=torch.rand(S, device=dev, generator=gen) * 0.005)
+    got = one_launch("dual_proximal_sgd", dps.launches,
+                     lambda: dps.dual_proximal_sgd(
+                         wt, g, a1, a2, active_steps=active, step=1, **hp))
+    err = compare(got, ref.dual_proximal_sgd_ref(
+        wt, g, a1, a2, active_steps=active, step=1, **hp), torch.float32,
+        "dual_proximal_sgd, scenario axis")
+    del got
+
+    def update():
+        return dps.dual_proximal_sgd(wt, g, a1, a2, active_steps=active,
+                                     step=1, out=wt, **hp)
+    ms = cuda_ms(update)
+    row("dual_proximal_sgd", "sweep", err, ms,
+        cuda_ms(lambda: ref.dual_proximal_sgd_ref(
+            wt, g, a1, a2, active_steps=active, step=1, **hp)),
+        S * A * N * 16 + S * N * 4 + S * A * 4 + 3 * S * 4, 8 * S * A * N,
+        None, update)
+    del wt, g, a1, a2
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows
+
+
+def drive_sweep(prog, rounds, draws=None):
+    """``rounds`` rounds of a built sweep (its fault slices passed in);
+    returns the final state."""
+    state, dev = prog.state, prog.state.cloud_flat.device
+    for r in range(rounds):
+        fault_r = None if prog.fault_rounds is None else {
+            k: torch.from_numpy(np.ascontiguousarray(v[:, r])).to(dev)
+            for k, v in prog.fault_rounds.items()}
+        out = prog.round_fn(state, None if draws is None else draws[r],
+                            fault_r)
+        state = out[0] if type(out) is tuple else out
+    return state
+
+
+SWEEP_FIELDS = {"flat": ("agent_flat", "rsu_flat", "cloud_flat"),
+                "async": ("agent_flat", "rsu_flat", "cloud_flat", "rsu_mass",
+                          "pending_x", "pending_w", "cloud_macc")}
+
+
+def sweep_vs_sequential(dev, specs, params, what):
+    """The card's sweep of ``specs`` against each scenario's sequential
+    ``run_scenario`` on the card: every buffer within 1e-5, histories
+    within 2e-3, async tick clocks and fault counts equal."""
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.fedsim import async_engine, run_scenario, simulator
+    from repro_torch.fedsim import sweep
+    group = [s.resolve() for s in specs]
+    if len(sweep.group_indices(group)) != 1:
+        raise AssertionError(f"{what}: the cells are not one sweep group")
+    prog = sweep.build_sweep(group, params)
+    state = drive_sweep(prog, specs[0].rounds)
+    hists = sweep.run_sweep(group, params)
+    lane = (async_engine.lane_state if prog.engine == "async"
+            else simulator.lane_state)
+    fspec = spec_of(params, storage_dtype=specs[0].fleet_dtype)
+    errs = {}
+    for s, (spec, hist) in enumerate(zip(specs, hists)):
+        final, want_h = run_scenario(group[s], params)
+        if prog.engine == "flat":
+            final = simulator.FlatSimState(
+                fspec.ravel_stacked(final.agent_params),
+                fspec.ravel_stacked(final.rsu_params),
+                fspec.ravel(final.cloud_params), final.conn, final.gen)
+        elif final.tick != lane(state, s).tick:
+            raise AssertionError(f"{what}: scenario {s} tick clock")
+        one = lane(state, s)
+        for name in SWEEP_FIELDS[prog.engine]:
+            g, want = getattr(one, name).float(), getattr(final, name).float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{what}: non-finite {name}")
+            errs[name] = max(errs.get(name, 0.0),
+                             (g - want).abs().max().item())
+            if ((g - want).abs() > 1e-5 + 1e-5 * want.abs()).any():
+                raise AssertionError(f"{what}: scenario {s} {name} off by "
+                                     f"{errs[name]:.3e}")
+        for k in want_h:
+            if k in ("quarantined",):
+                if hist[k].tolist() != want_h[k].tolist():
+                    raise AssertionError(f"{what}: {k} {hist[k]} vs "
+                                         f"{want_h[k]}")
+            elif abs(np.asarray(hist[k], float)
+                     - np.asarray(want_h[k], float)).max() > 2e-3 + 1e-5 * \
+                    abs(np.asarray(want_h[k], float)).max():
+                raise AssertionError(f"{what}: scenario {s} history {k} "
+                                     f"{hist[k]} vs {want_h[k]}")
+    print(f"sweep: {what}: {len(specs)} cells, {specs[0].rounds} rounds, "
+          f"sweep vs sequential max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; final acc {[float(h['acc'][-1]) for h in hists]}")
+
+
+def sweep_card_vs_host(dev, specs, params):
+    """The card's sweep against the host's plain route on the same
+    card-drawn draws (one CUDA generator a scenario): buffers within 1e-5,
+    accuracy within 2e-3.  Held in the quickstart's regime (lr 0.1, one
+    epoch): Fig. 2's (lr 0.15, three epochs of a label shard) amplifies
+    last-bit differences to O(0.1-1) on some agents within one round, on
+    the host alone too (PERF.md, section 6), whatever the kernels."""
+    from repro_torch.core.heterogeneity import init_conn_state
+    from repro_torch.fedsim import sweep
+    from repro_torch.fedsim.simulator import round_draws
+    group = [s.resolve() for s in specs]
+    rounds = specs[0].rounds
+    per = []
+    for i, (spec, res) in enumerate(zip(specs, group)):
+        spe = res.fed.x.shape[1] // spec.batch
+        gen = torch.Generator(device=dev).manual_seed(5 + i)
+        conn, rds = init_conn_state(spec.n_agents, dev), []
+        for _ in range(rounds):
+            rd = []
+            for _ in range(spec.hp.lar):
+                conn, mask, act = round_draws(gen, conn, spec.het, spec.hp,
+                                              spec.n_agents, spe)
+                rd.append((mask, act))
+            rds.append(rd)
+        per.append(rds)
+    draws = [[per[s][r] for s in range(len(specs))] for r in range(rounds)]
+    host_draws = [[[tuple(t.cpu() for t in x) for x in rd] for rd in rnd]
+                  for rnd in draws]
+    card = sweep.build_sweep(group, params)
+    host = sweep.build_sweep(group, {k: v.cpu() for k, v in params.items()},
+                             device="cpu")
+    t0 = time.perf_counter()
+    cs = drive_sweep(card, rounds, draws)
+    hs = drive_sweep(host, rounds, host_draws)
+    errs = {}
+    for name in SWEEP_FIELDS["flat"]:
+        g, w = getattr(cs, name).cpu().float(), getattr(hs, name).float()
+        errs[name] = (g - w).abs().max().item()
+        if ((g - w).abs() > 1e-5 + 1e-5 * w.abs()).any():
+            raise AssertionError(f"sweep card vs host: {name} off by "
+                                 f"{errs[name]:.3e}")
+    acc_c = card.eval_fn(cs.cloud_flat).cpu()
+    acc_h = host.eval_fn(hs.cloud_flat)
+    acc_err = (acc_c - acc_h).abs().max().item()
+    print(f"sweep: card vs host (plain versions), {len(specs)} cells, "
+          f"{rounds} round(s), same card-drawn draws: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f", accuracy {acc_err:.4f} (limits 1e-5, 2e-3; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if acc_err > 2e-3:
+        raise AssertionError("sweep: the card's accuracy disagrees with the "
+                             "host's")
+
+
+def sweep_round_profile(dev, specs, params, what, n=5):
+    """Wall a round of the sweep of ``specs`` (host clock, synchronised,
+    eval excluded), then one round under the profiler: returns (ms a
+    round, host-API launches a round, device busy share)."""
+    from repro_torch.fedsim import sweep
+    prog = sweep.build_sweep([s.resolve() for s in specs], params)
+    state = [prog.state]
+
+    def one_round():
+        out = prog.round_fn(state[0])
+        state[0] = out[0] if type(out) is tuple else out
+    one_round()                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_round()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    wall, launches, busy, kernels, runs = device_profile(one_round, 1)
+    print_profile(what, 1, wall, launches, busy, kernels, runs)
+    return ms, launches, (busy / wall if busy else None)
+
+
+def sweep_path(dev):
+    """Phase 3s; returns (result rows of the scenario-axis kernels, the
+    launch counts of the counted sweep runs)."""
+    import dataclasses
+    from repro_torch.core import program_cache
+    from repro_torch.core.faults import (ChurnWindow, CorruptSpec, FaultPlan,
+                                         RsuOutage)
+    from repro_torch.fedsim import run_scenario, run_scenarios
+    from repro_torch.kernels import ops
+    rows = sweep_kernel_cases(dev)
+    grid = fig2_grid()
+    # every cell starts from the figure's biased OEM model (one dataset)
+    _, params, _ = pretrained(dev, grid[0], "sweep")
+
+    # sweep against sequential on the card: 4 cells (mixed csr and mu1,
+    # one mixed lar), 2 rounds; the async equivalent with cloud_every 0
+    # and 3; a fault grid (different plans, one guard)
+    four = [fig2_spec(1.0, 0.0, 0.0, 0, 2), fig2_spec(0.5, 0.0, 0.004, 1, 2),
+            fig2_spec(0.2, 0.001, 0.007, 2, 2),
+            fig2_spec(0.5, 0.001, 0.001, 0, 2, lar=3)]
+    sweep_vs_sequential(dev, four, params, "flat, fp32, lar 5 and 3")
+    asyn = [s.replace(engine="async", staleness_decay=0.5, buffer_keep=0.5,
+                      cloud_every=(0, 3)[i % 2],
+                      het=dataclasses.replace(s.het, max_delay=2,
+                                              delay_p=0.6))
+            for i, s in enumerate(four)]
+    sweep_vs_sequential(dev, asyn, params, "async, cloud_every 0 and 3")
+    plans = [FaultPlan(churn=(ChurnWindow(frac=0.25, start=1, stop=6,
+                                          seed=i),),
+                       outages=(RsuOutage(rsu=i, start=2, stop=5),),
+                       corrupt=(CorruptSpec(kind="nan", frac=0.2, seed=i),
+                                CorruptSpec(kind="scale", frac=0.2,
+                                            scale=1e4, seed=i + 5)),
+                       norm_clip=50.0, seed=i) for i in range(4)]
+    sweep_vs_sequential(dev, [s.replace(faults=p)
+                              for s, p in zip(four[:3] + [four[1]], plans)],
+                        params, "flat, a fault grid")
+    qs = quickstart_spec().replace(rounds=2)
+    sweep_card_vs_host(dev, [qs.replace(
+        het=dataclasses.replace(qs.het, csr=c),
+        hp=dataclasses.replace(qs.hp, mu1=m), sim_seed=i)
+        for i, (c, m) in enumerate(((0.3, 0.001), (0.6, 0.004), (1.0, 0.0)))],
+        params)
+
+    # the counted sweep: one 16-wide chunk of the grid, 5 rounds
+    chunk = fig2_grid(rounds=5)[:SWEEP_S]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hists = run_scenarios(chunk, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if not all(np.isfinite(h["acc"]).all() and len(h["acc"]) == 5
+               for h in hists):
+        raise AssertionError("sweep: bad accuracy histories")
+    res = chunk[0].resolve()
+    lar, rounds = chunk[0].hp.lar, chunk[0].rounds
+    n_steps = chunk[0].hp.local_epochs * (res.fed.x.shape[1]
+                                          // chunk[0].batch)
+    want = {"agg_blend": rounds * lar, "cloud_blend": rounds,
+            "dual_proximal_sgd": rounds * lar * n_steps}
+    print(f"sweep: {SWEEP_S} cells x {rounds} rounds in {seconds:.2f} s "
+          f"(wall, set-up and eval included); launches {counts} (expect "
+          f"{want}: one a call, as one scenario's run)")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"sweep {k}: {counts[k]} launches, want {v}")
+    paths = {"sweep": counts}
+
+    # launches of #1 and #3 a round at S = 16 against S = 1
+    one = chunk[0].replace(rounds=1)
+    ops.reset_launch_counts()
+    run_scenario(one, params)
+    torch.cuda.synchronize()
+    single = ops.launch_counts()
+    for k in ("agg_blend", "cloud_blend", "dual_proximal_sgd"):
+        if counts[k] != rounds * single[k]:
+            raise AssertionError(f"sweep {k}: {counts[k] / rounds:.0f} "
+                                 f"launches a round at S={SWEEP_S}, "
+                                 f"{single[k]} at S=1")
+    print(f"sweep: launches a round at S={SWEEP_S} equal S=1's: "
+          f"{ {k: single[k] for k in want} }")
+
+    # fused=False: #2 a call at S = 4, counted
+    ops.reset_launch_counts()
+    run_scenarios([s.replace(fused=False, rounds=1) for s in four[:3]]
+                  + [four[1].replace(fused=False, rounds=1, sim_seed=5)],
+                  params)
+    torch.cuda.synchronize()
+    c = ops.launch_counts()
+    print(f"sweep: fused=False, 4 cells, 1 round: launches {c}")
+    if c["weighted_agg_matmul"] != lar + 1 or c["agg_blend"]:
+        raise AssertionError(f"sweep fused=False launches {c}")
+    paths["unfused"] = c
+
+    # the sweep round beside sequential rounds: wall, launches, busy
+    ms, launches, busy = sweep_round_profile(
+        dev, chunk, params, f"sweep round (S={SWEEP_S}, A=100, R=10)")
+    seq = [sweep_round_profile(dev, [s], params,
+                               f"sequential round (cell {i}, A=100, R=10)")
+           for i, s in enumerate(chunk[:2])]
+    print(f"sweep: {ms:.2f} ms a sweep round, {ms / SWEEP_S:.3f} ms a "
+          f"scenario-round, {launches} host-API launches a round, device "
+          f"busy {busy:.1%}; sequential: "
+          + "; ".join(f"{m:.2f} ms a scenario-round, {n} launches, busy "
+                      f"{b:.1%}" for m, n, b in seq)
+          + f" (NVIDIA card of this run: {gpu_line()})")
+
+    # the whole grid: 72 cells at max_sweep 16, 1 round: 5 chunks, one
+    # build, histories in input order
+    program_cache.clear()
+    t0 = time.perf_counter()
+    hists = run_scenarios(grid, params, max_sweep=SWEEP_S)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = program_cache.stats()
+    print(f"sweep: the whole grid, {len(grid)} cells at max_sweep "
+          f"{SWEEP_S}, 1 round: {seconds:.2f} s, registry {st}")
+    if (len(hists) != len(grid) or program_cache.trace_count("sweep_round")
+            != 1 or st["hits"] != 4):
+        raise AssertionError(f"sweep: the 72-cell grid took {st}")
+    for i in (0, 37, 71):
+        _, h = run_scenario(grid[i], params)
+        if abs(float(h["acc"][-1]) - float(hists[i]["acc"][-1])) > 2e-3:
+            raise AssertionError(f"sweep: cell {i}'s history is not its own "
+                                 f"({hists[i]['acc']} vs {h['acc']})")
+    return rows, paths
 
 
 def live_pairs(S: int, causal: bool, window: int) -> int:
@@ -1647,10 +2132,13 @@ def main(argv=None) -> int:
     if phases != FULL_RUN:
         if "3b" in phases:
             async_path(dev)
+        if "3s" in phases:
+            sweep_path(dev)
         return 0
 
     paths = main_path(dev)
     async_paths = async_path(dev)
+    sweep_rows, sweep_paths = sweep_path(dev)
     flash_launches = serving_path(dev)
     scan_launches = xlstm_serving(dev)
 
@@ -1660,12 +2148,15 @@ def main(argv=None) -> int:
                     r["dtype"] == "float32")
 
     # launches of each path's counted run: the flat round (fused and
-    # fused=False) and the async round (fused, and fused=False with its
-    # scatter-accumulates on the matmul kernel)
+    # fused=False), the async round (fused, and fused=False with its
+    # scatter-accumulates on the matmul kernel) and the sweep (fused and
+    # fused=False)
     by_path = {}
     for path, fused, unfused in (("flat", paths["main"], paths["unfused"]),
                                  ("async", async_paths["main"],
-                                  async_paths["unfused"])):
+                                  async_paths["unfused"]),
+                                 ("sweep", sweep_paths["sweep"],
+                                  sweep_paths["unfused"])):
         by_path[path] = {
             "fused_agg_blend": sum(fused[k] for k in (
                 "agg_blend", "cloud_blend", "agg_absorb")),
@@ -1688,6 +2179,24 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "entry": entry,
             "shape": {"A": r["A"], "R": r["R"], "N": r["N"]},
+            **{k: r[k] for k in ("device_ms", "host_us", "library_device_ms",
+                                 "library_host_us") if k in r}})
+    # the scenario-axis entries at the sweep shape, launched by the sweep
+    for kernel, entry in (("fused_agg_blend", "agg_blend_sweep"),
+                          ("weighted_agg_matmul", "weighted_agg_matmul_sweep"),
+                          ("dual_proximal_sgd", "sweep")):
+        r = next(x for x in sweep_rows if x["kernel"] == kernel
+                 and x["entry"] == entry)
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel],
+            "launches": by_path["sweep"][kernel],
+            "launches_by_path": {"sweep": by_path["sweep"][kernel]},
+            "max_abs_err": max(x["max_abs_err"] for x in sweep_rows
+                               if x["kernel"] == kernel),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "entry")},
+            "shape": {k: r[k] for k in ("S", "A", "R", "N")},
             **{k: r[k] for k in ("device_ms", "host_us", "library_device_ms",
                                  "library_host_us") if k in r}})
     # the serving path's shape: what each of its prefill launches computes

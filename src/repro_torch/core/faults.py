@@ -244,13 +244,13 @@ def round_tensors(sched: FaultSchedule, r: int, lar: int, device) -> dict:
 def apply_corruption(trained: torch.Tensor, prev_rows: torch.Tensor,
                      f: dict) -> torch.Tensor:
     """Corrupt freshly trained (A, N) rows by one tick's masks ``f``:
-    scale, then poison fill, then stale replay of ``prev_rows``.  Benign
-    masks leave ``trained`` bit for bit."""
+    scale, then poison fill, then stale replay of ``prev_rows``; (S, A, N)
+    rows take (S, A) masks.  Benign masks leave ``trained`` bit for bit."""
     dt = trained.dtype
-    out = trained * f["scale"][:, None].to(dt)
-    out = torch.where(f["poison_mask"][:, None] > 0,
-                      f["poison_val"][:, None].to(dt), out)
-    return torch.where(f["stale"][:, None] > 0, prev_rows.to(dt), out)
+    out = trained * f["scale"][..., None].to(dt)
+    out = torch.where(f["poison_mask"][..., None] > 0,
+                      f["poison_val"][..., None].to(dt), out)
+    return torch.where(f["stale"][..., None] > 0, prev_rows.to(dt), out)
 
 
 # -- serve-loop queue perturbations (host side, seeded per event) ---------

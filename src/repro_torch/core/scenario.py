@@ -7,7 +7,11 @@ recipe, the framework and heterogeneity parameters, the engine choice and
 the run length with its two seeds (``seed`` fixes data / partition /
 pretrain, ``sim_seed`` only the connectivity / FSR draws).  ``resolve()``
 builds the datasets and the partition (numpy, array-equal to the JAX
-package's); ``cache_key`` hashes every field.
+package's), cached per ``dataset_key`` / ``partition_key`` so the
+scenarios of a grid share one dataset and one ``FederatedData`` object
+(``clear_caches`` drops them); ``cache_key`` hashes every field, and
+``ResolvedScenario.static_key`` is what the scenarios of one batched sweep
+program must share (``fedsim/sweep``).
 
 The port runs the synchronous ``engine="flat"`` round and the semi-async
 ``engine="async"`` tick engine, both with or without a fault plan
@@ -200,24 +204,34 @@ class ScenarioSpec:
                          eval_every=self.eval_every)
 
     def resolve(self) -> "ResolvedScenario":
-        """Concrete datasets + partition + configs."""
+        """Concrete datasets + partition + configs, cached per sub-key: the
+        dataset is built once per ``dataset_key``, the partition once per
+        ``partition_key``, shared by a grid's specs."""
         self.validate()
         from repro_torch.data.partition import SCENARIOS, pretrain_split
         from repro_torch.data.synthetic import mnist_class_task
 
-        train, test = mnist_class_task(n_train=self.n_train,
-                                       n_test=self.n_test, noise=self.noise,
-                                       seed=self.seed)
-        pre_ds, fed_pool = pretrain_split(train, self.excluded_labels,
-                                          frac=self.pretrain_frac,
-                                          seed=self.seed)
-        part = _norm_partition(self.partition)
-        kw = {"alpha": self.alpha} if part == "dirichlet" else {}
-        fed = SCENARIOS[part](fed_pool, n_agents=self.n_agents,
-                              n_rsus=self.n_rsus, seed=self.seed, **kw)
+        dk = self.dataset_key
+        if dk not in _DATA_CACHE:
+            train, test = mnist_class_task(
+                n_train=self.n_train, n_test=self.n_test, noise=self.noise,
+                seed=self.seed)
+            pre_ds, fed_pool = pretrain_split(
+                train, self.excluded_labels, frac=self.pretrain_frac,
+                seed=self.seed)
+            _DATA_CACHE[dk] = (train, test, pre_ds, fed_pool)
+        train, test, pre_ds, fed_pool = _DATA_CACHE[dk]
+
+        pk = self.partition_key
+        if pk not in _PART_CACHE:
+            part = _norm_partition(self.partition)
+            kw = {"alpha": self.alpha} if part == "dirichlet" else {}
+            _PART_CACHE[pk] = SCENARIOS[part](
+                fed_pool, n_agents=self.n_agents, n_rsus=self.n_rsus,
+                seed=self.seed, **kw)
         return ResolvedScenario(spec=self, train=train, test=test,
                                 pretrain_pool=pre_ds, fed_pool=fed_pool,
-                                fed=fed)
+                                fed=_PART_CACHE[pk])
 
     # -- serialization -----------------------------------------------------
     def to_json(self, **dump_kw) -> str:
@@ -268,8 +282,46 @@ class ResolvedScenario:
     def het(self) -> HeterogeneityModel:
         return self.spec.het
 
+    @property
+    def static_key(self) -> Tuple:
+        """Everything that must be equal for scenarios to share one batched
+        sweep program (``fedsim/sweep`` groups on it): shapes and engine
+        flavour, not the per-scenario scalars the sweep batches
+        (csr/fsr/scd/delay_p, mu1/mu2/lr) nor the cadence knobs (lar,
+        local_epochs, cloud_every), which the sweep pads to the group's
+        bounds.  The reference's tuple, field for field."""
+        s = self.spec
+        return (s.n_agents, s.n_rsus, s.batch,
+                tuple(self.fed.x.shape),
+                tuple(self.test.x.shape) if self.test is not None else None,
+                s.engine, s.fleet_dtype, s.fused, s.rsu_sharded,
+                s.model_shards,
+                s.fleet_store, s.chunk_agents, s.chunk_params,
+                s.hidden_dims,
+                s.hp.n_layers,
+                s.het.max_delay,
+                s.staleness_decay, s.schedule, s.buffer_keep,
+                s.rounds, s.eval_every,
+                s.serve_events, s.arrival_rate, s.tick_trigger,
+                s.queue_capacity, s.overload_policy, s.serve_trace,
+                # a fault plan is data (its lowered masks); only presence
+                # and guard structure shape the program
+                None if s.faults is None else s.faults.static_fingerprint)
+
 
 def _digest(obj: Any) -> str:
     return hashlib.sha256(
         json.dumps(obj, sort_keys=True, default=repr).encode()
     ).hexdigest()[:16]
+
+
+# resolve() caches, keyed by the content sub-keys, so a second seed or
+# partition is never served the first one's arrays
+_DATA_CACHE: Dict[str, Tuple] = {}
+_PART_CACHE: Dict[str, Any] = {}
+
+
+def clear_caches() -> None:
+    """Drop the resolve() caches (tests, long-lived processes)."""
+    _DATA_CACHE.clear()
+    _PART_CACHE.clear()

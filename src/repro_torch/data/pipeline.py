@@ -39,10 +39,11 @@ def classification_batches(ds: Dataset, batch: int, *, seed: int = 0,
 def agent_minibatch(x: torch.Tensor, y: torch.Tensor, step: int,
                     batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cyclic minibatch of every agent.  x: (A, n, D), y: (A, n) with n the
-    PADDED per-agent length; returns (A, batch, D), (A, batch).
+    PADDED per-agent length; returns (A, batch, D), (A, batch).  A leading
+    scenario axis, x (S, A, n, D) and y (S, A, n), is kept.
 
     Index rule (the JAX package's): ``(step*batch + arange(batch)) % n``,
     the same rows for every agent."""
-    n = x.shape[1]
+    n = y.shape[-1]
     idx = (step * batch + torch.arange(batch, device=x.device)) % n
-    return x.index_select(1, idx), y.index_select(1, idx)
+    return x.index_select(-2, idx), y.index_select(-1, idx)

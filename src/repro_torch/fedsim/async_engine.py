@@ -27,6 +27,16 @@ finished update arrives at its RSU ``d`` ticks after it was computed,
 With zero latencies, no decay, ``keep = 0`` and ``cloud_every = 0`` a
 round computes what ``engine="flat"`` computes from the same draws.
 
+As in the flat engine, one tick body (``_make_async_program``) serves one
+scenario and a multi-scenario sweep: the state carries a leading scenario
+axis S (``AsyncSweepState``), each kernel takes all S scenarios in one
+launch, and each scenario keeps its own tick clock on the host, so a
+tick's "the cloud fires" is a host-built (S,) choice, and with a
+``Cadence`` a scenario past its own ``lar`` ticks no further that round.
+``cloud_every`` may differ between the scenarios: those at 0 re-anchor
+their RSUs at round start and aggregate the cloud at round end, the others
+on their own clock.  ``_run_async`` runs the body at S = 1.
+
 Parity seam: ``draws``, one ``(mask (A,) bool, active_steps (A,) int,
 delays (A,) int)`` triple per tick, replaces the tick's own draws (the
 state's connectivity is then left as it was).  Faults: built with a
@@ -51,10 +61,12 @@ from repro_torch.core.aggregation import (buffer_absorb, screen_updates,
 from repro_torch.core.flatten import FlatSpec, Params, spec_of
 from repro_torch.core.h2fed import H2FedParams
 from repro_torch.core.heterogeneity import (ConnState, HeterogeneityModel,
-                                            init_conn_state, sample_latency)
+                                            init_conn_state)
 from repro_torch.data.partition import FederatedData
-from repro_torch.fedsim.simulator import (SimConfig, _fed_arrays,
-                                          _local_train_flat, round_draws)
+from repro_torch.fedsim.simulator import (Cadence, FleetData, Lanes,
+                                          SimConfig, _fed_arrays,
+                                          _local_train_flat, agent_rows,
+                                          lane_draws, lane_mask)
 from repro_torch.kernels import ops
 from repro_torch.models import mlp
 
@@ -100,7 +112,7 @@ class AsyncConfig:
 
     def agent_decay(self, rsu_assign: torch.Tensor, n_rsus: int):
         """Each agent's decay rate: the scalar, or the (R,) vector gathered
-        through the agent -> RSU assignment."""
+        through the agent -> RSU assignment ((A,) or (S, A))."""
         dec = self._per_rsu(self.staleness_decay, n_rsus, "staleness_decay")
         if isinstance(dec, float):
             return dec
@@ -118,8 +130,8 @@ class AsyncConfig:
 
 
 class AsyncSimState(NamedTuple):
-    """The fleet buffers plus the in-flight ones.  Agent, RSU and pending
-    rows are in the storage dtype; the cloud master is fp32."""
+    """One scenario's fleet buffers plus the in-flight ones.  Agent, RSU
+    and pending rows are in the storage dtype; the cloud master is fp32."""
     agent_flat: torch.Tensor   # (A, N) latest local model per agent
     rsu_flat: torch.Tensor     # (R, N) staleness-buffer models
     rsu_mass: torch.Tensor     # (R,)   running absorbed cohort mass
@@ -132,6 +144,27 @@ class AsyncSimState(NamedTuple):
     cloud_macc: torch.Tensor   # (R,)   mass absorbed since the last cloud
     #                                   aggregation
     tick: int                  # global tick clock (the cloud cadence's)
+
+
+class AsyncSweepState(NamedTuple):
+    """S scenarios' ``AsyncSimState`` on a leading scenario axis, with one
+    generator and one host tick clock a scenario."""
+    agent_flat: torch.Tensor   # (S, A, N)
+    rsu_flat: torch.Tensor     # (S, R, N)
+    rsu_mass: torch.Tensor     # (S, R)
+    cloud_flat: torch.Tensor   # (S, N)
+    pending_x: torch.Tensor    # (S, A, N)
+    pending_w: torch.Tensor    # (S, A)
+    pending_t: torch.Tensor    # (S, A)
+    conn: ConnState            # (S, A)
+    gens: Tuple[torch.Generator, ...]
+    cloud_macc: torch.Tensor   # (S, R)
+    ticks: Tuple[int, ...]
+
+
+# the state's tensors, in the order a round carries them
+_CARRY = ("rsu_flat", "rsu_mass", "cloud_flat", "agent_flat", "pending_x",
+          "pending_w", "pending_t", "cloud_macc")
 
 
 def init_async_state(cfg: SimConfig, spec: FlatSpec, init_params: Params,
@@ -157,90 +190,126 @@ def init_async_state(cfg: SimConfig, spec: FlatSpec, init_params: Params,
         tick=0)
 
 
-def pending_mass(state: AsyncSimState) -> torch.Tensor:
-    """Decayed weight still in flight (the conservation bookkeeping)."""
-    return (state.pending_w * (state.pending_t > 0)).sum()
+def _batch(state: AsyncSimState) -> AsyncSweepState:
+    """One scenario as a sweep of one (views, no copies)."""
+    return AsyncSweepState(
+        **{k: getattr(state, k)[None] for k in _CARRY},
+        conn=ConnState(state.conn.remaining[None]), gens=(state.gen,),
+        ticks=(state.tick,))
 
 
-def _make_async_round_body(cfg: SimConfig, hp: H2FedParams,
-                           het: HeterogeneityModel, fed: FederatedData,
-                           spec: FlatSpec, acfg: AsyncConfig, *, device,
-                           fused: bool = True,
-                           faults: Optional[faults_mod.FaultPlan] = None):
-    """The global round: ``(state, draws=None, fault_r=None) -> (state,
-    metrics)``, ``hp.lar`` ticks.  Metrics hold per-tick stacks of
-    ``absorbed_mass`` (lar, R), ``immediate_mass``, ``due_mass`` and
-    ``enqueued_mass`` (with a plan also ``quarantined`` and
-    ``blocked_mass``), and the round's ``pending_mass``.  ``fault_r`` is
-    given exactly when the round was built with a plan."""
-    x_all, y_all, n_per_agent, rsu_assign, spe, n_steps = _fed_arrays(
-        cfg, hp, fed, device)
+def lane_state(state: AsyncSweepState, s: int) -> AsyncSimState:
+    """Scenario ``s`` of a sweep state (views)."""
+    return AsyncSimState(**{k: getattr(state, k)[s] for k in _CARRY},
+                         conn=ConnState(state.conn.remaining[s]),
+                         gen=state.gens[s], tick=state.ticks[s])
+
+
+def pending_mass(state) -> torch.Tensor:
+    """Decayed weight still in flight (the conservation bookkeeping): a
+    scalar, or (S,) for a sweep state."""
+    return (state.pending_w * (state.pending_t > 0)).sum(dim=-1)
+
+
+def _select(on: torch.Tensor, new: torch.Tensor,
+            old: torch.Tensor) -> torch.Tensor:
+    """Per scenario (``on`` (S,) bool): ``new`` where on, else ``old``."""
+    return torch.where(on.reshape(on.shape + (1,) * (new.dim() - 1)), new, old)
+
+
+def _make_async_program(cfg: SimConfig, spec: FlatSpec, acfg: AsyncConfig,
+                        *, fused: bool = True,
+                        cadence: Optional[Cadence] = None,
+                        faults: Optional[faults_mod.FaultPlan] = None):
+    """The global round of S scenarios at once: ``(state, data, lanes,
+    draws=None, fault_r=None) -> (state, metrics)``, ticks to each
+    scenario's own ``lar`` (the group's bound with a ``Cadence``).
+    Metrics hold per-tick stacks of ``absorbed_mass`` (S, lar, R),
+    ``immediate_mass``, ``due_mass`` and ``enqueued_mass`` (S, lar) (with a
+    plan also ``quarantined`` and ``blocked_mass``), zero past a
+    scenario's cadence, and the round's ``pending_mass`` (S,).  ``acfg``'s
+    decay, schedule and keep are the group's; each scenario's
+    ``cloud_every`` is ``lanes.cloud_every``.  ``fault_r`` (the round's (S,
+    lar, A) / (S, lar, R) masks) is given exactly when the round was built
+    with a plan; ``draws[s]`` is scenario s's (mask, active_steps, delays)
+    triples, one a tick of its own cadence."""
     A, R, N = cfg.n_agents, cfg.n_rsus, spec.n
-    decay = acfg.agent_decay(rsu_assign, R)         # scalar or (A,)
-    keep = acfg.rsu_keep(R, device)                 # scalar or (R,)
-    ce = acfg.cloud_every
-    rsus = torch.arange(R, device=device)
-    onehot = (rsu_assign[None, :] == rsus[:, None]).float()      # (R, A)
+    rsus = torch.arange(R)
 
-    def segment_sum(w):
-        """Per-RSU sums of an (A,) weight, in the one-hot matrix's order."""
-        return (onehot * w[None, :]).sum(dim=1)
-
-    def cloud_fire(rsu, macc, cloud):
-        if fused:
-            return ops.cloud_blend(rsu, macc, cloud)
-        new = ops.cloud_agg(rsu, macc)
-        return torch.where(macc.sum() > 0, new.float(), cloud)
-
-    def anchored(cloud):
-        return spec.to_storage(cloud).expand(R, N).clone()
-
-    def global_round(state: AsyncSimState,
-                     draws: Optional[AsyncDraws] = None,
+    def global_round(state: AsyncSweepState, data: FleetData, lanes: Lanes,
+                     draws: Optional[Sequence[AsyncDraws]] = None,
                      fault_r: Optional[dict] = None):
         if (faults is None) != (fault_r is None):
             raise ValueError("fault_r is given exactly when the round was "
                              "built with a fault plan")
-        if draws is not None and len(draws) != hp.lar:
-            raise ValueError(f"want {hp.lar} injected draws, got {len(draws)}")
-        cloud = state.cloud_flat
-        if ce:
-            # a decoupled cadence: buffers and masses persist across rounds
-            rsu, rmass, macc = state.rsu_flat, state.rsu_mass, state.cloud_macc
-        else:
-            # Alg. 2 l.2: RSUs re-anchor to the cloud at round start
-            rsu, rmass, macc = anchored(cloud), torch.zeros(
-                R, device=device), torch.zeros(R, device=device)
-        conn, agent = state.conn, state.agent_flat
-        pend_x, pend_w, pend_t = state.pending_x, state.pending_w, \
-            state.pending_t
-        gtick = state.tick
-        ticks = []
-        for i in range(hp.lar):
+        S, dev = lanes.n, state.cloud_flat.device
+        lars, ces = [hp.lar for hp in lanes.hps], lanes.cloud_every
+        L, E = ((cadence.lar, cadence.local_epochs) if cadence is not None
+                else (lars[0], lanes.hps[0].local_epochs))
+        if max(lars) > L or (cadence is None and min(lars) != L):
+            raise ValueError(f"lar {lars} outside the program's bound {L}")
+        if draws is not None and [len(d) for d in draws] != lars:
+            raise ValueError(f"want {lars} injected draws, got "
+                             f"{[len(d) for d in draws]}")
+        assign, n_a = data.rsu_assign, data.n_per_agent
+        decay = acfg.agent_decay(assign, R)         # scalar, (A,) or (S, A)
+        keep = acfg.rsu_keep(R, dev)                # scalar or (R,)
+        onehot = (assign[..., None, :] == rsus.to(dev)[:, None]).float()
+
+        def segment_sum(w):
+            """Per-RSU sums of (S, A) weights, in the one-hot order."""
+            return (onehot * w[..., None, :]).sum(dim=-1)
+
+        def cloud_fire(rsu, macc, cloud):
+            if fused:
+                return ops.cloud_blend(rsu, macc, cloud)
+            new = ops.cloud_agg(rsu, macc)
+            return torch.where(macc.sum(dim=-1)[:, None] > 0, new.float(),
+                               cloud)
+
+        def anchored(cloud):
+            return spec.to_storage(cloud)[:, None].expand(S, R, N).clone()
+
+        c = {k: getattr(state, k) for k in _CARRY}
+        # Alg. 2 l.2 for the scenarios of the synchronous cadence
+        # (cloud_every 0): RSUs re-anchor to the cloud at round start; with
+        # a decoupled cadence buffers and masses persist across rounds
+        anchor = [ce == 0 for ce in ces]
+        if any(anchor):
+            fresh = {"rsu_flat": anchored(c["cloud_flat"]),
+                     "rsu_mass": torch.zeros((S, R), device=dev),
+                     "cloud_macc": torch.zeros((S, R), device=dev)}
+            on = lane_mask(anchor, dev)
+            for k, v in fresh.items():
+                c[k] = v if on is None else _select(on, v, c[k])
+        conn, ticks, clocks = state.conn.remaining, [], list(state.ticks)
+        for i in range(L):
+            live = [i < lar for lar in lars]
+            before = dict(c)
             f = None
             if faults is not None:
-                f = {k: v[i] for k, v in fault_r.items()}
+                f = {k: v[:, i] for k, v in fault_r.items()}
                 # a recovering RSU re-anchors to the cloud; its aged
                 # content and not-yet-aggregated mass go
                 ra = f["reanchor"] > 0
-                rsu = torch.where(ra[:, None], anchored(cloud), rsu)
-                rmass = torch.where(ra, 0.0, rmass)
-                macc = torch.where(ra, 0.0, macc)
+                c["rsu_flat"] = torch.where(ra[..., None],
+                                            anchored(c["cloud_flat"]),
+                                            c["rsu_flat"])
+                c["rsu_mass"] = torch.where(ra, 0.0, c["rsu_mass"])
+                c["cloud_macc"] = torch.where(ra, 0.0, c["cloud_macc"])
 
             # in-flight countdown: due updates deliver this tick, the rest
             # stay busy and train nothing new
+            pend_t = c["pending_t"]
             in_flight = pend_t > 0
             pend_t = (pend_t - 1).clamp_min(0)
             due = in_flight & (pend_t == 0)
             busy = in_flight & ~due
             free = ~busy
 
-            if draws is None:
-                conn, mask, active_steps = round_draws(
-                    state.gen, conn, het, hp, A, spe)
-                delays = sample_latency(state.gen, A, het, device)
-            else:
-                mask, active_steps, delays = (t.to(device) for t in draws[i])
+            conn, mask, active_steps, delays = lane_draws(
+                state.gens, conn, lanes, live, A, data.spe, draws, i, dev,
+                latency=True)
             if f is not None:
                 mask = mask & (f["agent_up"] > 0)    # churned agents
             maskf = mask.float()
@@ -249,80 +318,135 @@ def _make_async_round_body(cfg: SimConfig, hp: H2FedParams,
             # keep their row
             act = torch.where(busy, torch.zeros_like(active_steps),
                               active_steps)
-            w_start = rsu.index_select(0, rsu_assign)            # (A, N)
+            w_start = agent_rows(c["rsu_flat"], assign)          # (S, A, N)
             trained = spec.to_storage(_local_train_flat(
-                spec, x_all, y_all, w_start, cloud, hp, n_steps, act,
-                cfg.batch))
+                spec, data, w_start, c["cloud_flat"], lanes, E * data.spe,
+                act, cfg.batch))
             if f is not None:
-                up_a = f["rsu_up"][rsu_assign]                   # (A,)
-                trained = faults_mod.apply_corruption(trained, agent, f)
+                up_a = agent_rows(f["rsu_up"], assign)           # (S, A)
+                trained = faults_mod.apply_corruption(trained,
+                                                      c["agent_flat"], f)
                 trained, okf, nq = screen_updates(
-                    trained, w_start, n_per_agent * maskf * free.float() * up_a,
+                    trained, w_start, n_a * maskf * free.float() * up_a,
                     nonfinite=faults.guard_nonfinite,
                     norm_clip=faults.norm_clip)
-            agent = torch.where(busy[:, None], agent, trained)
+            c["agent_flat"] = torch.where(busy[..., None], c["agent_flat"],
+                                          trained)
 
             # arrivals: the zero-latency cohort (s(0) == 1) and the due
             # stragglers, absorbed with running cohort-mass accounting
-            w_imm = n_per_agent * maskf * free * (delays == 0).float()
-            w_due = torch.where(due, pend_w, 0.0)
+            w_imm = n_a * maskf * free * (delays == 0).float()
+            w_due = torch.where(due, c["pending_w"], 0.0)
             if f is not None:
                 # uploads to a dark RSU are lost (the in-flight slot frees)
-                blocked = ((w_imm + w_due) * (1.0 - up_a)).sum()
+                blocked = ((w_imm + w_due) * (1.0 - up_a)).sum(dim=-1)
                 w_imm = w_imm * up_a * okf
                 w_due = w_due * up_a
             m_i, m_d = segment_sum(w_imm), segment_sum(w_due)
             if fused:
-                rsu, rmass, _ = ops.agg_absorb(
-                    ((agent, w_imm), (pend_x, w_due)), rsu_assign, R, rsu,
-                    rmass, keep=keep)
+                c["rsu_flat"], c["rsu_mass"], _ = ops.agg_absorb(
+                    ((c["agent_flat"], w_imm), (c["pending_x"], w_due)),
+                    assign, R, c["rsu_flat"], c["rsu_mass"], keep=keep)
             else:
-                num_i, _ = ops.masked_scatter_accumulate(agent, w_imm,
-                                                         rsu_assign, R)
-                num_d, _ = ops.masked_scatter_accumulate(pend_x, w_due,
-                                                         rsu_assign, R)
-                rsu, rmass = buffer_absorb(rsu, rmass, num_i + num_d,
-                                           m_i + m_d, keep=keep)
-            macc = macc + m_i + m_d
+                num_i, _ = ops.masked_scatter_accumulate(
+                    c["agent_flat"], w_imm, assign, R)
+                num_d, _ = ops.masked_scatter_accumulate(
+                    c["pending_x"], w_due, assign, R)
+                c["rsu_flat"], c["rsu_mass"] = buffer_absorb(
+                    c["rsu_flat"], c["rsu_mass"], num_i + num_d, m_i + m_d,
+                    keep=keep)
+            c["cloud_macc"] = c["cloud_macc"] + m_i + m_d
 
             # enqueue new in-flight work, its weight decayed by s(d) now
             enq = mask & free & (delays > 0)
             if f is not None:
                 enq = enq & (okf > 0)        # quarantined rows never enqueue
-            pend_x = torch.where(enq[:, None], trained, pend_x)
-            w_enq = n_per_agent * maskf * acfg.weight(delays, decay=decay)
-            pend_w = torch.where(enq, w_enq, pend_w)
-            pend_t = torch.where(enq, delays, pend_t)
+            c["pending_x"] = torch.where(enq[..., None], trained,
+                                         c["pending_x"])
+            w_enq = n_a * maskf * acfg.weight(delays, decay=decay)
+            c["pending_w"] = torch.where(enq, w_enq, c["pending_w"])
+            c["pending_t"] = torch.where(enq, delays, pend_t)
 
-            # the cloud cadence on the global tick clock; a dark RSU's mass
-            # is left out of the blend
-            gtick += 1
-            if ce and gtick % ce == 0:
-                cloud = cloud_fire(rsu, macc if f is None
-                                   else macc * f["rsu_up"], cloud)
-                macc = torch.zeros_like(macc)
+            # each scenario's cloud cadence on its own global tick clock (a
+            # host-built choice); a dark RSU's mass is left out of the blend
+            fire = []
+            for s, on in enumerate(live):
+                clocks[s] += on
+                fire.append(on and ces[s] > 0 and clocks[s] % ces[s] == 0)
+            if any(fire):
+                macc = c["cloud_macc"]
+                blended = cloud_fire(c["rsu_flat"], macc if f is None
+                                     else macc * f["rsu_up"],
+                                     c["cloud_flat"])
+                on = lane_mask(fire, dev)
+                c["cloud_flat"] = blended if on is None else _select(
+                    on, blended, c["cloud_flat"])
+                c["cloud_macc"] = (torch.zeros_like(macc) if on is None
+                                   else _select(on, 0 * macc, macc))
 
-            m = {"absorbed_mass": m_i + m_d, "immediate_mass": m_i.sum(),
-                 "due_mass": m_d.sum(),
-                 "enqueued_mass": torch.where(enq, w_enq, 0.0).sum()}
+            m = {"absorbed_mass": m_i + m_d, "immediate_mass": m_i.sum(-1),
+                 "due_mass": m_d.sum(-1),
+                 "enqueued_mass": torch.where(enq, w_enq, 0.0).sum(-1)}
             if f is not None:
                 m["quarantined"], m["blocked_mass"] = nq, blocked
+            on = lane_mask(live, dev)
+            if on is not None:
+                # a scenario past its own lar: this tick never happened
+                c = {k: _select(on, v, before[k]) for k, v in c.items()}
+                m = {k: _select(on, v, torch.zeros_like(v))
+                     for k, v in m.items()}
             ticks.append(m)
 
-        if not ce:
-            # Alg. 3 l.6 at round end, over the mass of RSUs reachable at
-            # the round's last tick
-            cloud = cloud_fire(rsu, macc if faults is None
-                               else macc * fault_r["rsu_up"][hp.lar - 1],
-                               cloud)
-            macc = torch.zeros_like(macc)
-        out = AsyncSimState(agent_flat=agent, rsu_flat=rsu, rsu_mass=rmass,
-                            cloud_flat=cloud, pending_x=pend_x,
-                            pending_w=pend_w, pending_t=pend_t, conn=conn,
-                            gen=state.gen, cloud_macc=macc, tick=gtick)
-        metrics = {k: torch.stack([m[k] for m in ticks]) for k in ticks[0]}
+        if any(anchor):
+            # Alg. 3 l.6 at round end for the synchronous-cadence
+            # scenarios, over the mass of RSUs reachable at their last tick
+            macc = c["cloud_macc"]
+            if faults is not None:
+                last = torch.tensor([lar - 1 for lar in lars], device=dev)
+                macc = macc * fault_r["rsu_up"][torch.arange(S, device=dev),
+                                                last]
+            blended = cloud_fire(c["rsu_flat"], macc, c["cloud_flat"])
+            on = lane_mask(anchor, dev)
+            c["cloud_flat"] = blended if on is None else _select(
+                on, blended, c["cloud_flat"])
+            c["cloud_macc"] = (torch.zeros_like(macc) if on is None
+                               else _select(on, 0 * macc, c["cloud_macc"]))
+        out = AsyncSweepState(**c, conn=ConnState(conn), gens=state.gens,
+                              ticks=tuple(clocks))
+        metrics = {k: torch.stack([m[k] for m in ticks], dim=1)
+                   for k in ticks[0]}
         metrics["pending_mass"] = pending_mass(out)
         return out, metrics
+
+    return global_round
+
+
+def _make_async_round_body(cfg: SimConfig, hp: H2FedParams,
+                           het: HeterogeneityModel, fed: FederatedData,
+                           spec: FlatSpec, acfg: AsyncConfig, *, device,
+                           fused: bool = True,
+                           faults: Optional[faults_mod.FaultPlan] = None):
+    """One scenario's global round: ``(state, draws=None, fault_r=None) ->
+    (state, metrics)``, ``hp.lar`` ticks: ``_make_async_program`` at S = 1
+    on an ``AsyncSimState``.  Metrics hold per-tick stacks of
+    ``absorbed_mass`` (lar, R), ``immediate_mass``, ``due_mass`` and
+    ``enqueued_mass`` (with a plan also ``quarantined`` and
+    ``blocked_mass``), and the round's ``pending_mass``.  ``fault_r`` is
+    given exactly when the round was built with a plan."""
+    program = _make_async_program(cfg, spec, acfg, fused=fused, faults=faults)
+    data = _fed_arrays(cfg, fed, device)
+    lanes = Lanes.of([hp], [het], cloud_every=[acfg.cloud_every])
+
+    def global_round(state: AsyncSimState,
+                     draws: Optional[AsyncDraws] = None,
+                     fault_r: Optional[dict] = None):
+        if draws is not None and len(draws) != hp.lar:
+            raise ValueError(f"want {hp.lar} injected draws, got {len(draws)}")
+        out, metrics = program(
+            _batch(state), data, lanes, None if draws is None else [draws],
+            None if fault_r is None else
+            {k: v[None] for k, v in fault_r.items()})
+        return lane_state(out, 0), {k: v[0] for k, v in metrics.items()}
 
     return global_round
 
@@ -340,22 +464,28 @@ def make_async_global_round(cfg: SimConfig, hp: H2FedParams,
                                   device=device, fused=fused, faults=faults)
 
 
+def async_config(spec) -> AsyncConfig:
+    """The tick engine's config from a spec's async knobs."""
+    return AsyncConfig(staleness_decay=spec.staleness_decay,
+                       schedule=spec.schedule, buffer_keep=spec.buffer_keep,
+                       cloud_every=spec.cloud_every)
+
+
 def _run_async(res, init_params: Params, *, device,
                eval_fn: Optional[Callable[[Params], float]] = None,
                draws: Optional[Sequence[AsyncDraws]] = None,
                ) -> Tuple[AsyncSimState, Dict[str, np.ndarray]]:
     """``run_scenario``'s async target: the scenario's rounds through the
-    tick engine.  History: ``round`` and ``acc``, per-round
-    ``absorbed_mass`` and ``pending_mass``, and with a plan
-    ``quarantined`` and ``blocked_mass``.  ``draws[r]`` injects round r's
-    per-tick triples."""
+    tick engine (the tick program at S = 1).  History: ``round`` and
+    ``acc``, per-round ``absorbed_mass`` and ``pending_mass``, and with a
+    plan ``quarantined`` and ``blocked_mass``.  ``draws[r]`` injects round
+    r's per-tick triples."""
     s = res.spec
-    cfg, hp, het, fed = res.cfg, s.hp, s.het, res.fed
+    cfg, hp, het = res.cfg, s.hp, s.het
     hp.validate(), het.validate()
     if draws is not None and len(draws) != s.rounds:
         raise ValueError(f"want draws for {s.rounds} rounds, got {len(draws)}")
-    acfg = AsyncConfig(staleness_decay=s.staleness_decay, schedule=s.schedule,
-                       buffer_keep=s.buffer_keep, cloud_every=s.cloud_every)
+    acfg = async_config(s).validate()
     if eval_fn is None and res.test is not None:
         x_test = torch.from_numpy(res.test.x).to(device)
         y_test = torch.from_numpy(res.test.y).to(device=device,
@@ -364,7 +494,7 @@ def _run_async(res, init_params: Params, *, device,
 
     spec = spec_of(init_params, storage_dtype=s.fleet_dtype)
     state = init_async_state(cfg, spec, init_params, device)
-    round_fn = make_async_global_round(cfg, hp, het, fed, spec, acfg,
+    round_fn = make_async_global_round(cfg, hp, het, res.fed, spec, acfg,
                                        device=device, fused=s.fused,
                                        faults=s.faults)
     sched = (None if s.faults is None else

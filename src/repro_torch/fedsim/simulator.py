@@ -19,10 +19,21 @@ master.  Parameters are unraveled only for eval.  ``fused=False`` runs the
 two-step form (aggregation matmul, then the blend) through the
 ``weighted_agg_matmul`` kernel.
 
+One round body, ``_make_flat_program``, serves one scenario and a
+multi-scenario sweep alike: its state carries a leading scenario axis S
+(``FlatSweepState``: agents (S, A, N), RSUs (S, R, N), clouds (S, N), one
+``torch.Generator`` a scenario), and every kernel takes all S scenarios
+in one launch.  The scenarios' own knobs ride in ``Lanes``; with a
+``Cadence`` the local rounds run to the group's bound and a scenario past
+its own ``lar`` keeps its state and draws nothing, so each scenario's
+generator stream is its sequential run's.  ``_make_flat_round_body`` and
+``_run_sync`` run it at S = 1 on the single-scenario ``FlatSimState``.
+
 Parity seam: a round takes ``draws``, one ``(mask (A,) bool, active_steps
-(A,) int)`` pair per local round, in place of its own draws.  JAX's
-threefry draws cannot be reproduced by a ``torch.Generator``, so the
-parity tests feed the JAX package's draws through it.
+(A,) int)`` pair per local round (the program: one such list a scenario),
+in place of its own draws.  JAX's threefry draws cannot be reproduced by a
+``torch.Generator``, so the parity tests feed the JAX package's draws
+through it.
 
 Faults: built with a ``FaultPlan``, the round takes ``fault_r``, its
 slice of the lowered schedule, and returns ``(state, {"quarantined"})``.
@@ -33,7 +44,8 @@ are dropped.  An empty plan gives ``faults=None``'s result bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -44,6 +56,7 @@ from repro_torch.core.flatten import FlatSpec, Params, spec_of
 from repro_torch.core.h2fed import H2FedParams
 from repro_torch.core.heterogeneity import (ConnState, HeterogeneityModel,
                                             init_conn_state, sample_epochs,
+                                            sample_latency,
                                             step_connectivity)
 from repro_torch.data.partition import FederatedData
 from repro_torch.data.pipeline import agent_minibatch
@@ -52,6 +65,8 @@ from repro_torch.models import mlp
 
 # one local round's injected draws: (mask (A,) bool, active_steps (A,) int)
 Draws = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+Hyper = Union[float, torch.Tensor]
+TRAIN_SCALARS = ("lr", "mu1", "mu2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,12 +88,99 @@ class SimState(NamedTuple):
 
 
 class FlatSimState(NamedTuple):
-    """The whole fleet as three contiguous buffers."""
+    """One scenario's fleet as three contiguous buffers."""
     agent_flat: torch.Tensor    # (A, N)  storage dtype
     rsu_flat: torch.Tensor      # (R, N)  storage dtype
     cloud_flat: torch.Tensor    # (N,)    fp32 master
     conn: ConnState
     gen: torch.Generator        # the round draws' generator
+
+
+class FlatSweepState(NamedTuple):
+    """S scenarios' fleets, stacked on a leading scenario axis."""
+    agent_flat: torch.Tensor    # (S, A, N)  storage dtype
+    rsu_flat: torch.Tensor      # (S, R, N)  storage dtype
+    cloud_flat: torch.Tensor    # (S, N)     fp32 masters
+    conn: ConnState             # (S, A)
+    gens: Tuple[torch.Generator, ...]   # one a scenario
+
+
+class Cadence(NamedTuple):
+    """Group-wide bounds of the cadence knobs of a sweep whose scenarios
+    differ in ``lar`` / ``local_epochs``: the local rounds (async: ticks)
+    run to ``lar`` and a scenario past its own is left as it is; the
+    minibatch loop runs to ``local_epochs`` epochs, where the update
+    kernel's ``step < active_steps`` leaves the padded steps without
+    effect.  ``None`` keeps every scenario's own (equal) cadence."""
+    lar: int
+    local_epochs: int
+
+
+class Lanes(NamedTuple):
+    """The scenarios of one batched program, lane by lane: each one's
+    ``H2FedParams`` and ``HeterogeneityModel`` (its draws and cadence, on
+    the host), its cloud cadence (async), and the update's ``lr`` /
+    ``mu1`` / ``mu2``, each a float every lane shares (baked) or an (S,)
+    fp32 tensor on the device (batched)."""
+    hps: Tuple[H2FedParams, ...]
+    hets: Tuple[HeterogeneityModel, ...]
+    lr: Hyper
+    mu1: Hyper
+    mu2: Hyper
+    cloud_every: Tuple[int, ...] = ()
+
+    @classmethod
+    def of(cls, hps: Sequence[H2FedParams],
+           hets: Sequence[HeterogeneityModel], *,
+           batched: Sequence[str] = (), cloud_every: Sequence[int] = (),
+           device=None) -> "Lanes":
+        """``batched`` names the training scalars passed as (S,) tensors;
+        every other one must be equal in every lane."""
+        vals = {}
+        for name in TRAIN_SCALARS:
+            v = [float(getattr(hp, name)) for hp in hps]
+            if name in batched:
+                vals[name] = torch.tensor(v, dtype=torch.float32,
+                                          device=device)
+            elif any(x != v[0] for x in v):
+                raise ValueError(f"{name} differs across the scenarios but "
+                                 f"is not batched")
+            else:
+                vals[name] = v[0]
+        return cls(tuple(hps), tuple(hets), cloud_every=tuple(cloud_every),
+                   **vals)
+
+    @property
+    def n(self) -> int:
+        return len(self.hps)
+
+
+class FleetData(NamedTuple):
+    """A scenario group's data on the device.  Each block is shared by
+    every scenario (no leading axis: one copy whatever S is) or stacked
+    (S, ...)."""
+    x: torch.Tensor             # (A, n, D) or (S, A, n, D)
+    y: torch.Tensor             # (A, n) or (S, A, n), int64
+    n_per_agent: torch.Tensor   # (A,) or (S, A), fp32
+    rsu_assign: torch.Tensor    # (A,) or (S, A), int64
+    spe: int                    # minibatch steps an epoch
+
+
+# a FederatedData's blocks and their dtypes on the device (None: as is)
+FLEET_BLOCKS = {"x": None, "y": torch.long, "n_per_agent": torch.float32,
+                "rsu_assign": torch.long}
+
+
+def block_tensor(name: str, array, device) -> torch.Tensor:
+    """One FederatedData block as a tensor on ``device``."""
+    t = torch.from_numpy(np.asarray(array))
+    return t.to(device=device, dtype=FLEET_BLOCKS[name] or t.dtype)
+
+
+def _fed_arrays(cfg: SimConfig, fed: FederatedData, device) -> FleetData:
+    return FleetData(**{k: block_tensor(k, getattr(fed, k), device)
+                        for k in FLEET_BLOCKS},
+                     spe=max(int(fed.x.shape[1]) // cfg.batch, 1))
 
 
 def init_flat_state(cfg: SimConfig, spec: FlatSpec, init_params: Params,
@@ -104,6 +206,21 @@ def from_flat_state(spec: FlatSpec, state: FlatSimState) -> SimState:
                     conn=state.conn, gen=state.gen)
 
 
+def _batch(state: FlatSimState) -> FlatSweepState:
+    """One scenario as a sweep of one (views, no copies)."""
+    return FlatSweepState(state.agent_flat[None], state.rsu_flat[None],
+                          state.cloud_flat[None],
+                          ConnState(state.conn.remaining[None]),
+                          (state.gen,))
+
+
+def lane_state(state: FlatSweepState, s: int) -> FlatSimState:
+    """Scenario ``s`` of a sweep state (views)."""
+    return FlatSimState(state.agent_flat[s], state.rsu_flat[s],
+                        state.cloud_flat[s],
+                        ConnState(state.conn.remaining[s]), state.gens[s])
+
+
 def round_draws(gen: torch.Generator, conn: ConnState,
                 het: HeterogeneityModel, hp: H2FedParams, n_agents: int,
                 spe: int):
@@ -116,39 +233,192 @@ def round_draws(gen: torch.Generator, conn: ConnState,
     return conn, connected & (active_steps > 0), active_steps
 
 
-def _local_train_flat(spec: FlatSpec, x: torch.Tensor, y: torch.Tensor,
-                      w_start: torch.Tensor, w_cloud: torch.Tensor,
-                      hp: H2FedParams, n_steps: int,
-                      active_steps: torch.Tensor, batch: int) -> torch.Tensor:
-    """Every agent at once: ``active_steps[a]`` proximal-SGD minibatch steps
-    from its RSU row ``w_start[a]`` (steps beyond it leave the row as it
-    is).  Compute is fp32 whatever the storage dtype; returns (A, N) fp32.
+def stack_lanes(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-scenario tensors on a new leading axis (a view for one)."""
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
 
-    x: (A, n, D), y: (A, n); w_start: (A, N) storage dtype, also the
-    agent->RSU anchor; w_cloud: (N,) fp32, the anchor every row shares."""
-    w = w_start.to(torch.float32, copy=True)
+
+def lane_draws(gens, conn: torch.Tensor, lanes: Lanes, live: Sequence[bool],
+               n_agents: int, spe: int, draws, i: int, device,
+               latency: bool = False):
+    """Local round (tick) ``i``'s draws of every scenario, each from its own
+    generator: (conn' (S, A), mask (S, A) bool, active_steps (S, A)[,
+    delays (S, A)]).  A scenario past its own cadence (``live`` False)
+    draws nothing and gets an empty cohort; injected ``draws[s][i]``
+    replace scenario s's own (its connectivity is then left as it was)."""
+    conns, masks, acts, delays = [], [], [], []
+    for s, on in enumerate(live):
+        if not on:
+            zeros = torch.zeros(n_agents, dtype=torch.int32, device=device)
+            conns.append(conn[s])
+            masks.append(zeros > 0)
+            acts.append(zeros)
+            delays.append(zeros)
+            continue
+        if draws is None:
+            c, m, a = round_draws(gens[s], ConnState(conn[s]), lanes.hets[s],
+                                  lanes.hps[s], n_agents, spe)
+            conns.append(c.remaining)
+            if latency:
+                delays.append(sample_latency(gens[s], n_agents,
+                                             lanes.hets[s], device))
+        else:
+            m, a, *d = (t.to(device) for t in draws[s][i])
+            conns.append(conn[s])
+            delays.extend(d)
+        masks.append(m)
+        acts.append(a)
+    out = (stack_lanes(conns), stack_lanes(masks), stack_lanes(acts))
+    return out + (stack_lanes(delays),) if latency else out
+
+
+def agent_rows(buf: torch.Tensor, rsu_assign: torch.Tensor) -> torch.Tensor:
+    """Every agent's RSU row: buf (S, R, ...) gathered by rsu_assign, (A,)
+    shared or (S, A) -> (S, A, ...)."""
+    if rsu_assign.dim() == 1:
+        return buf.index_select(1, rsu_assign)
+    idx = rsu_assign.reshape(rsu_assign.shape + (1,) * (buf.dim() - 2))
+    return torch.gather(buf, 1, idx.expand(rsu_assign.shape + buf.shape[2:]))
+
+
+def _as_rows(block: torch.Tensor, S: int, dims: int) -> torch.Tensor:
+    """A minibatch block as S*A agent rows: a stacked (S, A, ...) block is
+    reshaped; a shared (A, ...) one is broadcast over the scenarios (a view
+    at S = 1), so the group's data block itself is never copied."""
+    if block.dim() > dims:
+        return block.reshape((-1,) + block.shape[2:])
+    return block.expand((S,) + block.shape).reshape((-1,) + block.shape[1:])
+
+
+def _local_train_flat(spec: FlatSpec, data: FleetData, w_start: torch.Tensor,
+                      w_cloud: torch.Tensor, lanes: Lanes, n_steps: int,
+                      active_steps: torch.Tensor, batch: int) -> torch.Tensor:
+    """Every agent of every scenario at once: ``active_steps[s, a]``
+    proximal-SGD minibatch steps from its RSU row ``w_start[s, a]`` (steps
+    beyond it leave the row as it is).  Compute is fp32 whatever the
+    storage dtype; returns (S, A, N) fp32.
+
+    w_start: (S, A, N) storage dtype, also the agent->RSU anchor; w_cloud:
+    (S, N) fp32, the anchor every agent of a scenario shares."""
+    S, A, N = w_start.shape
+    a1 = w_start.reshape(S * A, N)
+    w = a1.to(torch.float32, copy=True)
+    act = active_steps.reshape(S * A)
     for step in range(n_steps):
-        xb, yb = agent_minibatch(x, y, step, batch)
-        g = mlp.grad_stacked(spec, w, xb, yb)
+        xb, yb = agent_minibatch(data.x, data.y, step, batch)
+        g = mlp.grad_stacked(spec, w, _as_rows(xb, S, 3), _as_rows(yb, S, 2))
         # in place: w is this function's own buffer (the JAX scan carry);
         # the anchor w_start is widened in the update, and the kernel forms
-        # live = (step < active_steps) itself
-        ops.dual_proximal_sgd(w, g, w_start, w_cloud, lr=hp.lr, mu1=hp.mu1,
-                              mu2=hp.mu2, active_steps=active_steps,
-                              step=step, out=w)
-    return w
+        # live = (step < active_steps) itself and reads each row's
+        # scenario's cloud row and hyper-parameters
+        ops.dual_proximal_sgd(w, g, a1, w_cloud, lr=lanes.lr, mu1=lanes.mu1,
+                              mu2=lanes.mu2, active_steps=act, step=step,
+                              out=w)
+    return w.view(S, A, N)
 
 
-def _fed_arrays(cfg: SimConfig, hp: H2FedParams, fed: FederatedData,
-                device):
-    x_all = torch.from_numpy(fed.x).to(device)
-    y_all = torch.from_numpy(fed.y).to(device=device, dtype=torch.long)
-    n_per_agent = torch.from_numpy(
-        np.asarray(fed.n_per_agent, np.float32)).to(device)
-    rsu_assign = torch.from_numpy(fed.rsu_assign).to(device=device,
-                                                     dtype=torch.long)
-    spe = max(int(fed.x.shape[1]) // cfg.batch, 1)       # steps per epoch
-    return x_all, y_all, n_per_agent, rsu_assign, spe, hp.local_epochs * spe
+def lane_mask(live: Sequence[bool], device) -> Optional[torch.Tensor]:
+    """(S,) bool of the scenarios still inside their cadence, or None when
+    every one is."""
+    return None if all(live) else torch.tensor(live, device=device)
+
+
+def _make_flat_program(cfg: SimConfig, spec: FlatSpec, *, fused: bool = True,
+                       cadence: Optional[Cadence] = None,
+                       faults: Optional[faults_mod.FaultPlan] = None,
+                       ) -> Callable:
+    """The global round of S scenarios at once: ``(state, data, lanes,
+    draws=None, fault_r=None) -> state``, or ``(state, {"quarantined"
+    (S,)})`` when built with a fault plan, whose ``fault_r`` holds the
+    round's (S, lar, A) / (S, lar, R) masks.
+
+    ``state`` is a ``FlatSweepState`` and ``data`` a ``FleetData``; the
+    round advances the state's generators.  ``fused=True`` runs both
+    aggregation layers through the fused aggregate-and-blend kernel,
+    ``fused=False`` through the aggregation matmul and a separate blend;
+    each is one launch a call for all S scenarios.  ``draws[s]``, when
+    given, holds scenario s's injected (mask, active_steps) pairs, one a
+    local round of its own cadence."""
+    A, R, N = cfg.n_agents, cfg.n_rsus, spec.n
+
+    def global_round(state: FlatSweepState, data: FleetData, lanes: Lanes,
+                     draws: Optional[Sequence[Draws]] = None,
+                     fault_r: Optional[dict] = None):
+        if (faults is None) != (fault_r is None):
+            raise ValueError("fault_r is given exactly when the round was "
+                             "built with a fault plan")
+        S, dev = lanes.n, state.cloud_flat.device
+        lars = [hp.lar for hp in lanes.hps]
+        L, E = ((cadence.lar, cadence.local_epochs) if cadence is not None
+                else (lars[0], lanes.hps[0].local_epochs))
+        if max(lars) > L or (cadence is None and min(lars) != L):
+            raise ValueError(f"lar {lars} outside the program's bound {L}")
+        if draws is not None and [len(d) for d in draws] != lars:
+            raise ValueError(f"want {lars} injected draws, got "
+                             f"{[len(d) for d in draws]}")
+        # Alg. 2 l.2: RSUs replace w_k with the cloud model (materialised)
+        rsu = spec.to_storage(state.cloud_flat)[:, None].expand(
+            S, R, N).clone()
+        conn, agent = state.conn.remaining, state.agent_flat
+        masses, nqs = [], []
+        for i in range(L):
+            live = [i < lar for lar in lars]
+            conn, mask, active_steps = lane_draws(
+                state.gens, conn, lanes, live, A, data.spe, draws, i, dev)
+            if faults is not None:
+                f = {k: v[:, i] for k, v in fault_r.items()}
+                mask = mask & (f["agent_up"] > 0)    # churned agents
+            # Alg. 2 l.5 / Alg. 1 l.1: every agent starts from its RSU row
+            w_start = agent_rows(rsu, data.rsu_assign)          # (S, A, N)
+            agent_prev = agent
+            agent = spec.to_storage(_local_train_flat(
+                spec, data, w_start, state.cloud_flat, lanes, E * data.spe,
+                active_steps, cfg.batch))
+            if faults is not None:
+                # corrupted payloads enter after training; the gate scrubs
+                # rejected rows before any kernel reads them, and uploads
+                # to a dark RSU weigh nothing
+                agent = faults_mod.apply_corruption(agent, agent_prev, f)
+                up_a = agent_rows(f["rsu_up"], data.rsu_assign)  # (S, A)
+                maskf = mask.float()
+                agent, okf, nq = screen_updates(
+                    agent, w_start, data.n_per_agent * maskf * up_a,
+                    nonfinite=faults.guard_nonfinite,
+                    norm_clip=faults.norm_clip)
+                mask = maskf * up_a * okf
+                nqs.append(nq)
+            # Alg. 2 l.8: one (R, A) @ (A, N) pass over each fleet
+            if fused:
+                rsu, mass = ops.agg_blend(agent, data.n_per_agent, mask,
+                                          data.rsu_assign, R, rsu)
+            else:
+                new_rsu, mass = ops.masked_hier_agg(agent, data.n_per_agent,
+                                                    mask, data.rsu_assign, R)
+                rsu = torch.where((mass > 0)[..., None], new_rsu,
+                                  rsu).to(rsu.dtype)
+            # a scenario past its own lar drew an empty cohort, so its RSUs
+            # kept their rows and its mass and quarantine count are 0; its
+            # agents keep their rows too
+            on = lane_mask(live, dev)
+            if on is not None:
+                agent = torch.where(on[:, None, None], agent, agent_prev)
+            masses.append(mass)
+
+        # Alg. 3 l.6: cloud aggregation, the (1, R) @ (R, N) pass
+        total_mass = torch.stack(masses).sum(dim=0)              # (S, R)
+        if fused:
+            cloud = ops.cloud_blend(rsu, total_mass, state.cloud_flat)
+        else:
+            new_cloud = ops.cloud_agg(rsu, total_mass)
+            cloud = torch.where(total_mass.sum(dim=-1)[:, None] > 0,
+                                new_cloud.float(), state.cloud_flat)
+        out = FlatSweepState(agent_flat=agent, rsu_flat=rsu, cloud_flat=cloud,
+                             conn=ConnState(conn), gens=state.gens)
+        if faults is None:
+            return out
+        return out, {"quarantined": torch.stack(nqs).sum(dim=0)}
+
+    return global_round
 
 
 def _make_flat_round_body(cfg: SimConfig, hp: H2FedParams,
@@ -156,89 +426,28 @@ def _make_flat_round_body(cfg: SimConfig, hp: H2FedParams,
                           spec: FlatSpec, *, device, fused: bool = True,
                           faults: Optional[faults_mod.FaultPlan] = None,
                           ) -> Callable[..., FlatSimState]:
-    """The global round: ``(state, draws=None) -> state``; with ``faults``,
-    ``(state, draws=None, fault_r) -> (state, {"quarantined"})``, where
-    ``fault_r`` holds the round's (lar, A)/(lar, R) fault masks.
-
-    The round advances the state's generator (the JAX round's input is
-    donated; here only the training loop's own buffer is updated in
-    place).  ``fused=True`` runs both
-    aggregation layers through the fused aggregate-and-blend kernel;
-    ``fused=False`` through the aggregation matmul and a separate blend.
-    ``draws``, when given, holds ``hp.lar`` injected (mask, active_steps)
-    pairs and replaces the round's own draws (the state's connectivity is
-    then left as it was)."""
-    x_all, y_all, n_per_agent, rsu_assign, spe, n_steps = _fed_arrays(
-        cfg, hp, fed, device)
+    """One scenario's global round: ``(state, draws=None) -> state``; with
+    ``faults``, ``(state, draws=None, fault_r) -> (state,
+    {"quarantined"})``, where ``fault_r`` holds the round's (lar, A)/(lar,
+    R) fault masks.  It is ``_make_flat_program`` at S = 1 on a
+    ``FlatSimState``; ``draws``, when given, holds ``hp.lar`` injected
+    (mask, active_steps) pairs (the state's connectivity is then left as
+    it was)."""
+    program = _make_flat_program(cfg, spec, fused=fused, faults=faults)
+    data = _fed_arrays(cfg, fed, device)
+    lanes = Lanes.of([hp], [het])
 
     def global_round(state: FlatSimState, draws: Optional[Draws] = None,
                      fault_r: Optional[dict] = None):
-        if (faults is None) != (fault_r is None):
-            raise ValueError("fault_r is given exactly when the round was "
-                             "built with a fault plan")
         if draws is not None and len(draws) != hp.lar:
             raise ValueError(f"want {hp.lar} injected draws, got {len(draws)}")
-        # Alg. 2 l.2: RSUs replace w_k with the cloud model (materialised)
-        rsu_flat = spec.to_storage(state.cloud_flat).expand(
-            cfg.n_rsus, spec.n).clone()
-        conn, agent_flat, masses, nqs = state.conn, state.agent_flat, [], []
-        for i in range(hp.lar):
-            if draws is None:
-                conn, mask, active_steps = round_draws(
-                    state.gen, conn, het, hp, cfg.n_agents, spe)
-            else:
-                mask, active_steps = (t.to(device) for t in draws[i])
-            if faults is not None:
-                f = {k: v[i] for k, v in fault_r.items()}
-                mask = mask & (f["agent_up"] > 0)    # churned agents
-            # Alg. 2 l.5 / Alg. 1 l.1: every agent starts from its RSU row
-            w_start = rsu_flat.index_select(0, rsu_assign)       # (A, N)
-            agent_prev = agent_flat
-            agent_flat = spec.to_storage(_local_train_flat(
-                spec, x_all, y_all, w_start, state.cloud_flat, hp, n_steps,
-                active_steps, cfg.batch))
-            if faults is not None:
-                # corrupted payloads enter after training; the gate scrubs
-                # rejected rows before any kernel reads them, and uploads
-                # to a dark RSU weigh nothing
-                agent_flat = faults_mod.apply_corruption(agent_flat,
-                                                         agent_prev, f)
-                up_a = f["rsu_up"][rsu_assign]                   # (A,)
-                maskf = mask.float()
-                agent_flat, okf, nq = screen_updates(
-                    agent_flat, w_start, n_per_agent * maskf * up_a,
-                    nonfinite=faults.guard_nonfinite,
-                    norm_clip=faults.norm_clip)
-                mask = maskf * up_a * okf
-                nqs.append(nq)
-            # Alg. 2 l.8: one (R, A) @ (A, N) pass over the fleet
-            if fused:
-                rsu_flat, mass = ops.agg_blend(agent_flat, n_per_agent, mask,
-                                               rsu_assign, cfg.n_rsus,
-                                               rsu_flat)
-            else:
-                new_rsu, mass = ops.masked_hier_agg(agent_flat, n_per_agent,
-                                                    mask, rsu_assign,
-                                                    cfg.n_rsus)
-                rsu_flat = torch.where((mass > 0)[:, None], new_rsu,
-                                       rsu_flat).to(rsu_flat.dtype)
-            masses.append(mass)
-
-        # Alg. 3 l.6: cloud aggregation, the (1, R) @ (R, N) pass
-        total_mass = torch.stack(masses).sum(dim=0)              # (R,)
-        if fused:
-            cloud_flat = ops.cloud_blend(rsu_flat, total_mass,
-                                         state.cloud_flat)
-        else:
-            new_cloud = ops.cloud_agg(rsu_flat, total_mass)
-            cloud_flat = torch.where(total_mass.sum() > 0, new_cloud.float(),
-                                     state.cloud_flat)
-        new_state = FlatSimState(agent_flat=agent_flat, rsu_flat=rsu_flat,
-                                 cloud_flat=cloud_flat, conn=conn,
-                                 gen=state.gen)
+        out = program(_batch(state), data, lanes,
+                      None if draws is None else [draws],
+                      None if fault_r is None else
+                      {k: v[None] for k, v in fault_r.items()})
         if faults is None:
-            return new_state
-        return new_state, {"quarantined": torch.stack(nqs).sum()}
+            return lane_state(out, 0)
+        return lane_state(out[0], 0), {k: v[0] for k, v in out[1].items()}
 
     return global_round
 
@@ -247,12 +456,12 @@ def _run_sync(res, init_params: Params, *, device,
               eval_fn: Optional[Callable[[Params], float]] = None,
               draws: Optional[Sequence[Draws]] = None,
               ) -> Tuple[SimState, Dict[str, np.ndarray]]:
-    """``run_scenario``'s flat target: run the scenario's rounds with the
-    fleet resident in (A, N)/(R, N)/(N,) device buffers.  ``draws[r]``, when
-    given, is round r's injected draws.  Only the (N,) cloud master is
-    unraveled, for eval."""
+    """``run_scenario``'s flat target: run the scenario's rounds (the round
+    program at S = 1) with the fleet resident in (A, N)/(R, N)/(N,) device
+    buffers.  ``draws[r]``, when given, is round r's injected draws.  Only
+    the (N,) cloud master is unraveled, for eval."""
     s = res.spec
-    cfg, hp, het, fed = res.cfg, s.hp, s.het, res.fed
+    cfg, hp, het = res.cfg, s.hp, s.het
     hp.validate(), het.validate()
     if draws is not None and len(draws) != s.rounds:
         raise ValueError(f"want draws for {s.rounds} rounds, got {len(draws)}")
@@ -264,8 +473,9 @@ def _run_sync(res, init_params: Params, *, device,
 
     spec = spec_of(init_params, storage_dtype=s.fleet_dtype)
     state = init_flat_state(cfg, spec, init_params, device)
-    round_fn = _make_flat_round_body(cfg, hp, het, fed, spec, device=device,
-                                     fused=s.fused, faults=s.faults)
+    round_fn = _make_flat_round_body(cfg, hp, het, res.fed, spec,
+                                     device=device, fused=s.fused,
+                                     faults=s.faults)
     # the plan lowers once over the run's ticks; each round takes its slice
     sched = (None if s.faults is None else
              s.faults.lower(cfg.n_agents, cfg.n_rsus, s.rounds * hp.lar))
@@ -277,12 +487,12 @@ def _run_sync(res, init_params: Params, *, device,
         else:
             state, fm = round_fn(state, rd, faults_mod.round_tensors(
                 sched, r, hp.lar, device))
-            quarantined.append(int(fm["quarantined"]))
+            quarantined.append(fm["quarantined"])
         if eval_fn is not None and (r % cfg.eval_every == 0
                                     or r == s.rounds - 1):
             accs.append(float(eval_fn(spec.unravel(state.cloud_flat))))
             rounds.append(r + 1)
     history = {"round": np.asarray(rounds), "acc": np.asarray(accs)}
-    if sched is not None:
-        history["quarantined"] = np.asarray(quarantined)
+    if sched is not None:     # read on the host once, after the rounds
+        history["quarantined"] = torch.stack(quarantined).cpu().numpy()
     return from_flat_state(spec, state), history

@@ -34,11 +34,12 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fused_agg_blend": (_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _LL,
-                              _I, _I, _P),
-    "repro_agg_blend": (_P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _I, _P),
-    "repro_weighted_agg_matmul": (_P, _P, _P, _I, _I, _LL, _I, _P),
-    "repro_dual_proximal_sgd": (_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _F,
-                                _F, _F, _I, _P),
+                              _I, _I, _I, _P),
+    "repro_agg_blend": (_P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _I, _I,
+                        _P),
+    "repro_weighted_agg_matmul": (_P, _P, _P, _I, _I, _LL, _I, _I, _P),
+    "repro_dual_proximal_sgd": (_P, _P, _P, _P, _I, _P, _I, _P, _LL, _I,
+                                _LL, _F, _F, _F, _P, _P, _P, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               *(_LL,) * 9, _I, _I, _I, _P),
     "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

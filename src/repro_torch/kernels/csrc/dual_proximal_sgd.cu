@@ -9,11 +9,17 @@
 // scale[a] is the per-agent step mask, given either as a float (A,) tensor
 // or as the integer (A,) active_steps with the step index, from which the
 // kernel forms live = (step < active_steps[a]) itself, as the reference
-// does (no scale means 1).  a1 / a2 may each be a full (A, N) array or one
-// (N,) row broadcast over the A rows (the cloud master).  w, g and out are
-// fp32; a1 and a2 are fp32 or bf16 (widened exactly, as .float() does);
-// arithmetic is fp32.  A term whose mu is 0 is dropped and its anchor not
-// read, as in the TPU kernel.
+// does (no scale means 1).  a1 / a2 may each be a full (A, N) array, one
+// (N,) row broadcast over the A rows (the cloud master), or one row a group
+// of consecutive rows.  w, g and out are fp32; a1 and a2 are fp32 or bf16
+// (widened exactly, as .float() does); arithmetic is fp32.  A term whose mu
+// is 0 is dropped and its anchor not read, as in the TPU kernel.
+//
+// The scenario axis.  A multi-scenario sweep stacks S fleets of A agents
+// as S*A rows; row a belongs to scenario a / A.  Its cloud anchor is then
+// one row a scenario, a2 (S, N) with groups of A rows, and lr, mu1 and mu2
+// are each a float every row shares or an (S,) device array that the
+// kernel reads by the row's scenario.  One launch serves all S*A rows.
 //
 // Bound: bytes.  w, g and a1 are read once and out written once, 4*A*N*4
 // bytes for fp32, plus a2 (N*4 bytes when broadcast); about nine flops an
@@ -56,7 +62,7 @@ constexpr int kThreads = 256;
 constexpr int64_t kSuperCols = 262144;   // columns a super-tile (1 MB fp32)
 
 // flags of repro_dual_proximal_sgd
-constexpr int kA1Bf16 = 1, kA2Bf16 = 2, kA1Bcast = 4, kA2Bcast = 8;
+constexpr int kA1Bf16 = 1, kA2Bf16 = 2;
 constexpr int kScaleShift = 4;  // 0 none, 1 fp32 scale, 2 int32, 3 int64 steps
 
 struct Args {
@@ -64,16 +70,29 @@ struct Args {
   const float* w;
   const float* g;
   const void* a1;
-  int64_t a1_stride;   // units a row: a full (A, N) anchor; 0: broadcast
+  int a1_group;        // rows an anchor row serves: 1 full, A broadcast
   const void* a2;
-  int64_t a2_stride;
+  int a2_group;
   const void* scale;   // fp32 scale, int32 / int64 active_steps, or null
   int scale_kind;
   long long step;
-  int A;
+  int A;               // rows
   int64_t units;       // N / V
   float lr, mu1, mu2;
+  // per-scenario hyper-parameters, or null for the float above; row a
+  // reads entry a / hp_group
+  const float* lr_s;
+  const float* mu1_s;
+  const float* mu2_s;
+  int hp_group;
 };
+
+// The anchor row that serves ``row`` (uniform over a block): the row itself,
+// the one broadcast row, or row / group; 32-bit, and no division in the
+// first two cases.
+__device__ __forceinline__ int anchor_row(int row, int group, int rows) {
+  return group == 1 ? row : (group >= rows ? 0 : row / group);
+}
 
 __device__ __forceinline__ float row_scale(const Args& p, int a) {
   switch (p.scale_kind) {
@@ -97,20 +116,26 @@ __global__ void __launch_bounds__(kThreads) dual_proximal_sgd_kernel(Args p) {
   const int64_t o = (int64_t)row * p.units + j;
   const F2 wv = widen(reinterpret_cast<const WV*>(p.w)[o]);
   const F2 gv = widen(reinterpret_cast<const WV*>(p.g)[o]);
+  // the row's scenario's hyper-parameters (uniform over the block)
+  const int sc = anchor_row(row, p.hp_group, p.A);
+  const float mu1 = p.mu1_s ? p.mu1_s[sc] : p.mu1;
+  const float mu2 = p.mu2_s ? p.mu2_s[sc] : p.mu2;
   F2 v1{}, v2{};
-  if (p.mu1 != 0.f) {
-    v1 = widen(static_cast<const A1V*>(p.a1)[row * p.a1_stride + j]);
+  if (mu1 != 0.f) {
+    v1 = widen(static_cast<const A1V*>(
+        p.a1)[(int64_t)anchor_row(row, p.a1_group, p.A) * p.units + j]);
   }
-  if (p.mu2 != 0.f) {
-    v2 = widen(static_cast<const A2V*>(p.a2)[row * p.a2_stride + j]);
+  if (mu2 != 0.f) {
+    v2 = widen(static_cast<const A2V*>(
+        p.a2)[(int64_t)anchor_row(row, p.a2_group, p.A) * p.units + j]);
   }
-  const float lr = p.lr * row_scale(p, row);
+  const float lr = (p.lr_s ? p.lr_s[sc] : p.lr) * row_scale(p, row);
   float r[2];
 #pragma unroll
   for (int c = 0; c < V; ++c) {
     float step = gv.v[c];
-    if (p.mu1 != 0.f) step += p.mu1 * (wv.v[c] - v1.v[c]);
-    if (p.mu2 != 0.f) step += p.mu2 * (wv.v[c] - v2.v[c]);
+    if (mu1 != 0.f) step += mu1 * (wv.v[c] - v1.v[c]);
+    if (mu2 != 0.f) step += mu2 * (wv.v[c] - v2.v[c]);
     r[c] = wv.v[c] - lr * step;
   }
   WV* out = reinterpret_cast<WV*>(p.out);
@@ -122,11 +147,9 @@ __global__ void __launch_bounds__(kThreads) dual_proximal_sgd_kernel(Args p) {
 }
 
 template <typename TA1, typename TA2>
-cudaError_t launch(Args p, int flags, bool vec2, cudaStream_t stream) {
+cudaError_t launch(Args p, bool vec2, cudaStream_t stream) {
   const int V = vec2 ? 2 : 1;
   p.units /= V;
-  p.a1_stride = flags & kA1Bcast ? 0 : p.units;
-  p.a2_stride = flags & kA2Bcast ? 0 : p.units;
   const int64_t tiles = (p.units + kThreads - 1) / kThreads;
   const int64_t per_super = kSuperCols / (kThreads * V);
   const int64_t supers = (tiles + per_super - 1) / per_super;
@@ -150,28 +173,33 @@ bool aligned(const void* ptr, int bytes) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 == cudaSuccess).
-// flags: bit 0 / 1 a1 / a2 in bf16 (else fp32); bit 2 / 3 a1 / a2 one
-// broadcast (N,) row (else (A, N)); bits 4-5 the scale's kind: 0 none,
-// 1 fp32 scale (A,), 2 / 3 int32 / int64 active_steps (A,), compared with
-// step.  The caller checks shapes, dtypes, devices and contiguity and
-// guarantees 1 <= A <= 65535 and N >= 1.
-extern "C" int repro_dual_proximal_sgd(void* out, const void* w, const void* g,
-                                       const void* a1, const void* a2,
-                                       const void* scale, long long step,
-                                       int A, long long N, float lr, float mu1,
-                                       float mu2, int flags, void* stream) {
+// flags: bit 0 / 1 a1 / a2 in bf16 (else fp32); bits 4-5 the scale's kind:
+// 0 none, 1 fp32 scale (A,), 2 / 3 int32 / int64 active_steps (A,),
+// compared with step.  a1_group / a2_group: the rows each anchor row
+// serves (1: a full (A, N) anchor, A: one broadcast row).  lr_s / mu1_s /
+// mu2_s: null, or an fp32 array read at row / hp_group in place of the
+// float.  The caller checks shapes, dtypes, devices and contiguity and
+// guarantees 1 <= A <= 65535, N >= 1 and groups that divide A.
+extern "C" int repro_dual_proximal_sgd(
+    void* out, const void* w, const void* g, const void* a1, int a1_group,
+    const void* a2, int a2_group, const void* scale,
+    long long step, int A, long long N, float lr, float mu1, float mu2,
+    const void* lr_s, const void* mu1_s, const void* mu2_s, int hp_group,
+    int flags, void* stream) {
   Args p{static_cast<float*>(out), static_cast<const float*>(w),
-         static_cast<const float*>(g), a1, 0, a2, 0, scale,
-         (flags >> kScaleShift) & 3, step, A, (int64_t)N, lr, mu1, mu2};
+         static_cast<const float*>(g), a1, a1_group, a2, a2_group, scale,
+         (flags >> kScaleShift) & 3, step, A, (int64_t)N, lr, mu1, mu2,
+         static_cast<const float*>(lr_s), static_cast<const float*>(mu1_s),
+         static_cast<const float*>(mu2_s), hp_group};
   const int s1 = flags & kA1Bf16 ? 4 : 8, s2 = flags & kA2Bf16 ? 4 : 8;
   const bool vec2 = N % 2 == 0 && aligned(out, 8) && aligned(w, 8) &&
                     aligned(g, 8) && aligned(a1, s1) && aligned(a2, s2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (flags & kA1Bf16) {
     return flags & kA2Bf16
-               ? (int)launch<__nv_bfloat16, __nv_bfloat16>(p, flags, vec2, s)
-               : (int)launch<__nv_bfloat16, float>(p, flags, vec2, s);
+               ? (int)launch<__nv_bfloat16, __nv_bfloat16>(p, vec2, s)
+               : (int)launch<__nv_bfloat16, float>(p, vec2, s);
   }
-  return flags & kA2Bf16 ? (int)launch<float, __nv_bfloat16>(p, flags, vec2, s)
-                         : (int)launch<float, float>(p, flags, vec2, s);
+  return flags & kA2Bf16 ? (int)launch<float, __nv_bfloat16>(p, vec2, s)
+                         : (int)launch<float, float>(p, vec2, s);
 }

@@ -15,6 +15,22 @@
 //       scatter-accumulate's unnormalized sums).
 // W and coef are fp32, X is fp32 or bf16, accumulation is fp32.
 //
+// The scenario axis.  A multi-scenario sweep stacks S independent fleets:
+// X (S, A, N), buf and out (S, R, N), W (S, R, A) (or one (R, A) matrix
+// every scenario shares, for the matmul), and for the built weights
+// weights / mask / assign (S, A) or one shared (A,) row each.  Every
+// kernel takes the scenario from blockIdx.y, so one launch serves all S
+// fleets, and a block reads only its scenario's rows and builds only its
+// scenario's weights in shared memory: the shared-memory limit stays the
+// per-scenario one on A, and the FMAs are S times one scenario's (a
+// block-diagonal (S*R, S*A) weight matrix would cost S times more).  The
+// agent split below is chosen for one scenario whatever S is, so each
+// scenario's sums run in the order of its run alone, and a sweep's buffers
+// equal its sequential runs' bit for bit; at S = 16, A = 100, N = 31,810
+// that costs agg_blend 0.17 ms against 0.09 with a split chosen for all S
+// (PERF.md, section 6): every block builds its scenario's weights, and the
+// one-scenario split makes 8 times the blocks.
+//
 // Bound: bytes.  A launch must read every X_i once and write out once, and
 // read buf only where a row needs it (a row whose guard is off, or that
 // retains part of buf): sum_i A_i*N*sizeof(X) + R*N*sizeof(out) + the rows
@@ -182,7 +198,34 @@ struct RingArgs {
   int R;
   int64_t N;
   int splits;             // K: agent groups a block (1, 2, 4, 8 or 16)
+  int S;                  // scenarios (gridDim.y)
+  // the scenario axis (gridDim.y): bytes from one scenario's operand to
+  // the next; 0 for an operand every scenario shares
+  int64_t weights_sb, mask_sb, assign_sb;
+  int64_t x1_sb, x2_sb, buf_sb, out_sb;
 };
+
+// The operands of scenario s: every pointer moved by its stride; mass
+// (R floats), coef (R x 3) and W (R x a) are per scenario.
+__device__ __forceinline__ RingArgs scenario_view(RingArgs p, int s) {
+  auto at = [s](const void* ptr, int64_t sb) {
+    return ptr ? static_cast<const void*>(static_cast<const char*>(ptr) +
+                                          (int64_t)s * sb)
+               : ptr;
+  };
+  p.weights = static_cast<const float*>(at(p.weights, p.weights_sb));
+  p.mask = at(p.mask, p.mask_sb);
+  p.assign = at(p.assign, p.assign_sb);
+  if (p.mass_out) p.mass_out += (int64_t)s * p.R;
+  if (p.coef) p.coef += (int64_t)s * p.R * 3;
+  if (p.w1) p.w1 += (int64_t)s * p.R * p.a1;
+  if (p.w2) p.w2 += (int64_t)s * p.R * p.a2;
+  p.x1 = at(p.x1, p.x1_sb);
+  p.x2 = at(p.x2, p.x2_sb);
+  p.buf = at(p.buf, p.buf_sb);
+  p.out = const_cast<void*>(at(p.out, p.out_sb));
+  return p;
+}
 
 __device__ __forceinline__ float agent_weight(const RingArgs& p, int a) {
   const float w = p.weights[a];
@@ -248,7 +291,8 @@ __host__ __device__ constexpr size_t ring_bytes(int threads, int splits) {
 // registers, 3 blocks an SM, or at 64 under a launch bound).
 template <typename TX, typename TO, int RC, int V, bool BUILD, bool SPLIT>
 __global__ void __launch_bounds__(kRingThreads) agg_blend_ring_kernel(
-    RingArgs p) {
+    RingArgs args) {
+  const RingArgs p = scenario_view(args, blockIdx.y);   // this scenario's
   using XU = typename Vec<TX, V>::type;
   using OU = typename Vec<TO, V>::type;
   extern __shared__ float4 smem4[];
@@ -454,9 +498,11 @@ cudaError_t ring_launch(RingArgs p, cudaStream_t stream) {
     const int64_t per_block = t / k;
     return (units + per_block - 1) / per_block;
   };
-  // the fewest agent groups that give two blocks an SM, else the most
-  // (each group keeps at least one agent; the partials must fit); fewer
-  // threads only where the weights leave too little shared memory
+  // the fewest agent groups that give one scenario two blocks an SM, else
+  // the most (each group keeps at least one agent; the partials must fit);
+  // fewer threads only where the weights leave too little shared memory.
+  // The choice does not depend on S, so a scenario's sums run in the same
+  // order in a sweep as alone.
   const int sms = cached_sm_count();
   int T = kRingThreads;
   p.splits = 1;
@@ -473,7 +519,8 @@ cudaError_t ring_launch(RingArgs p, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<(unsigned)blocks(T, p.splits), T, bytes, stream>>>(p);
+  const dim3 grid((unsigned)blocks(T, p.splits), (unsigned)p.S);
+  kernel<<<grid, T, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -525,13 +572,15 @@ __host__ __device__ constexpr int cols_per_thread() {
 }
 
 struct MatmulArgs {
-  const float* w;     // (R, A)
-  const void* x;      // (A, N)
+  const float* w;     // (S, R, A), or one (R, A) every scenario shares
+  const void* x;      // (S, A, N)
   int a;
-  void* out;          // (R, N) in X's dtype or fp32
+  void* out;          // (S, R, N) in X's dtype or fp32
   int R;
   int64_t N;
   int splits;         // K: agent groups a block (1, 2, 4, 8 or 16)
+  int S;              // scenarios (gridDim.y)
+  int64_t w_s;        // floats from one scenario's W to the next (0: shared)
 };
 
 // Stage W rows [r0, r0 + RC) transposed: wt[a*RC + j] = W[r0 + j, a], zero
@@ -617,20 +666,25 @@ __device__ __forceinline__ void accumulate_group(float (&acc)[RC][C],
   }
 }
 
-// Every agent for C columns a thread: large N.
+// Every agent for C columns a thread: large N.  Four blocks an SM (at most
+// 64 registers): the scenario's base pointers took RC = 16 to 70
+// registers and three blocks, 14% slower at perception scale.
 template <typename TX, typename TO, int RC>
-__global__ void __launch_bounds__(kThreads) matmul_kernel(MatmulArgs p) {
+__global__ void __launch_bounds__(kThreads, 4) matmul_kernel(MatmulArgs p) {
   constexpr int C = cols_per_thread<RC>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const TX* X = static_cast<const TX*>(p.x);
-  TO* out = static_cast<TO*>(p.out);
+  // this block's scenario
+  const int64_t sc = blockIdx.y;
+  const float* W = p.w + sc * p.w_s;
+  const TX* X = static_cast<const TX*>(p.x) + sc * p.a * p.N;
+  TO* out = static_cast<TO*>(p.out) + sc * p.R * p.N;
   const int64_t base = (int64_t)blockIdx.x * (kThreads * C) + threadIdx.x;
 
   // no early return: every thread takes part in staging and the barriers
   for (int r0 = 0; r0 < p.R; r0 += RC) {
     __syncthreads();  // the previous chunk's reads of smem are done
-    stage<RC>(smem, p.w, p.a, p.R, r0);
+    stage<RC>(smem, W, p.a, p.R, r0);
     __syncthreads();
 
     float acc[RC][C];
@@ -662,16 +716,19 @@ __global__ void __launch_bounds__(kThreads) matmul_split_kernel(MatmulArgs p) {
   constexpr int C = cols_per_thread<RC>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  // this block's scenario
+  const int64_t sc = blockIdx.y;
+  const float* W = p.w + sc * p.w_s;
   float* partial = smem + RC * p.a;
-  const TX* X = static_cast<const TX*>(p.x);
-  TO* out = static_cast<TO*>(p.out);
+  const TX* X = static_cast<const TX*>(p.x) + sc * p.a * p.N;
+  TO* out = static_cast<TO*>(p.out) + sc * p.R * p.N;
   const int K = p.splits, L = kThreads / K;
   const int s = threadIdx.x / L, l = threadIdx.x % L;
   const int64_t col0 = (int64_t)blockIdx.x * (L * C);   // block's first
 
   for (int r0 = 0; r0 < p.R; r0 += RC) {
     __syncthreads();  // the previous chunk's reads of smem are done
-    stage<RC>(smem, p.w, p.a, p.R, r0);
+    stage<RC>(smem, W, p.a, p.R, r0);
     __syncthreads();
 
     float acc[RC][C];
@@ -708,8 +765,9 @@ cudaError_t matmul_launch(MatmulArgs p, cudaStream_t stream) {
   constexpr int C = cols_per_thread<RC>();
   const size_t stage_bytes = (size_t)RC * p.a * sizeof(float);
   if (stage_bytes > kMaxSmem) return cudaErrorInvalidValue;
-  // the fewest agent groups that give two blocks an SM, else the most
-  // (each group keeps at least one agent; the partials must fit)
+  // the fewest agent groups that give one scenario two blocks an SM, else
+  // the most (each group keeps at least one agent; the partials must fit);
+  // as in the ring kernel, not a function of S
   const int sms = cached_sm_count();
   const size_t partial_bytes = (size_t)RC * C * kThreads * sizeof(float);
   auto blocks = [&](int k) {
@@ -728,7 +786,8 @@ cudaError_t matmul_launch(MatmulArgs p, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<(unsigned)blocks(p.splits), kThreads, smem, stream>>>(p);
+  const dim3 grid((unsigned)blocks(p.splits), (unsigned)p.S);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -745,25 +804,36 @@ cudaError_t matmul_by_rows(const MatmulArgs& p, cudaStream_t s) {
 
 // flags of repro_agg_blend: bit 0 X in bf16, bit 1 out in bf16, bits 2-3 the
 // mask's kind (0 none, 1 fp32, 2 bool), bits 4-5 assign's (0 none: every
-// agent on row 0, 1 int32, 2 int64).
+// agent on row 0, 1 int32, 2 int64), bits 6 / 7 / 8 weights / mask /
+// assign one (A,) row that every scenario shares (else (S, A)).
 //
-// out = where(mass > 0, (wm / mass) @ X, buf) with wm[r, a] = [assign[a] ==
-// r] * weights[a] * mask[a] and mass its row sums, written to mass_out when
-// that is not null: agg_blend (R RSUs over A agents) and, with assign and
-// mask null, cloud_blend (R = 1 over the A RSUs).  Returns cudaGetLastError()
-// after the launch (0 == cudaSuccess), or an error code without launching.
-// The caller checks shapes, dtypes, devices and contiguity and guarantees
-// R, N, A >= 1.
+// For each of the S scenarios: out = where(mass > 0, (wm / mass) @ X, buf)
+// with wm[r, a] = [assign[a] == r] * weights[a] * mask[a] and mass its row
+// sums, written to mass_out (S, R) when that is not null: agg_blend (R RSUs
+// over A agents) and, with assign and mask null, cloud_blend (R = 1 over the
+// A RSUs).  X is (S, A, N), buf and out (S, R, N).  Returns
+// cudaGetLastError() after the launch (0 == cudaSuccess), or an error code
+// without launching.  The caller checks shapes, dtypes, devices and
+// contiguity and guarantees R, N, A >= 1 and 1 <= S <= 65535.
 extern "C" int repro_agg_blend(const void* x, const void* weights,
                                const void* mask, const void* assign, int A,
                                int R, long long N, const void* buf, void* out,
-                               void* mass_out, int flags, void* stream) {
+                               void* mass_out, int flags, int S,
+                               void* stream) {
+  const int64_t sx = flags & 1 ? 2 : 4, so = flags & 2 ? 2 : 4;
+  const int mask_kind = (flags >> 2) & 3, assign_kind = (flags >> 4) & 3;
   RingArgs p{};
+  p.S = S;
+  p.weights_sb = flags & 64 ? 0 : (int64_t)A * 4;
+  p.mask_sb = flags & 128 ? 0 : (int64_t)A * (mask_kind == 2 ? 1 : 4);
+  p.assign_sb = flags & 256 ? 0 : (int64_t)A * (assign_kind == 2 ? 8 : 4);
+  p.x1_sb = (int64_t)A * N * sx;
+  p.buf_sb = p.out_sb = (int64_t)R * N * so;
   p.weights = static_cast<const float*>(weights);
   p.mask = mask;
-  p.mask_kind = (flags >> 2) & 3;
+  p.mask_kind = mask_kind;
   p.assign = assign;
-  p.assign_kind = (flags >> 4) & 3;
+  p.assign_kind = assign_kind;
   p.mass_out = static_cast<float*>(mass_out);
   p.x1 = x;
   p.a1 = A;
@@ -776,14 +846,21 @@ extern "C" int repro_agg_blend(const void* x, const void* weights,
 }
 
 // The coef form, for 1 or 2 (W, X) pairs (a second pair where w2 is not
-// null).  out is in X's dtype or fp32, buf in out's.  Returns as above;
-// the caller guarantees R, N, a1 >= 1.
+// null), for each of S scenarios: coef (S, R, 3), W_i (S, R, a_i), X_i (S,
+// a_i, N), buf and out (S, R, N).  out is in X's dtype or fp32, buf in
+// out's.  Returns as above; the caller guarantees R, N, a1 >= 1 and
+// 1 <= S <= 65535.
 extern "C" int repro_fused_agg_blend(const void* coef, const void* w1,
                                      const void* x1, int a1, const void* w2,
                                      const void* x2, int a2, const void* buf,
                                      void* out, int R, long long N, int x_bf16,
-                                     int out_bf16, void* stream) {
+                                     int out_bf16, int S, void* stream) {
+  const int64_t sx = x_bf16 ? 2 : 4, so = out_bf16 ? 2 : 4;
   RingArgs p{};
+  p.S = S;
+  p.x1_sb = (int64_t)a1 * N * sx;
+  p.x2_sb = w2 ? (int64_t)a2 * N * sx : 0;
+  p.buf_sb = p.out_sb = (int64_t)R * N * so;
   p.coef = static_cast<const float*>(coef);
   p.w1 = static_cast<const float*>(w1);
   p.x1 = x1;
@@ -799,15 +876,18 @@ extern "C" int repro_fused_agg_blend(const void* coef, const void* w1,
                               static_cast<cudaStream_t>(stream));
 }
 
-// The plain matmul, out = W @ X.  dtypes: bit 0 X in bf16, bit 1 out in
-// bf16 (out is in X's dtype, or fp32 for a bf16 X).  Returns as above; the
-// caller guarantees R, N, A >= 1.
+// The plain matmul for each of S scenarios, out[s] = W[s] @ X[s]: X (S, A,
+// N), out (S, R, N), W (S, R, A) or (bit 2 of dtypes) one (R, A) matrix
+// every scenario shares.  dtypes: bit 0 X in bf16, bit 1 out in bf16 (out
+// is in X's dtype, or fp32 for a bf16 X).  Returns as above; the caller
+// guarantees R, N, A >= 1 and 1 <= S <= 65535.
 extern "C" int repro_weighted_agg_matmul(const void* w, const void* x,
                                          void* out, int R, int A, long long N,
-                                         int dtypes, void* stream) {
-  MatmulArgs p{static_cast<const float*>(w), x, A, out, R, (int64_t)N, 1};
+                                         int dtypes, int S, void* stream) {
+  MatmulArgs p{static_cast<const float*>(w), x, A, out, R, (int64_t)N, 1, S,
+               dtypes & 4 ? 0 : (int64_t)R * A};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtypes) {
+  switch (dtypes & 3) {
     case 0: return (int)matmul_by_rows<float, float>(p, s);
     case 1: return (int)matmul_by_rows<__nv_bfloat16, float>(p, s);
     case 3: return (int)matmul_by_rows<__nv_bfloat16, __nv_bfloat16>(p, s);

@@ -20,6 +20,13 @@ the ``fused=False`` path) and, with an fp32 output, the async tick's
 unnormalized ``scatter_accumulate``.  W stays fp32 and the kernels
 accumulate in fp32 whatever the fleet dtype.
 
+The scenario axis: every entry also takes a multi-scenario sweep's S
+stacked fleets, a leading S axis on X (S, A, N), the buffers (S, R, N) and
+the weights, and serves all of them in one launch (the kernels put the
+scenario on the grid).  Per-agent inputs (weights, mask, rsu_assign) are
+then (S, A) or one (A,) row every scenario shares; the matmul's W is (S,
+R, A) or one shared (R, A).  The shared-memory limit is one scenario's.
+
 Every function takes CUDA tensors only and raises on anything else; the
 CPU route is ``kernels/ops``' choice of ``kernels/ref``.  ``launches``
 counts kernel launches per entry point.
@@ -42,6 +49,9 @@ RING_MIN_BYTES = 8192   # the ring kernel's copy ring at its fewest threads
 _MASK_KINDS = {torch.float32: 1, torch.bool: 2}      # the kernel's codes
 _ASSIGN_KINDS = {torch.int32: 1, torch.int64: 2}
 _MASK_DTYPES, _ASSIGN_DTYPES = tuple(_MASK_KINDS), tuple(_ASSIGN_KINDS)
+MAX_SCENARIOS = 65535   # scenarios go on gridDim.y
+# repro_agg_blend's bits for a per-agent operand every scenario shares
+_SHARED_BITS = {"weights": 64, "mask": 128, "rsu_assign": 256}
 
 launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
                             "agg_absorb": 0, "weighted_agg_matmul": 0,
@@ -61,6 +71,20 @@ def _require(t: torch.Tensor, name: str, shape: Tuple[int, ...],
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _scenarios(entry: str, S: int) -> None:
+    if not 1 <= S <= MAX_SCENARIOS:
+        raise ValueError(f"{entry}: {S} scenarios, want 1 to {MAX_SCENARIOS}")
+
+
+def _per_agent(t: torch.Tensor, name: str, S: int, A: int,
+               dtypes: Sequence[torch.dtype], index: int) -> int:
+    """Check a per-agent operand, (S, A) or one shared (A,) row; returns
+    its repro_agg_blend bit when shared, else 0."""
+    shared = t.dim() == 1
+    _require(t, name, (A,) if shared else (S, A), dtypes, index)
+    return _SHARED_BITS[name] if shared else 0
 
 
 def _row_chunk(R: int, sizes) -> int:
@@ -97,32 +121,40 @@ def _launch(entry: str, coef: torch.Tensor,
             stackeds: Sequence[torch.Tensor], buf: torch.Tensor,
             out: torch.Tensor) -> torch.Tensor:
     """Check every operand and launch ``repro_fused_agg_blend`` (the coef
-    form) on the current stream.  The caller allocated ``out`` (contiguous,
-    (R, N), on X's device), so only its dtype is checked.  It makes each
-    check once and nothing more, and reads the stream raw rather than
-    through a Stream object."""
+    form) on the current stream: out (R, N) from coef (R, 3), W_i (R, a_i)
+    and X_i (a_i, N), or every operand with a leading scenario axis S.
+    The caller allocated ``out`` (contiguous, on X's device), so only its
+    dtype is checked.  It makes each check once and nothing more, and reads
+    the stream raw rather than through a Stream object."""
     n_pairs = len(weight_mats)
     if n_pairs not in (1, 2) or len(stackeds) != n_pairs:
         raise ValueError(f"{entry}: want 1 or 2 (W, X) pairs")
     dev = out.get_device()
     if dev < 0:
         raise ValueError(f"{entry}: expected CUDA tensors, got {out.device}")
-    R, N = out.shape
+    if out.dim() not in (2, 3):
+        raise ValueError(f"{entry}: out must be (R, N) or (S, R, N), got "
+                         f"{tuple(out.shape)}")
+    lead = tuple(out.shape[:-2])
+    S = lead[0] if lead else 1
+    R, N = out.shape[-2:]
     x_dtype = stackeds[0].dtype
     if R < 1 or N < 1:
         raise ValueError(f"{entry}: empty output {tuple(out.shape)}")
+    _scenarios(entry, S)
     if out.dtype not in FLEET_DTYPES:
         raise ValueError(f"{entry}: dtype {out.dtype} not in {FLEET_DTYPES}")
     n_agents = 0
     for i, (w, x) in enumerate(zip(weight_mats, stackeds)):
-        a = w.shape[1] if w.dim() == 2 else -1
+        a = w.shape[-1] if w.dim() == len(lead) + 2 else -1
         if a < 1:
-            raise ValueError(f"{entry}: W_{i} must be (R, A) with A >= 1")
-        _require(w, f"W_{i}", (R, a), _W_DTYPES, dev)
-        _require(x, f"X_{i}", (a, N), (x_dtype,), dev)
+            raise ValueError(f"{entry}: W_{i} must be {lead} + (R, A) with "
+                             f"A >= 1")
+        _require(w, f"W_{i}", lead + (R, a), _W_DTYPES, dev)
+        _require(x, f"X_{i}", lead + (a, N), (x_dtype,), dev)
         n_agents += a
-    _require(coef, "coef", (R, 3), _W_DTYPES, dev)
-    _require(buf, "buf", (R, N), (out.dtype,), dev)
+    _require(coef, "coef", lead + (R, 3), _W_DTYPES, dev)
+    _require(buf, "buf", tuple(out.shape), (out.dtype,), dev)
     if out.dtype not in (x_dtype, torch.float32):
         raise ValueError(f"{entry}: out dtype {out.dtype} must be X's "
                          f"({x_dtype}) or float32")
@@ -130,12 +162,12 @@ def _launch(entry: str, coef: torch.Tensor,
     w2, x2 = (weight_mats[1], stackeds[1]) if n_pairs == 2 else (None, None)
     rc = _lib.library().repro_fused_agg_blend(
         coef.data_ptr(), weight_mats[0].data_ptr(), stackeds[0].data_ptr(),
-        weight_mats[0].shape[1],
+        weight_mats[0].shape[-1],
         None if w2 is None else w2.data_ptr(),
         None if x2 is None else x2.data_ptr(),
-        0 if w2 is None else w2.shape[1],
+        0 if w2 is None else w2.shape[-1],
         buf.data_ptr(), out.data_ptr(), R, N,
-        x_dtype == torch.bfloat16, out.dtype == torch.bfloat16,
+        x_dtype == torch.bfloat16, out.dtype == torch.bfloat16, S,
         torch._C._cuda_getCurrentRawStream(dev))
     _lib.check(rc, "fused_agg_blend")
     launches[entry] += 1
@@ -160,32 +192,41 @@ def _agg_blend_launch(entry: str, x: torch.Tensor, weights: torch.Tensor,
     builds the normalized weights on the device: ``out = where(mass > 0,
     (wm / mass) @ X, prev)`` with ``wm[r, a] = [assign[a] == r] *
     weights[a] * mask[a]`` (``assign`` None: every row of X on row 0;
-    ``mask`` None: ones), ``mass`` its row sums.  ``prev`` is (R, N), or
-    (N,) when R is 1; ``out`` was allocated like it."""
+    ``mask`` None: ones), ``mass`` its row sums.  X is (A, N) and ``prev``
+    (R, N), or (N,) when R is 1; or, for S scenarios at once, X (S, A, N)
+    and ``prev`` (S, R, N) or (S, N), with weights, mask and assign each
+    (S, A) or one shared (A,).  ``out`` was allocated like prev, ``mass``
+    like prev's rows."""
     dev = x.get_device()
     if dev < 0:
         raise ValueError(f"{entry}: expected CUDA tensors, got {x.device}")
-    if x.dim() != 2 or x.dtype not in FLEET_DTYPES or not x.is_contiguous():
-        raise ValueError(f"{entry}: X must be a contiguous (A, N) "
-                         f"{FLEET_DTYPES} tensor, got {x.dtype} "
+    if (x.dim() not in (2, 3) or x.dtype not in FLEET_DTYPES
+            or not x.is_contiguous()):
+        raise ValueError(f"{entry}: X must be a contiguous (A, N) or (S, A, "
+                         f"N) {FLEET_DTYPES} tensor, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    A, N = x.shape
+    lead = tuple(x.shape[:-2])
+    S = lead[0] if lead else 1
+    A, N = x.shape[-2:]
     if A < 1 or N < 1 or R < 1:
         raise ValueError(f"{entry}: empty operand X {tuple(x.shape)}, "
                          f"{R} rows")
-    _require(weights, "weights", (A,), _W_DTYPES, dev)
+    _scenarios(entry, S)
     flags = int(x.dtype == torch.bfloat16) | (
         int(prev.dtype == torch.bfloat16) << 1)
+    flags |= _per_agent(weights, "weights", S, A, _W_DTYPES, dev)
     if mask is not None:
-        _require(mask, "mask", (A,), _MASK_DTYPES, dev)
+        flags |= _per_agent(mask, "mask", S, A, _MASK_DTYPES, dev)
         flags |= _MASK_KINDS[mask.dtype] << 2
     if assign is not None:
-        _require(assign, "rsu_assign", (A,), _ASSIGN_DTYPES, dev)
+        flags |= _per_agent(assign, "rsu_assign", S, A, _ASSIGN_DTYPES, dev)
         flags |= _ASSIGN_KINDS[assign.dtype] << 4
-    _require(prev, "prev", (R, N) if prev.dim() == 2 else (N,),
+    one_row = prev.dim() == len(lead) + 1
+    _require(prev, "prev", lead + ((N,) if one_row else (R, N)),
              FLEET_DTYPES, dev)
-    if prev.dim() == 1 and R != 1:
-        raise ValueError(f"{entry}: a 1-D prev needs one row, got {R}")
+    if one_row and R != 1:
+        raise ValueError(f"{entry}: a prev without rows needs one row, got "
+                         f"{R}")
     if prev.dtype not in (x.dtype, torch.float32):
         raise ValueError(f"{entry}: prev dtype {prev.dtype} must be X's "
                          f"({x.dtype}) or float32")
@@ -195,7 +236,7 @@ def _agg_blend_launch(entry: str, x: torch.Tensor, weights: torch.Tensor,
         None if mask is None else mask.data_ptr(),
         None if assign is None else assign.data_ptr(), A, R, N,
         prev.data_ptr(), out.data_ptr(),
-        None if mass is None else mass.data_ptr(), flags,
+        None if mass is None else mass.data_ptr(), flags, S,
         torch._C._cuda_getCurrentRawStream(dev))
     _lib.check(rc, "agg_blend")
     launches[entry] += 1
@@ -204,20 +245,27 @@ def _agg_blend_launch(entry: str, x: torch.Tensor, weights: torch.Tensor,
 def _matmul(entry: str, w: torch.Tensor, x: torch.Tensor,
             out_f32: bool) -> torch.Tensor:
     """(R, A) @ (A, N) with fp32 accumulation, out in X's dtype or (with
-    ``out_f32``) fp32.  The shortest launch path: each check once, inline,
-    and the kernel's 8-argument entry."""
+    ``out_f32``) fp32; or S scenarios at once, (S, R, A) @ (S, A, N) (W may
+    be one (R, A) every scenario shares) into (S, R, N), one launch.  The
+    shortest launch path: each check once, inline, and the kernel's
+    9-argument entry."""
     dev = x.get_device()
     if dev < 0:
         raise ValueError(f"{entry}: expected CUDA tensors, got {x.device}")
     if w.dtype != torch.float32 or not w.is_contiguous():
         w = w.float().contiguous()
-    if w.dim() != 2 or x.dim() != 2 or w.shape[1] != x.shape[0]:
+    lead = tuple(x.shape[:-2])
+    if (x.dim() not in (2, 3) or w.dim() not in (2, x.dim())
+            or w.shape[-1] != x.shape[-2] or w.shape[:-2] not in ((), lead)):
         raise ValueError(f"{entry}: W {tuple(w.shape)} and X "
-                         f"{tuple(x.shape)} must be (R, A) and (A, N)")
-    (R, A), N = w.shape, x.shape[1]
+                         f"{tuple(x.shape)} must be (R, A) and (A, N), or "
+                         f"(S, R, A) or (R, A) and (S, A, N)")
+    (R, A), N = w.shape[-2:], x.shape[-1]
+    S = lead[0] if lead else 1
     if R < 1 or A < 1 or N < 1:
         raise ValueError(f"{entry}: empty operand W {tuple(w.shape)}, X "
                          f"{tuple(x.shape)}")
+    _scenarios(entry, S)
     if w.get_device() != dev:
         raise ValueError(f"{entry}: W on {w.device}, X on {x.device}")
     if x.dtype not in FLEET_DTYPES:
@@ -226,10 +274,11 @@ def _matmul(entry: str, w: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{entry}: X must be contiguous")
     _check_smem(entry, R, A)
     x_bf16 = x.dtype == torch.bfloat16
-    out = x.new_empty((R, N), dtype=torch.float32 if out_f32 else x.dtype)
+    out = x.new_empty(lead + (R, N),
+                      dtype=torch.float32 if out_f32 else x.dtype)
     rc = _lib.library().repro_weighted_agg_matmul(
         w.data_ptr(), x.data_ptr(), out.data_ptr(), R, A, N,
-        x_bf16 | ((x_bf16 and not out_f32) << 1),
+        x_bf16 | ((x_bf16 and not out_f32) << 1) | (w.dim() == 2) << 2, S,
         torch._C._cuda_getCurrentRawStream(dev))
     _lib.check(rc, entry)
     launches[entry] += 1
@@ -247,24 +296,28 @@ def scatter_accumulate(stacked_flat: torch.Tensor, weights: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unnormalized per-RSU sums, ``num[r] = sum_{a in r} w_a x_a`` (R, N)
     in fp32 whatever X's dtype and ``mass[r] = sum_{a in r} w_a`` (R,):
-    the matmul kernel on the (R, A) one-hot weight matrix.  ``weights``
-    carry mask x data volume x staleness decay."""
+    the matmul kernel on the (R, A) one-hot weight matrix (with a leading
+    scenario axis: (S, R, N) and (S, R)).  ``weights`` carry mask x data
+    volume x staleness decay."""
     W = unnormalized_weight_matrix(weights, torch.ones_like(weights),
                                    rsu_assign, n_rsus)
-    return _matmul("scatter_accumulate", W, stacked_flat, True), W.sum(dim=1)
+    return (_matmul("scatter_accumulate", W, stacked_flat, True),
+            W.sum(dim=-1))
 
 
 def masked_hier_agg(stacked_flat, weights, mask, rsu_assign, n_rsus: int):
-    """RSU aggregation without the blend: (rsu (R, N), mass (R,))."""
+    """RSU aggregation without the blend: (rsu (R, N), mass (R,)), or
+    (S, R, N) and (S, R) for S scenarios."""
     W = build_weight_matrix(weights, mask, rsu_assign, n_rsus)
     mass = cohort_mass(weights, mask, rsu_assign, n_rsus)
     return weighted_agg_matmul(W, stacked_flat), mass
 
 
 def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:
-    """Cloud aggregation without the keep guard: (R, N) -> (N,)."""
+    """Cloud aggregation without the keep guard: (R, N) -> (N,), or (S, R,
+    N) with (S, R) masses -> (S, N)."""
     wn, _ = normalized_weights(rsu_weights)
-    return weighted_agg_matmul(wn[None, :], rsu_flat)[0]
+    return weighted_agg_matmul(wn.unsqueeze(-2), rsu_flat).squeeze(-2)
 
 
 def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
@@ -272,13 +325,15 @@ def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
     ``out[r] = mass[r] > 0 ? W_norm[r] @ X : prev[r]``, one launch that
     builds W_norm and mass on the device.  ``weights`` (A,) float32,
     ``mask`` (A,) bool or float32, ``rsu_assign`` (A,) int64 or int32.
-    Returns (rsu' (R, N) in prev's dtype, mass (R,))."""
+    Returns (rsu' (R, N) in prev's dtype, mass (R,)).  For S scenarios at
+    once: X (S, A, N), prev (S, R, N), weights / mask / rsu_assign (S, A)
+    or one shared (A,); returns (S, R, N) and (S, R)."""
     if weights.dtype != torch.float32:
         weights = weights.float()
     if mask.dtype not in _MASK_KINDS:
         mask = mask.float()
     out = torch.empty_like(prev)
-    mass = prev.new_empty(n_rsus, dtype=torch.float32)
+    mass = prev.new_empty(prev.shape[:-1], dtype=torch.float32)
     _agg_blend_launch("agg_blend", stacked_flat, weights, mask, rsu_assign,
                       n_rsus, prev, out, mass)
     return out, mass
@@ -290,17 +345,19 @@ def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
     ``arrivals`` = sequence of (x (A, N), w (A,)):
     ``out[r] = (keep*M[r]*buf[r] + sum w_a x_a) / (keep*M[r] + m_new[r])``
     (buf[r] on zero mass); ``keep`` a scalar or (R,).  Returns (buf',
-    total mass, new mass).  The weights of every cohort share the ring's
-    shared memory: at R = 10 the async tick's two cohorts take up to
-    2,334 agents each."""
+    total mass, new mass).  With a leading scenario axis: x (S, A, N), w
+    (S, A), buf (S, R, N), buf_mass (S, R), rsu_assign (A,) or (S, A).  The
+    weights of every cohort share the ring's shared memory: at R = 10 the
+    async tick's two cohorts take up to 2,334 agents each."""
     mats, xs = [], []
-    new_mass = torch.zeros(n_rsus, dtype=torch.float32, device=buf.device)
+    new_mass = torch.zeros(buf.shape[:-1], dtype=torch.float32,
+                           device=buf.device)
     for x, w in arrivals:
         wm = unnormalized_weight_matrix(w, torch.ones_like(w), rsu_assign,
                                         n_rsus)
-        mats.append(wm)
+        mats.append(wm.expand(buf.shape[:-1] + wm.shape[-1:]))
         xs.append(x)
-        new_mass = new_mass + wm.sum(dim=1)
+        new_mass = new_mass + wm.sum(dim=-1)
     retained = (torch.as_tensor(keep, dtype=torch.float32,
                                 device=buf.device) * buf_mass.float())
     retained = retained.expand(new_mass.shape)
@@ -308,7 +365,7 @@ def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
     coef = torch.stack([retained,
                         torch.where(total > 0, total,
                                     torch.ones_like(total)),
-                        (total > 0).float()], dim=1)
+                        (total > 0).float()], dim=-1)
     out = _fused_agg_blend(coef, mats, xs, buf, entry="agg_absorb")
     return out, total, new_mass
 
@@ -317,7 +374,7 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
     """Fused cloud aggregation + keep guard:
     ``sum(mass) > 0 ? wn @ rsu_flat : prev``, one launch that normalizes
     the RSU masses on the device; out dtype follows ``prev`` (the fp32
-    cloud master)."""
+    cloud master).  For S scenarios: (S, R, N), (S, R) and prev (S, N)."""
     if rsu_weights.dtype != torch.float32:
         rsu_weights = rsu_weights.float()
     out = torch.empty_like(prev)

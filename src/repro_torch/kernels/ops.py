@@ -5,7 +5,8 @@ the hand-written Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd``
 / ``flash_attention`` / ``slstm_scan``), which raises on anything it does
 not take.  A call on CPU tensors runs the plain PyTorch version in
 ``kernels/ref``.  There is no switch that sends CUDA tensors to the plain
-version.
+version.  The aggregation and update entries also take a multi-scenario
+sweep's leading scenario axis, on either route.
 """
 from __future__ import annotations
 

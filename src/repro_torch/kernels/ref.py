@@ -5,6 +5,12 @@ Each mirrors its kernel's contract and the JAX package's
 tests hold them against the JAX Pallas kernels, and ``chip_smoke.py``
 holds each CUDA kernel against them on the card.  They repeat the
 kernels' arithmetic in straightforward form and are no yardstick of speed.
+
+The aggregation and update versions take the kernels' scenario axis too
+(a multi-scenario sweep's S stacked fleets): every (A, N) / (R, N) operand
+may carry a leading S, the per-agent ones (S, A) or one shared (A,), and
+the update's anchors and hyper-parameters one row or value a scenario.
+They broadcast over it, and agree with S calls of the same function.
 """
 from __future__ import annotations
 
@@ -74,16 +80,24 @@ def slstm_scan_ref(wx, r_gates, b_gates) -> torch.Tensor:
     return torch.stack(hs, dim=1)
 
 
-def dual_proximal_sgd_ref(w, g, a1, a2, *, lr: float, mu1: float,
-                          mu2: float, scale=None, active_steps=None,
-                          step: int = 0) -> torch.Tensor:
+def dual_proximal_sgd_ref(w, g, a1, a2, *, lr, mu1, mu2, scale=None,
+                          active_steps=None, step: int = 0) -> torch.Tensor:
     """w - lr*(g + mu1*(w - a1) + mu2*(w - a2)); ``scale`` (A,) multiplies
     each row's lr, or ``active_steps`` (A,) with ``step`` gives the flat
     engine's inline mask ``live = (step < active_steps)`` in its place;
     ``a1`` / ``a2`` broadcast against ``w`` (an (N,) row serves every
-    agent)."""
+    agent, a (G, N) anchor a group of rows each).  ``lr`` / ``mu1`` /
+    ``mu2`` are floats or (G,) tensors, one value a group of rows."""
+    rows = w.shape[0] if w.dim() == 2 else 1
     if active_steps is not None:
         scale = (step < active_steps).float()
+    if w.dim() == 2:      # one anchor row / value a group of rows
+        a1, a2 = (a if a.dim() == 1 or a.shape[0] in (1, rows) else
+                  a.repeat_interleave(rows // a.shape[0], dim=0)
+                  for a in (a1, a2))
+        lr, mu1, mu2 = (v.repeat_interleave(rows // v.shape[0])[:, None]
+                        if isinstance(v, torch.Tensor) else v
+                        for v in (lr, mu1, mu2))
     wf = w.float()
     step_v = g.float() + mu1 * (wf - a1.float()) + mu2 * (wf - a2.float())
     lr_t = lr if scale is None else lr * scale.float()[:, None]
@@ -99,7 +113,7 @@ def masked_hier_agg_ref(stacked_flat, weights, mask, rsu_assign, n_rsus):
     """Segment-sum reference for the RSU aggregation."""
     w = weights.float() * mask.float()
     num, mass = scatter_accumulate(stacked_flat, w, rsu_assign, n_rsus)
-    denom = torch.where(mass > 0, mass, torch.ones_like(mass))[:, None]
+    denom = torch.where(mass > 0, mass, torch.ones_like(mass))[..., None]
     return (num / denom).to(stacked_flat.dtype), mass
 
 
@@ -109,7 +123,7 @@ def agg_blend_ref(stacked_flat, weights, mask, rsu_assign, n_rsus, prev):
     ``prev``."""
     new, mass = masked_hier_agg_ref(stacked_flat, weights, mask, rsu_assign,
                                     n_rsus)
-    out = torch.where((mass > 0)[:, None], new.float(), prev.float())
+    out = torch.where((mass > 0)[..., None], new.float(), prev.float())
     return out.to(prev.dtype), mass
 
 
@@ -118,7 +132,8 @@ def agg_absorb_ref(arrivals, rsu_assign, n_rsus, buf, buf_mass, *,
     """Per-cohort scatter-accumulate, numerator add, then
     ``buffer_absorb``.  Returns (buf', total mass, new mass)."""
     num = torch.zeros(buf.shape, dtype=torch.float32, device=buf.device)
-    new_mass = torch.zeros(n_rsus, dtype=torch.float32, device=buf.device)
+    new_mass = torch.zeros(buf.shape[:-1], dtype=torch.float32,
+                           device=buf.device)
     for x, w in arrivals:
         n, m = scatter_accumulate(x, w, rsu_assign, n_rsus)
         num = num + n
@@ -129,11 +144,12 @@ def agg_absorb_ref(arrivals, rsu_assign, n_rsus, buf, buf_mass, *,
 
 def cloud_agg_ref(rsu_flat, rsu_weights) -> torch.Tensor:
     wn, _ = normalized_weights(rsu_weights)
-    return (rsu_flat.float() * wn[:, None]).sum(dim=0).to(rsu_flat.dtype)
+    return (rsu_flat.float() * wn[..., None]).sum(dim=-2).to(rsu_flat.dtype)
 
 
 def cloud_blend_ref(rsu_flat, rsu_weights, prev) -> torch.Tensor:
     """Cloud aggregation + keep-guard; out dtype follows ``prev``."""
     new = cloud_agg_ref(rsu_flat, rsu_weights)
-    total = rsu_weights.float().sum()
-    return torch.where(total > 0, new.float(), prev.float()).to(prev.dtype)
+    total = rsu_weights.float().sum(dim=-1)
+    return torch.where(total[..., None] > 0, new.float(),
+                       prev.float()).to(prev.dtype)

@@ -6,7 +6,9 @@ on a dict of tensors.
 inputs and run every agent at once through ``torch.baddbmm``;
 ``grad_stacked`` is the per-agent gradient of the flat engine's local
 training, the gradient of the sum of per-agent mean losses taken with
-respect to ``(A, N)`` views of one flat buffer.  The small matmuls stay
+respect to ``(A, N)`` views of one flat buffer (a sweep's S fleets pass as
+S*A rows); ``accuracy_stacked`` evaluates a sweep's S cloud models in one
+call.  The small matmuls stay
 ``torch.bmm``, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
@@ -58,6 +60,19 @@ def loss_fn(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def accuracy(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (forward(params, x).argmax(dim=-1) == y).float().mean()
+
+
+def accuracy_stacked(params: Params, x: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+    """S models at once (params stacked (S, ...)) on one shared test set x
+    (n, D), y (n,), or one each, (S, n, D) and (S, n) -> (S,)."""
+    L = n_layers(params)
+    h = x
+    for i in range(L):
+        h = torch.matmul(h, params[f"w{i}"]) + params[f"b{i}"][:, None, :]
+        if i < L - 1:
+            h = torch.relu(h)
+    return (h.argmax(dim=-1) == y).float().mean(dim=-1)
 
 
 def forward_stacked(params: Params, x: torch.Tensor) -> torch.Tensor:

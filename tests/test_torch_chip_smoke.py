@@ -51,15 +51,16 @@ def test_ptxas_lines_name_their_kernel():
 
 # the functions that run each phase after the build, by name
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
-                 "flat_round", "main_path", "async_path", "serving_path",
-                 "xlstm_serving")
+                 "flat_round", "main_path", "async_path", "sweep_path",
+                 "serving_path", "xlstm_serving")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
                                        ("--scan", ["slstm_cases"]),
                                        ("--agg", ["aggregation_cases"]),
                                        ("--round", ["flat_round"]),
-                                       ("--async", ["async_path"])])
+                                       ("--async", ["async_path"]),
+                                       ("--sweep", ["sweep_path"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -135,6 +136,15 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
               "dual_proximal_sgd": 120}
     async_counts = dict(counts, agg_blend=0, cloud_blend=30, agg_absorb=120,
                         dual_proximal_sgd=360)
+    sweep_counts = dict(counts, agg_blend=25, cloud_blend=5,
+                        dual_proximal_sgd=1350)
+    sweep_rows = [dict(agg_row(k, e, library_ms=lib), shape="sweep", S=16,
+                       A=100, R=10)
+                  for k, e, lib in (
+                      ("fused_agg_blend", "agg_blend_sweep", 0.09),
+                      ("fused_agg_blend", "cloud_blend_sweep", 0.01),
+                      ("weighted_agg_matmul", "weighted_agg_matmul_sweep",
+                       0.1), ("dual_proximal_sgd", "sweep", None))]
     monkeypatch.setattr(cs.torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(cs.torch.cuda, "get_device_name", lambda i=0: card)
     monkeypatch.setattr(cs.torch.cuda, "device_count", lambda: 1)
@@ -147,6 +157,9 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     monkeypatch.setattr(cs, "async_path", lambda dev: {
         "main": async_counts, "unfused": dict(
             async_counts, weighted_agg_matmul=2, scatter_accumulate=16)})
+    monkeypatch.setattr(cs, "sweep_path", lambda dev: (sweep_rows, {
+        "sweep": sweep_counts,
+        "unfused": dict(counts, weighted_agg_matmul=6)}))
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -159,15 +172,23 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
+        "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "flash_attention", "slstm_scan"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
-    # the flat path's and the async path's counted runs: #1 its agg_blend,
-    # cloud_blend and agg_absorb launches, #2 its matmul and
-    # scatter-accumulate launches
-    assert [k["launches"] for k in kernels] == [50 + 150, 5 + 18, 120 + 360,
-                                                28, 3]
-    assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150}
-    assert kernels[1]["launches_by_path"] == {"flat": 5, "async": 18}
+    # the flat path's, the async path's and the sweep's counted runs: #1
+    # its agg_blend, cloud_blend and agg_absorb launches, #2 its matmul and
+    # scatter-accumulate launches; then the scenario-axis rows, with the
+    # sweep's launches
+    assert [k["launches"] for k in kernels] == [
+        50 + 150 + 30, 5 + 18 + 6, 120 + 360 + 1350, 30, 6, 1350, 28, 3]
+    assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
+                                              "sweep": 30}
+    assert kernels[1]["launches_by_path"] == {"flat": 5, "async": 18,
+                                              "sweep": 6}
+    assert [k["entry"] for k in kernels[3:6]] == [
+        "agg_blend_sweep", "weighted_agg_matmul_sweep", "sweep"]
+    assert kernels[3]["shape"] == {"S": 16, "A": 100, "R": 10, "N": 31_810}
+    assert kernels[3]["library_ms"] == 0.09
     assert kernels[0]["entry"] == "agg_blend"
     assert kernels[2]["host_us"] == 12.0

@@ -535,3 +535,180 @@ def test_cuda_xlstm_prefill_runs_the_scan(cuda):
         want, _ = M.forward(cfg, host, {"tokens": toks})
     assert ops.launch_counts()["slstm_scan"] == 3
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- the scenario axis: S stacked fleets, one launch a call ----------------
+
+# the sweep shape (Fig. 2's chunk of 16 at the paper fleet) and a ragged
+# one (S=3, A=7, R=3, odd N)
+SWEEP_SHAPES = [(16, 100, 10, 31_810), (3, 7, 3, 1001)]
+
+
+def _sweep_inputs(dev, S, A, R, N, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(S, A, N, device=dev, generator=g).to(dtype)
+    prev = torch.randn(S, R, N, device=dev, generator=g).to(dtype)
+    w = torch.rand(S, A, device=dev, generator=g) + 0.5
+    mask = torch.rand(S, A, device=dev, generator=g) < 0.6
+    assign = torch.randint(0, R, (S, A), device=dev, generator=g)
+    mask[0, assign[0] == 0] = False     # scenario 0's RSU 0 keeps its row
+    return x, prev, w, mask, assign
+
+
+def _count(entry, launches=tmha.launches):
+    return launches[entry]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,A,R,N", SWEEP_SHAPES)
+def test_cuda_sweep_agg_blend_and_cloud_blend(cuda, dtype, S, A, R, N):
+    """agg_blend and cloud_blend over S scenarios in one launch each, with
+    per-scenario and shared weights and RSU ids: against the plain S-axis
+    version, and equal to S one-scenario calls bit for bit (the agent
+    split does not depend on S); a scenario's zero-mass RSU keeps its row
+    bit for bit."""
+    x, prev, w, mask, assign = _sweep_inputs(cuda, S, A, R, N, dtype, S + A)
+    tol = F32 if dtype == torch.float32 else BF16
+    for ww, aa in ((w, assign), (w[0], assign[0]), (w, assign[0].int())):
+        before = _count("agg_blend")
+        got, mass = tmha.agg_blend(x, ww, mask, aa, R, prev)
+        assert _count("agg_blend") == before + 1
+        assert got.shape == (S, R, N) and mass.shape == (S, R)
+        want, want_mass = ref.agg_blend_ref(x, ww, mask, aa, R, prev)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0)
+        for s in range(S):
+            one, one_mass = tmha.agg_blend(
+                x[s], ww if ww.dim() == 1 else ww[s], mask[s],
+                aa if aa.dim() == 1 else aa[s], R, prev[s])
+            assert torch.equal(got[s], one)
+            assert torch.equal(mass[s], one_mass)
+        dead = mass <= 0
+        assert torch.equal(got[dead], prev[dead])
+    cloud = torch.randn(S, N, device=cuda)
+    rmass = torch.rand(S, R, device=cuda)
+    rmass[0] = 0.0                      # scenario 0 keeps its cloud
+    before = _count("cloud_blend")
+    got = tmha.cloud_blend(prev, rmass, cloud)
+    assert _count("cloud_blend") == before + 1
+    assert got.shape == (S, N) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.cloud_blend_ref(prev, rmass, cloud),
+                               **tol)
+    assert torch.equal(got[0], cloud[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,A,R,N", SWEEP_SHAPES)
+def test_cuda_sweep_agg_absorb_and_matmul(cuda, dtype, S, A, R, N):
+    """agg_absorb's two cohorts, the (S, R, A) @ (S, A, N) matmul (and a
+    shared (R, A) W), the fp32-output scatter-accumulate and cloud_agg over
+    S scenarios, one launch each, against the plain S-axis versions."""
+    from repro_torch.core.aggregation import build_weight_matrix
+    x, prev, w, mask, assign = _sweep_inputs(cuda, S, A, R, N, dtype, A + N)
+    tol = F32 if dtype == torch.float32 else BF16
+    x2 = x.flip(1).contiguous()
+    arrivals = [(x, w * mask), (x2, w)]
+    bm = torch.rand(S, R, device=cuda)
+    for keep in (0.5, torch.rand(R, device=cuda)):
+        before = _count("agg_absorb")
+        got = tmha.agg_absorb(arrivals, assign, R, prev, bm, keep=keep)
+        assert _count("agg_absorb") == before + 1
+        want = ref.agg_absorb_ref(arrivals, assign, R, prev, bm, keep=keep)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+        for g_, w_ in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g_, w_, rtol=1e-6, atol=1e-6)
+        one = tmha.agg_absorb([(a[1], b[1]) for a, b in arrivals], assign[1],
+                              R, prev[1], bm[1], keep=keep)
+        assert torch.equal(got[0][1], one[0])
+    W = build_weight_matrix(w, mask, assign, R)              # (S, R, A)
+    for WW in (W, W[1 % S]):
+        before = _count("weighted_agg_matmul")
+        got = tmha.weighted_agg_matmul(WW, x)
+        assert _count("weighted_agg_matmul") == before + 1
+        assert got.shape == (S, R, N) and got.dtype == dtype
+        torch.testing.assert_close(
+            got.float(), ref.weighted_agg_matmul_ref(WW, x).float(), **tol)
+        for s in range(S):
+            assert torch.equal(got[s], tmha.weighted_agg_matmul(
+                WW if WW.dim() == 2 else WW[s], x[s]))
+    from repro_torch.kernels import ops
+    before = _count("scatter_accumulate")
+    num, mass = ops.masked_scatter_accumulate(x, w * mask, assign, R)
+    assert _count("scatter_accumulate") == before + 1
+    assert num.dtype == torch.float32 and num.shape == (S, R, N)
+    from repro_torch.core.aggregation import scatter_accumulate
+    want_num, want_mass = scatter_accumulate(x, w * mask, assign, R)
+    torch.testing.assert_close(num, want_num, **F32)
+    torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0)
+    rmass = torch.rand(S, R, device=cuda)
+    torch.testing.assert_close(tmha.cloud_agg(prev, rmass).float(),
+                               ref.cloud_agg_ref(prev, rmass).float(), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anchor_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,A,R,N", SWEEP_SHAPES)
+def test_cuda_sweep_dual_proximal_sgd(cuda, anchor_dtype, S, A, R, N):
+    """S*A rows in one launch: the cloud anchor one row a scenario (S, N),
+    lr / mu1 / mu2 each a float or an (S,) tensor read by the row's
+    scenario, live from active_steps; against the plain version, and equal
+    to S one-scenario launches bit for bit."""
+    g_ = torch.Generator(device=cuda).manual_seed(S * A)
+    w, g, a1 = (torch.randn(S * A, N, device=cuda, generator=g_)
+                for _ in range(3))
+    a1 = a1.to(anchor_dtype)
+    a2 = torch.randn(S, N, device=cuda, generator=g_).to(anchor_dtype)
+    active = torch.randint(0, 3, (S * A,), device=cuda, generator=g_,
+                           dtype=torch.int32)
+    lr = torch.rand(S, device=cuda, generator=g_) * 0.2
+    mu1 = torch.rand(S, device=cuda, generator=g_) * 0.02
+    mu1[0] = 0.0                          # scenario 0 drops the RSU term
+    for hp in (dict(lr=lr, mu1=mu1, mu2=0.005),
+               dict(lr=0.1, mu1=0.01, mu2=mu1)):
+        before = _count("dual_proximal_sgd", tdps.launches)
+        got = tdps.dual_proximal_sgd(w, g, a1, a2, active_steps=active,
+                                     step=1, **hp)
+        assert _count("dual_proximal_sgd", tdps.launches) == before + 1
+        want = ref.dual_proximal_sgd_ref(w, g, a1, a2, active_steps=active,
+                                         step=1, **hp)
+        torch.testing.assert_close(got, want, **UPDATE)
+        for s in range(S):
+            rows = slice(s * A, (s + 1) * A)
+            one = tdps.dual_proximal_sgd(
+                w[rows], g[rows], a1[rows], a2[s], active_steps=active[rows],
+                step=1, **{k: float(v[s]) if torch.is_tensor(v) else v
+                           for k, v in hp.items()})
+            assert torch.equal(got[rows], one)
+    # a length that does not divide the rows, two lengths in one call, a
+    # CPU tensor
+    for bad in (dict(lr=torch.rand(S * A + 1, device=cuda)),
+                dict(lr=lr, mu1=mu1[:1]), dict(lr=lr.cpu())):
+        with pytest.raises(ValueError):
+            tdps.dual_proximal_sgd(w, g, a1, a2, **dict(
+                dict(lr=0.1, mu1=0.0, mu2=0.0), **bad))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_sweep_shared_memory_limit_is_per_scenario(cuda):
+    """The ring kernel stages one scenario's weights a block, so the limit
+    is on A, not S*A: 50 scenarios of 100 agents (5,000 rows, past what
+    one scenario may hold at R = 10) run and match the plain version, and
+    one scenario of 4,100 agents is refused."""
+    S, A, R, N = 50, 100, 10, 513
+    x, prev, w, mask, assign = _sweep_inputs(cuda, S, A, R, N, torch.float32,
+                                             5)
+    got, _ = tmha.agg_blend(x, w, mask, assign, R, prev)
+    want, _ = ref.agg_blend_ref(x, w, mask, assign, R, prev)
+    torch.testing.assert_close(got, want, **F32)
+    big = torch.randn(1, 4100, 64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmha.agg_blend(big, torch.ones(4100, device=cuda),
+                       torch.ones(1, 4100, device=cuda, dtype=torch.bool),
+                       torch.arange(4100, device=cuda) % R, R,
+                       torch.zeros(1, R, 64, device=cuda))
+    torch.cuda.synchronize()

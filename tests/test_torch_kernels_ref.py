@@ -242,3 +242,97 @@ def test_cpu_route_launches_nothing_and_wrappers_refuse_cpu():
     with pytest.raises(ValueError):
         tmha.agg_absorb([(x, w)], a, 2, torch.zeros(2, 50), torch.ones(2))
     assert not any(ops.launch_counts().values())
+
+
+# -- the scenario axis: the plain S-axis versions against S one-scenario
+# calls of the same plain versions (the CUDA kernels are held to these on
+# the card, test_torch_cuda_kernels.py)
+
+def _sweep_inputs(S, A, R, N, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((S, A, N)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(1, 5, (S, A)).astype(np.float32))
+    mask = torch.from_numpy(rng.integers(0, 2, (S, A)).astype(bool))
+    assign = torch.from_numpy(rng.integers(0, R, (S, A)))
+    mask[0, assign[0] == 0] = False
+    prev = torch.from_numpy(rng.standard_normal((S, R, N)).astype(np.float32))
+    return x, w, mask, assign, prev
+
+
+def _pick(t, s):
+    """Scenario s's slice of a per-scenario operand; a shared one as is."""
+    return t[s] if t.dim() == 2 else t
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("S,A,R,N", [(3, 7, 3, 1001), (4, 20, 4, 64)])
+def test_sweep_aggregation_refs_are_per_scenario_refs(S, A, R, N, shared):
+    """agg_blend, cloud_blend, agg_absorb, the matmul, the
+    scatter-accumulate and cloud_agg on (S, ...) operands, with weights and
+    RSU ids per scenario or shared, equal S calls on each scenario's
+    slices."""
+    from repro_torch.core.aggregation import (build_weight_matrix,
+                                              scatter_accumulate)
+    from repro_torch.kernels import ref
+    x, w, mask, assign, prev = _sweep_inputs(S, A, R, N, S + A + shared)
+    if shared:
+        w, assign = w[0], assign[0]
+    got, mass = ref.agg_blend_ref(x, w, mask, assign, R, prev)
+    rmass = torch.rand(S, R)
+    rmass[1] = 0.0
+    cloud = torch.randn(S, N)
+    got_cloud = ref.cloud_blend_ref(prev, rmass, cloud)
+    arrivals = [(x, w * mask), (x.flip(1), w * ~mask)]
+    bm = torch.rand(S, R)
+    got_abs = ref.agg_absorb_ref(arrivals, assign, R, prev, bm, keep=0.5)
+    W = build_weight_matrix(w, mask, assign, R)
+    assert W.shape == (S, R, A)
+    got_mm = ref.weighted_agg_matmul_ref(W, x)
+    got_num, got_m = scatter_accumulate(x, w * mask, assign, R)
+    got_cagg = ref.cloud_agg_ref(prev, rmass)
+    for s in range(S):
+        ws, a_s = _pick(w, s), _pick(assign, s)
+        one, one_mass = ref.agg_blend_ref(x[s], ws, mask[s], a_s, R, prev[s])
+        assert torch.equal(got[s], one) and torch.equal(mass[s], one_mass)
+        assert torch.equal(got_cloud[s],
+                           ref.cloud_blend_ref(prev[s], rmass[s], cloud[s]))
+        one_abs = ref.agg_absorb_ref(
+            [(xx[s], ww[s] if ww.dim() == 2 else ww) for xx, ww in arrivals],
+            a_s, R, prev[s], bm[s], keep=0.5)
+        for g_, o_ in zip(got_abs, one_abs):
+            assert torch.equal(g_[s], o_)
+        torch.testing.assert_close(
+            got_mm[s], ref.weighted_agg_matmul_ref(W[s], x[s]), **F32)
+        num, m = scatter_accumulate(x[s], (w * mask)[s], a_s, R)
+        assert torch.equal(got_num[s], num) and torch.equal(got_m[s], m)
+        torch.testing.assert_close(got_cagg[s],
+                                   ref.cloud_agg_ref(prev[s], rmass[s]),
+                                   **F32)
+    assert torch.equal(got_cloud[1], cloud[1])     # zero mass keeps it
+
+
+def test_sweep_update_ref_is_per_scenario_ref():
+    """dual_proximal_sgd over S*A rows with the cloud anchor one row a
+    scenario and per-scenario lr / mu1 / mu2 equals S one-scenario calls,
+    through the CPU route (in place) as through the plain version."""
+    from repro_torch.kernels import ref
+    S, A, N = 3, 5, 257
+    rng = np.random.default_rng(9)
+    w, g, a1 = (torch.from_numpy(rng.standard_normal((S * A, N))
+                                 .astype(np.float32)) for _ in range(3))
+    a2 = torch.from_numpy(rng.standard_normal((S, N)).astype(np.float32))
+    lr = torch.tensor([0.1, 0.05, 0.2])
+    mu1 = torch.tensor([0.0, 0.01, 0.004])
+    active = torch.from_numpy(rng.integers(0, 4, S * A).astype(np.int32))
+    kw = dict(mu2=0.005, active_steps=active, step=1)
+    got = ref.dual_proximal_sgd_ref(w, g, a1, a2, lr=lr, mu1=mu1, **kw)
+    w_in = w.clone()
+    assert ops.dual_proximal_sgd(w_in, g, a1, a2, lr=lr, mu1=mu1, out=w_in,
+                                 **kw) is w_in
+    assert torch.equal(w_in, got)
+    for s in range(S):
+        rows = slice(s * A, (s + 1) * A)
+        one = ref.dual_proximal_sgd_ref(
+            w[rows], g[rows], a1[rows], a2[s], lr=float(lr[s]),
+            mu1=float(mu1[s]), mu2=0.005, active_steps=active[rows], step=1)
+        assert torch.equal(got[rows], one)
