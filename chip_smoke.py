@@ -90,6 +90,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    busy of a sweep round beside two cells' sequential rounds; the whole
    72-cell grid at ``max_sweep=16``, 1 round: 5 chunks, one program build,
    histories in input order.
+3t. Cohort streaming (``fedsim/streaming``, ``core/fleet_store``).  (a)
+   At the main (A=20, R=4) and paper (A=100, R=10) fleets, 2 rounds, fp32,
+   from the MLP's initial weights, the card's draws replayed on both
+   sides: the host-streamed flat and async rounds in chunks of 7 (a
+   padded tail) against the resident rounds (buffers within 1e-4,
+   accuracy within 2e-3, the async in-flight weights and ticks equal),
+   counted (one ``chunk_agg`` launch of #2 a flat chunk, two an async
+   one, one ``cloud_blend`` a round); device-chunked == host-streamed and
+   an empty plan == none, bit for bit, on the flat, async and two-axis
+   rounds; a bf16 host store finite and within 5e-2 of the fp32 round.
+   (b) The two-axis round at the perception MLP (tiles of 1,048,576
+   columns, chunks of 25 agents) against the one-axis streamed round, 1
+   round: max relative difference (limit 1e-6), whether it is bitwise,
+   and the peak device memory of each.  (c) The fleet cell of
+   ``benchmarks/streaming_round.py`` at the paper MLP's width: a pinned
+   host fleet of 100,000 agents (12.72 GB), R=16, chunks of 16,384, one
+   timed round after a warm-up: wall, agents/s, the bytes that crossed
+   against ``streamed_transfer_bytes``, the device time split into
+   compute and copies; peak device memory there and at 25,000 agents,
+   equal within 1%.  (d) #2 as ``chunk_agg`` at that chunk shape (R=16,
+   A=16,384, N=31,810, fp32 and bf16 rows) against its plain version,
+   with its time, its byte bound and ``torch.matmul``'s time.  (e) The
+   host-streamed flat round's wall, launches and device busy share at the
+   main fleet beside the resident round's.
 4. The serving path: qwen3-0.6b at full width in bf16 with params drawn on
    the card.  ``make_prefill_step`` at B=4, S=8192 (exactly 28
    flash_attention launches a call; ms, tokens/s, peak memory); the serve
@@ -114,9 +138,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
    over one prefill call and 8 decode steps.
 5. The kernels' JSON line (each kernel's launches are those of the
-   counted runs of the flat path, the async path and the sweep, also given
-   by path; beside them the scenario-axis entries at the sweep shape with
-   the sweep's launches), the card's line, and the result line.
+   counted runs of the flat path, the async path, the sweep and the
+   streamed rounds, also given by path; beside them the scenario-axis
+   entries at the sweep shape with the sweep's launches, and #2 at the
+   streamed chunk shape with the streamed rounds' launches), the card's
+   line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
@@ -124,8 +150,8 @@ flash-attention kernel's build report, checks and times), ``--scan`` phase
 phase 2 only (the aggregation and update kernels'), and ``--round`` phase
 1 and the quickstart scenario's global round alone (wall, launches and
 device busy share a round, from the MLP's initial weights), and
-``--async`` phase 1 and phase 3b, and ``--sweep`` phase 1 and phase 3s;
-none of them prints a result line.
+``--async`` phase 1 and phase 3b, ``--sweep`` phase 1 and phase 3s, and
+``--stream`` phase 1 and phase 3t; none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -182,10 +208,10 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
-FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "4", "4b", "5")
+FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "4", "4b", "5")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
-         "--sweep": ("1", "3s")}
+         "--sweep": ("1", "3s"), "--stream": ("1", "3t")}
 
 
 def selected_phases(argv) -> tuple:
@@ -526,6 +552,10 @@ def timed_run(res, params, **kw):
     counts = ops.launch_counts()
     if hasattr(final, "cloud_params"):
         tensors = list(final.cloud_params.values())
+    elif hasattr(final, "store"):   # a streamed round's buffers and stores
+        tensors = [final.cloud_flat, final.rsu_flat, final.store.snapshot()]
+        if hasattr(final, "pending_store"):
+            tensors.append(final.pending_store.snapshot())
     else:     # the async engine's buffers, in-flight ones included
         tensors = [final.cloud_flat, final.rsu_flat, final.agent_flat,
                    final.pending_x, final.rsu_mass, final.cloud_macc]
@@ -764,7 +794,7 @@ def card_draws(dev, spec, res, n_rounds):
     from repro_torch.core.heterogeneity import init_conn_state, sample_latency
     from repro_torch.fedsim.simulator import round_draws
     A = spec.n_agents
-    spe = res.fed.x.shape[1] // spec.batch
+    spe = max(res.fed.x.shape[1] // spec.batch, 1)     # the engines' spe
     gen = torch.Generator(device=dev).manual_seed(5)
     conn, out = init_conn_state(A, dev), []
     for _ in range(n_rounds):
@@ -1520,6 +1550,366 @@ def sweep_path(dev):
     return rows, paths
 
 
+# -- phase 3t: cohort streaming --------------------------------------------
+
+# the fleet cell of benchmarks/streaming_round.py at its CI scale, at the
+# paper MLP's width: one synthetic shard of 4 samples every agent sees
+# through a broadcast view, R = 16, chunks of 16,384 agents, LAR 1, E 1
+FLEET_A, FLEET_SMALL_A, FLEET_R, FLEET_CHUNK = 100_000, 25_000, 16, 16_384
+FLEET_SAMPLES = 4
+PERCEPTION_HIDDEN = (12_000,)     # the 784-12000-10 perception MLP
+PERCEPTION_TILE = 1_048_576       # chunk_params of the two-axis round
+STREAM_CHUNK = 7                  # a padded tail at A = 20 and A = 100
+
+
+def stream_specs(fleet: str):
+    """Phase 3t (a)'s scenarios at the main (A=20, R=4) or the paper
+    (A=100, R=10) fleet, 2 rounds: the quickstart's flat round and the
+    straggler regime's async round."""
+    A, R = {"main": (20, 4), "paper": (100, 10)}[fleet]
+    a_spec, _ = straggler_specs()
+    return (quickstart_spec().replace(n_agents=A, n_rsus=R, rounds=2),
+            a_spec.replace(n_agents=A, n_rsus=R, rounds=2))
+
+
+def _cloud(state) -> torch.Tensor:
+    """The (N,) cloud master of any engine's final state."""
+    if hasattr(state, "cloud_params"):
+        return torch.cat([state.cloud_params[k].reshape(-1)
+                          for k in sorted(state.cloud_params)])
+    return state.cloud_flat
+
+
+def _limit(what, err, limit):
+    if not err <= limit:
+        raise AssertionError(f"{what}: {err:.3e} past {limit}")
+    return err
+
+
+def stream_equivalence(dev, params):
+    """Phase 3t (a): the streamed rounds against the resident ones, the
+    card's own draws replayed on both; returns the counted runs' launch
+    counts (the host-streamed flat and async rounds at the main fleet)."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.fedsim import run_scenario
+    paths = {}
+    for fleet in ("main", "paper"):
+        for s in stream_specs(fleet):
+            engine = s.engine
+            res = s.resolve()
+            draws = card_draws(dev, s, res, 2)
+            if engine == "flat":
+                draws = [[(m, a) for m, a, _ in rd] for rd in draws]
+            resident, rh = run_scenario(res, params, draws=draws)
+            host = s.replace(fleet_store="host", chunk_agents=STREAM_CHUNK)
+            st, sh, counts, _ = timed_run(host.resolve(), params, draws=draws)
+            n_chunks = -(-s.n_agents // STREAM_CHUNK)
+            lar, rounds = s.hp.lar, s.rounds
+            per = 2 if engine == "async" else 1
+            want = {"chunk_agg": rounds * lar * n_chunks * per,
+                    "cloud_blend": rounds, "agg_blend": 0, "agg_absorb": 0}
+            if any(counts[k] != v for k, v in want.items()):
+                raise AssertionError(f"streamed {engine} launches {counts}, "
+                                     f"want {want}")
+            if fleet == "main":
+                paths[engine] = counts
+            # streamed (#2 sums + normalize) against resident (#1): the
+            # limit of phase 3's card-vs-host check after 2 rounds
+            errs = {"cloud": (_cloud(st) - _cloud(resident)).abs().max()
+                    .item(), "acc": float(abs(sh["acc"] - rh["acc"]).max())}
+            if engine == "async":
+                errs["agents"] = (st.store.snapshot().to(dev)
+                                  - resident.agent_flat).abs().max().item()
+                fly = resident.pending_t > 0
+                errs["pending rows"] = ((st.pending_store.snapshot().to(dev)
+                                         - resident.pending_x)[fly].abs()
+                                        .max().item() if fly.any() else 0.0)
+                if not (torch.equal(st.pending_t, resident.pending_t)
+                        and torch.equal(st.pending_w, resident.pending_w)):
+                    raise AssertionError("streamed async: the in-flight "
+                                         "weights or ticks differ")
+                for k in ("absorbed_mass", "pending_mass"):
+                    if not np.allclose(sh[k], rh[k], rtol=1e-6, atol=0):
+                        raise AssertionError(f"streamed async {k}: {sh[k]} "
+                                             f"vs {rh[k]}")
+            for k, v in errs.items():
+                _limit(f"{fleet} {engine} streamed vs resident {k}", v,
+                       2e-3 if k == "acc" else 1e-4)
+            # device-chunked against host-streamed, and an empty plan
+            # against none: the same kernels in the same order, bit for bit
+            dst, _ = run_scenario(host.replace(fleet_store="device").resolve(),
+                                  params, draws=draws)
+            fst, _ = run_scenario(host.replace(faults=FaultPlan()).resolve(),
+                                  params, draws=draws)
+            same = (torch.equal(dst.store.snapshot().cpu(),
+                                st.store.snapshot())
+                    and torch.equal(dst.cloud_flat, st.cloud_flat)
+                    and torch.equal(fst.cloud_flat, st.cloud_flat)
+                    and torch.equal(fst.store.snapshot(), st.store.snapshot()))
+            if not same:
+                raise AssertionError(f"{fleet} {engine}: device-chunked or "
+                                     f"the empty plan differs from the host-"
+                                     f"streamed round")
+            print(f"stream: {fleet} fleet (A={s.n_agents}, R={s.n_rsus}), "
+                  f"{engine}, chunk {STREAM_CHUNK}, 2 rounds, the card's "
+                  f"draws: streamed vs resident max abs err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (limit 1e-4, acc 2e-3); device-chunked == host-"
+                  f"streamed and empty plan == none bit for bit; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            if engine == "flat":
+                # the two-axis round's empty plan, and a bf16 host store
+                two = host.replace(chunk_params=8192)
+                a, _ = run_scenario(two.resolve(), params, draws=draws)
+                b, _ = run_scenario(two.replace(faults=FaultPlan()).resolve(),
+                                    params, draws=draws)
+                if not torch.equal(a.cloud_flat, b.cloud_flat):
+                    raise AssertionError("two-axis: the empty plan differs")
+                bst, bh = run_scenario(host.replace(
+                    fleet_dtype="bfloat16").resolve(), params, draws=draws)
+                err = (bst.cloud_flat - st.cloud_flat).abs().max().item()
+                if not (np.isfinite(bh["acc"]).all() and torch.isfinite(
+                        bst.store.snapshot().float()).all()):
+                    raise AssertionError("bf16 host store: non-finite")
+                print(f"stream: {fleet} two-axis (tiles of 8,192) empty "
+                      f"plan == none bit for bit; bf16 host store: finite, "
+                      f"cloud within {err:.3e} of the fp32 round (limit "
+                      f"5e-2: bf16 storage over 8 local rounds)")
+                _limit("bf16 host store vs fp32", err, 5e-2)
+    return paths
+
+
+def stream_twoaxis(dev):
+    """Phase 3t (b): the two-axis round at the perception MLP (N =
+    9,540,010, A = 100, R = 10, tiles of 1,048,576 columns) against the
+    one-axis streamed round on the same draws, 1 round; peak device memory
+    of each."""
+    import dataclasses
+    from repro_torch.configs.mnist_mlp import CONFIG
+    from repro_torch.fedsim import run_scenario
+    from repro_torch.models import mlp
+    spec, _ = stream_specs("paper")
+    spec = spec.replace(hidden_dims=PERCEPTION_HIDDEN, rounds=1,
+                        fleet_store="host", chunk_agents=25)
+    params = mlp.init_params(dataclasses.replace(
+        CONFIG, hidden_dims=PERCEPTION_HIDDEN),
+        torch.Generator().manual_seed(0), device=dev)
+    res = spec.resolve()
+    draws = [[(m, a) for m, a, _ in rd] for rd in card_draws(dev, spec, res,
+                                                             1)]
+    out = {}
+    for name, s in (("one-axis", spec),
+                    ("two-axis", spec.replace(chunk_params=PERCEPTION_TILE))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, h = run_scenario(s.resolve(), params, draws=draws)
+        torch.cuda.synchronize()
+        out[name] = (st, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated())
+    (one, t1, m1), (two, t2, m2) = out["one-axis"], out["two-axis"]
+    n = one.cloud_flat.shape[0]
+    got, want = two.cloud_flat[:n].to(dev), one.cloud_flat
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"stream: perception (N={n}, A=100, R=10, chunk 25), 1 round: "
+          f"two-axis (tiles of {PERCEPTION_TILE}) vs one-axis max relative "
+          f"diff {rel:.3e} (limit 1e-6), bitwise {torch.equal(got, want)}; "
+          f"peak device memory one-axis {m1 / 1e9:.3f} GB, two-axis "
+          f"{m2 / 1e9:.3f} GB; wall {t1:.2f} s / {t2:.2f} s (eval "
+          f"included)")
+    _limit("two-axis vs one-axis", rel, 1e-6)
+    if two.cloud_flat[n:].any():
+        raise AssertionError("two-axis: a padded column is not zero")
+
+
+def fleet_data(A: int, R: int, seed: int = 0):
+    """One shard of FLEET_SAMPLES 784-feature samples every agent sees
+    through a broadcast view (the fleet cell's data), agents on R RSUs
+    round robin."""
+    from repro_torch.data.partition import FederatedData
+    rng = np.random.default_rng(seed)
+    x1 = rng.normal(size=(1, FLEET_SAMPLES, 784)).astype(np.float32)
+    y1 = rng.integers(0, 10, size=(1, FLEET_SAMPLES)).astype(np.int32)
+    return FederatedData(
+        x=np.broadcast_to(x1, (A, FLEET_SAMPLES, 784)),
+        y=np.broadcast_to(y1, (A, FLEET_SAMPLES)),
+        n_per_agent=np.broadcast_to(np.int32(FLEET_SAMPLES), (A,)),
+        rsu_assign=np.arange(A, dtype=np.int32) % R)
+
+
+def fleet_round(dev, A: int, profile: bool = False) -> dict:
+    """Phase 3t (c): one timed streamed flat round over a host fleet of A
+    agents (paper MLP, R = 16, chunks of 16,384) after a warm-up round:
+    wall, agents/s, the bytes that crossed against the analytic count,
+    peak device memory; with ``profile`` a third round under the
+    profiler (compute and copy time on the device)."""
+    from repro_torch.configs.mnist_mlp import CONFIG
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.core.heterogeneity import HeterogeneityModel
+    from repro_torch.fedsim.simulator import SimConfig
+    from repro_torch.fedsim.streaming import (init_stream_state,
+                                              make_streamed_flat_round,
+                                              streamed_transfer_bytes)
+    from repro_torch.models import mlp
+    cfg = SimConfig(n_agents=A, n_rsus=FLEET_R, batch=FLEET_SAMPLES, seed=0)
+    hp = H2FedParams(mu1=0.01, mu2=0.005, lar=1, local_epochs=1, lr=0.1)
+    het = HeterogeneityModel(csr=1.0)
+    params = mlp.init_params(CONFIG, torch.Generator().manual_seed(0),
+                             device=dev)
+    fspec, fed = spec_of(params), fleet_data(A, FLEET_R)
+    round_fn = make_streamed_flat_round(cfg, hp, het, fed, fspec, device=dev,
+                                        chunk_agents=FLEET_CHUNK)
+    t0 = time.perf_counter()
+    state = [init_stream_state(cfg, fspec, params, dev, fleet_store="host")]
+    setup_s = time.perf_counter() - t0
+    if not state[0].store.pinned:
+        raise AssertionError("the host store is not pinned")
+
+    def one_round():
+        state[0] = round_fn(state[0])
+    one_round()                          # warm-up: staging buffers pinned
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(round_fn.link.bytes)
+    t0 = time.perf_counter()
+    one_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: round_fn.link.bytes[k] - before[k] for k in before}
+    xfer = streamed_transfer_bytes(round_fn.plan, fspec, hp, fed)
+    # every agent sees the same shard from the same start: every row of the
+    # fleet, and the cloud, is the one agent's update
+    st = state[0]
+    first, last = st.store.gather(0, 1), st.store.gather(A - 1, A)
+    cloud = st.cloud_flat.cpu()
+    if not (torch.isfinite(cloud).all() and torch.equal(first, last)):
+        raise AssertionError("fleet round: rows differ or are not finite")
+    _limit("fleet round: cloud vs an agent row", ((cloud - first[0]).abs()
+           .max() / first.abs().max()).item(), 1e-5)
+    out = {"A": A, "n_chunks": round_fn.plan.n_chunks, "wall_s": wall,
+           "agents_per_s": A / wall, "setup_s": setup_s,
+           "store_gb": st.store.nbytes / 1e9, "peak_gb": peak / 1e9,
+           "h2d_gb": moved["h2d"] / 1e9, "d2h_gb": moved["d2h"] / 1e9,
+           "h2d_analytic_gb": xfer["h2d"] / 1e9,
+           "d2h_analytic_gb": xfer["d2h"] / 1e9}
+    if profile:
+        pw, launches, _, kernels, _ = device_profile(one_round, 1)
+        copy = {d: sum(v for k, v in kernels.items()
+                       if k.startswith("Memcpy") and d in k)
+                for d in ("HtoD", "DtoH")}
+        compute = sum(v for k, v in kernels.items()
+                      if not k.startswith(("Memcpy", "Memset")))
+        out.update(profiled_wall_s=pw, launches=launches,
+                   compute_s=compute, h2d_s=copy["HtoD"],
+                   d2h_s=copy["DtoH"], busy_compute=compute / pw)
+    print("stream: fleet round " + json.dumps(out))
+    del state, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunk_agg_cases(dev):
+    """Phase 3t (d): #2 as ``chunk_agg`` at the fleet round's chunk shape
+    (R = 16, A = 16,384, N = 31,810: 32 tiles of 512 agents a block)
+    against its plain version, fp32 and bf16 rows; returns result rows.
+    The check holds both to the exact sum: |got - plain| within 2e-6 of
+    the sum of |terms| (each is within a few fp32 ulps of it)."""
+    from repro_torch.core.aggregation import unnormalized_weight_matrix
+    from repro_torch.kernels import masked_hier_agg as mha
+    from repro_torch.kernels import ref
+    A, R, N = FLEET_CHUNK, FLEET_R, 31_810
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        sx = torch.finfo(dtype).bits // 8
+        x = torch.randn(A, N, device=dev, generator=gen).to(dtype)
+        w = torch.rand(A, device=dev, generator=gen) + 0.5
+        w[-100:] = 0.0                     # a padded tail rides along
+        assign = torch.arange(A, device=dev) % R
+        got, mass = mha.scatter_accumulate(x, w, assign, R,
+                                           entry="chunk_agg")
+        want, want_mass = ref.chunk_agg_ref(x, w, assign, R)
+        W = unnormalized_weight_matrix(w, torch.ones_like(w), assign, R)
+        scale = W.abs() @ x.float().abs()
+        excess = ((got - want).abs() - 2e-6 * scale).max().item()
+        err = (got - want).abs().max().item()
+        if excess > 0 or not torch.allclose(mass, want_mass, rtol=1e-6,
+                                            atol=0):
+            raise AssertionError(f"chunk_agg {dtype}: the kernel disagrees "
+                                 f"with the plain version ({err:.3e})")
+        del scale
+        ms = cuda_ms(lambda: mha.scatter_accumulate(x, w, assign, R,
+                                                    entry="chunk_agg"))
+        b_ms, b_by = bound(A * N * sx + R * N * 4 + A * 12, 2 * R * A * N)
+        row = {"kernel": "weighted_agg_matmul", "entry": "chunk_agg",
+               "shape": "chunk", "A": A, "R": R, "N": N,
+               "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
+               "plain_ms": cuda_ms(lambda: ref.chunk_agg_ref(x, w, assign,
+                                                             R)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(lambda: torch.matmul(W, x.float()))}
+        print("kernel " + json.dumps(row))
+        rows.append(row)
+        del x, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def stream_round_profile(dev, params, n: int = 3) -> None:
+    """Phase 3t (e): the host-streamed flat round at the main fleet (chunk
+    7, 3 chunks) on the host clock and under the profiler, beside the
+    resident round (548 launches)."""
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.fedsim.streaming import (init_stream_state,
+                                              make_streamed_flat_round)
+    s = quickstart_spec()
+    res = s.resolve()
+    round_profile(dev, res, params, what="resident flat round (main fleet)")
+    fspec = spec_of(params)
+    round_fn = make_streamed_flat_round(res.cfg, s.hp, s.het, res.fed, fspec,
+                                        device=dev,
+                                        chunk_agents=STREAM_CHUNK)
+    state = [round_fn(init_stream_state(res.cfg, fspec, params, dev))]
+
+    def one_round():
+        state[0] = round_fn(state[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_round()
+    torch.cuda.synchronize()
+    print(f"round: host-streamed flat round (main fleet, chunk "
+          f"{STREAM_CHUNK}): {(time.perf_counter() - t0) / n * 1e3:.2f} ms "
+          f"a global round (host clock, synchronised, {n} rounds, eval "
+          f"excluded)")
+    print_profile("host-streamed flat round (main fleet)", n,
+                  *device_profile(one_round, n))
+
+
+def stream_path(dev):
+    """Phase 3t; returns (#2's rows at the chunk shape, the launch counts
+    of the counted streamed runs)."""
+    from repro_torch.configs.mnist_mlp import CONFIG
+    from repro_torch.models import mlp
+    rows = chunk_agg_cases(dev)
+    params = mlp.init_params(CONFIG, torch.Generator().manual_seed(0),
+                             device=dev)
+    paths = stream_equivalence(dev, params)
+    stream_twoaxis(dev)
+    big = fleet_round(dev, FLEET_A, profile=True)
+    small = fleet_round(dev, FLEET_SMALL_A)
+    gap = abs(big["peak_gb"] - small["peak_gb"]) / big["peak_gb"]
+    print(f"stream: peak device memory at A={FLEET_A}: {big['peak_gb']:.4f} "
+          f"GB, at A={FLEET_SMALL_A}: {small['peak_gb']:.4f} GB (differ by "
+          f"{gap:.3%}, limit 1%)")
+    _limit("peak device memory against the fleet size", gap, 0.01)
+    stream_round_profile(dev, params)
+    return rows, paths
+
+
 def live_pairs(S: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks keep: keys t < S, t <= s when causal,
     t > s - window when window > 0."""
@@ -2134,11 +2524,14 @@ def main(argv=None) -> int:
             async_path(dev)
         if "3s" in phases:
             sweep_path(dev)
+        if "3t" in phases:
+            stream_path(dev)
         return 0
 
     paths = main_path(dev)
     async_paths = async_path(dev)
     sweep_rows, sweep_paths = sweep_path(dev)
+    stream_rows, stream_paths = stream_path(dev)
     flash_launches = serving_path(dev)
     scan_launches = xlstm_serving(dev)
 
@@ -2149,8 +2542,9 @@ def main(argv=None) -> int:
 
     # launches of each path's counted run: the flat round (fused and
     # fused=False), the async round (fused, and fused=False with its
-    # scatter-accumulates on the matmul kernel) and the sweep (fused and
-    # fused=False)
+    # scatter-accumulates on the matmul kernel), the sweep (fused and
+    # fused=False) and the host-streamed flat and async rounds (#2 as
+    # chunk_agg, #1 as cloud_blend)
     by_path = {}
     for path, fused, unfused in (("flat", paths["main"], paths["unfused"]),
                                  ("async", async_paths["main"],
@@ -2163,6 +2557,13 @@ def main(argv=None) -> int:
             "weighted_agg_matmul": unfused["weighted_agg_matmul"]
             + unfused["scatter_accumulate"],
             "dual_proximal_sgd": fused["dual_proximal_sgd"]}
+    streamed = list(stream_paths.values())
+    by_path["stream"] = {
+        "fused_agg_blend": sum(c[k] for c in streamed for k in (
+            "agg_blend", "cloud_blend", "agg_absorb")),
+        "weighted_agg_matmul": sum(c[k] for c in streamed for k in (
+            "weighted_agg_matmul", "scatter_accumulate", "chunk_agg")),
+        "dual_proximal_sgd": sum(c["dual_proximal_sgd"] for c in streamed)}
     kernels = []
     for kernel, entry in (("fused_agg_blend", "agg_blend"),
                           ("weighted_agg_matmul", "weighted_agg_matmul"),
@@ -2199,6 +2600,19 @@ def main(argv=None) -> int:
             "shape": {k: r[k] for k in ("S", "A", "R", "N")},
             **{k: r[k] for k in ("device_ms", "host_us", "library_device_ms",
                                  "library_host_us") if k in r}})
+    # #2 at the streamed rounds' chunk shape, launched by them as chunk_agg
+    r = next(x for x in stream_rows if x["dtype"] == "float32")
+    kernels.append({
+        "name": "weighted_agg_matmul", "route": "cuda",
+        "source": SOURCES["weighted_agg_matmul"],
+        "replaces": REPLACES["weighted_agg_matmul"],
+        "launches": by_path["stream"]["weighted_agg_matmul"],
+        "launches_by_path": {"stream":
+                             by_path["stream"]["weighted_agg_matmul"]},
+        "max_abs_err": max(x["max_abs_err"] for x in stream_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "entry")},
+        "shape": {k: r[k] for k in ("A", "R", "N")}})
     # the serving path's shape: what each of its prefill launches computes
     r = next(x for x in attn_rows if x["entry"] == "prefill")
     kernels.append({

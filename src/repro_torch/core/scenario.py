@@ -15,11 +15,12 @@ program must share (``fedsim/sweep``).
 
 The port runs the synchronous ``engine="flat"`` round and the semi-async
 ``engine="async"`` tick engine, both with or without a fault plan
-(``faults=FaultPlan(...)``).  ``validate()`` raises ``NotImplementedError``
-for what it has not ported: the ``tree`` and ``sharded`` engines, the host
-fleet store, cohort / N-tile streaming, serving, ``model_shards > 1`` and
-``rsu_sharded``.  The fields stay, so a spec round-trips between the
-packages.
+(``faults=FaultPlan(...)``), resident or cohort-streamed
+(``fleet_store="host"`` / ``chunk_agents``, and ``chunk_params`` for the
+two-axis round).  ``validate()`` raises ``NotImplementedError`` for what
+it has not ported: the ``tree`` and ``sharded`` engines, serving,
+``model_shards > 1`` and ``rsu_sharded``.  The fields stay, so a spec
+round-trips between the packages.
 """
 from __future__ import annotations
 
@@ -93,9 +94,9 @@ class ScenarioSpec:
     fused: bool = True                # one-pass aggregate-and-blend rounds
     rsu_sharded: bool = False         # not ported
     model_shards: int = 1             # not ported beyond 1
-    fleet_store: str = "device"       # not ported beyond "device"
-    chunk_agents: int = 0             # not ported beyond 0
-    chunk_params: int = 0             # not ported beyond 0
+    fleet_store: str = "device"       # "device" | "host" (streamed)
+    chunk_agents: int = 0             # agents a streamed chunk (0: auto)
+    chunk_params: int = 0             # columns a two-axis tile (0: off)
     # model-size knob: non-empty overrides the paper MLP's hidden widths
     hidden_dims: Tuple[int, ...] = ()
     # semi-async knobs (engine="async")
@@ -137,6 +138,16 @@ class ScenarioSpec:
                f"unknown fleet_store {self.fleet_store!r}")
         _check(self.chunk_agents >= 0 and self.chunk_params >= 0
                and self.model_shards >= 1, "negative chunk / shard counts")
+        streamed = self.fleet_store != "device" or bool(self.chunk_agents)
+        _check(not streamed or self.engine in ("flat", "async"),
+               f"cohort streaming (fleet_store={self.fleet_store!r}, "
+               f"chunk_agents={self.chunk_agents}) requires engine "
+               f"'flat'|'async', got {self.engine!r}")
+        _check(not self.chunk_params or (self.engine == "flat"
+                                         and self.fleet_store == "host"),
+               f"two-axis streaming (chunk_params={self.chunk_params}) "
+               f"requires engine 'flat' with fleet_store 'host', got engine "
+               f"{self.engine!r} / store {self.fleet_store!r}")
         _check(all(int(h) > 0 for h in self.hidden_dims),
                "hidden_dims must be positive")
         _check(self.schedule in ("exp", "poly"),
@@ -155,9 +166,9 @@ class ScenarioSpec:
                 raise TypeError(f"faults must be a FaultPlan, got "
                                 f"{type(self.faults).__name__}")
             self.faults.validate(self.n_rsus)
-        _unported(self.fleet_store != "device", "the host fleet store")
-        _unported(bool(self.chunk_agents), "cohort streaming (chunk_agents)")
-        _unported(bool(self.chunk_params), "N-tile streaming (chunk_params)")
+            _check(not streamed or not self.faults.corrupts,
+                   "corrupted-update injection is not supported on the "
+                   "cohort-streamed engines (churn/outage/guards are)")
         _unported(bool(self.serve_events), "serving (serve_events)")
         _unported(self.model_shards > 1, "parameter-axis sharding")
         _unported(self.rsu_sharded, "the rsu-sharded engine")

@@ -1,7 +1,10 @@
 """The engine entry points: ``run_scenario`` runs one scenario through the
 synchronous flat engine or the semi-async tick engine, with or without a
-fault plan; ``run_scenarios`` runs a whole grid of them as one batched
-program per group (``ScenarioSpec.validate`` refuses what is not ported).
+fault plan, resident or cohort-streamed (``fedsim/streaming``, for a spec
+with ``fleet_store="host"`` or ``chunk_agents > 0``); ``run_scenarios``
+runs a whole grid of them as one batched program per group, and a group
+of streamed scenarios one cell at a time (``ScenarioSpec.validate``
+refuses what is not ported).
 
 The paper's figures are grids: CSR in {0.1..1.0}, mu1 / mu2 sweeps,
 seed-averaged curves.  Scenarios whose ``ResolvedScenario.static_key`` is
@@ -40,7 +43,7 @@ from repro_torch.core.flatten import spec_of
 from repro_torch.core.heterogeneity import ConnState
 from repro_torch.core.scenario import ResolvedScenario, ScenarioSpec
 from repro_torch.device import resolve_device
-from repro_torch.fedsim import async_engine, simulator
+from repro_torch.fedsim import async_engine, simulator, streaming
 from repro_torch.fedsim.async_engine import async_config  # noqa: F401
 from repro_torch.models import mlp
 from repro_torch.models.mlp import Params
@@ -72,7 +75,8 @@ def run_scenario(res, init_params: Optional[Params] = None, *, device=None,
     draws in place of the engine's own (the parity seam): a (mask,
     active_steps) pair per local round for ``flat``, a (mask, active_steps,
     delays) triple per tick for ``async``.  ``eval_fn`` overrides the
-    test-set accuracy eval."""
+    test-set accuracy eval.  A streamed spec returns the streamed round's
+    state (``fedsim/streaming``)."""
     dev = resolve_device(device)
     if isinstance(res, ScenarioSpec):
         res = res.resolve()
@@ -83,8 +87,12 @@ def run_scenario(res, init_params: Optional[Params] = None, *, device=None,
             CONFIG, hidden_dims=tuple(s.hidden_dims)))
         init_params = mlp.init_params(
             cfg_model, torch.Generator().manual_seed(s.seed), device=dev)
-    run = async_engine._run_async if s.engine == "async" else \
-        simulator._run_sync
+    if s.fleet_store != "device" or s.chunk_agents:
+        run = streaming._run_streamed
+    elif s.engine == "async":
+        run = async_engine._run_async
+    else:
+        run = simulator._run_sync
     return run(res, init_params, device=dev, eval_fn=eval_fn, draws=draws)
 
 
@@ -409,9 +417,10 @@ def run_scenarios(specs_or_resolved: Sequence, init_params, *,
     batched program; returns the histories in input order.
 
     A group of one runs through the (cached) one-cell program, so a lone
-    spec re-run builds nothing.  ``init_params``: one shared parameter
-    dict, one a scenario, or a callable ``spec -> params`` (e.g. the
-    per-dataset pretrained model).  ``max_sweep`` > 0 cuts
+    spec re-run builds nothing; a group of streamed scenarios runs one
+    cell at a time through ``run_scenario``.  ``init_params``: one shared
+    parameter dict, one a scenario, or a callable ``spec -> params`` (e.g.
+    the per-dataset pretrained model).  ``max_sweep`` > 0 cuts
     larger groups into chunks of that many scenarios (the sweep state is S
     times one scenario's fleet); a short tail chunk is filled up with
     copies of its last cell (their histories dropped), and the batched
@@ -430,6 +439,13 @@ def run_scenarios(specs_or_resolved: Sequence, init_params, *,
 
     out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(resolved)
     for idx in group_indices(resolved):
+        s0 = resolved[idx[0]].spec
+        if s0.fleet_store != "device" or s0.chunk_agents:
+            # the streamed rounds take no scenario axis: one cell at a time
+            for i in idx:
+                out[i] = run_scenario(resolved[i], params_list[i],
+                                      device=device)[1]
+            continue
         group_specs = [resolved[i].spec for i in idx]
         force_dyn = tuple(sorted(_dyn_scalars(group_specs)))
         cadence = _cadence_bounds(group_specs, force_dyn)

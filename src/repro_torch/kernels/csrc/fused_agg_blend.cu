@@ -99,6 +99,15 @@
 // smallest K that gives two blocks an SM, else the largest), which add
 // their partial sums in group order after a barrier.  Every sum's order is
 // fixed, so results are deterministic.
+//   Agent tiles.  Where the chunk's weights for all A agents fit in shared
+// memory (RC*A*4 <= 227 KB) a block stages them once, as the kernels always
+// did, and nothing about the sums changes.  Past that (A > 3,632 at R = 9-16,
+// the streamed rounds' 16,384-agent chunks) the block walks over tiles of
+// kTileBytes of weights (512 agents at RC = 16), staging each in turn and
+// keeping its fp32 accumulators in registers across the tiles; with the
+// agents split, group s takes the s-th K-th of every tile, so every group
+// has work in every tile.  Agents are still summed in ascending order within
+// a thread, so results stay deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -581,16 +590,21 @@ struct MatmulArgs {
   int splits;         // K: agent groups a block (1, 2, 4, 8 or 16)
   int S;              // scenarios (gridDim.y)
   int64_t w_s;        // floats from one scenario's W to the next (0: shared)
+  int tile;           // agents a staged weight tile (a itself where it fits)
 };
 
-// Stage W rows [r0, r0 + RC) transposed: wt[a*RC + j] = W[r0 + j, a], zero
-// past R.
+// Weights a tile stages past the shared-memory limit of a whole W chunk:
+// with the split's partial sums (at most 32 KB) three blocks fit an SM.
+constexpr size_t kTileBytes = 32 * 1024;
+
+// Stage W rows [r0, r0 + RC) of agents [t0, t0 + tn) transposed:
+// wt[i*RC + j] = W[r0 + j, t0 + i], zero past R.
 template <int RC>
 __device__ __forceinline__ void stage(float* wt, const float* W, int A, int R,
-                                      int r0) {
-  for (int i = threadIdx.x; i < A * RC; i += kThreads) {
+                                      int r0, int t0, int tn) {
+  for (int i = threadIdx.x; i < tn * RC; i += kThreads) {
     const int a = i / RC, j = i % RC;
-    wt[i] = r0 + j < R ? W[(int64_t)(r0 + j) * A + a] : 0.f;
+    wt[i] = r0 + j < R ? W[(int64_t)(r0 + j) * A + t0 + a] : 0.f;
   }
 }
 
@@ -683,17 +697,19 @@ __global__ void __launch_bounds__(kThreads, 4) matmul_kernel(MatmulArgs p) {
 
   // no early return: every thread takes part in staging and the barriers
   for (int r0 = 0; r0 < p.R; r0 += RC) {
-    __syncthreads();  // the previous chunk's reads of smem are done
-    stage<RC>(smem, W, p.a, p.R, r0);
-    __syncthreads();
-
     float acc[RC][C];
 #pragma unroll
     for (int j = 0; j < RC; ++j) {
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[j][c] = 0.f;
     }
-    accumulate<TX, RC, C>(acc, smem, X, p.a, base, p.N);
+    for (int t0 = 0; t0 < p.a; t0 += p.tile) {
+      const int tn = min(p.tile, p.a - t0);
+      __syncthreads();  // the previous tile's reads of smem are done
+      stage<RC>(smem, W, p.a, p.R, r0, t0, tn);
+      __syncthreads();
+      accumulate<TX, RC, C>(acc, smem, X + (int64_t)t0 * p.N, tn, base, p.N);
+    }
 
 #pragma unroll
     for (int j = 0; j < RC; ++j) {
@@ -709,8 +725,9 @@ __global__ void __launch_bounds__(kThreads, 4) matmul_kernel(MatmulArgs p) {
 }
 
 // The agents split over K = p.splits groups of L = 256/K threads: small N.
-// Group s sums agents [s*A/K, (s+1)*A/K) for C columns of the block's L*C,
-// then every thread adds the K partials of some outputs in group order.
+// Group s sums agents [s*A/K, (s+1)*A/K) (with agent tiles, the s-th K-th of
+// each tile) for C columns of the block's L*C, then every thread adds the K
+// partials of some outputs in group order.
 template <typename TX, typename TO, int RC>
 __global__ void __launch_bounds__(kThreads) matmul_split_kernel(MatmulArgs p) {
   constexpr int C = cols_per_thread<RC>();
@@ -719,7 +736,7 @@ __global__ void __launch_bounds__(kThreads) matmul_split_kernel(MatmulArgs p) {
   // this block's scenario
   const int64_t sc = blockIdx.y;
   const float* W = p.w + sc * p.w_s;
-  float* partial = smem + RC * p.a;
+  float* partial = smem + RC * p.tile;
   const TX* X = static_cast<const TX*>(p.x) + sc * p.a * p.N;
   TO* out = static_cast<TO*>(p.out) + sc * p.R * p.N;
   const int K = p.splits, L = kThreads / K;
@@ -727,18 +744,22 @@ __global__ void __launch_bounds__(kThreads) matmul_split_kernel(MatmulArgs p) {
   const int64_t col0 = (int64_t)blockIdx.x * (L * C);   // block's first
 
   for (int r0 = 0; r0 < p.R; r0 += RC) {
-    __syncthreads();  // the previous chunk's reads of smem are done
-    stage<RC>(smem, W, p.a, p.R, r0);
-    __syncthreads();
-
     float acc[RC][C];
 #pragma unroll
     for (int j = 0; j < RC; ++j) {
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[j][c] = 0.f;
     }
-    accumulate_group<TX, RC, C>(acc, smem, X, s * p.a / K, (s + 1) * p.a / K,
-                                col0 + l, L, p.N);
+    // group s sums the s-th K-th of every tile (of all A with one tile)
+    for (int t0 = 0; t0 < p.a; t0 += p.tile) {
+      const int tn = min(p.tile, p.a - t0);
+      __syncthreads();  // the previous tile's (and sums') reads of smem
+      stage<RC>(smem, W, p.a, p.R, r0, t0, tn);
+      __syncthreads();
+      accumulate_group<TX, RC, C>(acc, smem, X + (int64_t)t0 * p.N,
+                                  s * tn / K, (s + 1) * tn / K, col0 + l, L,
+                                  p.N);
+    }
     // partial[((s*RC + j)*C + c)*L + l]: group s's sum for row j, column
     // col0 + c*L + l; then output e = (j*C + c)*L + l sums its K partials
 #pragma unroll
@@ -763,8 +784,11 @@ __global__ void __launch_bounds__(kThreads) matmul_split_kernel(MatmulArgs p) {
 template <typename TX, typename TO, int RC>
 cudaError_t matmul_launch(MatmulArgs p, cudaStream_t stream) {
   constexpr int C = cols_per_thread<RC>();
-  const size_t stage_bytes = (size_t)RC * p.a * sizeof(float);
-  if (stage_bytes > kMaxSmem) return cudaErrorInvalidValue;
+  // all of A in one tile where it fits, else tiles of kTileBytes
+  p.tile = (size_t)RC * p.a * sizeof(float) <= kMaxSmem
+               ? p.a
+               : (int)(kTileBytes / (RC * sizeof(float)));
+  const size_t stage_bytes = (size_t)RC * p.tile * sizeof(float);
   // the fewest agent groups that give one scenario two blocks an SM, else
   // the most (each group keeps at least one agent; the partials must fit);
   // as in the ring kernel, not a function of S
@@ -885,7 +909,7 @@ extern "C" int repro_weighted_agg_matmul(const void* w, const void* x,
                                          void* out, int R, int A, long long N,
                                          int dtypes, int S, void* stream) {
   MatmulArgs p{static_cast<const float*>(w), x, A, out, R, (int64_t)N, 1, S,
-               dtypes & 4 ? 0 : (int64_t)R * A};
+               dtypes & 4 ? 0 : (int64_t)R * A, A};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtypes & 3) {
     case 0: return (int)matmul_by_rows<float, float>(p, s);

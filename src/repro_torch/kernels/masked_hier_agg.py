@@ -16,8 +16,10 @@ async tick's two cohorts plus the retained buffer) hands it the weight
 matrices and the ``coef`` rows ``[retained | safe | guard]`` from
 ``core.aggregation``.  The matmul kernels serve the plain ``(R, A) @ (A,
 N)`` of ``weighted_agg_matmul`` (``masked_hier_agg`` and ``cloud_agg``,
-the ``fused=False`` path) and, with an fp32 output, the async tick's
-unnormalized ``scatter_accumulate``.  W stays fp32 and the kernels
+the ``fused=False`` path) and, with an fp32 output, the unnormalized
+``scatter_accumulate`` of the async tick and ``chunk_agg`` of the
+cohort-streamed rounds.  They take any A: past the shared memory of one
+weight chunk they stage W in agent tiles.  W stays fp32 and the kernels
 accumulate in fp32 whatever the fleet dtype.
 
 The scenario axis: every entry also takes a multi-scenario sweep's S
@@ -25,7 +27,8 @@ stacked fleets, a leading S axis on X (S, A, N), the buffers (S, R, N) and
 the weights, and serves all of them in one launch (the kernels put the
 scenario on the grid).  Per-agent inputs (weights, mask, rsu_assign) are
 then (S, A) or one (A,) row every scenario shares; the matmul's W is (S,
-R, A) or one shared (R, A).  The shared-memory limit is one scenario's.
+R, A) or one shared (R, A).  The ring kernel's shared-memory limit is one
+scenario's.
 
 Every function takes CUDA tensors only and raises on anything else; the
 CPU route is ``kernels/ops``' choice of ``kernels/ref``.  ``launches``
@@ -55,7 +58,7 @@ _SHARED_BITS = {"weights": 64, "mask": 128, "rsu_assign": 256}
 
 launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
                             "agg_absorb": 0, "weighted_agg_matmul": 0,
-                            "scatter_accumulate": 0}
+                            "scatter_accumulate": 0, "chunk_agg": 0}
 
 
 def _require(t: torch.Tensor, name: str, shape: Tuple[int, ...],
@@ -91,15 +94,6 @@ def _row_chunk(R: int, sizes) -> int:
     """The kernels' chunk of rows: the smallest of ``sizes`` that holds R,
     else the largest (R is then done in chunks)."""
     return next((c for c in sizes if R <= c), sizes[-1])
-
-
-def _check_smem(entry: str, R: int, n_agents: int) -> None:
-    """The matmul kernels stage a (row chunk x agents) weight tile in
-    shared memory, the chunk the smallest of 1, 2, 4, 8, 16 that holds R."""
-    row_chunk = _row_chunk(R, (1, 2, 4, 8, 16))
-    if row_chunk * n_agents * 4 > SMEM_BYTES:
-        raise ValueError(f"{entry}: {n_agents} agents x {row_chunk} rows of "
-                         f"weights exceed {SMEM_BYTES} bytes of shared memory")
 
 
 def _check_ring_smem(entry: str, R: int, n_agents: int,
@@ -272,7 +266,6 @@ def _matmul(entry: str, w: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{entry}: X dtype {x.dtype} not in {FLEET_DTYPES}")
     if not x.is_contiguous():
         raise ValueError(f"{entry}: X must be contiguous")
-    _check_smem(entry, R, A)
     x_bf16 = x.dtype == torch.bfloat16
     out = x.new_empty(lead + (R, N),
                       dtype=torch.float32 if out_f32 else x.dtype)
@@ -292,17 +285,18 @@ def weighted_agg_matmul(weight_matrix: torch.Tensor,
 
 
 def scatter_accumulate(stacked_flat: torch.Tensor, weights: torch.Tensor,
-                       rsu_assign: torch.Tensor, n_rsus: int,
+                       rsu_assign: torch.Tensor, n_rsus: int, *,
+                       entry: str = "scatter_accumulate",
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unnormalized per-RSU sums, ``num[r] = sum_{a in r} w_a x_a`` (R, N)
     in fp32 whatever X's dtype and ``mass[r] = sum_{a in r} w_a`` (R,):
     the matmul kernel on the (R, A) one-hot weight matrix (with a leading
     scenario axis: (S, R, N) and (S, R)).  ``weights`` carry mask x data
-    volume x staleness decay."""
+    volume x staleness decay.  ``entry`` names the launch count (the
+    streamed rounds' ``ops.chunk_agg`` counts as ``chunk_agg``)."""
     W = unnormalized_weight_matrix(weights, torch.ones_like(weights),
                                    rsu_assign, n_rsus)
-    return (_matmul("scatter_accumulate", W, stacked_flat, True),
-            W.sum(dim=-1))
+    return _matmul(entry, W, stacked_flat, True), W.sum(dim=-1)
 
 
 def masked_hier_agg(stacked_flat, weights, mask, rsu_assign, n_rsus: int):

@@ -65,6 +65,26 @@ def masked_scatter_accumulate(stacked_flat, weights, rsu_assign,
     return scatter_accumulate(stacked_flat, weights, rsu_assign, n_rsus)
 
 
+def chunk_agg(chunk_flat, weights, rsu_assign, n_rsus: int, *, into=None):
+    """The cohort-streamed rounds' aggregation over ONE agent chunk:
+    (num (R, N) fp32, mass (R,)) = sum_a w_a x_a grouped by global RSU id,
+    weights unnormalized (mask x data volume x any staleness decay).  With
+    ``into`` = (num, mass) running sums (on any device) the chunk's sums
+    are added into them, which are returned: the kernel's sums added
+    whole, the plain version's agent by agent (``ref.chunk_agg_ref``).
+    The caller normalizes once a local round or tick.  Padded tail rows
+    ride along with weight 0 and assignment 0."""
+    if not chunk_flat.is_cuda:
+        return ref.chunk_agg_ref(chunk_flat, weights, rsu_assign, n_rsus,
+                                 into=into)
+    num, mass = _mha.scatter_accumulate(chunk_flat, weights, rsu_assign,
+                                        n_rsus, entry="chunk_agg")
+    if into is None:
+        return num, mass
+    return (into[0].add_(num.to(into[0].device)),
+            into[1].add_(mass.to(into[1].device)))
+
+
 def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:
     """(R, N) -> (N,) weighted mean, no keep guard."""
     if rsu_flat.is_cuda:

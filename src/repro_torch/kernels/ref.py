@@ -142,6 +142,20 @@ def agg_absorb_ref(arrivals, rsu_assign, n_rsus, buf, buf_mass, *,
     return out, total, new_mass
 
 
+def chunk_agg_ref(chunk_flat, weights, rsu_assign, n_rsus, *, into=None):
+    """``scatter_accumulate`` over one agent chunk; with ``into`` = (num
+    (R, N) fp32, mass (R,)) the chunk's terms are added into those in
+    place, agent by agent, so a fleet streamed chunk by chunk sums in the
+    order of one ``scatter_accumulate`` over all of it."""
+    if into is None:
+        return scatter_accumulate(chunk_flat, weights, rsu_assign, n_rsus)
+    num, mass = into
+    w = weights.float()
+    mass.index_add_(0, rsu_assign, w)
+    num.index_add_(0, rsu_assign, chunk_flat.float() * w[:, None])
+    return num, mass
+
+
 def cloud_agg_ref(rsu_flat, rsu_weights) -> torch.Tensor:
     wn, _ = normalized_weights(rsu_weights)
     return (rsu_flat.float() * wn[..., None]).sum(dim=-2).to(rsu_flat.dtype)

@@ -52,7 +52,7 @@ def test_ptxas_lines_name_their_kernel():
 # the functions that run each phase after the build, by name
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
-                 "serving_path", "xlstm_serving")
+                 "stream_path", "serving_path", "xlstm_serving")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -60,7 +60,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--agg", ["aggregation_cases"]),
                                        ("--round", ["flat_round"]),
                                        ("--async", ["async_path"]),
-                                       ("--sweep", ["sweep_path"])])
+                                       ("--sweep", ["sweep_path"]),
+                                       ("--stream", ["stream_path"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -87,7 +88,8 @@ def test_phase_selection():
     assert cs.selected_phases(["--attention"]) == ("1", "2b")
     assert cs.selected_phases(["--round"]) == ("1", "3r")
     assert cs.selected_phases(["--async"]) == ("1", "3b")
-    assert "3b" in cs.FULL_RUN
+    assert cs.selected_phases(["--stream"]) == ("1", "3t")
+    assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
     with pytest.raises(SystemExit):
         cs.selected_phases(["--scan", "--attention"])
     with pytest.raises(SystemExit):
@@ -160,6 +162,14 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     monkeypatch.setattr(cs, "sweep_path", lambda dev: (sweep_rows, {
         "sweep": sweep_counts,
         "unfused": dict(counts, weighted_agg_matmul=6)}))
+    stream_rows = [dict(agg_row("weighted_agg_matmul", "chunk_agg",
+                                library_ms=0.9), shape="chunk", A=16_384,
+                        R=16, dtype=dt) for dt in ("float32", "bfloat16")]
+    monkeypatch.setattr(cs, "stream_path", lambda dev: (stream_rows, {
+        "flat": dict(counts, agg_blend=0, cloud_blend=2, chunk_agg=24,
+                     dual_proximal_sgd=72),
+        "async": dict(counts, agg_blend=0, cloud_blend=2, chunk_agg=48,
+                      dual_proximal_sgd=72)}))
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -173,19 +183,24 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["name"] for k in kernels] == [
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
-        "flash_attention", "slstm_scan"]
+        "weighted_agg_matmul", "flash_attention", "slstm_scan"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
-    # the flat path's, the async path's and the sweep's counted runs: #1
-    # its agg_blend, cloud_blend and agg_absorb launches, #2 its matmul and
-    # scatter-accumulate launches; then the scenario-axis rows, with the
-    # sweep's launches
+    # the flat path's, the async path's, the sweep's and the streamed
+    # rounds' counted runs: #1 its agg_blend, cloud_blend and agg_absorb
+    # launches, #2 its matmul, scatter-accumulate and chunk_agg launches;
+    # then the scenario-axis rows, with the sweep's launches, and #2 at the
+    # streamed chunk shape, with the streamed rounds' launches
     assert [k["launches"] for k in kernels] == [
-        50 + 150 + 30, 5 + 18 + 6, 120 + 360 + 1350, 30, 6, 1350, 28, 3]
+        50 + 150 + 30 + 4, 5 + 18 + 6 + 72, 120 + 360 + 1350 + 144, 30, 6,
+        1350, 72, 28, 3]
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
-                                              "sweep": 30}
+                                              "sweep": 30, "stream": 4}
     assert kernels[1]["launches_by_path"] == {"flat": 5, "async": 18,
-                                              "sweep": 6}
+                                              "sweep": 6, "stream": 72}
+    assert kernels[6]["entry"] == "chunk_agg"
+    assert kernels[6]["shape"] == {"A": 16_384, "R": 16, "N": 31_810}
+    assert kernels[6]["library_ms"] == 0.9
     assert [k["entry"] for k in kernels[3:6]] == [
         "agg_blend_sweep", "weighted_agg_matmul_sweep", "sweep"]
     assert kernels[3]["shape"] == {"S": 16, "A": 100, "R": 10, "N": 31_810}

@@ -712,3 +712,91 @@ def test_cuda_sweep_shared_memory_limit_is_per_scenario(cuda):
                        torch.arange(4100, device=cuda) % R, R,
                        torch.zeros(1, R, 64, device=cuda))
     torch.cuda.synchronize()
+
+
+# #2 past one block's shared memory: A = 3,632 is the most whose 16 rows
+# of weights a block stages whole (the parent's limit at R = 9-16), 3,633
+# the first that takes agent tiles, 16,384 the streamed rounds' chunk; at
+# N = 31,810 the agents split over groups, at N = 300,001 (R = 16) they do
+# not
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,R,N", [(3632, 4, 31_810), (3633, 4, 31_810),
+                                   (16_384, 4, 31_810), (3632, 16, 31_810),
+                                   (3633, 16, 31_810), (16_384, 16, 31_810),
+                                   (3633, 16, 300_001)])
+def test_cuda_matmul_takes_any_agent_count(cuda, dtype, A, R, N):
+    """The matmul kernels take any A: the product against the fp64 one
+    (within 1e-6 of the sum of |terms|, plus one bf16 ulp for a bf16
+    output), and ``chunk_agg`` (one-hot weights, a zero-weight tail, fp32
+    sums) against its plain version, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(A + R)
+    x = torch.randn(A, N, device=cuda, generator=g).to(dtype)
+    W = torch.randn(R, A, device=cuda, generator=g)
+    before = tmha.launches["weighted_agg_matmul"]
+    got = tmha.weighted_agg_matmul(W, x).double()
+    assert tmha.launches["weighted_agg_matmul"] == before + 1
+    exact = W.double() @ x.double()
+    lim = 1e-6 * (W.double().abs() @ x.double().abs())
+    if dtype == torch.bfloat16:
+        lim += 2 ** -7 * exact.abs()
+    assert ((got - exact).abs() <= lim).all()
+    del got, exact, lim
+    w = torch.rand(A, device=cuda, generator=g) + 0.5
+    w[-7:] = 0.0
+    assign = torch.arange(A, device=cuda) % R
+    before = tmha.launches["chunk_agg"]
+    num, mass = tmha.scatter_accumulate(x, w, assign, R, entry="chunk_agg")
+    assert tmha.launches["chunk_agg"] == before + 1 and num.dtype == \
+        torch.float32
+    want, want_mass = ref.chunk_agg_ref(x, w, assign, R)
+    scale = (torch.nn.functional.one_hot(assign, R).T.float() * w) @ \
+        x.float().abs()
+    assert ((num - want).abs() <= 2e-6 * scale).all()
+    # the masses sum up to 4,096 weights an RSU, in another order
+    torch.testing.assert_close(mass, want_mass, rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_streamed_round_memory_does_not_grow_with_the_fleet(cuda):
+    """The host-streamed flat round's peak device memory is the chunk's:
+    the paper MLP in chunks of 512 agents, over fleets of 1,024 and 4,096
+    host agents (one shared 4-sample shard), within 1% of each other."""
+    import numpy as np
+    from repro_torch.configs.mnist_mlp import CONFIG
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.core.heterogeneity import HeterogeneityModel
+    from repro_torch.data.partition import FederatedData
+    from repro_torch.fedsim.simulator import SimConfig
+    from repro_torch.fedsim.streaming import (init_stream_state,
+                                              make_streamed_flat_round)
+    from repro_torch.models import mlp
+    rng = np.random.default_rng(0)
+    x1 = rng.normal(size=(1, 4, 784)).astype(np.float32)
+    y1 = rng.integers(0, 10, size=(1, 4)).astype(np.int32)
+    params = mlp.init_params(CONFIG, torch.Generator().manual_seed(0),
+                             device=cuda)
+    spec = spec_of(params)
+    peaks = []
+    for A in (1024, 4096):
+        fed = FederatedData(x=np.broadcast_to(x1, (A, 4, 784)),
+                            y=np.broadcast_to(y1, (A, 4)),
+                            n_per_agent=np.full((A,), 4, np.int32),
+                            rsu_assign=np.arange(A, dtype=np.int32) % 16)
+        cfg = SimConfig(n_agents=A, n_rsus=16, batch=4)
+        round_fn = make_streamed_flat_round(
+            cfg, H2FedParams(lar=1, local_epochs=1), HeterogeneityModel(),
+            fed, spec, device=cuda, chunk_agents=512)
+        state = round_fn(init_stream_state(cfg, spec, params, cuda))
+        assert state.store.pinned
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = round_fn(state)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        first, last = state.store.gather(0, 1), state.store.gather(A - 1, A)
+        assert torch.equal(first, last) and torch.isfinite(first).all()
+        del state
+    assert abs(peaks[1] - peaks[0]) <= 0.01 * peaks[0], peaks

@@ -66,25 +66,28 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pretrain_to_target(params, res.pretrain_pool, res.test.x, res.test.y)
 
 
-@pytest.mark.parametrize("field,value,error", [
-    ("engine", "sharded", NotImplementedError),
-    ("engine", "tree", NotImplementedError),
-    ("fleet_store", "host", NotImplementedError),
-    ("chunk_agents", 4, NotImplementedError),
-    ("chunk_params", 128, NotImplementedError),
-    ("serve_events", 10, NotImplementedError),
-    ("rsu_sharded", True, NotImplementedError),
-    ("model_shards", 2, NotImplementedError),
-    ("faults", object(), TypeError)],
+@pytest.mark.parametrize("fields,error", [
+    (dict(engine="sharded"), NotImplementedError),
+    (dict(engine="tree"), NotImplementedError),
+    (dict(fleet_store="host", engine="tree"), ValueError),
+    (dict(chunk_agents=4, engine="sharded"), ValueError),
+    (dict(chunk_params=128), ValueError),
+    (dict(serve_events=10), NotImplementedError),
+    (dict(rsu_sharded=True), NotImplementedError),
+    (dict(model_shards=2), NotImplementedError),
+    (dict(faults=object()), TypeError)],
     ids=["engine-sharded", "engine-tree", "fleet_store-host", "chunk_agents-4",
          "chunk_params-128", "serve_events-10", "rsu_sharded-True",
          "model_shards-2", "faults-value8"])
-def test_unported_features_refuse(field, value, error):
+def test_unported_features_refuse(fields, error):
     """What is not ported raises by name; a ``faults`` value that is not a
-    ``FaultPlan`` is refused."""
+    ``FaultPlan`` is refused.  The streaming fields are ported: a host
+    store or chunking on an engine that does not stream, and a two-axis
+    tile without the host store, are refused as the reference refuses
+    them."""
     from repro_torch.core.scenario import ScenarioSpec
     with pytest.raises(error):
-        ScenarioSpec(**{field: value}).validate()
+        ScenarioSpec(**fields).validate()
 
 
 
