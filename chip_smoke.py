@@ -114,6 +114,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    with its time, its byte bound and ``torch.matmul``'s time.  (e) The
    host-streamed flat round's wall, launches and device busy share at the
    main fleet beside the resident round's.
+3v. The continuous serving loop (``fedsim/serving``, ``core/load_gen``)
+   on the nominal cell's spec of ``benchmarks/serving_loop.py`` (batch 16,
+   LAR 2, E 1, lr 0.1, decay 1.0), 100 samples an agent, from the MLP's
+   initial weights.  (a) Every agent once a tick window, trigger batch:A,
+   the per-round cadence, 3 rounds, at the main (A=20, R=4) and paper
+   (A=100, R=10) fleets against ``run_scenario(engine="async")`` on the
+   card: cloud within rtol 2e-5 / atol 2e-6, accuracy within 2e-6, and
+   whether bitwise.  (b) A Poisson run at the main fleet (batch:4,
+   deadline:2.0, capacity 16) under churn, an RSU outage, duplicates and
+   clock skew on the card and on the host with the card's draws: every
+   counter, drain size and queue depth equal, buffers within 1e-5; one
+   bf16 tick from the same state within one bf16 ulp.  (c) A Poisson run
+   against the replay of its dumped trace, and a run resumed from a
+   mid-run snapshot against the uninterrupted run, bit for bit.  (d) The
+   nominal load at the paper fleet (rate 1.0, trigger auto, capacity 400,
+   2,000 events, a 64-row probe a tick) after a warm-up run: updates/s,
+   tick p50 / p99, serve p50, queue depth, model staleness, zero drops;
+   three full-fleet ticks on the host clock and under ``torch.profiler``
+   (launches, device busy share) and ``agg_absorb``'s share of a tick's
+   host time.  (e) 4x the rate into a one-fleet queue, ``drop_oldest``
+   (deadline:4.0) and ``backpressure`` (batch:2A): the accounting
+   identities, drops and deferrals.  (f) Counted: a tick is one
+   ``agg_absorb`` launch of #1, a round close one ``cloud_blend``, #3 once
+   a step; ``fused=False`` #2 a tick and a close; ``cloud_every=3`` one
+   ``cloud_blend`` every third tick.  (g) The perception MLP (N =
+   9,540,010) at A=100, R=10, 5 ticks: tick wall, the ring kernel's device
+   time against ``agg_absorb``'s byte bound, #3's share of the tick.
 4. The serving path: qwen3-0.6b at full width in bf16 with params drawn on
    the card.  ``make_prefill_step`` at B=4, S=8192 (exactly 28
    flash_attention launches a call; ms, tokens/s, peak memory); the serve
@@ -138,8 +165,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
    over one prefill call and 8 decode steps.
 5. The kernels' JSON line (each kernel's launches are those of the
-   counted runs of the flat path, the async path, the sweep and the
-   streamed rounds, also given by path; beside them the scenario-axis
+   counted runs of the flat path, the async path, the sweep, the serve
+   loop and the streamed rounds, also given by path; beside them the scenario-axis
    entries at the sweep shape with the sweep's launches, and #2 at the
    streamed chunk shape with the streamed rounds' launches), the card's
    line, and the result line.
@@ -150,8 +177,9 @@ flash-attention kernel's build report, checks and times), ``--scan`` phase
 phase 2 only (the aggregation and update kernels'), and ``--round`` phase
 1 and the quickstart scenario's global round alone (wall, launches and
 device busy share a round, from the MLP's initial weights), and
-``--async`` phase 1 and phase 3b, ``--sweep`` phase 1 and phase 3s, and
-``--stream`` phase 1 and phase 3t; none of them prints a result line.
+``--async`` phase 1 and phase 3b, ``--sweep`` phase 1 and phase 3s,
+``--stream`` phase 1 and phase 3t, and ``--serve`` phase 1 and phase 3v;
+none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -208,10 +236,12 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
-FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "4", "4b", "5")
+FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "4", "4b",
+            "5")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
-         "--sweep": ("1", "3s"), "--stream": ("1", "3t")}
+         "--sweep": ("1", "3s"), "--stream": ("1", "3t"),
+         "--serve": ("1", "3v")}
 
 
 def selected_phases(argv) -> tuple:
@@ -1816,7 +1846,11 @@ def chunk_agg_cases(dev):
     (R = 16, A = 16,384, N = 31,810: 32 tiles of 512 agents a block)
     against its plain version, fp32 and bf16 rows; returns result rows.
     The check holds both to the exact sum: |got - plain| within 2e-6 of
-    the sum of |terms| (each is within a few fp32 ulps of it)."""
+    the sum of |terms| (each is within a few fp32 ulps of it).  The masses
+    are held to the exact (fp64) sum within 1e-6 relative: the plain
+    version's fp32 ``index_add_`` adds its 1,024 weights an RSU in an
+    order that varies from run to run, which alone moves its sum by about
+    that much."""
     from repro_torch.core.aggregation import unnormalized_weight_matrix
     from repro_torch.kernels import masked_hier_agg as mha
     from repro_torch.kernels import ref
@@ -1836,10 +1870,15 @@ def chunk_agg_cases(dev):
         scale = W.abs() @ x.float().abs()
         excess = ((got - want).abs() - 2e-6 * scale).max().item()
         err = (got - want).abs().max().item()
-        if excess > 0 or not torch.allclose(mass, want_mass, rtol=1e-6,
-                                            atol=0):
+        exact = torch.zeros(R, dtype=torch.float64, device=dev).index_add_(
+            0, assign, w.double())
+        mass_err = ((mass.double() - exact).abs() / exact).max().item()
+        if excess > 0 or mass_err > 1e-6 or not torch.allclose(
+                want_mass.double(), exact, rtol=1e-5, atol=0):
             raise AssertionError(f"chunk_agg {dtype}: the kernel disagrees "
-                                 f"with the plain version ({err:.3e})")
+                                 f"with the plain version ({err:.3e}) or "
+                                 f"its mass with the exact sum (relative "
+                                 f"{mass_err:.1e})")
         del scale
         ms = cuda_ms(lambda: mha.scatter_accumulate(x, w, assign, R,
                                                     entry="chunk_agg"))
@@ -1908,6 +1947,442 @@ def stream_path(dev):
     _limit("peak device memory against the fleet size", gap, 0.01)
     stream_round_profile(dev, params)
     return rows, paths
+
+
+# -- phase 3v: the continuous serving loop ----------------------------------
+
+# the nominal cell of benchmarks/serving_loop.py (its _spec, l.52-60),
+# moved to the main (A=20, R=4) and paper (A=100, R=10) fleets with its
+# 100 samples an agent kept (n_train 100 A)
+SERVE_HP = dict(mu1=0.01, mu2=0.005, lar=2, local_epochs=1, lr=0.1)
+SERVE_WINDOWS = 20
+SERVE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
+# the host-side schedule of a serve run: equal card against host and
+# replay against run
+SERVE_SCHEDULE = ("events_generated", "events_absorbed", "events_dropped",
+                  "events_deferred", "events_coalesced", "events_lost_churn",
+                  "events_duplicated", "events_stale_rejected",
+                  "quarantined_updates", "blocked_mass", "n_ticks",
+                  "n_rounds", "n_cloud_aggs", "sim_time", "queue_depth",
+                  "drain_sizes", "event_wait", "model_staleness")
+
+
+def serve_spec(A: int, R: int, **kw):
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.core.scenario import ScenarioSpec
+    return ScenarioSpec(**{**dict(
+        n_agents=A, n_rsus=R, batch=16, n_train=100 * A, n_test=400,
+        hp=H2FedParams(**SERVE_HP), engine="async", staleness_decay=1.0,
+        rounds=2), **kw})
+
+
+def timed_serve(res, params, **kw):
+    """run_serve_loop on the card with the launch counts set to 0 just
+    before and read just after: (state, history, stats, counts, s)."""
+    from repro_torch.fedsim import run_serve_loop
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist, stats, _ = run_serve_loop(res, params, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for t in (state.cloud_flat, state.rsu_flat, state.agent_flat,
+              state.rsu_mass, state.cloud_macc):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError("serve loop: non-finite buffer")
+    if not all(0.0 <= a <= 1.0 for a in hist["acc"]):
+        raise AssertionError(f"bad accuracy history {hist['acc']}")
+    return state, hist, stats, counts, seconds
+
+
+def serve_steps(res) -> int:
+    """Kernel #3 launches a tick: the minibatch steps of every epoch."""
+    s = res.spec
+    return s.hp.local_epochs * max(res.fed.x.shape[1] // s.batch, 1)
+
+
+def _check_counts(what, counts, want):
+    print(f"serve: {what}: launches {counts} (expect {want})")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"{what}: {k} {counts[k]} launches, want "
+                                 f"{v}")
+
+
+def serve_anchor(dev, params):
+    """(a) and (f): every agent once a tick window, trigger batch:A, decay
+    1.0, the per-round cadence, 3 rounds, against ``run_scenario(engine=
+    "async")`` on the card at the main and paper fleets; each tick one
+    ``agg_absorb``, each round close one ``cloud_blend``, #3 once a step.
+    Returns the main fleet's serve-run counts."""
+    from repro_torch.core.heterogeneity import HeterogeneityModel
+    from repro_torch.core.load_gen import every_agent_once_trace
+    counts_main = None
+    for fleet, A, R in (("main", 20, 4), ("paper", 100, 10)):
+        a_spec = serve_spec(A, R, het=HeterogeneityModel(
+            csr=0.5, fsr=0.8, lar=SERVE_HP["lar"])).replace(rounds=3)
+        lar = a_spec.hp.lar
+        st_a, h_a, _, _ = timed_run(a_spec.resolve(), params)
+        res = a_spec.replace(serve_events=A * lar * 3,
+                             tick_trigger=f"batch:{A}").resolve()
+        st_s, h_s, stats, counts, seconds = timed_serve(
+            res, params, gen=every_agent_once_trace(A, lar * 3))
+        err = (st_s.cloud_flat - st_a.cloud_flat).abs().max().item()
+        acc_err = float(np.abs(h_s["acc"] - h_a["acc"]).max())
+        bitwise = torch.equal(st_s.cloud_flat, st_a.cloud_flat)
+        print(f"serve: (a) anchor, {fleet} fleet (A={A}, R={R}), "
+              f"{stats.n_ticks} ticks, {stats.n_rounds} rounds: cloud max "
+              f"abs diff against "
+              f"the async engine {err:.3e} (rtol 2e-5, atol 2e-6), bitwise "
+              f"{bitwise}; accuracy serve {h_s['acc'].tolist()} async "
+              f"{h_a['acc'].tolist()} (diff {acc_err:.2e}, limit 2e-6); "
+              f"{seconds:.3f} s")
+        if (not torch.allclose(st_s.cloud_flat, st_a.cloud_flat, rtol=2e-5,
+                               atol=2e-6) or acc_err > 2e-6
+                or stats.n_ticks != lar * 3 or stats.events_coalesced
+                or stats.events_dropped):
+            raise AssertionError(f"{fleet}: the serve anchor differs from "
+                                 f"the async engine")
+        _check_counts(f"(f) anchor, {fleet} fleet", counts, {
+            "agg_absorb": stats.n_ticks, "cloud_blend": stats.n_rounds,
+            "dual_proximal_sgd": stats.n_ticks * serve_steps(res),
+            "agg_blend": 0, "weighted_agg_matmul": 0,
+            "scatter_accumulate": 0})
+        counts_main = counts_main or counts
+    return counts_main
+
+
+def serve_launches(dev, params):
+    """(f) more: ``fused=False`` (#2 a tick as the scatter-accumulate, #2
+    at each round close as ``cloud_agg``) and ``cloud_every=3`` (one
+    ``cloud_blend`` every third tick), Poisson load at the main fleet.
+    Returns the ``fused=False`` run's counts."""
+    base = dict(serve_events=120, arrival_rate=1.0, tick_trigger="auto",
+                queue_capacity=80)
+    res = serve_spec(20, 4, fused=False, **base).resolve()
+    _, _, st, unfused, _ = timed_serve(res, params)
+    _check_counts("(f) fused=False", unfused, {
+        "scatter_accumulate": st.n_ticks, "weighted_agg_matmul":
+        st.n_cloud_aggs, "agg_absorb": 0, "cloud_blend": 0,
+        "dual_proximal_sgd": st.n_ticks * serve_steps(res)})
+    res = serve_spec(20, 4, cloud_every=3, **base).resolve()
+    _, _, st, counts, _ = timed_serve(res, params)
+    _check_counts("(f) cloud_every=3", counts, {
+        "agg_absorb": st.n_ticks, "cloud_blend": st.n_ticks // 3,
+        "dual_proximal_sgd": st.n_ticks * serve_steps(res)})
+    return unfused
+
+
+def serve_draws(dev, res, n_ticks):
+    """The card's own per-tick draws (a CUDA generator, ``conn`` carried):
+    draws[t] = (mask, active_steps) on the card."""
+    from repro_torch.core.heterogeneity import init_conn_state
+    from repro_torch.fedsim.simulator import round_draws
+    s = res.spec
+    spe = max(res.fed.x.shape[1] // s.batch, 1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    conn, out = init_conn_state(s.n_agents, dev), []
+    for _ in range(n_ticks):
+        conn, mask, act = round_draws(gen, conn, s.het, s.hp, s.n_agents, spe)
+        out.append((mask, act))
+    return out
+
+
+def _schedule_diff(a, b):
+    return [k for k in SERVE_SCHEDULE if getattr(a, k) != getattr(b, k)]
+
+
+def serve_card_vs_host(dev, params):
+    """(b): one Poisson run at the main fleet under churn, an RSU outage
+    with recovery, duplicates and clock skew, on the card and on the host
+    with the card's per-tick draws injected: every counter, the drain
+    sizes and queue depths equal, the buffers within 1e-5.  Then one bf16
+    tick from the same state on both, within one bf16 ulp."""
+    from repro_torch.core.faults import ChurnWindow, FaultPlan, RsuOutage
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.core.heterogeneity import HeterogeneityModel
+    from repro_torch.fedsim import run_serve_loop, serving
+    from repro_torch.fedsim.async_engine import async_config, init_async_state
+    plan = FaultPlan(churn=(ChurnWindow(frac=0.25, start=2, stop=12,
+                                        seed=1),),
+                     outages=(RsuOutage(rsu=1, start=3, stop=9),),
+                     dup_frac=0.25, clock_skew=0.05, seed=3)
+    spec = serve_spec(20, 4, serve_events=64, arrival_rate=1.5,
+                      tick_trigger="batch:4,deadline:2.0", queue_capacity=16,
+                      staleness_decay=0.5, buffer_keep=0.4, faults=plan,
+                      het=HeterogeneityModel(csr=0.6, fsr=0.8,
+                                             lar=SERVE_HP["lar"]))
+    res = spec.resolve()
+    draws = serve_draws(dev, res, 2 * 64 + 4)
+    host_params = {k: v.cpu() for k, v in params.items()}
+    card, _, cs, _ = run_serve_loop(res, params, draws=draws)
+    host, _, hs, _ = run_serve_loop(
+        res, host_params, device="cpu",
+        draws=[tuple(t.cpu() for t in d) for d in draws])
+    differ = _schedule_diff(cs, hs)
+    errs = _state_diff(card, host, {k: (1e-5, 1e-5) for k in (
+        "cloud_flat", "rsu_flat", "agent_flat", "rsu_mass", "cloud_macc")},
+        "serve card vs host")
+    print(f"serve: (b) card vs host, main fleet, Poisson batch:4,deadline:2.0"
+          f", capacity 16, churn + outage + duplicates + skew, the card's "
+          f"draws on both: {cs.n_ticks} ticks, drains {cs.drain_sizes}, "
+          f"lost to churn {cs.events_lost_churn}, duplicated "
+          f"{cs.events_duplicated}, stale rejected "
+          f"{cs.events_stale_rejected}, blocked mass {cs.blocked_mass}; "
+          f"counters differing: {differ or 'none'}; max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if differ or not (cs.events_lost_churn and cs.events_duplicated
+                      and cs.blocked_mass > 0):
+        raise AssertionError("serve card vs host: the schedules differ or "
+                             "a fault did not fire")
+
+    # one bf16 tick from the same state on both (two card ticks in)
+    bspec = spec.replace(fleet_dtype="bfloat16", faults=None)
+    fspec = spec_of(params, storage_dtype="bfloat16")
+    acfg = async_config(bspec).validate()
+    ticks = {d: serving._make_serve_tick(res.cfg, bspec.hp, bspec.het,
+                                         res.fed, fspec, acfg, device=d)
+             for d in (dev, "cpu")}
+    A = spec.n_agents
+    arrive = (torch.arange(A, device=dev) % 2).float()
+    age = (torch.arange(A, device=dev) % 3).int()
+    state = init_async_state(res.cfg, fspec, params, dev)
+    for d in draws[:2]:
+        state, _ = ticks[dev](state, arrive, age, draw=d)
+    host_state = _to_host(state)
+    c, cm = ticks[dev](state, arrive, age, draw=draws[2])
+    h, hm = ticks["cpu"](host_state, arrive.cpu(), age.cpu(),
+                         draw=tuple(t.cpu() for t in draws[2]))
+    errs = _state_diff(c, h, {"agent_flat": (2 ** -9, 2 ** -7),
+                              "rsu_flat": (2 ** -9, 2 ** -7),
+                              "cloud_flat": (1e-5, 1e-5),
+                              "rsu_mass": (0.0, 1e-5)}, "serve bf16 tick")
+    print(f"serve: (b) bf16 tick, card vs host from the same state: max abs "
+          f"err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (one bf16 ulp)")
+
+
+def serve_determinism(dev, params):
+    """(c): a seeded Poisson run against the replay of its dumped trace,
+    and a run resumed from a mid-run snapshot against the uninterrupted
+    run, bit for bit on the card."""
+    from repro_torch.core.faults import ChurnWindow, FaultPlan
+    from repro_torch.core.load_gen import (PoissonLoadGen, agent_rates,
+                                           write_trace)
+    from repro_torch.fedsim import run_serve_loop
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    fields = ("cloud_flat", "rsu_flat", "agent_flat", "rsu_mass",
+              "cloud_macc")
+    try:
+        base = dict(serve_events=200, arrival_rate=1.5,
+                    tick_trigger="batch:8,deadline:2.0", queue_capacity=64)
+        res = serve_spec(20, 4, **base).resolve()
+        st1, h1, s1, _ = run_serve_loop(res, params)
+        trace = SERVE_DIR / "trace.jsonl"
+        rates = agent_rates(res.spec.het, 20, 1.5, seed=res.cfg.seed)
+        write_trace(PoissonLoadGen(rates, seed=res.cfg.seed,
+                                   n_events=200).events(), trace)
+        st2, h2, s2, _ = run_serve_loop(
+            serve_spec(20, 4, **base, serve_trace=str(trace)).resolve(),
+            params)
+        same = (all(torch.equal(getattr(st1, f), getattr(st2, f))
+                    for f in fields) and not _schedule_diff(s1, s2)
+                and np.array_equal(h1["acc"], h2["acc"]))
+        print(f"serve: (c) Poisson run against the replay of its trace: "
+              f"{s1.n_ticks} ticks, bit for bit {same}")
+        if not same:
+            raise AssertionError("serve: the trace replay differs")
+
+        plan = FaultPlan(churn=(ChurnWindow(frac=0.25, start=4),),
+                         dup_frac=0.2, clock_skew=0.05, seed=5)
+        res = serve_spec(20, 4, faults=plan, **base).resolve()
+        snaps = SERVE_DIR / "snaps"
+        st3, h3, s3, _ = run_serve_loop(res, params, snapshot_dir=snaps,
+                                        snapshot_every=4)
+        mid = 4 * (s3.n_ticks // 8)
+        st4, h4, s4, _ = run_serve_loop(res, params, resume_from=snaps,
+                                        resume_step=mid)
+        same = (all(torch.equal(getattr(st3, f), getattr(st4, f))
+                    for f in fields)
+                and torch.equal(st3.conn.remaining, st4.conn.remaining)
+                and torch.equal(st3.gen.get_state(), st4.gen.get_state())
+                and not _schedule_diff(s3, s4)
+                and np.array_equal(h3["acc"], h4["acc"]))
+        print(f"serve: (c) resumed at tick {mid} of {s3.n_ticks} (churn, "
+              f"duplicates, skew) against the uninterrupted run: bit for "
+              f"bit {same}")
+        if not same:
+            raise AssertionError("serve: the resumed run differs")
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+
+
+def serve_tick_profile(dev, res, params, what, n: int = 3):
+    """``n`` full-fleet ticks (every agent arriving) through the serve
+    tick on ``res``'s fleet: wall a tick on the host clock, then under
+    ``torch.profiler`` (host-API launches, device busy share, the ring
+    kernel's and #3's device time), and the host time ``agg_absorb`` takes
+    of a tick's enqueue.  Returns (ring device s a tick, #3 device s a
+    tick, wall s a tick)."""
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.fedsim import serving
+    from repro_torch.fedsim.async_engine import async_config, init_async_state
+    from repro_torch.kernels import ops
+    s = res.spec
+    fspec = spec_of(params, storage_dtype=s.fleet_dtype)
+    tick = serving._make_serve_tick(res.cfg, s.hp, s.het, res.fed, fspec,
+                                    async_config(s).validate(), device=dev,
+                                    fused=s.fused)
+    A = s.n_agents
+    arrive = torch.ones(A, device=dev)
+    age = torch.zeros(A, dtype=torch.int32, device=dev)
+    state = [tick(init_async_state(res.cfg, fspec, params, dev), arrive,
+                  age)[0]]
+
+    def one_tick():
+        state[0] = tick(state[0], arrive, age)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_tick()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    wall_p, launches, busy, kernels, runs = device_profile(one_tick, n)
+    print_profile(what, n, wall_p, launches, busy, kernels, runs)
+    ring = sum(v for k, v in kernels.items() if "agg_blend_ring_kernel" in k)
+    dps = sum(v for k, v in kernels.items() if "dual_proximal_sgd" in k)
+
+    real, spent = ops.agg_absorb, [0.0]
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        spent[0] += time.perf_counter() - t
+        return out
+    ops.agg_absorb = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one_tick()
+        enqueue = (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+    finally:
+        ops.agg_absorb = real
+    print(f"serve: {what}: {wall * 1e3:.3f} ms a tick (host clock, "
+          f"synchronised, {n} ticks); enqueueing a tick {enqueue * 1e3:.3f} "
+          f"ms of host time, agg_absorb {spent[0] / n * 1e3:.3f} ms of it "
+          f"({spent[0] / n / enqueue:.1%}); device a tick: ring (#1) "
+          f"{ring / n * 1e3:.4f} ms, #3 {dps / n * 1e3:.4f} ms "
+          f"({dps / busy if busy else 0:.1%} of device busy)")
+    return ring / n, dps / n, wall
+
+
+def serve_nominal(dev, params):
+    """(d) and (e): the nominal load at the paper fleet (rate 1.0, trigger
+    auto, capacity 4A, 20 windows, a 64-row probe every tick) after a
+    warm-up run, with zero drops; three of its ticks under the profiler;
+    then 4x the rate into a one-fleet queue under both overload
+    policies."""
+    A, R = 100, 10
+    common = dict(arrival_rate=1.0, tick_trigger="auto",
+                  queue_capacity=4 * A)
+    res = serve_spec(A, R, serve_events=A * SERVE_WINDOWS, **common).resolve()
+    probe = res.test.x[:64]
+    timed_serve(serve_spec(A, R, serve_events=4 * A, **common).resolve(),
+                params, probe_x=probe)                          # warm-up
+    _, hist, stats, counts, seconds = timed_serve(res, params, probe_x=probe)
+    s = stats.summary()
+    print(f"serve: (d) nominal load, paper fleet (A={A}, R={R}), rate 1.0, "
+          f"trigger auto, capacity {4 * A}, {stats.events_generated} events,"
+          f" 64-row probe a tick: {stats.n_ticks} ticks in {seconds:.3f} s; "
+          f"updates_per_s {s['updates_per_s']:.1f}, tick p50 "
+          f"{s['tick_p50_ms']:.3f} ms p99 {s['tick_p99_ms']:.3f} ms, serve "
+          f"p50 {s['serve_p50_ms']:.3f} ms, queue depth mean "
+          f"{s['queue_depth_mean']:.1f} max {s['queue_depth_max']}, model "
+          f"staleness mean {s['model_staleness_mean']:.2f}, dropped "
+          f"{stats.events_dropped}, coalesced {stats.events_coalesced}; "
+          f"accuracy {hist['acc'][0]:.4f} -> {hist['acc'][-1]:.4f}; "
+          f"launches {counts}")
+    if stats.events_dropped:
+        raise AssertionError("nominal load dropped events")
+    serve_tick_profile(dev, res, params, f"serve tick (paper fleet, A={A}, "
+                       f"R={R}, every agent arriving)")
+
+    base = dict(serve_events=A * SERVE_WINDOWS, arrival_rate=4.0,
+                queue_capacity=A)
+    _, _, sd, _, _ = timed_serve(serve_spec(
+        A, R, tick_trigger="deadline:4.0", overload_policy="drop_oldest",
+        **base).resolve(), params)
+    _, _, sb, _, _ = timed_serve(serve_spec(
+        A, R, tick_trigger=f"batch:{2 * A}", overload_policy="backpressure",
+        **base).resolve(), params)
+    for name, st in (("drop_oldest, deadline:4.0", sd),
+                     (f"backpressure, batch:{2 * A}", sb)):
+        sm = st.summary()
+        print(f"serve: (e) overload x4, capacity {A}, {name}: generated "
+              f"{st.events_generated} = absorbed {st.events_absorbed} + "
+              f"coalesced {st.events_coalesced} + dropped "
+              f"{st.events_dropped}; deferred {st.events_deferred}; "
+              f"{st.n_ticks} ticks, event wait mean "
+              f"{sm['event_wait_mean']:.3f}, model staleness mean "
+              f"{sm['model_staleness_mean']:.2f}")
+    if not (sd.events_generated == sd.events_absorbed + sd.events_coalesced
+            + sd.events_dropped and sd.events_dropped > 0):
+        raise AssertionError("drop_oldest overload: accounting or no drops")
+    if not (sb.events_generated == sb.events_absorbed + sb.events_coalesced
+            and sb.events_deferred > 0 and sb.events_dropped == 0):
+        raise AssertionError("backpressure overload: accounting or no "
+                             "deferrals")
+
+
+def serve_perception(dev):
+    """(g): the 784-12000-10 MLP (N = 9,540,010) at A=100, R=10, 5 ticks
+    of every agent arriving once: tick wall, the ring kernel's device time
+    a tick against ``agg_absorb``'s byte bound (X read once, the buffer
+    read and written), and #3's share of the tick."""
+    from repro_torch.core.load_gen import every_agent_once_trace
+    from repro_torch.fedsim.sweep import default_params
+    A, R = 100, 10
+    res = serve_spec(A, R, hidden_dims=PERCEPTION_HIDDEN,
+                     serve_events=5 * A,
+                     tick_trigger=f"batch:{A}").resolve()
+    params = default_params(res.spec, dev)
+    state, _, stats, counts, seconds = timed_serve(
+        res, params, gen=every_agent_once_trace(A, 5))
+    N = state.cloud_flat.numel()
+    lat = stats.tick_latency_s
+    print(f"serve: (g) perception width (N={N:,}, A={A}, R={R}): "
+          f"{stats.n_ticks} ticks in {seconds:.3f} s, tick wall "
+          + ", ".join(f"{t * 1e3:.1f}" for t in lat)
+          + f" ms (the first warms up); launches {counts}")
+    del state
+    ring, dps, wall = serve_tick_profile(
+        dev, res, params, f"serve tick (perception, N={N:,})", n=2)
+    bound_ms, _ = bound((A * N + 2 * R * N) * 4.0, 2.0 * A * N)
+    print(f"serve: (g) agg_absorb at perception: ring {ring * 1e3:.4f} ms a "
+          f"tick against its byte bound {bound_ms:.4f} ms "
+          f"({bound_ms / (ring * 1e3) if ring else 0:.1%} of it); #3 "
+          f"{dps * 1e3:.4f} ms a tick, {dps / wall:.1%} of the tick's wall")
+    torch.cuda.empty_cache()
+
+
+def serve_path(dev):
+    """Phase 3v; returns the launch counts of the counted serve runs (the
+    main fleet's anchor, and ``fused=False``).  Every run starts from the
+    MLP's initial weights."""
+    from repro_torch.fedsim.sweep import default_params
+    params = default_params(serve_spec(20, 4), dev)
+    counts = serve_anchor(dev, params)
+    unfused = serve_launches(dev, params)
+    serve_card_vs_host(dev, params)
+    serve_determinism(dev, params)
+    serve_nominal(dev, params)
+    serve_perception(dev)
+    return {"main": counts, "unfused": unfused}
 
 
 def live_pairs(S: int, causal: bool, window: int) -> int:
@@ -2526,12 +3001,15 @@ def main(argv=None) -> int:
             sweep_path(dev)
         if "3t" in phases:
             stream_path(dev)
+        if "3v" in phases:
+            serve_path(dev)
         return 0
 
     paths = main_path(dev)
     async_paths = async_path(dev)
     sweep_rows, sweep_paths = sweep_path(dev)
     stream_rows, stream_paths = stream_path(dev)
+    serve_paths = serve_path(dev)
     flash_launches = serving_path(dev)
     scan_launches = xlstm_serving(dev)
 
@@ -2543,14 +3021,17 @@ def main(argv=None) -> int:
     # launches of each path's counted run: the flat round (fused and
     # fused=False), the async round (fused, and fused=False with its
     # scatter-accumulates on the matmul kernel), the sweep (fused and
-    # fused=False) and the host-streamed flat and async rounds (#2 as
-    # chunk_agg, #1 as cloud_blend)
+    # fused=False), the serve loop (fused and fused=False) and the
+    # host-streamed flat and async rounds (#2 as chunk_agg, #1 as
+    # cloud_blend)
     by_path = {}
     for path, fused, unfused in (("flat", paths["main"], paths["unfused"]),
                                  ("async", async_paths["main"],
                                   async_paths["unfused"]),
                                  ("sweep", sweep_paths["sweep"],
-                                  sweep_paths["unfused"])):
+                                  sweep_paths["unfused"]),
+                                 ("serve", serve_paths["main"],
+                                  serve_paths["unfused"])):
         by_path[path] = {
             "fused_agg_blend": sum(fused[k] for k in (
                 "agg_blend", "cloud_blend", "agg_absorb")),

@@ -79,9 +79,13 @@ def _load_payload(directory: Path, step: int) -> Tuple[dict, List]:
     raise FileNotFoundError(f"no checkpoint for step {step} under {directory}")
 
 
-def restore(directory, step: Optional[int] = None, *, like: Any) -> Any:
+def restore(directory, step: Optional[int] = None, *, like: Any,
+            check_shapes: bool = True) -> Any:
     """The checkpoint as a tree shaped like ``like``; each leaf keeps the
-    stored dtype and goes to the device of ``like``'s leaf in its place."""
+    stored dtype and goes to the device of ``like``'s leaf in its place.
+    ``check_shapes=False`` takes each leaf's stored shape (a tree whose
+    leaves grow, as the serve loop's queue and histories do), as the JAX
+    package's ``restore`` does."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -94,7 +98,7 @@ def restore(directory, step: Optional[int] = None, *, like: Any) -> Any:
                          f" the template {len(template)}")
     out = []
     for i, (got, want) in enumerate(zip(loaded, template)):
-        if tuple(got.shape) != tuple(want.shape):
+        if check_shapes and tuple(got.shape) != tuple(want.shape):
             raise ValueError(f"leaf {i}: stored shape {tuple(got.shape)} != "
                              f"template {tuple(want.shape)}")
         out.append(got.to(want.device))

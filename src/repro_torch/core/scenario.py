@@ -17,10 +17,11 @@ The port runs the synchronous ``engine="flat"`` round and the semi-async
 ``engine="async"`` tick engine, both with or without a fault plan
 (``faults=FaultPlan(...)``), resident or cohort-streamed
 (``fleet_store="host"`` / ``chunk_agents``, and ``chunk_params`` for the
-two-axis round).  ``validate()`` raises ``NotImplementedError`` for what
-it has not ported: the ``tree`` and ``sharded`` engines, serving,
-``model_shards > 1`` and ``rsu_sharded``.  The fields stay, so a spec
-round-trips between the packages.
+two-axis round), and the continuous serving loop (``serve_events > 0`` on
+the async engine, ``fedsim/serving``).  ``validate()`` raises
+``NotImplementedError`` for what it has not ported: the ``tree`` and
+``sharded`` engines, ``model_shards > 1`` and ``rsu_sharded``.  The fields
+stay, so a spec round-trips between the packages.
 """
 from __future__ import annotations
 
@@ -104,7 +105,7 @@ class ScenarioSpec:
     schedule: str = "exp"
     buffer_keep: Union[float, Tuple[float, ...]] = 0.0
     cloud_every: int = 0
-    # continuous serving (not ported)
+    # continuous serving (engine="async", fedsim/serving)
     serve_events: int = 0
     arrival_rate: float = 1.0
     tick_trigger: str = "auto"
@@ -159,6 +160,13 @@ class ScenarioSpec:
                f"unknown overload_policy {self.overload_policy!r}")
         _check(self.rounds >= 1 and self.eval_every >= 1,
                "rounds and eval_every must be >= 1")
+        if self.serve_events:
+            _check(self.engine == "async",
+                   "serving (serve_events > 0) runs the async tick engine")
+            _check(not streamed, "serving needs the device-resident fleet")
+            _check(not self.rsu_sharded, "serving is not rsu-sharded")
+            from repro_torch.core.load_gen import parse_trigger
+            parse_trigger(self.tick_trigger, self.n_agents)
         _unported(self.engine not in ("flat", "async"),
                   f"engine {self.engine!r}")
         if self.faults is not None:
@@ -169,7 +177,6 @@ class ScenarioSpec:
             _check(not streamed or not self.faults.corrupts,
                    "corrupted-update injection is not supported on the "
                    "cohort-streamed engines (churn/outage/guards are)")
-        _unported(bool(self.serve_events), "serving (serve_events)")
         _unported(self.model_shards > 1, "parameter-axis sharding")
         _unported(self.rsu_sharded, "the rsu-sharded engine")
         return self

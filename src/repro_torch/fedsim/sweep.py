@@ -1,10 +1,11 @@
 """The engine entry points: ``run_scenario`` runs one scenario through the
 synchronous flat engine or the semi-async tick engine, with or without a
 fault plan, resident or cohort-streamed (``fedsim/streaming``, for a spec
-with ``fleet_store="host"`` or ``chunk_agents > 0``); ``run_scenarios``
-runs a whole grid of them as one batched program per group, and a group
-of streamed scenarios one cell at a time (``ScenarioSpec.validate``
-refuses what is not ported).
+with ``fleet_store="host"`` or ``chunk_agents > 0``), or through the
+event-driven serve loop (``fedsim/serving``, for ``serve_events > 0``);
+``run_scenarios`` runs a whole grid of them as one batched program per
+group, and a group of streamed or serve-mode scenarios one cell at a time
+(``ScenarioSpec.validate`` refuses what is not ported).
 
 The paper's figures are grids: CSR in {0.1..1.0}, mu1 / mu2 sweeps,
 seed-averaged curves.  Scenarios whose ``ResolvedScenario.static_key`` is
@@ -43,7 +44,7 @@ from repro_torch.core.flatten import spec_of
 from repro_torch.core.heterogeneity import ConnState
 from repro_torch.core.scenario import ResolvedScenario, ScenarioSpec
 from repro_torch.device import resolve_device
-from repro_torch.fedsim import async_engine, simulator, streaming
+from repro_torch.fedsim import async_engine, serving, simulator, streaming
 from repro_torch.fedsim.async_engine import async_config  # noqa: F401
 from repro_torch.models import mlp
 from repro_torch.models.mlp import Params
@@ -60,6 +61,16 @@ DYN_SPEC = ("cloud_every",)
 SWEEPABLE = ("flat", "async")
 
 
+def default_params(s: ScenarioSpec, device) -> Params:
+    """The paper's MLP (``hidden_dims`` overriding its widths) drawn from a
+    generator seeded with the spec's data seed, on ``device``."""
+    from repro_torch.configs.mnist_mlp import CONFIG
+    cfg_model = (CONFIG if not s.hidden_dims else dataclasses.replace(
+        CONFIG, hidden_dims=tuple(s.hidden_dims)))
+    return mlp.init_params(cfg_model, torch.Generator().manual_seed(s.seed),
+                           device=device)
+
+
 def run_scenario(res, init_params: Optional[Params] = None, *, device=None,
                  eval_fn: Optional[Callable[[Params], float]] = None,
                  draws: Optional[Sequence] = None):
@@ -74,20 +85,21 @@ def run_scenario(res, init_params: Optional[Params] = None, *, device=None,
     seeded with the spec's data seed.  ``draws[r]`` injects round r's
     draws in place of the engine's own (the parity seam): a (mask,
     active_steps) pair per local round for ``flat``, a (mask, active_steps,
-    delays) triple per tick for ``async``.  ``eval_fn`` overrides the
-    test-set accuracy eval.  A streamed spec returns the streamed round's
-    state (``fedsim/streaming``)."""
+    delays) triple per tick for ``async``, a (mask, active_steps) pair
+    per global tick for a serve-mode spec (``draws[t]``).  ``eval_fn``
+    overrides the test-set accuracy eval.  A streamed spec returns the
+    streamed round's state (``fedsim/streaming``); a serve-mode spec
+    (``serve_events > 0``) runs the event-driven loop (``fedsim/serving``)
+    and adds its stats summary as ``history["serve"]``."""
     dev = resolve_device(device)
     if isinstance(res, ScenarioSpec):
         res = res.resolve()
     s = res.spec.validate()
     if init_params is None:
-        from repro_torch.configs.mnist_mlp import CONFIG
-        cfg_model = (CONFIG if not s.hidden_dims else dataclasses.replace(
-            CONFIG, hidden_dims=tuple(s.hidden_dims)))
-        init_params = mlp.init_params(
-            cfg_model, torch.Generator().manual_seed(s.seed), device=dev)
-    if s.fleet_store != "device" or s.chunk_agents:
+        init_params = default_params(s, dev)
+    if s.serve_events:
+        run = serving._run_serve
+    elif s.fleet_store != "device" or s.chunk_agents:
         run = streaming._run_streamed
     elif s.engine == "async":
         run = async_engine._run_async
@@ -242,6 +254,10 @@ def build_sweep(group: Sequence[ResolvedScenario], init_params, *,
     if engine not in SWEEPABLE:
         raise ValueError(f"engine {engine!r} is not sweepable "
                          f"(want one of {SWEEPABLE})")
+    if s0.serve_events:
+        raise ValueError("serve-mode scenarios (serve_events > 0) are "
+                         "event-driven and cannot be stacked into a sweep; "
+                         "run them through run_scenario")
     if any(r.static_key != group[0].static_key for r in group[1:]):
         raise ValueError("a sweep group's scenarios must share static_key")
 
@@ -417,10 +433,11 @@ def run_scenarios(specs_or_resolved: Sequence, init_params, *,
     batched program; returns the histories in input order.
 
     A group of one runs through the (cached) one-cell program, so a lone
-    spec re-run builds nothing; a group of streamed scenarios runs one
-    cell at a time through ``run_scenario``.  ``init_params``: one shared
-    parameter dict, one a scenario, or a callable ``spec -> params`` (e.g.
-    the per-dataset pretrained model).  ``max_sweep`` > 0 cuts
+    spec re-run builds nothing; a group of streamed or serve-mode
+    scenarios runs one cell at a time through ``run_scenario``.
+    ``init_params``: one shared parameter dict, one a scenario, or a
+    callable ``spec -> params`` (e.g. the per-dataset pretrained model).
+    ``max_sweep`` > 0 cuts
     larger groups into chunks of that many scenarios (the sweep state is S
     times one scenario's fleet); a short tail chunk is filled up with
     copies of its last cell (their histories dropped), and the batched
@@ -440,8 +457,9 @@ def run_scenarios(specs_or_resolved: Sequence, init_params, *,
     out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(resolved)
     for idx in group_indices(resolved):
         s0 = resolved[idx[0]].spec
-        if s0.fleet_store != "device" or s0.chunk_agents:
-            # the streamed rounds take no scenario axis: one cell at a time
+        if s0.fleet_store != "device" or s0.chunk_agents or s0.serve_events:
+            # the streamed rounds and the event-driven serve loop take no
+            # scenario axis: one cell at a time
             for i in idx:
                 out[i] = run_scenario(resolved[i], params_list[i],
                                       device=device)[1]

@@ -1,20 +1,35 @@
-"""Serving launcher: batched KV-cache greedy decode of a (possibly
-federated) global model checkpoint, the default mode of
-``repro/launch/serve.py``, on the card.
+"""Serving launcher, the two modes of ``repro/launch/serve.py`` on the
+card, with the same flags and the same printed lines.
+
+``--serve-loop``: the continuous serving loop (``fedsim/serving``) on a
+serve-mode ``ScenarioSpec`` (``--scenario-json``, or a built-in default),
+updates arriving from the seeded Poisson generator (or a ``serve_trace``
+JSONL replay) and the fp32 cloud master served to a 64-row inference
+probe every tick.  Prints the ``ServeLoopStats`` summary; ``--dump-trace``
+writes the event schedule for a bit-exact replay; ``--snapshot-dir`` /
+``--snapshot-every`` checkpoint the whole loop state and ``--resume``
+continues it bit for bit.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-loop \\
+        [--scenario-json spec.json] [--events 480] [--dump-trace t.jsonl] \\
+        [--stats-json s.json] [--snapshot-dir d --snapshot-every 64] \\
+        [--resume d] [--device cuda]
+
+Default: batched KV-cache greedy decode of a (possibly federated) global
+model checkpoint.  The prompt goes through the cache one token at a time
+and the answer is decoded greedily, as in JAX.  A checkpoint written by
+the JAX package's train launcher is restored.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         [--ckpt-dir results/ckpt] [--batch 8] [--prompt-len 32] [--gen 32] \\
         [--window 0] [--full-config] [--device cuda]
 
-The prompt goes through the cache one token at a time and the answer is
-decoded greedily, as in JAX; the same flags and the same printed lines.
-``--device cpu`` runs the plain PyTorch versions on the host.  A
-checkpoint written by the JAX package's train launcher is restored.  The
-continuous serving loop (``--serve-loop``) is not ported yet.
+``--device cpu`` runs the plain PyTorch versions on the host.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Optional, Sequence
 
@@ -31,7 +46,25 @@ from repro_torch.models import model as M
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve-loop", action="store_true",
-                    help="the continuous serving loop (not ported yet)")
+                    help="run the continuous event-driven serving loop "
+                         "instead of KV-cache decode")
+    ap.add_argument("--scenario-json", default="",
+                    help="serve-mode ScenarioSpec JSON (serve_events > 0)")
+    ap.add_argument("--events", type=int, default=480,
+                    help="serve-loop event count when the spec has none")
+    ap.add_argument("--dump-trace", default="",
+                    help="write the realized Poisson schedule as JSONL "
+                         "(replayable via the spec's serve_trace)")
+    ap.add_argument("--stats-json", default="",
+                    help="write the ServeLoopStats summary JSON here")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="serve-loop crash-resume snapshot directory")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot the serve loop every N ticks "
+                         "(0 = only the final/interrupt snapshot)")
+    ap.add_argument("--resume", default="",
+                    help="resume a serve loop from this snapshot dir "
+                         "(bit-identical continuation of the trace)")
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full-config", dest="reduced", action="store_false")
@@ -87,13 +120,77 @@ def greedy_decode(cfg, params, prompts, n_gen: int, *, device=None) -> dict:
             "logits": logits, "prefill_s": t_pre, "decode_s": t_dec}
 
 
+def serve_loop(args) -> dict:
+    """``--serve-loop``: run the loop on ``args.device``, print the JAX
+    launcher's lines and return the stats summary."""
+    from repro_torch.core.load_gen import (PoissonLoadGen, agent_rates,
+                                           write_trace)
+    from repro_torch.core.scenario import ScenarioSpec
+    from repro_torch.fedsim.serving import run_serve_loop
+
+    dev = resolve_device(args.device)
+    if args.scenario_json:
+        with open(args.scenario_json) as f:
+            spec = ScenarioSpec.from_json(f.read())
+        if not spec.serve_events:
+            spec = spec.replace(engine="async",
+                                serve_events=args.events).validate()
+    else:
+        spec = ScenarioSpec(
+            n_agents=24, n_rsus=4, batch=16, n_train=2400, n_test=400,
+            engine="async", staleness_decay=1.0, rounds=2,
+            serve_events=args.events, queue_capacity=96).validate()
+    res = spec.resolve()
+
+    if args.dump_trace:
+        rates = agent_rates(spec.het, spec.n_agents, spec.arrival_rate,
+                            seed=res.cfg.seed)
+        write_trace(PoissonLoadGen(rates, seed=res.cfg.seed,
+                                   n_events=spec.serve_events).events(),
+                    args.dump_trace)
+        print(f"[trace] {spec.serve_events} events -> {args.dump_trace}")
+
+    _, hist, stats, _ = run_serve_loop(
+        res, device=dev, probe_x=res.test.x[:64],
+        snapshot_dir=args.snapshot_dir or None,
+        snapshot_every=args.snapshot_every,
+        resume_from=args.resume or None)
+    s = stats.summary()
+    print(f"[serve-loop] {spec.n_agents} agents / {spec.n_rsus} RSUs, "
+          f"trigger={spec.tick_trigger!r} "
+          f"capacity={spec.queue_capacity or 'inf'} "
+          f"policy={spec.overload_policy}")
+    print(f"[events] generated={s['events_generated']} "
+          f"absorbed={s['events_absorbed']} "
+          f"coalesced={s['events_coalesced']} "
+          f"dropped={s['events_dropped']} "
+          f"deferred={s['events_deferred']}")
+    print(f"[ticks] {s['n_ticks']} ticks / {s['n_rounds']} rounds | "
+          f"{s['updates_per_s']:.0f} upd/s "
+          f"p50={s['tick_p50_ms']:.1f}ms p99={s['tick_p99_ms']:.1f}ms | "
+          f"queue depth mean={s['queue_depth_mean']:.1f} "
+          f"max={s['queue_depth_max']}")
+    print(f"[staleness] event wait mean={s['event_wait_mean']:.2f} "
+          f"(sim), model staleness mean={s['model_staleness_mean']:.1f} "
+          f"ticks | probes={s['serve_requests']} "
+          f"p50={s['serve_p50_ms']:.2f}ms")
+    if len(hist["acc"]):
+        print(f"[acc] cloud accuracy {hist['acc'][0]:.3f} -> "
+              f"{hist['acc'][-1]:.3f} over {s['n_rounds']} virtual rounds")
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            json.dump(s, f, indent=1)
+        print(f"[json] {args.stats_json}")
+    return s
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse ``argv``, serve, print the JAX launcher's lines and return
-    ``greedy_decode``'s dict plus tok_per_s."""
+    ``greedy_decode``'s dict plus tok_per_s (``--serve-loop``: the loop's
+    stats summary)."""
     args = _parser().parse_args(argv)
     if args.serve_loop:
-        raise SystemExit("--serve-loop: the continuous serving loop is not "
-                         "ported to PyTorch yet (ROADMAP queue 1 item 11)")
+        return serve_loop(args)
     dev = resolve_device(args.device)
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
     if args.window:

@@ -52,7 +52,8 @@ def test_ptxas_lines_name_their_kernel():
 # the functions that run each phase after the build, by name
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
-                 "stream_path", "serving_path", "xlstm_serving")
+                 "stream_path", "serve_path", "serving_path",
+                 "xlstm_serving")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -61,7 +62,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--round", ["flat_round"]),
                                        ("--async", ["async_path"]),
                                        ("--sweep", ["sweep_path"]),
-                                       ("--stream", ["stream_path"])])
+                                       ("--stream", ["stream_path"]),
+                                       ("--serve", ["serve_path"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -89,7 +91,9 @@ def test_phase_selection():
     assert cs.selected_phases(["--round"]) == ("1", "3r")
     assert cs.selected_phases(["--async"]) == ("1", "3b")
     assert cs.selected_phases(["--stream"]) == ("1", "3t")
+    assert cs.selected_phases(["--serve"]) == ("1", "3v")
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
+    assert "3v" in cs.FULL_RUN
     with pytest.raises(SystemExit):
         cs.selected_phases(["--scan", "--attention"])
     with pytest.raises(SystemExit):
@@ -170,6 +174,12 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
                      dual_proximal_sgd=72),
         "async": dict(counts, agg_blend=0, cloud_blend=2, chunk_agg=48,
                       dual_proximal_sgd=72)}))
+    serve_counts = dict(counts, agg_blend=0, cloud_blend=3, agg_absorb=6,
+                        dual_proximal_sgd=36)
+    monkeypatch.setattr(cs, "serve_path", lambda dev: {
+        "main": serve_counts, "unfused": dict(
+            serve_counts, cloud_blend=0, agg_absorb=0,
+            weighted_agg_matmul=4, scatter_accumulate=9)})
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -186,18 +196,21 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "weighted_agg_matmul", "flash_attention", "slstm_scan"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
-    # the flat path's, the async path's, the sweep's and the streamed
-    # rounds' counted runs: #1 its agg_blend, cloud_blend and agg_absorb
-    # launches, #2 its matmul, scatter-accumulate and chunk_agg launches;
-    # then the scenario-axis rows, with the sweep's launches, and #2 at the
-    # streamed chunk shape, with the streamed rounds' launches
+    # the flat path's, the async path's, the sweep's, the serve loop's and
+    # the streamed rounds' counted runs: #1 its agg_blend, cloud_blend and
+    # agg_absorb launches, #2 its matmul, scatter-accumulate and chunk_agg
+    # launches; then the scenario-axis rows, with the sweep's launches, and
+    # #2 at the streamed chunk shape, with the streamed rounds' launches
     assert [k["launches"] for k in kernels] == [
-        50 + 150 + 30 + 4, 5 + 18 + 6 + 72, 120 + 360 + 1350 + 144, 30, 6,
-        1350, 72, 28, 3]
+        50 + 150 + 30 + 9 + 4, 5 + 18 + 6 + 13 + 72,
+        120 + 360 + 1350 + 36 + 144, 30, 6, 1350, 72, 28, 3]
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
-                                              "sweep": 30, "stream": 4}
+                                              "sweep": 30, "serve": 9,
+                                              "stream": 4}
     assert kernels[1]["launches_by_path"] == {"flat": 5, "async": 18,
-                                              "sweep": 6, "stream": 72}
+                                              "sweep": 6, "serve": 13,
+                                              "stream": 72}
+    assert kernels[2]["launches_by_path"]["serve"] == 36
     assert kernels[6]["entry"] == "chunk_agg"
     assert kernels[6]["shape"] == {"A": 16_384, "R": 16, "N": 31_810}
     assert kernels[6]["library_ms"] == 0.9

@@ -340,6 +340,54 @@ def test_cuda_agg_absorb_two_cohorts_vector_keep(cuda, dtype, A, R, N):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,R,N", [(20, 4, 31_810), (100, 10, 31_810),
+                                   (4668, 10, 1000)])
+def test_cuda_agg_absorb_one_cohort(cuda, dtype, A, R, N):
+    """The serve tick's RSU layer: one cohort (the tick's arrivals,
+    weighted by data volume, mask and staleness) and a scalar keep, one
+    launch.  Then a tick whose every arrival was rejected: all-zero
+    weights, where an RSU that retains no mass keeps its row bit for bit
+    through the mass guard and one that does is renormalized by its
+    retained mass.  A = 4668 is the most one cohort takes at R = 10 (12
+    rows of weights and the copy ring in shared memory).  The masses are
+    held to the exact (fp64) sums: the plain version's ``index_add_``
+    adds in an order that varies from run to run."""
+    x, prev, w, mask, assign = _agg_inputs(cuda, A, R, N, dtype, A + N)
+    g = torch.Generator(device=cuda).manual_seed(N)
+    age = torch.randint(0, 3, (A,), device=cuda, generator=g)
+    w_arr = w * mask.float() * 0.5 ** age.float()
+    bm = torch.rand(R, device=cuda, generator=g)
+    bm[0] = 0.0                          # RSU 0: nothing to keep or absorb
+    tol = F32 if dtype == torch.float32 else BF16
+    for weights in (w_arr, torch.zeros_like(w_arr)):
+        before = tmha.launches["agg_absorb"]
+        got, total, new = tmha.agg_absorb(((x, weights),), assign, R, prev,
+                                          bm, keep=0.4)
+        assert tmha.launches["agg_absorb"] == before + 1
+        want, _, _ = ref.agg_absorb_ref(((x, weights),), assign, R, prev,
+                                        bm, keep=0.4)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        exact = torch.zeros(R, dtype=torch.float64, device=cuda).index_add_(
+            0, assign, weights.double())
+        torch.testing.assert_close(new.double(), exact, rtol=1e-6, atol=0)
+        torch.testing.assert_close(total.double(),
+                                   0.4 * bm.double() + exact, rtol=1e-6,
+                                   atol=0)
+        assert torch.equal(got[0], prev[0])
+        assert torch.isfinite(got.float()).all()
+    assert not new.any()                 # the empty tick absorbed nothing
+    torch.testing.assert_close(got.float(), prev.float(), **tol)
+    if A == 4668:                        # one agent more does not fit
+        with pytest.raises(ValueError, match="shared memory"):
+            tmha.agg_absorb(((torch.cat([x, x[:1]]),
+                              torch.cat([w_arr, w_arr[:1]])),),
+                            torch.cat([assign, assign[:1]]), R, prev, bm,
+                            keep=0.4)
+    torch.cuda.synchronize()
+
+
 # (B, S, H, KV, D, causal, window): chip_smoke's cases (a small ragged one,
 # the qwen3-0.6b layer, the same with a 1024 window), then odd shapes: one
 # token, one row past a tile, a ragged thousand, a window wider than S,

@@ -53,13 +53,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
     absent; nothing carries on quietly on the CPU."""
     from repro_torch.configs.mnist_mlp import CONFIG
     from repro_torch.core.scenario import ScenarioSpec
-    from repro_torch.fedsim import pretrain_to_target, run_scenario
+    from repro_torch.fedsim import (pretrain_to_target, run_scenario,
+                                    run_serve_loop)
     from repro_torch.models import mlp
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = ScenarioSpec(n_agents=4, n_rsus=2, n_train=300, n_test=60,
                         rounds=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_scenario(spec)
+    serve = spec.replace(engine="async", serve_events=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario(serve)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_serve_loop(serve)
     params = mlp.init_params(CONFIG, torch.Generator().manual_seed(0))
     res = spec.resolve()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -72,19 +78,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
     (dict(fleet_store="host", engine="tree"), ValueError),
     (dict(chunk_agents=4, engine="sharded"), ValueError),
     (dict(chunk_params=128), ValueError),
-    (dict(serve_events=10), NotImplementedError),
+    (dict(serve_events=10), ValueError),
     (dict(rsu_sharded=True), NotImplementedError),
     (dict(model_shards=2), NotImplementedError),
-    (dict(faults=object()), TypeError)],
+    (dict(faults=object()), TypeError),
+    (dict(serve_events=10, engine="async", fleet_store="host"), ValueError),
+    (dict(serve_events=10, engine="async", tick_trigger="nope"),
+     ValueError)],
     ids=["engine-sharded", "engine-tree", "fleet_store-host", "chunk_agents-4",
          "chunk_params-128", "serve_events-10", "rsu_sharded-True",
-         "model_shards-2", "faults-value8"])
+         "model_shards-2", "faults-value8", "serve_events-host_store",
+         "serve_events-bad_trigger"])
 def test_unported_features_refuse(fields, error):
     """What is not ported raises by name; a ``faults`` value that is not a
-    ``FaultPlan`` is refused.  The streaming fields are ported: a host
-    store or chunking on an engine that does not stream, and a two-axis
-    tile without the host store, are refused as the reference refuses
-    them."""
+    ``FaultPlan`` is refused.  The streaming and serving fields are ported:
+    a host store or chunking on an engine that does not stream, a two-axis
+    tile without the host store, and serving on the flat engine, on a
+    host store or with a bad tick trigger are refused as the reference
+    refuses them."""
     from repro_torch.core.scenario import ScenarioSpec
     with pytest.raises(error):
         ScenarioSpec(**fields).validate()
@@ -93,7 +104,8 @@ def test_unported_features_refuse(fields, error):
 
 def test_serve_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.serve, "
-            "repro_torch.checkpoint.ckpt; "
+            "repro_torch.checkpoint.ckpt, repro_torch.core.load_gen, "
+            "repro_torch.fedsim.serving; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "for m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -104,8 +116,9 @@ def test_serve_import_leaves_jax_unloaded():
 
 
 def test_serving_entry_points_default_to_cuda(monkeypatch):
-    """The serve launcher, the step builders and ``init_params`` take cuda
-    unless told otherwise, and raise when it is absent."""
+    """The serve launcher (decode and ``--serve-loop``), the step builders
+    and ``init_params`` take cuda unless told otherwise, and raise when it
+    is absent."""
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.launch import serve, steps
     from repro_torch.models import model
@@ -119,7 +132,7 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         steps.make_serve_step(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--serve-loop"])
 
 
