@@ -141,6 +141,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``cloud_blend`` every third tick.  (g) The perception MLP (N =
    9,540,010) at A=100, R=10, 5 ticks: tick wall, the ring kernel's device
    time against ``agg_absorb``'s byte bound, #3's share of the tick.
+3h. The sharded rounds over ``torch.distributed`` (``fedsim/sharded``,
+   the rsu-sharded tick of ``fedsim/async_engine``, ``core/topology``):
+   the paper fleet (A=100, R=10) under the quickstart's recipe, 3 rounds
+   from the MLP's initial weights, replicated and rsu_sharded, and the
+   rsu-sharded tick at the main fleet in phase 3b's straggler regime, at 1
+   rank over NCCL (in this process), 2 and 4 ranks over gloo (spawned,
+   sharing the card), each through ``run_scenario``, counted (launches and
+   collectives set to 0 just before, read just after), against the flat
+   round or the async engine (``fused=False``) on the card: RSU rows and
+   cloud within 1e-4 (#2's sums against #1's, the limit of phases 3 and
+   3t), agent rows within 1e-3 (a flipped ReLU unit), masses within 1e-5
+   relative, accuracy within 2e-3; no collective across pods in the rsu-sharded
+   local-round loop, one a round in its cloud layer; ms a round (3 more
+   rounds on the host clock) and collectives a round per axis, beside the
+   flat round's wall, launches and device busy share.  Then the
+   N-sharded cell of ``benchmarks/nshard_round.py`` (784-12000-10, N =
+   9,540,010, A=8 over R=128) at model_shards 1 (1 rank) and 2 (2 ranks):
+   persistent (R, N) + (N,) bytes a rank (2 shards at most 0.51 of 1),
+   peak device memory a rank, ms a round, the clouds within 1e-5.  Last,
+   #2 as ``block_local_agg`` at the rsu-sharded pod shape (A=50, R=5) and
+   the N-sharded shape (A=8, R=128) against its plain version, with its
+   bound and ``torch.matmul``'s time.
 4. The serving path: qwen3-0.6b at full width in bf16 with params drawn on
    the card.  ``make_prefill_step`` at B=4, S=8192 (exactly 28
    flash_attention launches a call; ms, tokens/s, peak memory); the serve
@@ -166,10 +188,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    over one prefill call and 8 decode steps.
 5. The kernels' JSON line (each kernel's launches are those of the
    counted runs of the flat path, the async path, the sweep, the serve
-   loop and the streamed rounds, also given by path; beside them the scenario-axis
-   entries at the sweep shape with the sweep's launches, and #2 at the
-   streamed chunk shape with the streamed rounds' launches), the card's
-   line, and the result line.
+   loop, the streamed rounds and the sharded rounds, also given by path;
+   beside them the scenario-axis entries at the sweep shape with the
+   sweep's launches, #2 at the streamed chunk shape with the streamed
+   rounds' launches, and #2 at the sharded pod shape with the sharded
+   rounds' launches), the card's line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
@@ -178,8 +201,8 @@ phase 2 only (the aggregation and update kernels'), and ``--round`` phase
 1 and the quickstart scenario's global round alone (wall, launches and
 device busy share a round, from the MLP's initial weights), and
 ``--async`` phase 1 and phase 3b, ``--sweep`` phase 1 and phase 3s,
-``--stream`` phase 1 and phase 3t, and ``--serve`` phase 1 and phase 3v;
-none of them prints a result line.
+``--stream`` phase 1 and phase 3t, ``--serve`` phase 1 and phase 3v, and
+``--sharded`` phase 1 and phase 3h; none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -236,12 +259,12 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
-FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "4", "4b",
-            "5")
+FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "3h", "4",
+            "4b", "5")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
          "--sweep": ("1", "3s"), "--stream": ("1", "3t"),
-         "--serve": ("1", "3v")}
+         "--serve": ("1", "3v"), "--sharded": ("1", "3h")}
 
 
 def selected_phases(argv) -> tuple:
@@ -2385,6 +2408,387 @@ def serve_path(dev):
     return {"main": counts, "unfused": unfused}
 
 
+# -- phase 3h: the sharded engines over torch.distributed -------------------
+
+# the paper fleet (A = 100, R = 10) at the paper MLP's width with the
+# quickstart's recipe; 3 rounds from the MLP's initial weights
+SHARD_ROUNDS = 3
+# ranks -> (name, spec fields (None: the tick), make_fleet_mesh kwargs):
+# the paper fleet's sync rounds and the main fleet's rsu-sharded tick in
+# phase 3b's straggler regime, at 1 rank over NCCL and 2 and 4 over gloo
+SHARD_CASES = {
+    1: (("replicated", dict(), dict()),
+        ("rsu_sharded", dict(rsu_sharded=True), dict(n_pods=1)),
+        ("async", None, dict(n_pods=1))),
+    2: (("replicated", dict(), dict()),
+        ("rsu_sharded", dict(rsu_sharded=True), dict(n_pods=2)),
+        ("async", None, dict(n_pods=2))),
+    4: (("replicated", dict(), dict()),
+        ("rsu_sharded", dict(rsu_sharded=True), dict(n_pods=2)),
+        ("async", None, dict(n_pods=2))),
+}
+# the N-sharded cell of benchmarks/nshard_round.py (l.44-52): the
+# 784-12000-10 MLP (N = 9,540,010), A = 8 agents spread over R = 128 RSUs,
+# batch 8, 80 training samples, LAR 2, CSR 0.8
+NSHARD_HIDDEN, NSHARD_A, NSHARD_R, NSHARD_ROUNDS = 12_000, 8, 128, 2
+
+
+def shard_spec(**kw):
+    """The paper fleet under the quickstart's recipe, engine="sharded"."""
+    return quickstart_spec().replace(**dict(dict(
+        n_agents=100, n_rsus=10, rounds=SHARD_ROUNDS, engine="sharded"),
+        **kw))
+
+
+def shard_async_spec():
+    """Phase 3b's straggler regime at the main fleet, 3 rounds, the
+    rsu-sharded tick."""
+    spec, _ = straggler_specs()
+    return spec.replace(rounds=SHARD_ROUNDS, rsu_sharded=True)
+
+
+def nshard_res(model_shards: int):
+    """The N-sharded cell's resolved scenario, RSUs spread as the bench
+    spreads them (``arange(A) * (R // A)``)."""
+    import dataclasses
+    from repro_torch.core.baselines import h2fed
+    from repro_torch.core.heterogeneity import HeterogeneityModel
+    from repro_torch.core.scenario import ScenarioSpec
+    hp = h2fed(mu1=0.01, mu2=0.005, lar=2, lr=0.1)
+    spec = ScenarioSpec(n_agents=NSHARD_A, n_rsus=NSHARD_R, batch=8,
+                        n_train=80, n_test=100, hidden_dims=(NSHARD_HIDDEN,),
+                        hp=hp, het=HeterogeneityModel(csr=0.8, lar=hp.lar),
+                        rounds=NSHARD_ROUNDS, engine="sharded",
+                        rsu_sharded=True, model_shards=model_shards)
+    res = spec.resolve()
+    assign = (np.arange(NSHARD_A) * (NSHARD_R // NSHARD_A)).astype(np.int32)
+    return dataclasses.replace(res, fed=dataclasses.replace(
+        res.fed, rsu_assign=assign))
+
+
+def _round_ms(round_fn, state, n: int):
+    """Wall of ``n`` rounds on the host clock, every rank lined up before
+    and after (ms a round); returns (ms, state)."""
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state = round_fn(state)
+        if isinstance(state, tuple) and not hasattr(state, "_fields"):
+            state = state[0]
+    torch.cuda.synchronize()
+    dist.barrier()
+    return (time.perf_counter() - t0) / n * 1e3, state
+
+
+def shard_rank(world: int, params: dict, device: str = "cuda") -> dict:
+    """Runs on every rank of a phase 3h run: each of SHARD_CASES[world]
+    through ``run_scenario`` on the card, counted (kernel launches and
+    collectives set to 0 just before, read just after), then 3 more rounds
+    timed; returns rank 0's view (the state on the host)."""
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.core.topology import make_fleet_mesh
+    from repro_torch.fedsim import async_engine, run_scenario
+    from repro_torch.fedsim import sharded
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives
+    dev = torch.device(device)
+    params = {k: v.to(dev) for k, v in params.items()}
+    out = {}
+    for name, fields, mesh_kw in SHARD_CASES[world]:
+        spec = shard_async_spec() if fields is None else shard_spec(**fields)
+        res = spec.resolve()
+        mesh = make_fleet_mesh(**mesh_kw)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        collectives.reset()
+        t0 = time.perf_counter()
+        state, hist = run_scenario(res, params, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, colls = ops.launch_counts(), collectives.counts()
+        topo = sharded.resolve_topology(res.cfg, res.fed, mesh,
+                                        rsu_sharded=spec.rsu_sharded)
+        fspec = spec_of(params)
+        if fields is None:
+            acfg = async_engine.async_config(spec).validate()
+            round_fn = async_engine.make_sharded_async_global_round(
+                res.cfg, spec.hp, spec.het, res.fed, fspec, topo, acfg,
+                device=dev)
+            st = async_engine.init_sharded_async_state(res.cfg, fspec,
+                                                       params, topo, dev)
+        else:
+            round_fn = sharded.make_sharded_global_round(
+                res.cfg, spec.hp, spec.het, res.fed, fspec, topo, device=dev)
+            st = sharded.init_sharded_state(res.cfg, fspec, params, topo, dev)
+        ms, _ = _round_ms(round_fn, st, 3)
+        out[name] = {
+            "mesh": dict(mesh.shape), "seconds": seconds, "round_ms": ms,
+            "launches": launches, "collectives": colls, "hist": hist,
+            "state": {k: getattr(state, k).cpu() for k in (
+                "agent_flat", "rsu_flat", "cloud_flat", "rsu_mass",
+                "pending_x", "pending_w", "pending_t", "cloud_macc")
+                if hasattr(state, k)}}
+    return out
+
+
+def nshard_rank(model_shards: int, params: dict,
+                device: str = "cuda") -> dict:
+    """Runs on every rank of the N-sharded perception cell: a warm-up
+    round, then NSHARD_ROUNDS rounds counted and timed; returns rank 0's
+    persistent (R, N) + (N,) bytes, peak device memory, ms a round,
+    launches, collectives and whole cloud (on the host)."""
+    from repro_torch.core.flatten import spec_of
+    from repro_torch.core.topology import make_fleet_mesh
+    from repro_torch.fedsim import sharded
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives
+    dev = torch.device(device)
+    params = {k: v.to(dev) for k, v in params.items()}
+    res = nshard_res(model_shards)
+    s = res.spec
+    topo = sharded.resolve_topology(
+        res.cfg, res.fed, make_fleet_mesh(n_model_shards=model_shards),
+        rsu_sharded=True)
+    fspec = spec_of(params)
+    state = sharded.init_sharded_state(res.cfg, fspec, params, topo, dev)
+    persistent = (state.rsu_flat.numel() * state.rsu_flat.element_size()
+                  + state.cloud_flat.numel() * state.cloud_flat.element_size())
+    round_fn = sharded.make_sharded_global_round(res.cfg, s.hp, s.het,
+                                                 res.fed, fspec, topo,
+                                                 device=dev)
+    state = round_fn(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    collectives.reset()
+    ms, state = _round_ms(round_fn, state, NSHARD_ROUNDS)
+    launches, colls = ops.launch_counts(), collectives.counts()
+    peak = torch.cuda.max_memory_allocated()
+    cloud = sharded.full_cloud(state.cloud_flat, topo).cpu()
+    return {"mesh": dict(topo.mesh.shape), "n": fspec.n,
+            "n_pad": topo.model_pad(fspec.n), "persistent_bytes": persistent,
+            "peak_bytes": peak, "round_ms": ms, "launches": launches,
+            "collectives": colls, "cloud": cloud}
+
+
+def _per_round(colls: dict, rounds: int) -> dict:
+    """Calls and bytes a round per (where, axes), the rounds' own
+    collectives (not the gather of the result, nor eval's)."""
+    return {k: {"calls": v["calls"] / rounds, "bytes": v["bytes"] / rounds}
+            for k, v in colls.items()
+            if k.split("/")[0] in ("lar", "cloud", "round")}
+
+
+def block_local_agg_cases(dev):
+    """Phase 3h's #2 rows: ``ops.block_local_agg`` at the rsu-sharded
+    paper fleet's pod shape (A = 50 agents of R = 5 local RSUs, N =
+    31,810) and at the N-sharded cell's (A = 8 over R = 128, the padded
+    N), fp32 rows, against its plain version (``index_add_``), num within
+    1e-6 of the sum of |terms| of the fp64 sum, mass within 1e-6 relative
+    of the exact (fp64) sum; its time, its bound (the rows read once, the
+    (R, N) fp32 sums written once, and 2 A N operations: one multiply-add
+    an element, the work the one-hot weights need) and ``torch.matmul``'s
+    time with the same (R, A) weights."""
+    from repro_torch.core.aggregation import (scatter_accumulate,
+                                              unnormalized_weight_matrix)
+    from repro_torch.kernels import ops
+    rows = []
+    for shape, A, R, N in (("paper_pod", 50, 5, 31_810),
+                           ("nshard", NSHARD_A, NSHARD_R, 9_540_096)):
+        gen = torch.Generator(device=dev).manual_seed(A + R)
+        x = torch.randn(A, N, device=dev, generator=gen)
+        w = torch.rand(A, device=dev, generator=gen) + 0.5
+        assign = (torch.arange(A, device=dev) * (R // A) if A < R
+                  else torch.arange(A, device=dev) % R)
+        w[assign == 0] = 0.0                # a weightless RSU block
+        got, mass = ops.block_local_agg(x, w, assign, R)
+        want, _ = scatter_accumulate(x, w, assign, R)
+        W = unnormalized_weight_matrix(w, torch.ones_like(w), assign, R)
+        exact = torch.zeros(R, dtype=torch.float64, device=dev).index_add_(
+            0, assign, w.double())
+        scale = W.abs() @ x.abs()
+        excess = ((got - want).abs() - 2e-6 * scale).max().item()
+        err = (got - want).abs().max().item()
+        safe = torch.where(exact > 0, exact, torch.ones_like(exact))
+        mass_err = ((mass.double() - exact).abs() / safe).max().item()
+        if excess > 0 or mass_err > 1e-6 or got[0].any():
+            raise AssertionError(f"block_local_agg {shape}: the kernel "
+                                 f"disagrees with the plain version "
+                                 f"({err:.3e}) or its mass with the exact "
+                                 f"sum (relative {mass_err:.1e})")
+        del scale
+        b_ms, b_by = bound(A * N * 4 + R * N * 4 + A * 12, 2 * A * N)
+        row = {"kernel": "weighted_agg_matmul", "entry": "block_local_agg",
+               "shape": shape, "A": A, "R": R, "N": N, "dtype": "float32",
+               "max_abs_err": err,
+               "ms": cuda_ms(lambda: ops.block_local_agg(x, w, assign, R)),
+               "plain_ms": cuda_ms(lambda: scatter_accumulate(x, w, assign,
+                                                              R)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(lambda: torch.matmul(W, x))}
+        print("kernel " + json.dumps(row))
+        rows.append(row)
+        del x, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _shard_limit(what, err, limit):
+    print(f"shard: {what}: {err:.3e} (limit {limit})")
+    _limit(what, err, limit)
+
+
+# (atol, rtol) of a sharded round's fields against the flat round's or
+# the async engine's on the card.  #2's sums, summed across ranks, then
+# normalized, differ from #1's (flat) or one rank's (async) in last bits.
+# The aggregates (RSU rows, the cloud) hold the limit of phase 3's
+# card-vs-host and phase 3t's streamed-vs-resident checks; an agent row is
+# one more SGD step from an RSU row, where a last-bit difference can flip
+# a hidden ReLU unit and move the row by lr times a gradient term; the
+# masses are sums of the same weights in another order.
+SHARD_TOL = {"agent_flat": (1e-3, 0.0), "pending_x": (1e-3, 0.0),
+             "rsu_flat": (1e-4, 0.0), "cloud_flat": (1e-4, 0.0),
+             "rsu_mass": (0.0, 1e-5), "pending_w": (0.0, 1e-5),
+             "cloud_macc": (0.0, 1e-5)}
+
+
+def _diffs(a: dict, b, fields) -> dict:
+    """Max |a - b| of each field, a rank's state on the host against an
+    engine's state on the card; raises past ``SHARD_TOL``."""
+    errs = {}
+    for k in fields:
+        g, w = a[k].float(), getattr(b, k).cpu().float()
+        atol, rtol = SHARD_TOL[k]
+        errs[k] = (g - w).abs().max().item()
+        if not torch.isfinite(g).all() or (
+                (g - w).abs() > atol + rtol * w.abs()).any():
+            raise AssertionError(f"{k}: {errs[k]:.3e} past atol {atol}, "
+                                 f"rtol {rtol}")
+    return errs
+
+
+def sharded_path(dev):
+    """Phase 3h; returns (#2's rows at the block_local_agg shapes, the
+    launch counts of the counted sharded runs, summed over ranks' rank 0
+    and cases)."""
+    from repro_torch.fedsim import run_scenario
+    from repro_torch.fedsim.sweep import default_params
+    from repro_torch.launch.mesh import run_ranks
+    params = default_params(shard_spec(), dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    # the references on the card: the flat round and the async engine
+    flat_state, flat_h = run_scenario(shard_spec(engine="flat"), params,
+                                      device=dev)
+    from repro_torch.core.flatten import spec_of
+    fspec = spec_of(params)
+    flat = type("Flat", (), {
+        "agent_flat": fspec.ravel_stacked(flat_state.agent_params),
+        "rsu_flat": fspec.ravel_stacked(flat_state.rsu_params),
+        "cloud_flat": fspec.ravel(flat_state.cloud_params)})
+    round_profile(dev, shard_spec(engine="flat").resolve(), params,
+                  what="flat round (paper fleet, phase 3h)")
+    aspec = shard_async_spec()
+    async_state, async_h = run_scenario(aspec.replace(rsu_sharded=False,
+                                                      fused=False),
+                                        params, device=dev)
+    totals: dict = {}
+    for world in (1, 2, 4):
+        t0 = time.perf_counter()
+        out = run_ranks(world, shard_rank, world, cpu_params,
+                        backend="nccl" if world == 1 else "gloo",
+                        device="cuda")
+        print(f"shard: {world} rank(s) over "
+              f"{'nccl' if world == 1 else 'gloo'}: "
+              f"{time.perf_counter() - t0:.2f} s with the ranks' start")
+        for name, r in out.items():
+            is_async = name == "async"
+            want, want_h = ((async_state, async_h) if is_async
+                            else (flat, flat_h))
+            fields = ("agent_flat", "rsu_flat", "cloud_flat") + (
+                ("rsu_mass", "pending_x", "pending_w", "cloud_macc")
+                if is_async else ())
+            errs = _diffs(r["state"], want, fields)
+            acc = float(abs(r["hist"]["acc"] - want_h["acc"]).max())
+            rounds = SHARD_ROUNDS
+            per = _per_round(r["collectives"], rounds)
+            print(f"shard: {world} rank(s), {name} on {r['mesh']}: against "
+                  f"the {'async' if is_async else 'flat'} engine on the "
+                  f"card, buffers max abs diff "
+                  f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } "
+                  f"(limits {SHARD_TOL}), "
+                  f"accuracy {r['hist']['acc'].tolist()} vs "
+                  f"{want_h['acc'].tolist()} (equal: "
+                  f"{bool(acc == 0.0)}); {r['round_ms']:.2f} ms a round "
+                  f"(host clock, 3 rounds, eval excluded); run_scenario "
+                  f"{r['seconds']:.2f} s; rank 0's launches {r['launches']}; "
+                  f"collectives a round {per}")
+            if acc > 2e-3:
+                raise AssertionError(f"{world} ranks, {name}: disagrees "
+                                     f"with the reference engine")
+            # the rsu-sharded rounds' RSU layer stays inside its pod (the
+            # replicated round sums over every agent axis by design)
+            pod_lar = sum(v["calls"] for k, v in r["collectives"].items()
+                          if k.startswith("lar/") and "pod" in k)
+            if name != "replicated" and pod_lar:
+                raise AssertionError(f"{name}: {pod_lar} collectives across "
+                                     f"pods inside the local-round loop")
+            if (name == "rsu_sharded" and "pod" in r["mesh"]
+                    and r["mesh"]["pod"] > 1 and
+                    r["collectives"]["cloud/pod"]["calls"] != rounds):
+                raise AssertionError(f"rsu_sharded: cloud collectives "
+                                     f"{r['collectives']}")
+            for k, v in r["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+        if not (out["replicated"]["launches"]["block_local_agg"]
+                and out["async"]["launches"]["block_local_agg"]
+                and out["rsu_sharded"]["launches"]["dual_proximal_sgd"]):
+            raise AssertionError(f"{world} ranks: a sharded run missed a "
+                                 f"kernel")
+
+    # the N-sharded perception cell: model_shards 1 (one rank, nccl)
+    # against 2 (two ranks sharing the card, gloo)
+    from repro_torch.configs.mnist_mlp import CONFIG
+    import dataclasses
+    from repro_torch.models import mlp
+    big = mlp.init_params(dataclasses.replace(
+        CONFIG, hidden_dims=(NSHARD_HIDDEN,)), torch.Generator().manual_seed(0))
+    cells = {}
+    for shards in (1, 2):
+        t0 = time.perf_counter()
+        cells[shards] = r = run_ranks(shards, nshard_rank, shards, big,
+                                      backend="nccl" if shards == 1
+                                      else "gloo", device="cuda")
+        print(f"shard: N-sharded cell (784-{NSHARD_HIDDEN}-10, N={r['n']}, "
+              f"padded {r['n_pad']}; A={NSHARD_A}, R={NSHARD_R}) at "
+              f"model_shards {shards} on {r['mesh']}: persistent (R, N) + "
+              f"(N,) {r['persistent_bytes'] / 1e9:.4f} GB a rank, peak "
+              f"device memory {r['peak_bytes'] / 1e9:.4f} GB a rank, "
+              f"{r['round_ms']:.2f} ms a round (host clock, "
+              f"{NSHARD_ROUNDS} rounds after a warm-up); rank 0's launches "
+              f"{r['launches']}; collectives a round "
+              f"{_per_round(r['collectives'], NSHARD_ROUNDS)} "
+              f"({time.perf_counter() - t0:.2f} s with the ranks' start)")
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    ratio = cells[2]["persistent_bytes"] / cells[1]["persistent_bytes"]
+    _shard_limit("N-sharded persistent bytes a rank, 2 shards over 1", ratio,
+                 0.51)
+    n = cells[1]["n"]
+    c1, c2 = cells[1]["cloud"], cells[2]["cloud"]
+    _shard_limit("N-sharded cloud, 2 shards against 1, max abs diff",
+                 (c2[:n] - c1[:n]).abs().max().item(), 1e-5)
+    print(f"shard: N-sharded clouds bitwise equal: "
+          f"{torch.equal(c1[:n], c2[:n])}; padded tail zero: "
+          f"{not c2[n:].any()}")
+    if c2[n:].any() or not torch.isfinite(c2).all():
+        raise AssertionError("N-sharded cloud: the padded tail moved or a "
+                             "value is not finite")
+    rows = block_local_agg_cases(dev)
+    return rows, totals
+
+
 def live_pairs(S: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks keep: keys t < S, t <= s when causal,
     t > s - window when window > 0."""
@@ -3003,6 +3407,8 @@ def main(argv=None) -> int:
             stream_path(dev)
         if "3v" in phases:
             serve_path(dev)
+        if "3h" in phases:
+            sharded_path(dev)
         return 0
 
     paths = main_path(dev)
@@ -3010,6 +3416,7 @@ def main(argv=None) -> int:
     sweep_rows, sweep_paths = sweep_path(dev)
     stream_rows, stream_paths = stream_path(dev)
     serve_paths = serve_path(dev)
+    shard_rows, shard_counts = sharded_path(dev)
     flash_launches = serving_path(dev)
     scan_launches = xlstm_serving(dev)
 
@@ -3045,6 +3452,14 @@ def main(argv=None) -> int:
         "weighted_agg_matmul": sum(c[k] for c in streamed for k in (
             "weighted_agg_matmul", "scatter_accumulate", "chunk_agg")),
         "dual_proximal_sgd": sum(c["dual_proximal_sgd"] for c in streamed)}
+    # the sharded rounds (every rank's count a case, at 1, 2 and 4 ranks
+    # and the N-sharded cell): #2 as block_local_agg, #3 each step; the
+    # cloud layer is plain math, so #1 is not on this path
+    by_path["sharded"] = {
+        "fused_agg_blend": sum(shard_counts.get(k, 0) for k in (
+            "agg_blend", "cloud_blend", "agg_absorb")),
+        "weighted_agg_matmul": shard_counts["block_local_agg"],
+        "dual_proximal_sgd": shard_counts["dual_proximal_sgd"]}
     kernels = []
     for kernel, entry in (("fused_agg_blend", "agg_blend"),
                           ("weighted_agg_matmul", "weighted_agg_matmul"),
@@ -3091,6 +3506,20 @@ def main(argv=None) -> int:
         "launches_by_path": {"stream":
                              by_path["stream"]["weighted_agg_matmul"]},
         "max_abs_err": max(x["max_abs_err"] for x in stream_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "entry")},
+        "shape": {k: r[k] for k in ("A", "R", "N")}})
+    # #2 at the rsu-sharded paper fleet's pod shape, launched by the
+    # sharded rounds as block_local_agg
+    r = next(x for x in shard_rows if x["shape"] == "paper_pod")
+    kernels.append({
+        "name": "weighted_agg_matmul", "route": "cuda",
+        "source": SOURCES["weighted_agg_matmul"],
+        "replaces": REPLACES["weighted_agg_matmul"],
+        "launches": by_path["sharded"]["weighted_agg_matmul"],
+        "launches_by_path": {"sharded":
+                             by_path["sharded"]["weighted_agg_matmul"]},
+        "max_abs_err": max(x["max_abs_err"] for x in shard_rows),
         **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "entry")},
         "shape": {k: r[k] for k in ("A", "R", "N")}})

@@ -23,8 +23,8 @@ ARCH_IDS = tuple(_MODULES)
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id in UNPORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to PyTorch yet (ROADMAP queue 1 "
-            f"item 15, model zoo); ported: {sorted(_MODULES)}")
+            f"arch {arch_id!r} is not ported to PyTorch yet (ROADMAP queue 1, "
+            f"the model zoo); ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

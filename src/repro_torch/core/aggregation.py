@@ -106,10 +106,11 @@ def scatter_accumulate(stacked: torch.Tensor, weights: torch.Tensor,
 def normalize_blend(num: torch.Tensor, mass: torch.Tensor,
                     prev: torch.Tensor) -> torch.Tensor:
     """out[r] = num[r] / mass[r] where mass[r] > 0, else prev[r]; out
-    dtype follows ``prev``."""
+    dtype follows ``prev``.  One (R, N) fp32 temporary: the blend writes
+    into the quotient (the N-sharded round's rows are gigabytes)."""
     safe = torch.where(mass > 0, mass, torch.ones_like(mass))[..., None]
-    out = torch.where((mass > 0)[..., None], num.float() / safe,
-                      prev.float())
+    out = num.float() / safe
+    torch.where((mass > 0)[..., None], out, prev.float(), out=out)
     return out.to(prev.dtype)
 
 

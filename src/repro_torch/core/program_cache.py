@@ -40,12 +40,14 @@ def device_fingerprint(device=None) -> Tuple:
 
 
 def mesh_fingerprint(mesh) -> Optional[Tuple]:
-    """Hashable identity of a device mesh; ``None`` on one card, the only
-    layout this package runs (``fedsim.sweep.sweep_mesh``)."""
+    """Hashable identity of a mesh of ranks (``launch.mesh.FleetMesh``):
+    its axes and sizes and the process group's backend; ``None`` (one
+    rank, ``fedsim.sweep.sweep_mesh``'s single-card layout) passes
+    through.  This rank's coordinate is left out: every rank of a mesh
+    builds the same program for its own cells."""
     if mesh is None:
         return None
-    raise NotImplementedError("multi-card sweeps are not ported yet (see "
-                              "ROADMAP.md)")
+    return (tuple(mesh.shape.items()), mesh.backend)
 
 
 def ops_flags(fused: bool) -> Tuple:

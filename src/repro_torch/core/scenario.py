@@ -17,11 +17,13 @@ The port runs the synchronous ``engine="flat"`` round and the semi-async
 ``engine="async"`` tick engine, both with or without a fault plan
 (``faults=FaultPlan(...)``), resident or cohort-streamed
 (``fleet_store="host"`` / ``chunk_agents``, and ``chunk_params`` for the
-two-axis round), and the continuous serving loop (``serve_events > 0`` on
-the async engine, ``fedsim/serving``).  ``validate()`` raises
-``NotImplementedError`` for what it has not ported: the ``tree`` and
-``sharded`` engines, ``model_shards > 1`` and ``rsu_sharded``.  The fields
-stay, so a spec round-trips between the packages.
+two-axis round), the continuous serving loop (``serve_events > 0`` on the
+async engine, ``fedsim/serving``), and the sharded rounds over the ranks
+of a mesh (``engine="sharded"``, replicated, ``rsu_sharded`` or with
+``model_shards > 1``; ``engine="async"`` with ``rsu_sharded``).
+``validate()`` keeps the reference's rules and raises
+``NotImplementedError`` for the one engine it has not ported, ``tree``.
+The fields stay, so a spec round-trips between the packages.
 """
 from __future__ import annotations
 
@@ -90,11 +92,11 @@ class ScenarioSpec:
         default_factory=HeterogeneityModel)
 
     # -- engine ------------------------------------------------------------
-    engine: str = "flat"              # the port runs "flat" and "async"
+    engine: str = "flat"              # flat | sharded | async ("tree": no)
     fleet_dtype: str = "float32"      # fleet-buffer storage: float32 | bf16
     fused: bool = True                # one-pass aggregate-and-blend rounds
-    rsu_sharded: bool = False         # not ported
-    model_shards: int = 1             # not ported beyond 1
+    rsu_sharded: bool = False         # the RSU axis over the pod axis
+    model_shards: int = 1             # > 1: N-sharded (engine "sharded")
     fleet_store: str = "device"       # "device" | "host" (streamed)
     chunk_agents: int = 0             # agents a streamed chunk (0: auto)
     chunk_params: int = 0             # columns a two-axis tile (0: off)
@@ -167,18 +169,25 @@ class ScenarioSpec:
             _check(not self.rsu_sharded, "serving is not rsu-sharded")
             from repro_torch.core.load_gen import parse_trigger
             parse_trigger(self.tick_trigger, self.n_agents)
-        _unported(self.engine not in ("flat", "async"),
-                  f"engine {self.engine!r}")
+        _unported(self.engine == "tree", f"engine {self.engine!r}")
+        if self.model_shards > 1:
+            _check(self.engine == "sharded",
+                   f"model_shards={self.model_shards} is the N-sharded fleet "
+                   f"mode — engine 'sharded', got {self.engine!r}")
+            _check(not streamed, "N-sharding needs the device-resident fleet")
         if self.faults is not None:
             if not isinstance(self.faults, FaultPlan):
                 raise TypeError(f"faults must be a FaultPlan, got "
                                 f"{type(self.faults).__name__}")
+            _check(self.engine in ("flat", "async"),
+                   f"fault injection requires engine 'flat'|'async', got "
+                   f"{self.engine!r}")
+            _check(not self.rsu_sharded, "fault injection is not threaded "
+                   "through the rsu-sharded path")
             self.faults.validate(self.n_rsus)
             _check(not streamed or not self.faults.corrupts,
                    "corrupted-update injection is not supported on the "
                    "cohort-streamed engines (churn/outage/guards are)")
-        _unported(self.model_shards > 1, "parameter-axis sharding")
-        _unported(self.rsu_sharded, "the rsu-sharded engine")
         return self
 
     def replace(self, **kw) -> "ScenarioSpec":

@@ -37,6 +37,15 @@ tick's "the cloud fires" is a host-built (S,) choice, and with a
 their RSUs at round start and aggregate the cloud at round end, the others
 on their own clock.  ``_run_async`` runs the body at S = 1.
 
+On an rsu_sharded ``core.topology.HierarchyTopology`` the same tick
+algebra runs one rank a shard (``make_sharded_async_global_round``):
+agents and their in-flight rows live with their RSU's pod, the arrivals go
+through ``ops.block_local_agg`` summed over the data axis only,
+``buffer_absorb`` runs on the pod's ``(R_local, N)`` rows, and only the
+cloud cadence reduces across pods.  With no delays it is the flat round,
+and in the delayed regime it is this engine's ``fused=False`` tick, to
+fp32 tolerance.
+
 Parity seam: ``draws``, one ``(mask (A,) bool, active_steps (A,) int,
 delays (A,) int)`` triple per tick, replaces the tick's own draws (the
 state's connectivity is then left as it was).  Faults: built with a
@@ -61,13 +70,16 @@ from repro_torch.core.aggregation import (buffer_absorb, screen_updates,
 from repro_torch.core.flatten import FlatSpec, Params, spec_of
 from repro_torch.core.h2fed import H2FedParams
 from repro_torch.core.heterogeneity import (ConnState, HeterogeneityModel,
-                                            init_conn_state)
+                                            init_conn_state, sample_latency)
+from repro_torch.core.topology import HierarchyTopology
 from repro_torch.data.partition import FederatedData
+from repro_torch.fedsim import sharded
 from repro_torch.fedsim.simulator import (Cadence, FleetData, Lanes,
                                           SimConfig, _fed_arrays,
                                           _local_train_flat, agent_rows,
-                                          lane_draws, lane_mask)
+                                          lane_draws, lane_mask, round_draws)
 from repro_torch.kernels import ops
+from repro_torch.launch import collectives
 from repro_torch.models import mlp
 
 # one tick's injected draws: (mask (A,) bool, active_steps (A,) int,
@@ -464,6 +476,157 @@ def make_async_global_round(cfg: SimConfig, hp: H2FedParams,
                                   device=device, fused=fused, faults=faults)
 
 
+# --------------------------------------------------------------------------
+# the rsu-sharded tick loop
+# --------------------------------------------------------------------------
+
+def make_sharded_async_global_round(cfg: SimConfig, hp: H2FedParams,
+                                    het: HeterogeneityModel,
+                                    fed: FederatedData, spec: FlatSpec,
+                                    topo: HierarchyTopology,
+                                    acfg: Optional[AsyncConfig] = None, *,
+                                    device):
+    """This rank's semi-async round on an rsu_sharded topology: ``(state,
+    draws=None) -> (state, metrics)`` on the rank's blocks (agents and
+    their in-flight rows in pod-block order, the pod's (R_local, N) buffer,
+    its masses and cloud accumulator).  Each tick the arrivals go through
+    two ``ops.block_local_agg`` calls (kernel #2 on the card), summed over
+    the data axis only, and ``buffer_absorb`` on the pod's rows; only the
+    cloud cadence reduces across pods, on the ticks it fires.  Metrics are
+    this rank's share: ``absorbed_mass`` (lar, R_local), ``immediate_mass``,
+    ``due_mass`` and ``enqueued_mass`` (lar,) and ``pending_mass`` over its
+    own agents; summed over the agent axes they are the fleet's.
+    ``draws``: ``hp.lar`` (mask, active_steps, delays) triples in the
+    original agent order."""
+    if not topo.rsu_sharded:
+        raise ValueError("make_sharded_async_global_round needs an "
+                         "rsu_sharded=True HierarchyTopology "
+                         "(use make_async_global_round otherwise)")
+    acfg = (acfg or AsyncConfig()).validate()
+    A, R = cfg.n_agents, cfg.n_rsus
+    r_loc, rows = topo.rsu_per_pod, topo.rsu_rows()
+    local, assign, idx = sharded.local_fleet(cfg, fed, topo, device)
+    glob = torch.from_numpy(np.asarray(fed.rsu_assign)).long().to(device)
+    decay = acfg.agent_decay(glob, R)
+    decay = decay if isinstance(decay, float) else decay.index_select(0, idx)
+    keep = acfg.rsu_keep(R, device)
+    keep = keep if isinstance(keep, float) else keep[rows]
+    storage = spec.storage_dtype
+    cloud_reduce = None if storage == torch.float32 else storage
+    pod_sum_num = sharded._make_psum_num(storage, topo,
+                                         topo.data_shard_axes)
+    ce = acfg.cloud_every
+    lanes = Lanes.of([hp], [het])
+    n_steps = hp.local_epochs * local.spe
+
+    def global_round(state: AsyncSimState,
+                     draws: Optional[AsyncDraws] = None):
+        if draws is not None and len(draws) != hp.lar:
+            raise ValueError(f"want {hp.lar} injected draws, got {len(draws)}")
+        # every tick's draws up front, in the replicated original order
+        # and the tick engine's sequence, then this rank's rows
+        conn, ticks = state.conn, []
+        for i in range(hp.lar):
+            if draws is None:
+                conn, mask, act = round_draws(state.gen, conn, het, hp, A,
+                                              local.spe)
+                delays = sample_latency(state.gen, A, het, device)
+            else:
+                mask, act, delays = (t.to(device) for t in draws[i])
+            ticks.append(tuple(t.index_select(0, idx)
+                               for t in (mask, act, delays)))
+        cloud = state.cloud_flat
+        if ce:
+            # a decoupled cadence: the pod's rows, masses and accumulator
+            # persist across rounds
+            rsu, rsu_mass, macc = (state.rsu_flat, state.rsu_mass,
+                                   state.cloud_macc)
+        else:
+            rsu = spec.to_storage(cloud)[None].expand(r_loc,
+                                                      cloud.numel()).clone()
+            rsu_mass = torch.zeros(r_loc, device=device)
+            macc = torch.zeros(r_loc, device=device)
+        agent, px, pw, pt = (state.agent_flat, state.pending_x,
+                             state.pending_w, state.pending_t)
+        clock, metrics = state.tick, []
+        for mask, act_steps, delays in ticks:
+            maskf = mask.float()
+            in_flight = pt > 0
+            pt = (pt - 1).clamp_min(0)
+            due = in_flight & (pt == 0)
+            busy = in_flight & ~due
+            free = ~busy
+
+            act = torch.where(busy, torch.zeros_like(act_steps), act_steps)
+            w_start = rsu.index_select(0, assign)
+            trained = spec.to_storage(_local_train_flat(
+                spec, local, w_start[None], cloud[None], lanes, n_steps,
+                act[None], cfg.batch))[0]
+            agent = torch.where(busy[:, None], agent, trained)
+
+            # block-local arrivals, summed over the data axis only
+            w_imm = local.n_per_agent * maskf * free * (delays == 0).float()
+            w_due = torch.where(due, pw, 0.0)
+            num_i, m_i = ops.block_local_agg(agent, w_imm, assign, r_loc)
+            num_d, m_d = ops.block_local_agg(px, w_due, assign, r_loc)
+            num, m_new = pod_sum_num(num_i + num_d, m_i + m_d)
+            rsu, rsu_mass = buffer_absorb(rsu, rsu_mass, num, m_new,
+                                          keep=keep)
+            macc = macc + m_new
+
+            enq = (maskf > 0) & free & (delays > 0)
+            px = torch.where(enq[:, None], trained, px)
+            w_enq = local.n_per_agent * maskf * acfg.weight(delays,
+                                                            decay=decay)
+            pw = torch.where(enq, w_enq, pw)
+            pt = torch.where(enq, delays, pt)
+
+            clock += 1
+            if ce and clock % ce == 0:
+                # the cadence fires: the tick's one collective across pods
+                cloud = topo.cloud_psum_mean(macc, rsu, cloud,
+                                             reduce_dtype=cloud_reduce)
+                macc = torch.zeros_like(macc)
+            metrics.append({
+                "absorbed_mass": m_i + m_d, "immediate_mass": m_i.sum(),
+                "due_mass": m_d.sum(),
+                "enqueued_mass": torch.where(enq, w_enq, 0.0).sum()})
+        if not ce:
+            # the per-round cadence: the round-end cloud aggregation is the
+            # round's one collective across pods
+            cloud = topo.cloud_psum_mean(macc, rsu, cloud,
+                                         reduce_dtype=cloud_reduce)
+            macc = torch.zeros_like(macc)
+        out = AsyncSimState(agent_flat=agent, rsu_flat=rsu,
+                            rsu_mass=rsu_mass, cloud_flat=cloud,
+                            pending_x=px, pending_w=pw, pending_t=pt,
+                            conn=conn, gen=state.gen, cloud_macc=macc,
+                            tick=clock)
+        m = {k: torch.stack([t[k] for t in metrics]) for k in metrics[0]}
+        m["pending_mass"] = pending_mass(out)
+        return out, m
+
+    return global_round
+
+
+def init_sharded_async_state(cfg: SimConfig, spec: FlatSpec,
+                             init_params: Params, topo: HierarchyTopology,
+                             device) -> AsyncSimState:
+    """This rank's blocks of a fresh async fleet (``init_async_state``'s
+    rows: agents and in-flight rows of its shard, its pod's RSUs)."""
+    base = sharded.init_sharded_state(cfg, spec, init_params, topo, device)
+    a_loc, r_loc = base.agent_flat.shape[0], base.rsu_flat.shape[0]
+    return AsyncSimState(
+        agent_flat=base.agent_flat, rsu_flat=base.rsu_flat,
+        rsu_mass=torch.zeros(r_loc, device=device),
+        cloud_flat=base.cloud_flat,
+        pending_x=torch.zeros_like(base.agent_flat),
+        pending_w=torch.zeros(a_loc, device=device),
+        pending_t=torch.zeros(a_loc, dtype=torch.int32, device=device),
+        conn=base.conn, gen=base.gen,
+        cloud_macc=torch.zeros(r_loc, device=device), tick=0)
+
+
 def async_config(spec) -> AsyncConfig:
     """The tick engine's config from a spec's async knobs."""
     return AsyncConfig(staleness_decay=spec.staleness_decay,
@@ -474,12 +637,19 @@ def async_config(spec) -> AsyncConfig:
 def _run_async(res, init_params: Params, *, device,
                eval_fn: Optional[Callable[[Params], float]] = None,
                draws: Optional[Sequence[AsyncDraws]] = None,
+               topo: Optional[HierarchyTopology] = None, mesh=None,
                ) -> Tuple[AsyncSimState, Dict[str, np.ndarray]]:
     """``run_scenario``'s async target: the scenario's rounds through the
     tick engine (the tick program at S = 1).  History: ``round`` and
     ``acc``, per-round ``absorbed_mass`` and ``pending_mass``, and with a
     plan ``quarantined`` and ``blocked_mass``.  ``draws[r]`` injects round
-    r's per-tick triples."""
+    r's per-tick triples.
+
+    An rsu_sharded ``topo``, or a spec with ``rsu_sharded=True`` (its
+    topology then built on ``mesh``, by default ``make_fleet_mesh`` over
+    the running ranks), runs the rsu-sharded tick loop: agent order is
+    converted on entry and exit, and every rank returns the whole fleet
+    and the same history."""
     s = res.spec
     cfg, hp, het = res.cfg, s.hp, s.het
     hp.validate(), het.validate()
@@ -491,6 +661,14 @@ def _run_async(res, init_params: Params, *, device,
         y_test = torch.from_numpy(res.test.y).to(device=device,
                                                  dtype=torch.long)
         eval_fn = lambda p: float(mlp.accuracy(p, x_test, y_test))  # noqa: E731
+    if topo is None and s.rsu_sharded:
+        topo = sharded.resolve_topology(
+            cfg, res.fed, sharded.make_fleet_mesh() if mesh is None else mesh,
+            rsu_sharded=True)
+    if topo is not None:
+        return _run_sharded_async(res, init_params, device=device,
+                                  eval_fn=eval_fn, draws=draws, topo=topo,
+                                  acfg=acfg)
 
     spec = spec_of(init_params, storage_dtype=s.fleet_dtype)
     state = init_async_state(cfg, spec, init_params, device)
@@ -518,3 +696,36 @@ def _run_async(res, init_params: Params, *, device,
     if sched is None:
         del hist["quarantined"], hist["blocked_mass"]
     return state, {k: np.asarray(v) for k, v in hist.items()}
+
+
+def _run_sharded_async(res, init_params: Params, *, device, eval_fn, draws,
+                       topo: HierarchyTopology, acfg: AsyncConfig):
+    """``_run_async`` on an rsu_sharded topology.  The per-round metric
+    shares are summed over the agent axes once, after the last round."""
+    s = res.spec
+    cfg, hp = res.cfg, s.hp
+    if s.faults is not None:
+        raise ValueError("fault injection is not threaded through the "
+                         "rsu-sharded path")
+    spec = spec_of(init_params, storage_dtype=s.fleet_dtype)
+    state = init_sharded_async_state(cfg, spec, init_params, topo, device)
+    round_fn = make_sharded_async_global_round(cfg, hp, s.het, res.fed, spec,
+                                               topo, acfg, device=device)
+    accs, rounds, shares = [], [], []
+    for r in range(s.rounds):
+        state, metrics = round_fn(state, None if draws is None else draws[r])
+        shares.append(torch.stack([metrics["absorbed_mass"].sum(),
+                                   metrics["pending_mass"]]))
+        if eval_fn is not None and (r % cfg.eval_every == 0
+                                    or r == s.rounds - 1):
+            accs.append(float(eval_fn(spec.unravel(state.cloud_flat))))
+            rounds.append(r + 1)
+    totals = collectives.all_reduce(torch.stack(shares), topo.mesh,
+                                    topo.agent_axes, where="gather").cpu()
+    state = sharded.gather_state(
+        state, topo, agent_fields=("agent_flat", "pending_x", "pending_w",
+                                   "pending_t"),
+        rsu_fields=("rsu_flat", "rsu_mass", "cloud_macc"))
+    return state, {"round": np.asarray(rounds), "acc": np.asarray(accs),
+                   "absorbed_mass": totals[:, 0].numpy().astype(np.float64),
+                   "pending_mass": totals[:, 1].numpy().astype(np.float64)}

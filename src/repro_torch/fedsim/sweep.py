@@ -28,7 +28,10 @@ as one program.
 
 Built programs are memoized in the ``core/program_cache`` registry, so a
 later ``max_sweep`` chunk, a repeated grid or a singleton re-run builds
-nothing.  One card holds the whole sweep (``sweep_mesh``).
+nothing.  On one rank the card holds the whole sweep; on several ranks
+(``launch.mesh.run_ranks``) whose count divides S, ``sweep_mesh`` lays the
+scenario axis over them, each runs its share of the cells, and the
+histories are gathered at the end: the reference's ``_shard_sweep``.
 """
 from __future__ import annotations
 
@@ -44,8 +47,11 @@ from repro_torch.core.flatten import spec_of
 from repro_torch.core.heterogeneity import ConnState
 from repro_torch.core.scenario import ResolvedScenario, ScenarioSpec
 from repro_torch.device import resolve_device
-from repro_torch.fedsim import async_engine, serving, simulator, streaming
+from repro_torch.fedsim import (async_engine, serving, sharded, simulator,
+                                streaming)
 from repro_torch.fedsim.async_engine import async_config  # noqa: F401
+from repro_torch.launch import collectives
+from repro_torch.launch.mesh import FleetMesh, world
 from repro_torch.models import mlp
 from repro_torch.models.mlp import Params
 
@@ -73,11 +79,19 @@ def default_params(s: ScenarioSpec, device) -> Params:
 
 def run_scenario(res, init_params: Optional[Params] = None, *, device=None,
                  eval_fn: Optional[Callable[[Params], float]] = None,
-                 draws: Optional[Sequence] = None):
+                 draws: Optional[Sequence] = None, mesh=None, topo=None):
     """Run ONE scenario through its engine; returns ``(final state,
     history)``.  History holds ``round`` and ``acc``; the async engine adds
     per-round ``absorbed_mass`` and ``pending_mass``; a fault plan adds
     ``quarantined`` (and, async, ``blocked_mass``).
+
+    ``engine="sharded"`` runs ``fedsim/sharded`` over ``mesh`` (a
+    ``launch.mesh.FleetMesh`` or a built ``core.topology.HierarchyTopology``;
+    by default ``make_fleet_mesh`` over the running ranks with the spec's
+    ``model_shards``); ``engine="async"`` with ``topo`` (an rsu_sharded
+    topology) or ``rsu_sharded=True`` runs the rsu-sharded tick loop.  On
+    more than one rank every rank calls this with the same arguments
+    (``launch.mesh.run_ranks``) and gets the same result.
 
     ``device`` is ``cuda`` when None (raises without a GPU); the tests pass
     ``device="cpu"``, which runs the kernels' plain versions.
@@ -97,15 +111,19 @@ def run_scenario(res, init_params: Optional[Params] = None, *, device=None,
     s = res.spec.validate()
     if init_params is None:
         init_params = default_params(s, dev)
+    kw = {}
     if s.serve_events:
         run = serving._run_serve
+    elif s.engine == "sharded":
+        run, kw = sharded._run_sharded, {"mesh": mesh}
     elif s.fleet_store != "device" or s.chunk_agents:
         run = streaming._run_streamed
     elif s.engine == "async":
-        run = async_engine._run_async
+        run, kw = async_engine._run_async, {"mesh": mesh, "topo": topo}
     else:
         run = simulator._run_sync
-    return run(res, init_params, device=dev, eval_fn=eval_fn, draws=draws)
+    return run(res, init_params, device=dev, eval_fn=eval_fn, draws=draws,
+               **kw)
 
 
 # --------------------------------------------------------------------------
@@ -204,10 +222,16 @@ def _baked_scalars(s0: ScenarioSpec, dyn_names) -> tuple:
 
 
 def sweep_mesh(n_scenarios: int):
-    """The device layout of a sweep: ``None``, the whole scenario axis on
-    one card, as the reference's with one device.  Sweeps across cards wait
-    for the sharded engines (ROADMAP.md)."""
-    return None
+    """The layout of a sweep: a ('sweep',) mesh over the running ranks when
+    there are more than one and they divide the S scenarios evenly (each
+    rank runs its S / n cells: pure data parallelism, no collective in the
+    rounds); ``None`` otherwise, the whole scenario axis on this rank.
+    Every rank must call it together (the mesh's groups are built
+    collectively)."""
+    n = world()[1]
+    if n <= 1 or n_scenarios % n:
+        return None
+    return FleetMesh((n,), ("sweep",))
 
 
 # --------------------------------------------------------------------------
@@ -235,8 +259,8 @@ class SweepProgram(NamedTuple):
 
 def build_sweep(group: Sequence[ResolvedScenario], init_params, *,
                 device=None, force_dyn: Sequence[str] = (),
-                cadence: Optional[simulator.Cadence] = None
-                ) -> SweepProgram:
+                cadence: Optional[simulator.Cadence] = None,
+                mesh=None) -> SweepProgram:
     """Stack a group of equal ``static_key`` into one batched round program
     on ``device`` (``cuda`` when None).
 
@@ -245,7 +269,8 @@ def build_sweep(group: Sequence[ResolvedScenario], init_params, *,
     batched fields and the loop bounds group-wide, so every ``max_sweep``
     chunk of a group is the same program.  With ``program_cache=True`` (the
     spec's default) the round program and the batched eval are memoized
-    under a ``ProgramKey``."""
+    under a ``ProgramKey``; ``mesh`` is the sweep mesh the group's cells
+    were laid over (``sweep_mesh``), part of that key."""
     dev = resolve_device(device)
     specs = [r.spec for r in group]
     s0, cfg = specs[0], group[0].cfg
@@ -332,7 +357,7 @@ def build_sweep(group: Sequence[ResolvedScenario], init_params, *,
         data_axes=(tuple(sorted(data_axes.items())), ax_x, ax_y),
         donation=(),
         devices=program_cache.device_fingerprint(dev),
-        mesh=program_cache.mesh_fingerprint(sweep_mesh(S)),
+        mesh=program_cache.mesh_fingerprint(mesh),
         flags=program_cache.ops_flags(s0.fused))
     program, eval_core = program_cache.get_or_build(
         prog_key, _build_programs, enabled=s0.program_cache)
@@ -381,9 +406,42 @@ def run_sweep(group: Sequence[ResolvedScenario], init_params, *,
     returns one history a scenario (``run_scenario``'s schema: ``round``,
     ``acc``; async ``absorbed_mass`` and ``pending_mass``; faulted
     ``quarantined``, and async ``blocked_mass``).  ``draws[r][s]`` injects
-    scenario s's round-r draws (the parity seam)."""
+    scenario s's round-r draws (the parity seam).
+
+    On more than one rank (``sweep_mesh``) each rank runs its contiguous
+    S / n cells as one program, with the batched fields and the cadence
+    bounds pinned over the whole group, and the histories are gathered:
+    every rank returns all S, in order."""
+    mesh = sweep_mesh(len(group))
+    if mesh is None:
+        return _run_sweep_here(group, init_params, device=device,
+                               force_dyn=force_dyn, cadence=cadence,
+                               draws=draws)
+    specs = [r.spec for r in group]
+    force_dyn = tuple(sorted(_dyn_scalars(specs, force=force_dyn)))
+    if cadence is None:
+        cadence = _cadence_bounds(specs, force_dyn)
+    k = len(group) // mesh.size
+    cells = slice(mesh.coordinate("sweep") * k,
+                  (mesh.coordinate("sweep") + 1) * k)
+    params = (list(init_params)[cells]
+              if isinstance(init_params, (list, tuple)) else init_params)
+    mine = _run_sweep_here(
+        group[cells], params, device=device, force_dyn=force_dyn,
+        cadence=cadence, mesh=mesh,
+        draws=None if draws is None else [d[cells] for d in draws])
+    parts = collectives.all_gather_objects(mine, mesh, "sweep",
+                                           where="gather")
+    return [h for part in parts for h in part]
+
+
+def _run_sweep_here(group: Sequence[ResolvedScenario], init_params, *,
+                    device, force_dyn: Sequence[str],
+                    cadence: Optional[simulator.Cadence], draws,
+                    mesh=None) -> List[Dict[str, np.ndarray]]:
+    """``run_sweep`` on this rank: the group's cells as one program."""
     prog = build_sweep(group, init_params, device=device,
-                       force_dyn=force_dyn, cadence=cadence)
+                       force_dyn=force_dyn, cadence=cadence, mesh=mesh)
     s0 = group[0].spec
     dev = prog.state.cloud_flat.device
     state = prog.state
@@ -433,8 +491,9 @@ def run_scenarios(specs_or_resolved: Sequence, init_params, *,
     batched program; returns the histories in input order.
 
     A group of one runs through the (cached) one-cell program, so a lone
-    spec re-run builds nothing; a group of streamed or serve-mode
-    scenarios runs one cell at a time through ``run_scenario``.
+    spec re-run builds nothing; a group of sharded, rsu-sharded async,
+    streamed or serve-mode scenarios runs one cell at a time through
+    ``run_scenario``.
     ``init_params``: one shared parameter dict, one a scenario, or a
     callable ``spec -> params`` (e.g. the per-dataset pretrained model).
     ``max_sweep`` > 0 cuts
@@ -457,9 +516,11 @@ def run_scenarios(specs_or_resolved: Sequence, init_params, *,
     out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(resolved)
     for idx in group_indices(resolved):
         s0 = resolved[idx[0]].spec
-        if s0.fleet_store != "device" or s0.chunk_agents or s0.serve_events:
-            # the streamed rounds and the event-driven serve loop take no
-            # scenario axis: one cell at a time
+        if (s0.engine not in SWEEPABLE or s0.rsu_sharded
+                or s0.fleet_store != "device" or s0.chunk_agents
+                or s0.serve_events):
+            # the sharded, streamed and serve engines take no scenario
+            # axis: one cell at a time
             for i in idx:
                 out[i] = run_scenario(resolved[i], params_list[i],
                                       device=device)[1]

@@ -12,6 +12,7 @@ runs at import time: the CPU tests import every module of the package.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -81,12 +82,22 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the sources (in parallel) and link the shared library;
-    returns its path.  Reuses a library already built from these sources."""
+    returns its path.  Reuses a library already built from these sources.
+    Processes that build at once (the ranks of a sharded run) take turns
+    on a file lock, so one builds and the others reuse its library."""
     tag = _digest()
     so = BUILD_DIR / f"librepro_torch_kernels_{tag}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -115,7 +126,6 @@ def build() -> Path:
         os.replace(linked, so)
     _STATE.build_seconds = time.perf_counter() - t0
     _STATE.ptxas_log = "\n".join(logs)
-    return so
 
 
 def library() -> ctypes.CDLL:

@@ -17,9 +17,10 @@ matrices and the ``coef`` rows ``[retained | safe | guard]`` from
 ``core.aggregation``.  The matmul kernels serve the plain ``(R, A) @ (A,
 N)`` of ``weighted_agg_matmul`` (``masked_hier_agg`` and ``cloud_agg``,
 the ``fused=False`` path) and, with an fp32 output, the unnormalized
-``scatter_accumulate`` of the async tick and ``chunk_agg`` of the
-cohort-streamed rounds.  They take any A: past the shared memory of one
-weight chunk they stage W in agent tiles.  W stays fp32 and the kernels
+``scatter_accumulate`` of the async tick, ``chunk_agg`` of the
+cohort-streamed rounds and ``block_local_agg`` of the sharded rounds.
+They take any A: past the shared memory of one weight chunk they stage W
+in agent tiles.  W stays fp32 and the kernels
 accumulate in fp32 whatever the fleet dtype.
 
 The scenario axis: every entry also takes a multi-scenario sweep's S
@@ -58,7 +59,8 @@ _SHARED_BITS = {"weights": 64, "mask": 128, "rsu_assign": 256}
 
 launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
                             "agg_absorb": 0, "weighted_agg_matmul": 0,
-                            "scatter_accumulate": 0, "chunk_agg": 0}
+                            "scatter_accumulate": 0, "chunk_agg": 0,
+                            "block_local_agg": 0}
 
 
 def _require(t: torch.Tensor, name: str, shape: Tuple[int, ...],
@@ -293,7 +295,8 @@ def scatter_accumulate(stacked_flat: torch.Tensor, weights: torch.Tensor,
     the matmul kernel on the (R, A) one-hot weight matrix (with a leading
     scenario axis: (S, R, N) and (S, R)).  ``weights`` carry mask x data
     volume x staleness decay.  ``entry`` names the launch count (the
-    streamed rounds' ``ops.chunk_agg`` counts as ``chunk_agg``)."""
+    streamed rounds' ``ops.chunk_agg`` counts as ``chunk_agg``, the
+    sharded rounds' ``ops.block_local_agg`` as ``block_local_agg``)."""
     W = unnormalized_weight_matrix(weights, torch.ones_like(weights),
                                    rsu_assign, n_rsus)
     return _matmul(entry, W, stacked_flat, True), W.sum(dim=-1)

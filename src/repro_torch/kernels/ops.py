@@ -65,6 +65,22 @@ def masked_scatter_accumulate(stacked_flat, weights, rsu_assign,
     return scatter_accumulate(stacked_flat, weights, rsu_assign, n_rsus)
 
 
+def block_local_agg(stacked_flat, weights, local_assign, n_rsus_local: int):
+    """The sharded rounds' RSU layer on one rank's agents: (num (R_local,
+    N) fp32, mass (R_local,)) = sum_a w_a x_a grouped by SHARD-LOCAL RSU
+    id in ``[0, n_rsus_local)``, weights unnormalized (mask x data volume
+    x any staleness decay).  With agents co-located with their RSU's pod
+    this is one pod's diagonal block of the (R, A) weight matrix, so the
+    RSU layer needs no traffic across pods; the caller sums it over the
+    agent axes it shares its RSUs with and normalizes.  Zero-weight rows
+    add nothing, and an RSU with no weight gets mass 0."""
+    if stacked_flat.is_cuda:
+        return _mha.scatter_accumulate(stacked_flat, weights, local_assign,
+                                       n_rsus_local, entry="block_local_agg")
+    return scatter_accumulate(stacked_flat, weights, local_assign,
+                              n_rsus_local)
+
+
 def chunk_agg(chunk_flat, weights, rsu_assign, n_rsus: int, *, into=None):
     """The cohort-streamed rounds' aggregation over ONE agent chunk:
     (num (R, N) fp32, mass (R,)) = sum_a w_a x_a grouped by global RSU id,

@@ -2,7 +2,7 @@
 and ``make_serve_step``).  The steps run on ``device`` (``cuda`` when None;
 building one raises without a GPU), move their token inputs there and run
 without autograd.  The federated train step is not ported yet (ROADMAP
-queue 1 item 13)."""
+queue 1, the LLM training path)."""
 from __future__ import annotations
 
 from typing import Any, Dict

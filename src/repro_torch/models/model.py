@@ -24,7 +24,7 @@ def _check_text_only(cfg: ArchConfig) -> None:
     if cfg.encoder.kind != "none":
         raise NotImplementedError(
             f"the {cfg.encoder.kind} front end of {cfg.name} is not ported "
-            f"to PyTorch yet (ROADMAP queue 1 item 15, model zoo)")
+            f"to PyTorch yet (ROADMAP queue 1, the model zoo)")
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, *,

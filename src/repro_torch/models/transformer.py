@@ -33,7 +33,7 @@ _DECODE = {"mlstm": xlstm_mod.mlstm_decode, "slstm": xlstm_mod.slstm_decode}
 
 def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP "
-                              f"queue 1 item 15, model zoo)")
+                              f"queue 1, the model zoo)")
 
 
 def _check(cfg: ArchConfig, kind: str) -> None:

@@ -52,7 +52,7 @@ def test_ptxas_lines_name_their_kernel():
 # the functions that run each phase after the build, by name
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
-                 "stream_path", "serve_path", "serving_path",
+                 "stream_path", "serve_path", "sharded_path", "serving_path",
                  "xlstm_serving")
 
 
@@ -63,7 +63,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--async", ["async_path"]),
                                        ("--sweep", ["sweep_path"]),
                                        ("--stream", ["stream_path"]),
-                                       ("--serve", ["serve_path"])])
+                                       ("--serve", ["serve_path"]),
+                                       ("--sharded", ["sharded_path"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -92,8 +93,9 @@ def test_phase_selection():
     assert cs.selected_phases(["--async"]) == ("1", "3b")
     assert cs.selected_phases(["--stream"]) == ("1", "3t")
     assert cs.selected_phases(["--serve"]) == ("1", "3v")
+    assert cs.selected_phases(["--sharded"]) == ("1", "3h")
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
-    assert "3v" in cs.FULL_RUN
+    assert "3v" in cs.FULL_RUN and "3h" in cs.FULL_RUN
     with pytest.raises(SystemExit):
         cs.selected_phases(["--scan", "--attention"])
     with pytest.raises(SystemExit):
@@ -180,6 +182,13 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "main": serve_counts, "unfused": dict(
             serve_counts, cloud_blend=0, agg_absorb=0,
             weighted_agg_matmul=4, scatter_accumulate=9)})
+    shard_rows = [dict(agg_row("weighted_agg_matmul", "block_local_agg",
+                               library_ms=0.01), shape=shape, A=a, R=r)
+                  for shape, a, r in (("paper_pod", 50, 5),
+                                      ("nshard", 8, 128))]
+    monkeypatch.setattr(cs, "sharded_path", lambda dev: (shard_rows, dict(
+        counts, agg_blend=0, cloud_blend=0, block_local_agg=64,
+        dual_proximal_sgd=512)))
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -193,24 +202,31 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["name"] for k in kernels] == [
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
-        "weighted_agg_matmul", "flash_attention", "slstm_scan"]
+        "weighted_agg_matmul", "weighted_agg_matmul", "flash_attention",
+        "slstm_scan"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
-    # the flat path's, the async path's, the sweep's, the serve loop's and
-    # the streamed rounds' counted runs: #1 its agg_blend, cloud_blend and
-    # agg_absorb launches, #2 its matmul, scatter-accumulate and chunk_agg
-    # launches; then the scenario-axis rows, with the sweep's launches, and
-    # #2 at the streamed chunk shape, with the streamed rounds' launches
+    # the flat path's, the async path's, the sweep's, the serve loop's,
+    # the streamed rounds' and the sharded rounds' counted runs: #1 its
+    # agg_blend, cloud_blend and agg_absorb launches, #2 its matmul,
+    # scatter-accumulate, chunk_agg and block_local_agg launches; then the
+    # scenario-axis rows, with the sweep's launches, #2 at the streamed
+    # chunk shape, with the streamed rounds' launches, and #2 at the
+    # sharded pod shape, with the sharded rounds' launches
     assert [k["launches"] for k in kernels] == [
-        50 + 150 + 30 + 9 + 4, 5 + 18 + 6 + 13 + 72,
-        120 + 360 + 1350 + 36 + 144, 30, 6, 1350, 72, 28, 3]
+        50 + 150 + 30 + 9 + 4, 5 + 18 + 6 + 13 + 72 + 64,
+        120 + 360 + 1350 + 36 + 144 + 512, 30, 6, 1350, 72, 64, 28, 3]
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,
-                                              "stream": 4}
+                                              "stream": 4, "sharded": 0}
     assert kernels[1]["launches_by_path"] == {"flat": 5, "async": 18,
                                               "sweep": 6, "serve": 13,
-                                              "stream": 72}
+                                              "stream": 72, "sharded": 64}
     assert kernels[2]["launches_by_path"]["serve"] == 36
+    assert kernels[2]["launches_by_path"]["sharded"] == 512
+    assert kernels[7]["entry"] == "block_local_agg"
+    assert kernels[7]["shape"] == {"A": 50, "R": 5, "N": 31_810}
+    assert kernels[7]["launches_by_path"] == {"sharded": 64}
     assert kernels[6]["entry"] == "chunk_agg"
     assert kernels[6]["shape"] == {"A": 16_384, "R": 16, "N": 31_810}
     assert kernels[6]["library_ms"] == 0.9

@@ -43,6 +43,16 @@ def cuda():
     return torch.device("cuda")
 
 
+def exact_mass(weights, assign, R):
+    """The exact per-RSU sums of ``weights`` in fp64 ((A,) or (S, A) with
+    ids (A,) or (S, A)): the yardstick for a kernel's fp32 masses, since
+    the plain versions' ``index_add_`` adds in an order that varies from
+    run to run."""
+    onehot = assign[..., None, :] == torch.arange(R, device=assign.device)[
+        :, None]
+    return (onehot.double() * weights.double()[..., None, :]).sum(dim=-1)
+
+
 # (A, R, N): the main and paper fleets, odd shapes, then the edges of the
 # agent split (at R = 4 and small N a block covers 128 columns in 16 agent
 # groups): N below one block, one block and one column either side, A = 1
@@ -257,6 +267,50 @@ def test_cuda_cloud_blend_builds_weights_on_device(cuda, dtype, R, N):
     torch.cuda.synchronize()
 
 
+# the sharded rounds' shapes: the paper fleet's pod of 50 agents over 5
+# local RSUs (rsu_sharded, pods 2), its data shard of 25, the replicated
+# round's 50 agents over all 10 RSUs, the main fleet's pod, and the
+# N-sharded perception cell's 8 agents over 128 RSUs at a ragged N
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,R,N", [(50, 5, 31_810), (25, 5, 31_810),
+                                   (50, 10, 31_810), (10, 2, 31_810),
+                                   (8, 128, 100_001)])
+def test_cuda_block_local_agg_matches_plain(cuda, dtype, A, R, N):
+    """``ops.block_local_agg`` with shard-local RSU ids: one launch of the
+    matmul kernel counted under its own entry, num in fp32 against the fp64
+    sum (within 1e-6 of the sum of |terms|) as the plain version is, mass
+    against the exact (fp64) sum within 1e-6 relative.  A weightless block
+    (every agent of RSU 0 at weight 0, as an empty or disconnected cohort)
+    gives num 0 and mass 0 there; an all-zero tick gives zeros."""
+    from repro_torch.core.aggregation import scatter_accumulate
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(A + R)
+    x = torch.randn(A, N, device=cuda, generator=g).to(dtype)
+    w = torch.rand(A, device=cuda, generator=g) + 0.5
+    assign = torch.randint(0, R, (A,), device=cuda, generator=g)
+    w[assign == 0] = 0.0
+    w[::7] = 0.0
+    for weights in (w, torch.zeros_like(w)):
+        before = tmha.launches["block_local_agg"]
+        num, mass = ops.block_local_agg(x, weights, assign, R)
+        assert tmha.launches["block_local_agg"] == before + 1
+        assert num.dtype == torch.float32 and num.shape == (R, N)
+        onehot = (assign[None, :] == torch.arange(R, device=cuda)[:, None])
+        W = (onehot * weights[None, :]).double()
+        exact = W @ x.double()
+        lim = 1e-6 * (W.abs() @ x.double().abs())
+        want_num, _ = scatter_accumulate(x, weights, assign, R)
+        for got in (num, want_num):
+            assert bool(((got.double() - exact).abs() <= lim).all())
+        torch.testing.assert_close(mass.double(),
+                                   exact_mass(weights, assign, R),
+                                   rtol=1e-6, atol=0)
+        assert not num[0].any() and mass[0] == 0
+    assert not num.any() and not mass.any()
+    torch.cuda.synchronize()
+
+
 # the async tick's shapes (main and paper fleets), one RSU, R past 16 and
 # an odd N
 @pytest.mark.gpu
@@ -267,7 +321,7 @@ def test_cuda_scatter_accumulate_matches_plain(cuda, dtype, A, R, N):
     """The async tick's unnormalized sums on the matmul kernel: num in fp32
     whatever the fleet dtype, held against the fp64 sum (within 1e-6 of
     the sum of |terms|, a few fp32 ulps whatever the order) as the plain
-    version is; mass equal to the plain version's within 1e-6 relative;
+    version is; mass equal to the exact (fp64) sum within 1e-6 relative;
     one launch a call, counted under its own entry."""
     from repro_torch.core.aggregation import scatter_accumulate
     from repro_torch.kernels import ops
@@ -284,7 +338,8 @@ def test_cuda_scatter_accumulate_matches_plain(cuda, dtype, A, R, N):
     want_num, want_mass = scatter_accumulate(x, w, assign, R)
     for got in (num, want_num):
         assert bool(((got.double() - exact).abs() <= lim).all())
-    torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0)
+    torch.testing.assert_close(mass.double(), exact_mass(w, assign, R),
+                               rtol=1e-6, atol=0)
     if R > 1:                            # RSU 0's cohort carries no weight
         assert not num[0].any() and mass[0] == 0
     torch.cuda.synchronize()
@@ -324,12 +379,15 @@ def test_cuda_agg_absorb_two_cohorts_vector_keep(cuda, dtype, A, R, N):
     got, total, new = tmha.agg_absorb(arrivals, assign, R, prev, bm,
                                       keep=keep)
     assert tmha.launches["agg_absorb"] == before + 1
-    want, want_total, want_new = ref.agg_absorb_ref(arrivals, assign, R,
+    want, _, _ = ref.agg_absorb_ref(arrivals, assign, R,
                                                     prev, bm, keep=keep)
     tol = F32 if dtype == torch.float32 else BF16
     torch.testing.assert_close(got.float(), want.float(), **tol)
-    torch.testing.assert_close(total, want_total, rtol=1e-6, atol=0)
-    torch.testing.assert_close(new, want_new, rtol=1e-6, atol=0)
+    exact = exact_mass(w_imm, assign, R) + exact_mass(w_due, assign, R)
+    torch.testing.assert_close(new.double(), exact, rtol=1e-6, atol=0)
+    torch.testing.assert_close(total.double(),
+                               keep.double() * bm.double() + exact,
+                               rtol=1e-6, atol=0)
     assert torch.equal(got[0], prev[0]) and torch.isfinite(got.float()).all()
     if A == 2334:                        # one agent more does not fit
         one = torch.zeros(A + 1, device=cuda)
@@ -623,9 +681,11 @@ def test_cuda_sweep_agg_blend_and_cloud_blend(cuda, dtype, S, A, R, N):
         got, mass = tmha.agg_blend(x, ww, mask, aa, R, prev)
         assert _count("agg_blend") == before + 1
         assert got.shape == (S, R, N) and mass.shape == (S, R)
-        want, want_mass = ref.agg_blend_ref(x, ww, mask, aa, R, prev)
+        want, _ = ref.agg_blend_ref(x, ww, mask, aa, R, prev)
         torch.testing.assert_close(got.float(), want.float(), **tol)
-        torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0)
+        torch.testing.assert_close(mass.double(),
+                                   exact_mass(ww * mask, aa, R),
+                                   rtol=1e-6, atol=0)
         for s in range(S):
             one, one_mass = tmha.agg_blend(
                 x[s], ww if ww.dim() == 1 else ww[s], mask[s],
@@ -666,8 +726,10 @@ def test_cuda_sweep_agg_absorb_and_matmul(cuda, dtype, S, A, R, N):
         assert _count("agg_absorb") == before + 1
         want = ref.agg_absorb_ref(arrivals, assign, R, prev, bm, keep=keep)
         torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
-        for g_, w_ in zip(got[1:], want[1:]):
-            torch.testing.assert_close(g_, w_, rtol=1e-6, atol=1e-6)
+        exact = sum(exact_mass(ww, assign, R) for _, ww in arrivals)
+        kept = torch.as_tensor(keep, device=cuda).double() * bm.double()
+        for g_, w_ in zip(got[1:], (kept + exact, exact)):
+            torch.testing.assert_close(g_.double(), w_, rtol=1e-6, atol=1e-6)
         one = tmha.agg_absorb([(a[1], b[1]) for a, b in arrivals], assign[1],
                               R, prev[1], bm[1], keep=keep)
         assert torch.equal(got[0][1], one[0])
@@ -688,9 +750,10 @@ def test_cuda_sweep_agg_absorb_and_matmul(cuda, dtype, S, A, R, N):
     assert _count("scatter_accumulate") == before + 1
     assert num.dtype == torch.float32 and num.shape == (S, R, N)
     from repro_torch.core.aggregation import scatter_accumulate
-    want_num, want_mass = scatter_accumulate(x, w * mask, assign, R)
+    want_num, _ = scatter_accumulate(x, w * mask, assign, R)
     torch.testing.assert_close(num, want_num, **F32)
-    torch.testing.assert_close(mass, want_mass, rtol=1e-6, atol=0)
+    torch.testing.assert_close(mass.double(), exact_mass(w * mask, assign, R),
+                               rtol=1e-6, atol=0)
     rmass = torch.rand(S, R, device=cuda)
     torch.testing.assert_close(tmha.cloud_agg(prev, rmass).float(),
                                ref.cloud_agg_ref(prev, rmass).float(), **tol)

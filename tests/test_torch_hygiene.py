@@ -13,6 +13,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core.faults import FaultPlan
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -73,14 +75,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("fields,error", [
-    (dict(engine="sharded"), NotImplementedError),
+    (dict(engine="sharded", faults=FaultPlan()), ValueError),
     (dict(engine="tree"), NotImplementedError),
     (dict(fleet_store="host", engine="tree"), ValueError),
     (dict(chunk_agents=4, engine="sharded"), ValueError),
     (dict(chunk_params=128), ValueError),
     (dict(serve_events=10), ValueError),
-    (dict(rsu_sharded=True), NotImplementedError),
-    (dict(model_shards=2), NotImplementedError),
+    (dict(engine="async", rsu_sharded=True, faults=FaultPlan()), ValueError),
+    (dict(model_shards=2), ValueError),
     (dict(faults=object()), TypeError),
     (dict(serve_events=10, engine="async", fleet_store="host"), ValueError),
     (dict(serve_events=10, engine="async", tick_trigger="nope"),
@@ -90,16 +92,46 @@ def test_entry_points_default_to_cuda(monkeypatch):
          "model_shards-2", "faults-value8", "serve_events-host_store",
          "serve_events-bad_trigger"])
 def test_unported_features_refuse(fields, error):
-    """What is not ported raises by name; a ``faults`` value that is not a
-    ``FaultPlan`` is refused.  The streaming and serving fields are ported:
-    a host store or chunking on an engine that does not stream, a two-axis
-    tile without the host store, and serving on the flat engine, on a
-    host store or with a bad tick trigger are refused as the reference
-    refuses them."""
+    """What is not ported (the tree engine) raises by name; a ``faults``
+    value that is not a ``FaultPlan`` is refused.  The streaming, serving
+    and sharded fields are ported: a host store or chunking on an engine
+    that does not stream, a two-axis tile without the host store, serving
+    on the flat engine, on a host store or with a bad tick trigger, a
+    fault plan on the sharded engine or the rsu-sharded tick, and
+    ``model_shards > 1`` off the sharded engine are refused as the
+    reference refuses them."""
     from repro_torch.core.scenario import ScenarioSpec
     with pytest.raises(error):
         ScenarioSpec(**fields).validate()
 
+
+
+def test_sharded_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.core.topology, "
+            "repro_torch.fedsim.sharded, repro_torch.launch.mesh, "
+            "repro_torch.launch.collectives; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
+
+
+def test_sharded_entry_points_default_to_cuda(monkeypatch):
+    """The sharded round and the rsu-sharded tick take cuda unless asked
+    for the CPU, and raise when it is absent."""
+    from repro_torch.core.scenario import ScenarioSpec
+    from repro_torch.fedsim import run_scenario
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ScenarioSpec(n_agents=4, n_rsus=2, n_train=300, n_test=60,
+                        rounds=1, engine="sharded")
+    for s in (spec, spec.replace(rsu_sharded=True),
+              spec.replace(model_shards=2),
+              spec.replace(engine="async", rsu_sharded=True)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_scenario(s)
 
 
 def test_serve_import_leaves_jax_unloaded():
@@ -141,7 +173,7 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
                                   "deepseek-v2-lite-16b", "nemotron-4-340b"])
 def test_unported_archs_refuse(arch):
     from repro_torch.configs.registry import get_config, get_reduced_config
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="model zoo"):
         get_config(arch)
     with pytest.raises(NotImplementedError):
         get_reduced_config(arch)

@@ -85,3 +85,14 @@ def test_trace_counters_and_reset():
     assert pc.stats() == {"hits": 0, "misses": 0, "entries": 1}
     pc.clear()
     assert pc.stats()["entries"] == 0
+
+
+def test_mesh_fingerprints_tell_meshes_apart():
+    """A sweep's mesh over the ranks enters the key by its axes, sizes and
+    backend; one rank's meshes of other axes differ, equal ones agree."""
+    from repro_torch.launch.mesh import FleetMesh
+    sweep = pc.mesh_fingerprint(FleetMesh((1,), ("sweep",)))
+    assert sweep == ((("sweep", 1),), None)
+    assert sweep == pc.mesh_fingerprint(FleetMesh((1,), ("sweep",)))
+    assert sweep != pc.mesh_fingerprint(FleetMesh((1,), ("data",)))
+    assert pc.mesh_fingerprint(None) is None
