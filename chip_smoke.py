@@ -186,13 +186,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    on the card against the host's plain versions (fp32: logits within 1e-3
    and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
    over one prefill call and 8 decode steps.
-5. The kernels' JSON line (each kernel's launches are those of the
+5. The LLM training path (``launch/steps``, ``launch/h2fed_round``,
+   ``launch/train``).  (a) The backward kernel of flash_attention
+   (``csrc/flash_attention_bwd.cu``) against autograd of the plain version
+   at the qwen3-0.6b layer (B=1, S=4096, H=16, KV=8, D=128, causal), with a
+   1024 window, and at D=64: dQ, dK and dV within 2^-7 (max|want| +
+   |want|); bound: the 5 products of the live pairs at 989 TFLOP/s or the
+   bytes at 3.35 TB/s; ``library_ms`` SDPA's forward + backward less its
+   forward (timed only).  (b) #3's bf16 mode against its plain version at
+   the embedding leaf (151,936 x 1024) and a stacked MLP leaf (28 x 1024 x
+   3072).  (c) ``make_train_step`` at full width in bf16, 3 steps at A=2
+   agents x b=1 x S=4096: loss, ms a step, tokens/s, peak memory,
+   exactly 56 forward (each layer recomputed in the backward) and 28
+   backward attention launches a step, and one step under
+   ``torch.profiler`` (device busy share, top kernels).  (d) The launcher with
+   ``--full-config``, 2 rounds of LAR 2, E 1, S=1024, b=2 an agent, at
+   ``--mesh 1,1,1`` (1 rank, nccl) and ``1,2,1`` (2 ranks sharing the
+   card, gloo): eval loss each round (finite and falling), ms a round,
+   each round's launches and collectives (calls and bytes by axis, beside
+   ``comm_model``'s bytes) and each rank's peak memory.  (e) One round on
+   the card against the host at the reduced qwen3 (D=64), the same params:
+   per-leaf, ``flat_agg``, ``async_rounds=2`` with ``buffer_keep=0.5``
+   (1 rank) and ``quantize_cloud`` at ``--mesh 2,2,1`` (4 gloo ranks); the
+   new cloud within 5e-3 absolute and relative, the masses equal.
+6. The kernels' JSON line (each kernel's launches are those of the
    counted runs of the flat path, the async path, the sweep, the serve
    loop, the streamed rounds and the sharded rounds, also given by path;
    beside them the scenario-axis entries at the sweep shape with the
    sweep's launches, #2 at the streamed chunk shape with the streamed
-   rounds' launches, and #2 at the sharded pod shape with the sharded
-   rounds' launches), the card's line, and the result line.
+   rounds' launches, #2 at the sharded pod shape with the sharded
+   rounds' launches, and the training path's: #4 forward and backward at
+   the layer shape and #3's bf16 mode, with phase 5's steps' and rounds'
+   launches), the card's line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
@@ -202,7 +227,8 @@ phase 2 only (the aggregation and update kernels'), and ``--round`` phase
 device busy share a round, from the MLP's initial weights), and
 ``--async`` phase 1 and phase 3b, ``--sweep`` phase 1 and phase 3s,
 ``--stream`` phase 1 and phase 3t, ``--serve`` phase 1 and phase 3v, and
-``--sharded`` phase 1 and phase 3h; none of them prints a result line.
+``--sharded`` phase 1 and phase 3h, and ``--train`` phase 1 and phase 5;
+none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -234,11 +260,16 @@ SOURCES = {"fused_agg_blend": "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
                "src/repro_torch/kernels/csrc/dual_proximal_sgd.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu"}
 REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             "weighted_agg_matmul": "src/repro/kernels/masked_hier_agg.py:86",
             "dual_proximal_sgd": "src/repro/kernels/dual_proximal_sgd.py:44",
             "flash_attention": "src/repro/kernels/flash_attention.py:93",
+            # no TPU kernel: the reference differentiates its jnp
+            # chunked_attention (the training forward) with jax.grad
+            "flash_attention_bwd": "src/repro/models/attention.py:70",
             "slstm_scan": "src/repro/kernels/slstm_scan.py:90"}
 # (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's; the
 # two ragged D = 128 cases end one row past a 128-row tile and mid-tile
@@ -260,11 +291,12 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
 FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "3h", "4",
-            "4b", "5")
+            "4b", "5", "6")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
          "--sweep": ("1", "3s"), "--stream": ("1", "3t"),
-         "--serve": ("1", "3v"), "--sharded": ("1", "3h")}
+         "--serve": ("1", "3v"), "--sharded": ("1", "3h"),
+         "--train": ("1", "5")}
 
 
 def selected_phases(argv) -> tuple:
@@ -3334,6 +3366,320 @@ def xlstm_serving(dev):
     return prefill_counts["slstm_scan"]
 
 
+# -- phase 5: the LLM training path ------------------------------------------
+#
+# (name, B, S, H, KV, D, causal, window): the qwen3-0.6b layer, with a 1024
+# window, and the reduced qwen3's heads (D = 64) at the launcher's S
+BWD_CASES = (("layer", 1, 4096, 16, 8, 128, True, 0),
+             ("layer_w1024", 1, 4096, 16, 8, 128, True, 1024),
+             ("reduced_d64", 2, 1024, 4, 2, 64, True, 0))
+# |got - want| <= BWD_TOL * (max|want| + |want|): the backward rounds P and
+# dS to bf16 as product operands (2^-9 each) and its outputs to bf16
+BWD_TOL = 2.0 ** -7
+# (c): A agents x b sequences of S tokens (the train_4k length), 3 steps
+STEP_A, STEP_B, STEP_S, STEP_N = 2, 1, 4096, 3
+# (d): the launcher at full width, 2 rounds of LAR 2, E 1
+LAUNCH_ARGS = ("--full-config", "--rounds", "2", "--lar", "2", "--epochs",
+               "1", "--seq", "1024", "--batch", "2")
+LAUNCH_MESHES = ("1,1,1", "1,2,1")
+# (e): card against host at the reduced qwen3 (D = 64); the reference's own
+# bf16 round tolerance (tests/test_launch.py)
+ROUND_TOL = dict(atol=5e-3, rtol=5e-3)
+ROUND_CASES = (("per_leaf", 1, {}), ("flat", 1, dict(flat_agg=True)),
+               ("async", 1, dict(flat_agg=True, async_rounds=2,
+                                 buffer_keep=0.5)),
+               ("quantized", 4, dict(quantize_cloud=True)))
+
+
+def attention_bwd_bound(B, S, H, KV, D, causal, window):
+    """(bound ms, bound_by) of the backward: q, k, v, O and dO read once,
+    dQ, dK, dV written once (bf16); the 5 products of the live pairs (S,
+    dP, dV, dQ, dK: 2*D flops each per pair and head) at 989 TFLOP/s."""
+    nbytes = 2 * (5 * B * S * H * D + 4 * B * S * KV * D)
+    flops = 5 * 2 * D * B * H * live_pairs(S, causal, window)
+    return bound(nbytes, flops, BF16_FLOPS_PER_S)
+
+
+def sdpa_backward_ms(q, k, v, do, causal, window) -> float:
+    """SDPA's forward + backward less its forward (timed only): k/v
+    repeated to H heads first, as ``sdpa_call``."""
+    qt, kt, vt = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fwd = sdpa_call(qt, kt, vt, causal, window)
+    dot = do.transpose(1, 2)
+
+    def both():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot, retain_graph=True)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(fwd)
+    return cuda_ms(both) - fwd_ms
+
+
+def attention_bwd_cases(dev):
+    """Phase 5a: the backward kernel against autograd of the plain version
+    (comparisons: its launches are not the training path's)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = []
+    for name, B, S, H, KV, D, causal, window in BWD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(S + D)
+        q, k, v, do = (torch.randn(B, S, n, D, device=dev, generator=gen)
+                       .bfloat16() for n in (H, KV, KV, H))
+        kw = dict(causal=causal, window=window)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_ref = ref.flash_attention_ref(*leaves, **kw)
+        want = torch.autograd.grad(out_ref, leaves, do, retain_graph=True)
+        out = fa.flash_attention(q, k, v, **kw)
+        got = fa.flash_attention_bwd(q, k, v, out, do, **kw)
+        errs = {}
+        for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = w.float().abs().max().item()
+            errs[g_name] = compare(g, w, torch.bfloat16,
+                                   f"flash_attention_bwd {name} {g_name}",
+                                   tol=(BWD_TOL * scale, BWD_TOL))
+        del got, want
+        b_ms, b_by = attention_bwd_bound(B, S, H, KV, D, causal, window)
+        rows.append({
+            "kernel": "flash_attention_bwd", "entry": name,
+            "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
+                      "causal": causal, "window": window},
+            "dtype": "bfloat16", "max_abs_err": max(errs.values()),
+            "max_abs_err_by_grad": errs, "tol": f"{BWD_TOL} * (max|want| "
+            f"+ |want|)",
+            "ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do,
+                                                         **kw)),
+            "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                out_ref, leaves, do, retain_graph=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": sdpa_backward_ms(q, k, v, do, causal, window)})
+        print("kernel " + json.dumps(rows[-1]))
+        del q, k, v, do, leaves, out_ref, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dps_bf16_cases(dev):
+    """Phase 5b: #3's bf16 mode (bf16 w, g, anchors and out) against its
+    plain version at the embedding leaf and a stacked MLP leaf of
+    qwen3-0.6b, raveled to one row as the round's local epoch launches
+    it."""
+    from repro_torch.kernels import dual_proximal_sgd as dps
+    from repro_torch.kernels import ref
+
+    rows = []
+    kw = dict(lr=0.1, mu1=0.001, mu2=0.005)
+    for name, n in (("embed", 151_936 * 1024), ("mlp_stacked",
+                                                28 * 1024 * 3072)):
+        gen = torch.Generator(device=dev).manual_seed(n % 1000)
+        w, g, a1, a2 = (torch.randn(n, device=dev, generator=gen).bfloat16()
+                        for _ in range(4))
+        got = dps.dual_proximal_sgd(w, g, a1, a2, **kw)
+        want = ref.dual_proximal_sgd_ref(w, g, a1, a2, **kw)
+        if got.dtype != torch.bfloat16:
+            raise AssertionError("dual_proximal_sgd bf16: out is not bf16")
+        err = compare(got, want, torch.bfloat16, f"dual_proximal_sgd {name}")
+        del got, want
+        b_ms, b_by = bound(5 * 2 * n, 9 * n)
+        rows.append({
+            "kernel": "dual_proximal_sgd", "entry": f"bf16_{name}",
+            "shape": {"N": n}, "dtype": "bfloat16", "max_abs_err": err,
+            "ms": cuda_ms(lambda: dps.dual_proximal_sgd(w, g, a1, a2, **kw)),
+            "plain_ms": cuda_ms(lambda: ref.dual_proximal_sgd_ref(
+                w, g, a1, a2, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        print("kernel " + json.dumps(rows[-1]))
+        del w, g, a1, a2
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_batch(A: int, b: int, S: int) -> dict:
+    """A Non-IID Markov stream an agent (the launcher's), cut into b
+    sequences of S tokens and their next tokens."""
+    from repro_torch.data.synthetic import lm_token_task
+    toks = np.zeros((A, b, S), np.int32)
+    labs = np.zeros_like(toks)
+    for a in range(A):
+        s = lm_token_task(vocab=512, n_tokens=b * (S + 1),
+                          seed=100 + a).reshape(b, S + 1)
+        toks[a], labs[a] = s[:, :-1], s[:, 1:]
+    return {"tokens": toks, "labels": labs}
+
+
+def train_step_run(dev) -> dict:
+    """Phase 5c: ``make_train_step`` at full width, counted and timed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    cfg = get_config("qwen3-0.6b")
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = steps.make_train_step(cfg, H2FedParams(mu1=0.001, mu2=0.005,
+                                                  lr=0.05), device=dev)
+    batch = _train_batch(STEP_A, STEP_B, STEP_S)
+    mask = np.ones((STEP_A,), np.float32)
+    losses, ms, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(STEP_N):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, mask)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(ops.launch_counts())
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train step: non-finite loss {losses}")
+    per_step = {k: launches[-1][k] for k in ("flash_attention",
+                                             "flash_attention_bwd")}
+    if per_step != {"flash_attention": 2 * cfg.n_layers,
+                    "flash_attention_bwd": cfg.n_layers}:
+        raise AssertionError(f"train step: attention launches {per_step}, "
+                             f"want 2 forward (the layer recomputed in the "
+                             f"backward) and 1 backward a layer")
+    tokens = STEP_A * STEP_B * STEP_S
+    out = {"A": STEP_A, "b": STEP_B, "S": STEP_S, "loss": losses,
+           "step_ms": ms, "tokens_per_s": tokens / (statistics.median(
+               ms[1:]) / 1e3), "peak_bytes":
+           torch.cuda.max_memory_allocated(dev),
+           "launches_per_step": per_step, "launches": launches}
+    print("train step " + json.dumps(out))
+    print_profile("train step (A=2, b=1, S=4096)", 1,
+                  *device_profile(lambda: step(state, batch, mask), 1))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_runs(dev) -> dict:
+    """Phase 5d: ``python -m repro_torch.launch.train --full-config`` at 1
+    rank (nccl) and 2 ranks sharing the card (gloo), in process through
+    its ``main``; each round's launches and collectives were counted by
+    the ranks themselves (set to 0 just before the round)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.launch import train
+    from repro_torch.launch.h2fed_round import comm_model
+
+    out = {}
+    for mesh in LAUNCH_MESHES:
+        t0 = time.perf_counter()
+        res = train.main([*LAUNCH_ARGS, "--mesh", mesh])
+        shape = tuple(int(x) for x in mesh.split(","))
+        fake = type("M", (), {"shape": dict(zip(("pod", "data", "model"),
+                                                shape))})()
+        cm = comm_model(get_config("qwen3-0.6b"), H2FedParams(lar=2), fake)
+        losses = [res["init_loss"], *res["loss"]]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"launcher {mesh}: eval loss {losses} is "
+                                 f"not finite and falling")
+        rec = {"mesh": mesh, "seconds": time.perf_counter() - t0,
+               "eval_loss": losses, "mass": res["mass"],
+               "round_ms": res["round_ms"], "launches": res["launches"],
+               "collectives": res["collectives"],
+               "comm_model_bytes": {"data": cm["ici_bytes_per_dev"],
+                                    "pod": cm["dci_bytes_per_dev"]},
+               "peak_bytes_by_rank": res["peak_bytes_by_rank"]}
+        print("launcher " + json.dumps(rec))
+        out[mesh] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_round_rank(device: str, params_cpu: dict) -> dict:
+    """Runs on every rank of phase 5e's 4-rank case (module level, spawned
+    by ``run_ranks``): the quantized round on the card and on the host."""
+    from repro_torch.launch.mesh import FleetMesh
+    mesh = FleetMesh((2, 2, 1), ("pod", "data", "model"))
+    return {d: _one_round(d, params_cpu, mesh, dict(quantize_cloud=True))
+            for d in (device, "cpu")}
+
+
+def _round_inputs(A: int):
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, 512, (2, A, 2, 128)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    mask = rng.integers(0, 2, (2, A)).astype(np.float32)
+    mask[:, 0] = 1.0
+    delays = rng.integers(0, 3, (2, A)).astype(np.int32)
+    delays[0, 0] = 1
+    return batch, mask, rng.uniform(1, 3, (A,)).astype(np.float32), delays
+
+
+def _one_round(device, params_cpu, mesh, kw) -> dict:
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.launch.h2fed_round import make_h2fed_round
+    dev = torch.device(device)
+    params = tree.map_tree(lambda t: t.to(dev), params_cpu)
+    A = 1 if mesh is None else 4
+    batch, mask, n_data, delays = _round_inputs(A)
+    fn = make_h2fed_round(get_reduced_config("qwen3-0.6b"),
+                          H2FedParams(mu1=0.05, mu2=0.01, lar=2,
+                                      local_epochs=1, lr=0.1),
+                          mesh, device=dev, **kw)
+    cloud, m = fn(params, batch, mask, n_data,
+                  *((delays,) if kw.get("async_rounds") else ()))
+    return {"cloud": tree.map_tree(lambda t: t.cpu(), cloud),
+            "mass": float(m["surviving_mass"])}
+
+
+def round_card_vs_host(dev) -> dict:
+    """Phase 5e: one round of each case on the card and on the host, the
+    same params (reduced qwen3, bf16, D = 64): the new cloud within the
+    reference's bf16 round tolerance, the surviving masses equal."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import model as M
+
+    params = M.init_params(get_reduced_config("qwen3-0.6b"),
+                           torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for name, ranks, kw in ROUND_CASES:
+        if ranks == 1:
+            card, host = (_one_round(d, params, None, kw)
+                          for d in (str(dev), "cpu"))
+        else:
+            both = run_ranks(ranks, train_round_rank, str(dev), params,
+                             backend="gloo", device="cuda")
+            card, host = both[str(dev)], both["cpu"]
+        err = 0.0
+        for a, b in zip(tree.leaves(card["cloud"]),
+                        tree.leaves(host["cloud"])):
+            err = max(err, compare(a, b, torch.bfloat16,
+                                   f"round {name} card vs host",
+                                   tol=(ROUND_TOL["atol"],
+                                        ROUND_TOL["rtol"])))
+        if card["mass"] != host["mass"]:
+            raise AssertionError(f"round {name}: surviving mass "
+                                 f"{card['mass']} on the card, "
+                                 f"{host['mass']} on the host")
+        out[name] = {"ranks": ranks, "max_abs_err": err,
+                     "mass": card["mass"]}
+        print("round card-vs-host " + json.dumps({"case": name, **out[name]}))
+    return out
+
+
+def train_path(dev):
+    """Phase 5; returns (kernel rows, the training runs' launch counts:
+    the train step's 3 steps and both launcher runs' rounds)."""
+    rows = attention_bwd_cases(dev) + dps_bf16_cases(dev)
+    step = train_step_run(dev)
+    launch = launcher_runs(dev)
+    round_card_vs_host(dev)
+    counts: dict = {}
+    for c in step["launches"] + [c for r in launch.values()
+                                 for c in r["launches"]]:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return rows, counts
+
+
 def ptxas_by_kernel(log: str) -> list:
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its name
     (demangled where ``c++filt`` is present), then its stack and spill line
@@ -3409,6 +3755,8 @@ def main(argv=None) -> int:
             serve_path(dev)
         if "3h" in phases:
             sharded_path(dev)
+        if "5" in phases:
+            train_path(dev)
         return 0
 
     paths = main_path(dev)
@@ -3419,6 +3767,7 @@ def main(argv=None) -> int:
     shard_rows, shard_counts = sharded_path(dev)
     flash_launches = serving_path(dev)
     scan_launches = xlstm_serving(dev)
+    train_rows, train_counts = train_path(dev)
 
     def pick(kernel, entry):
         return next(r for r in rows if r["kernel"] == kernel and
@@ -3544,6 +3893,42 @@ def main(argv=None) -> int:
         "bound_by": r["bound_by"], "library_ms": None, "entry": "layer",
         "shape": r["shape"], "r_dtype": r["r_dtype"],
         "latency_floor_ms": r["latency_floor_ms"]})
+    # the training path (phase 5): #4's forward at the qwen3-0.6b layer and
+    # its backward kernel there, #3's bf16 mode at the embedding leaf, each
+    # with the launches of the train step's steps and the launcher's rounds
+    r = next(x for x in attn_rows
+             if x["entry"] == "layer" and x["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": train_counts["flash_attention"],
+        "max_abs_err": max(x["max_abs_err"] for x in attn_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "dtype")},
+        "entry": "train"})
+    r = next(x for x in train_rows if x["kernel"] == "flash_attention_bwd"
+             and x["entry"] == "layer")
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": SOURCES["flash_attention_bwd"],
+        "replaces": REPLACES["flash_attention_bwd"],
+        "launches": train_counts["flash_attention_bwd"],
+        "max_abs_err": max(x["max_abs_err"] for x in train_rows
+                           if x["kernel"] == "flash_attention_bwd"),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "dtype", "tol")},
+        "entry": "train"})
+    r = next(x for x in train_rows if x["entry"] == "bf16_embed")
+    kernels.append({
+        "name": "dual_proximal_sgd", "route": "cuda",
+        "source": SOURCES["dual_proximal_sgd"],
+        "replaces": REPLACES["dual_proximal_sgd"],
+        "launches": train_counts["dual_proximal_sgd"],
+        "max_abs_err": max(x["max_abs_err"] for x in train_rows
+                           if x["kernel"] == "dual_proximal_sgd"),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "dtype", "entry")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

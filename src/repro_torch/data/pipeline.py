@@ -47,3 +47,15 @@ def agent_minibatch(x: torch.Tensor, y: torch.Tensor, step: int,
     n = y.shape[-1]
     idx = (step * batch + torch.arange(batch, device=x.device)) % n
     return x.index_select(-2, idx), y.index_select(-1, idx)
+
+
+def lm_sequences(tokens: np.ndarray, batch: int, seq: int,
+                 *, seed: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Endless (tokens, next tokens) int32 windows of (batch, seq) at
+    random starts from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    n = len(tokens) - seq - 1
+    while True:
+        starts = rng.integers(0, n, size=batch)
+        window = np.stack([tokens[s:s + seq + 1] for s in starts])
+        yield window[:, :-1].astype(np.int32), window[:, 1:].astype(np.int32)

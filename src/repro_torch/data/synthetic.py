@@ -67,3 +67,24 @@ def mnist_class_task(n_train: int = 22_000, n_test: int = 4_000,
     x_tr, y_tr = draw(n_train, rng)
     x_te, y_te = draw(n_test, np.random.default_rng(seed + 1))
     return Dataset(x_tr, y_tr), Dataset(x_te, y_te)
+
+
+def lm_token_task(vocab: int = 512, n_tokens: int = 1 << 16,
+                  seed: int = 0) -> np.ndarray:
+    """Order-2 Markov token stream (N,) int32 with learnable structure:
+    each of 4096 contexts prefers ~4 next tokens (the JAX package's stream,
+    draw for draw)."""
+    rng = np.random.default_rng(seed)
+    n_ctx = 4096
+    ctx_next = rng.integers(0, vocab, size=(n_ctx, 4)).astype(np.int32)
+    toks = np.empty(n_tokens, np.int32)
+    toks[0], toks[1] = rng.integers(0, vocab, 2)
+    mix = rng.random(n_tokens)
+    pick = rng.integers(0, 4, n_tokens)
+    for t in range(2, n_tokens):
+        ctx = (toks[t - 2] * 31 + toks[t - 1]) % n_ctx
+        if mix[t] < 0.9:
+            toks[t] = ctx_next[ctx, pick[t]]
+        else:
+            toks[t] = rng.integers(0, vocab)
+    return toks

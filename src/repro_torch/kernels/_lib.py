@@ -25,7 +25,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_agg_blend.cu", "dual_proximal_sgd.cu",
-           "flash_attention.cu", "slstm_scan.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "slstm_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,7 @@ _SIGNATURES = {
                                 _LL, _F, _F, _F, _P, _P, _P, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               *(_LL,) * 9, _I, _I, _I, _P),
+    "repro_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 7, _P),
     "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_slstm_scan_plan": (_I, _I, _I, _P, _P),
 }

@@ -11,9 +11,11 @@
 // kernel forms live = (step < active_steps[a]) itself, as the reference
 // does (no scale means 1).  a1 / a2 may each be a full (A, N) array, one
 // (N,) row broadcast over the A rows (the cloud master), or one row a group
-// of consecutive rows.  w, g and out are fp32; a1 and a2 are fp32 or bf16
-// (widened exactly, as .float() does); arithmetic is fp32.  A term whose mu
-// is 0 is dropped and its anchor not read, as in the TPU kernel.
+// of consecutive rows.  w, g and out are all fp32 or all bf16 (the LLM's
+// leaves: the TPU kernel writes its output in w's dtype); a1 and a2 are
+// fp32 or bf16 (widened exactly, as .float() does); arithmetic is fp32, and
+// a bf16 out is rounded to nearest even.  A term whose mu is 0 is dropped
+// and its anchor not read, as in the TPU kernel.
 //
 // The scenario axis.  A multi-scenario sweep stacks S fleets of A agents
 // as S*A rows; row a belongs to scenario a / A.  Its cloud anchor is then
@@ -22,8 +24,8 @@
 // kernel reads by the row's scenario.  One launch serves all S*A rows.
 //
 // Bound: bytes.  w, g and a1 are read once and out written once, 4*A*N*4
-// bytes for fp32, plus a2 (N*4 bytes when broadcast); about nine flops an
-// element are far below the fp32 ridge.
+// bytes for fp32 (half for bf16), plus a2 (N*4 bytes when broadcast);
+// about nine flops an element are far below the fp32 ridge.
 //
 // Design.  The first version put one row of 256 scalar columns on a block,
 // the grid x-fastest, so the card streamed one row at a time: the order
@@ -55,6 +57,7 @@
 namespace {
 
 using repro::F2;
+using repro::narrow;
 using repro::Vec;
 using repro::widen;
 
@@ -62,13 +65,13 @@ constexpr int kThreads = 256;
 constexpr int64_t kSuperCols = 262144;   // columns a super-tile (1 MB fp32)
 
 // flags of repro_dual_proximal_sgd
-constexpr int kA1Bf16 = 1, kA2Bf16 = 2;
+constexpr int kA1Bf16 = 1, kA2Bf16 = 2, kWBf16 = 4;
 constexpr int kScaleShift = 4;  // 0 none, 1 fp32 scale, 2 int32, 3 int64 steps
 
 struct Args {
-  float* out;
-  const float* w;
-  const float* g;
+  void* out;           // w's dtype, as g
+  const void* w;
+  const void* g;
   const void* a1;
   int a1_group;        // rows an anchor row serves: 1 full, A broadcast
   const void* a2;
@@ -103,9 +106,9 @@ __device__ __forceinline__ float row_scale(const Args& p, int a) {
   }
 }
 
-template <typename TA1, typename TA2, int V>
+template <typename TW, typename TA1, typename TA2, int V>
 __global__ void __launch_bounds__(kThreads) dual_proximal_sgd_kernel(Args p) {
-  using WV = typename Vec<float, V>::type;
+  using WV = typename Vec<TW, V>::type;
   using A1V = typename Vec<TA1, V>::type;
   using A2V = typename Vec<TA2, V>::type;
   // grid (tile in super-tile, row, super-tile), dispatched x-fastest
@@ -114,8 +117,8 @@ __global__ void __launch_bounds__(kThreads) dual_proximal_sgd_kernel(Args p) {
       ((int64_t)blockIdx.z * gridDim.x + blockIdx.x) * kThreads + threadIdx.x;
   if (j >= p.units) return;
   const int64_t o = (int64_t)row * p.units + j;
-  const F2 wv = widen(reinterpret_cast<const WV*>(p.w)[o]);
-  const F2 gv = widen(reinterpret_cast<const WV*>(p.g)[o]);
+  const F2 wv = widen(static_cast<const WV*>(p.w)[o]);
+  const F2 gv = widen(static_cast<const WV*>(p.g)[o]);
   // the row's scenario's hyper-parameters (uniform over the block)
   const int sc = anchor_row(row, p.hp_group, p.A);
   const float mu1 = p.mu1_s ? p.mu1_s[sc] : p.mu1;
@@ -138,15 +141,10 @@ __global__ void __launch_bounds__(kThreads) dual_proximal_sgd_kernel(Args p) {
     if (mu2 != 0.f) step += mu2 * (wv.v[c] - v2.v[c]);
     r[c] = wv.v[c] - lr * step;
   }
-  WV* out = reinterpret_cast<WV*>(p.out);
-  if constexpr (V == 2) {
-    out[o] = make_float2(r[0], r[1]);
-  } else {
-    out[o] = r[0];
-  }
+  narrow(static_cast<WV*>(p.out) + o, r);
 }
 
-template <typename TA1, typename TA2>
+template <typename TW, typename TA1, typename TA2>
 cudaError_t launch(Args p, bool vec2, cudaStream_t stream) {
   const int V = vec2 ? 2 : 1;
   p.units /= V;
@@ -157,10 +155,10 @@ cudaError_t launch(Args p, bool vec2, cudaStream_t stream) {
   const dim3 grid((unsigned)(tiles < per_super ? tiles : per_super),
                   (unsigned)p.A, (unsigned)supers);
   if (vec2) {
-    dual_proximal_sgd_kernel<TA1, TA2, 2>
+    dual_proximal_sgd_kernel<TW, TA1, TA2, 2>
         <<<grid, kThreads, 0, stream>>>(p);
   } else {
-    dual_proximal_sgd_kernel<TA1, TA2, 1>
+    dual_proximal_sgd_kernel<TW, TA1, TA2, 1>
         <<<grid, kThreads, 0, stream>>>(p);
   }
   return cudaGetLastError();
@@ -170,10 +168,22 @@ bool aligned(const void* ptr, int bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
+template <typename TW>
+cudaError_t launch_w(Args p, int flags, bool vec2, cudaStream_t s) {
+  if (flags & kA1Bf16) {
+    return flags & kA2Bf16
+               ? launch<TW, __nv_bfloat16, __nv_bfloat16>(p, vec2, s)
+               : launch<TW, __nv_bfloat16, float>(p, vec2, s);
+  }
+  return flags & kA2Bf16 ? launch<TW, float, __nv_bfloat16>(p, vec2, s)
+                         : launch<TW, float, float>(p, vec2, s);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 == cudaSuccess).
-// flags: bit 0 / 1 a1 / a2 in bf16 (else fp32); bits 4-5 the scale's kind:
+// flags: bit 0 / 1 a1 / a2 in bf16 (else fp32); bit 2 w, g and out in bf16
+// (else fp32); bits 4-5 the scale's kind:
 // 0 none, 1 fp32 scale (A,), 2 / 3 int32 / int64 active_steps (A,),
 // compared with step.  a1_group / a2_group: the rows each anchor row
 // serves (1: a full (A, N) anchor, A: one broadcast row).  lr_s / mu1_s /
@@ -186,20 +196,15 @@ extern "C" int repro_dual_proximal_sgd(
     long long step, int A, long long N, float lr, float mu1, float mu2,
     const void* lr_s, const void* mu1_s, const void* mu2_s, int hp_group,
     int flags, void* stream) {
-  Args p{static_cast<float*>(out), static_cast<const float*>(w),
-         static_cast<const float*>(g), a1, a1_group, a2, a2_group, scale,
+  Args p{out, w, g, a1, a1_group, a2, a2_group, scale,
          (flags >> kScaleShift) & 3, step, A, (int64_t)N, lr, mu1, mu2,
          static_cast<const float*>(lr_s), static_cast<const float*>(mu1_s),
          static_cast<const float*>(mu2_s), hp_group};
   const int s1 = flags & kA1Bf16 ? 4 : 8, s2 = flags & kA2Bf16 ? 4 : 8;
-  const bool vec2 = N % 2 == 0 && aligned(out, 8) && aligned(w, 8) &&
-                    aligned(g, 8) && aligned(a1, s1) && aligned(a2, s2);
+  const int sw = flags & kWBf16 ? 4 : 8;
+  const bool vec2 = N % 2 == 0 && aligned(out, sw) && aligned(w, sw) &&
+                    aligned(g, sw) && aligned(a1, s1) && aligned(a2, s2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (flags & kA1Bf16) {
-    return flags & kA2Bf16
-               ? (int)launch<__nv_bfloat16, __nv_bfloat16>(p, vec2, s)
-               : (int)launch<__nv_bfloat16, float>(p, vec2, s);
-  }
-  return flags & kA2Bf16 ? (int)launch<float, __nv_bfloat16>(p, vec2, s)
-                         : (int)launch<float, float>(p, vec2, s);
+  return flags & kWBf16 ? (int)launch_w<__nv_bfloat16>(p, flags, vec2, s)
+                        : (int)launch_w<float>(p, flags, vec2, s);
 }

@@ -35,9 +35,12 @@ MAX_ROWS = 65535        # row groups go on gridDim.y, at least one row each
 launches: Dict[str, int] = {"dual_proximal_sgd": 0}
 
 # flags of repro_dual_proximal_sgd: a1's bf16 bit; a2's is the same
-# shifted left by one; the scale's kind from bit 4
+# shifted left by one; w's (and g's and out's) bit; the scale's kind from
+# bit 4
 _A1_BF16 = 1
+_W_BF16 = 4
 _SCALE_SHIFT = 4
+W_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _anchor(a: torch.Tensor, name: str, rows: int, n: int,
@@ -85,20 +88,23 @@ def dual_proximal_sgd(w: torch.Tensor, g: torch.Tensor, a1: torch.Tensor,
                       active_steps: Optional[torch.Tensor] = None,
                       step: int = 0,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused update of fp32 ``w`` (any shape; rows are its first axis when
-    2-D).  The row scale is ``scale`` (float32 (A,)), or ``step <
-    active_steps`` (int32 or int64 (A,)), or 1; not both.  Anchors are
-    full, one broadcast row, or one row a group of rows; ``lr`` / ``mu1``
-    / ``mu2`` floats or (S,) float32 tensors (the scenario axis, see the
-    module docstring; all tensors of one call have the same S).  ``out``
-    may be ``w`` itself (in-place update); otherwise a new tensor is
+    """Fused update of ``w`` (any shape; rows are its first axis when
+    2-D), fp32 or bf16 with ``g`` and ``out`` in the same dtype (a bf16 out
+    is the fp32 result rounded to nearest even, as the TPU kernel writes
+    its output in w's dtype).  The row scale is ``scale`` (float32 (A,)),
+    or ``step < active_steps`` (int32 or int64 (A,)), or 1; not both.
+    Anchors are full, one broadcast row, or one row a group of rows;
+    ``lr`` / ``mu1`` / ``mu2`` floats or (S,) float32 tensors (the
+    scenario axis, see the module docstring; all tensors of one call have
+    the same S).  ``out`` may be ``w`` itself (in-place update); otherwise a new tensor is
     allocated.  One launch; each operand is checked once."""
     dev = w.get_device()
     if dev < 0:
         raise ValueError(f"dual_proximal_sgd: w must be on cuda, got "
                          f"{w.device}")
-    if w.dtype != torch.float32 or g.dtype != torch.float32:
-        raise ValueError("dual_proximal_sgd: w and g must be float32")
+    if w.dtype not in W_DTYPES or g.dtype != w.dtype:
+        raise ValueError(f"dual_proximal_sgd: w and g must both be float32 "
+                         f"or both bfloat16, got {w.dtype} and {g.dtype}")
     if g.shape != w.shape or g.get_device() != dev:
         raise ValueError("dual_proximal_sgd: g must match w")
     if not (w.is_contiguous() and g.is_contiguous()):
@@ -111,7 +117,7 @@ def dual_proximal_sgd(w: torch.Tensor, g: torch.Tensor, a1: torch.Tensor,
         a1, a2 = a1.reshape(-1), a2.reshape(-1)
     bf1, group1 = _anchor(a1, "a1", rows, n, dev)
     bf2, group2 = _anchor(a2, "a2", rows, n, dev)
-    flags = bf1 | bf2 << 1
+    flags = bf1 | bf2 << 1 | (_W_BF16 if w.dtype == torch.bfloat16 else 0)
     hyper = [_hyper(v, k, rows, dev)
              for k, v in (("lr", lr), ("mu1", mu1), ("mu2", mu2))]
     groups = {s for _, t, s in hyper if t is not None}
@@ -141,7 +147,7 @@ def dual_proximal_sgd(w: torch.Tensor, g: torch.Tensor, a1: torch.Tensor,
         flags |= kind << _SCALE_SHIFT
     if out is None:
         out = torch.empty_like(w)
-    elif (out.shape != w.shape or out.dtype != torch.float32
+    elif (out.shape != w.shape or out.dtype != w.dtype
           or out.get_device() != dev or not out.is_contiguous()):
         raise ValueError("dual_proximal_sgd: out must match w")
     (lr_f, lr_t, _), (mu1_f, mu1_t, _), (mu2_f, mu2_t, _) = hyper

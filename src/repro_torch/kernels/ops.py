@@ -3,7 +3,9 @@
 A call whose fleet tensor (or query, or wx) lies on a CUDA device launches
 the hand-written Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd``
 / ``flash_attention`` / ``slstm_scan``), which raises on anything it does
-not take.  A call on CPU tensors runs the plain PyTorch version in
+not take.  Under autograd a CUDA route never returns an output without a
+gradient: attention has a backward kernel, and every other route raises
+when an input needs a gradient.  A call on CPU tensors runs the plain PyTorch version in
 ``kernels/ref``.  There is no switch that sends CUDA tensors to the plain
 version.  The aggregation and update entries also take a multi-scenario
 sweep's leading scenario axis, on either route.
@@ -14,12 +16,28 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core.aggregation import scatter_accumulate
 from repro_torch.kernels import dual_proximal_sgd as _dps
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_hier_agg as _mha
 from repro_torch.kernels import ref
 from repro_torch.kernels import slstm_scan as _ss
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _no_backward(name: str, *ts, wait: str = "") -> None:
+    """A CUDA route whose kernel has no backward raises where autograd
+    would need one, rather than return an output without a gradient.
+    The engines pass detached buffers and ``autograd.grad`` outputs."""
+    if _needs_grad(*ts):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward; pass tensors that "
+            f"need no gradient{wait}")
 
 
 def dual_proximal_sgd(w, g, a1, a2, *, lr: float, mu1: float, mu2: float,
@@ -30,6 +48,7 @@ def dual_proximal_sgd(w, g, a1, a2, *, lr: float, mu1: float, mu2: float,
     """Eq. 6 step; the row scale is ``scale`` or ``step < active_steps``;
     ``out=w`` updates in place."""
     if w.is_cuda:
+        _no_backward("dual_proximal_sgd", w, g, a1, a2, lr, mu1, mu2, scale)
         return _dps.dual_proximal_sgd(w, g, a1, a2, lr=lr, mu1=mu1, mu2=mu2,
                                       scale=scale, active_steps=active_steps,
                                       step=step, out=out)
@@ -41,6 +60,7 @@ def dual_proximal_sgd(w, g, a1, a2, *, lr: float, mu1: float, mu2: float,
 
 def weighted_agg_matmul(weight_matrix, stacked) -> torch.Tensor:
     if stacked.is_cuda:
+        _no_backward("weighted_agg_matmul", weight_matrix, stacked)
         return _mha.weighted_agg_matmul(weight_matrix, stacked)
     return ref.weighted_agg_matmul_ref(weight_matrix, stacked)
 
@@ -48,6 +68,7 @@ def weighted_agg_matmul(weight_matrix, stacked) -> torch.Tensor:
 def masked_hier_agg(stacked_flat, weights, mask, rsu_assign, n_rsus: int):
     """(rsu (R, N) in the fleet dtype, mass (R,)), no blend."""
     if stacked_flat.is_cuda:
+        _no_backward("masked_hier_agg", stacked_flat, weights, mask)
         return _mha.masked_hier_agg(stacked_flat, weights, mask, rsu_assign,
                                     n_rsus)
     return ref.masked_hier_agg_ref(stacked_flat, weights, mask, rsu_assign,
@@ -60,6 +81,7 @@ def masked_scatter_accumulate(stacked_flat, weights, rsu_assign,
     mass (R,)) = sum_a w_a x_a grouped by RSU (weights carry mask x data
     volume x staleness decay)."""
     if stacked_flat.is_cuda:
+        _no_backward("masked_scatter_accumulate", stacked_flat, weights)
         return _mha.scatter_accumulate(stacked_flat, weights, rsu_assign,
                                        n_rsus)
     return scatter_accumulate(stacked_flat, weights, rsu_assign, n_rsus)
@@ -75,6 +97,7 @@ def block_local_agg(stacked_flat, weights, local_assign, n_rsus_local: int):
     agent axes it shares its RSUs with and normalizes.  Zero-weight rows
     add nothing, and an RSU with no weight gets mass 0."""
     if stacked_flat.is_cuda:
+        _no_backward("block_local_agg", stacked_flat, weights)
         return _mha.scatter_accumulate(stacked_flat, weights, local_assign,
                                        n_rsus_local, entry="block_local_agg")
     return scatter_accumulate(stacked_flat, weights, local_assign,
@@ -93,6 +116,7 @@ def chunk_agg(chunk_flat, weights, rsu_assign, n_rsus: int, *, into=None):
     if not chunk_flat.is_cuda:
         return ref.chunk_agg_ref(chunk_flat, weights, rsu_assign, n_rsus,
                                  into=into)
+    _no_backward("chunk_agg", chunk_flat, weights)
     num, mass = _mha.scatter_accumulate(chunk_flat, weights, rsu_assign,
                                         n_rsus, entry="chunk_agg")
     if into is None:
@@ -104,6 +128,7 @@ def chunk_agg(chunk_flat, weights, rsu_assign, n_rsus: int, *, into=None):
 def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:
     """(R, N) -> (N,) weighted mean, no keep guard."""
     if rsu_flat.is_cuda:
+        _no_backward("cloud_agg", rsu_flat, rsu_weights)
         return _mha.cloud_agg(rsu_flat, rsu_weights)
     return ref.cloud_agg_ref(rsu_flat, rsu_weights)
 
@@ -111,6 +136,7 @@ def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:
 def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
     """Fused RSU aggregation + mass guard; (rsu' in prev's dtype, mass)."""
     if stacked_flat.is_cuda:
+        _no_backward("agg_blend", stacked_flat, weights, mask, prev)
         return _mha.agg_blend(stacked_flat, weights, mask, rsu_assign,
                               n_rsus, prev)
     return ref.agg_blend_ref(stacked_flat, weights, mask, rsu_assign, n_rsus,
@@ -121,6 +147,8 @@ def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
                keep=0.0):
     """Fused multi-cohort absorb; (buf', total mass, new mass)."""
     if buf.is_cuda:
+        _no_backward("agg_absorb", buf, buf_mass, keep,
+                     *(t for pair in arrivals for t in pair))
         return _mha.agg_absorb(arrivals, rsu_assign, n_rsus, buf, buf_mass,
                                keep=keep)
     return ref.agg_absorb_ref(arrivals, rsu_assign, n_rsus, buf, buf_mass,
@@ -130,6 +158,7 @@ def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
 def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
     """Fused cloud aggregation + keep guard; out dtype follows ``prev``."""
     if rsu_flat.is_cuda:
+        _no_backward("cloud_blend", rsu_flat, rsu_weights, prev)
         return _mha.cloud_blend(rsu_flat, rsu_weights, prev)
     return ref.cloud_blend_ref(rsu_flat, rsu_weights, prev)
 
@@ -137,18 +166,42 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """Online-softmax attention; q (B,S,H,D), k/v (B,S,KV,D); out in q's
-    dtype."""
-    if q.is_cuda:
-        return _fa.flash_attention(q, k, v, causal=causal, window=window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    dtype.  On CUDA the forward and backward kernels as one autograd
+    function; a gradient the backward kernel does not take (fp32, or D =
+    32) raises rather than come back without one."""
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if _needs_grad(q, k, v) and not _fa.backward_supported(q):
+        raise NotImplementedError(
+            f"flash_attention: the backward kernel takes bf16 with head dim "
+            f"in {_fa.BWD_HEAD_DIMS}, got {q.dtype} head dim {q.shape[-1]}")
+    return _fa.FlashAttention.apply(q, k, v, causal, window)
 
 
 def slstm_scan(wx, r_gates, b_gates) -> torch.Tensor:
     """Forward sLSTM recurrence; wx (B,S,4d) fp32, r_gates (H,P,4P), b_gates
-    (4d,) fp32; hidden states (B,S,d) fp32."""
-    if wx.is_cuda:
-        return _ss.slstm_scan(wx, r_gates, b_gates)
-    return ref.slstm_scan_ref(wx, r_gates, b_gates)
+    (4d,) fp32; hidden states (B,S,d) fp32.  The CUDA kernel has no
+    backward: a CUDA call that needs a gradient raises."""
+    if not wx.is_cuda:
+        return ref.slstm_scan_ref(wx, r_gates, b_gates)
+    _no_backward("slstm_scan", wx, r_gates, b_gates,
+                 wait="; xlstm training on the card waits for one (ROADMAP "
+                      "queue 1, xlstm-125m training)")
+    return _ss.slstm_scan(wx, r_gates, b_gates)
+
+
+def dual_proximal_sgd_tree(w, g, a1, a2, *, lr: float, mu1: float,
+                           mu2: float):
+    """Eq. 6 leaf by leaf over params trees (``repro_torch.tree`` order),
+    as ``repro.kernels.dual_proximal_sgd.dual_proximal_sgd_tree``: one
+    launch (or plain call) a leaf, on the leaf raveled to one row, the
+    result in the leaf's shape and dtype."""
+    def one(wl, gl, x1, x2):
+        flat = [t.contiguous().reshape(-1) for t in (wl, gl, x1, x2)]
+        return dual_proximal_sgd(*flat, lr=lr, mu1=mu1,
+                                 mu2=mu2).view(wl.shape)
+    return tree.unflatten(w, [one(*t) for t in zip(
+        tree.leaves(w), tree.leaves(g), tree.leaves(a1), tree.leaves(a2))])
 
 
 _COUNTS = (_mha.launches, _dps.launches, _fa.launches, _ss.launches)

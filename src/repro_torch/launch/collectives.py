@@ -5,6 +5,7 @@ The JAX package's collectives are ``jax.lax`` primitives inside
 ``FleetMesh``'s groups:
 
   ``jax.lax.psum``                     -> ``all_reduce`` (sum)
+  ``jax.lax.pmax``                     -> ``all_reduce(op="max")``
   ``jax.lax.all_gather(tiled=True)``   -> ``all_gather_cat`` (the list form
                                           of ``all_gather``, then a cat)
   psum, then ``dynamic_slice_in_dim``  -> ``all_reduce``, then a slice in
@@ -51,16 +52,21 @@ def _staged(mesh, t: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and t.is_cuda
 
 
-def all_reduce(t: torch.Tensor, mesh, axes, *, where: str) -> torch.Tensor:
-    """Sum of ``t`` over the ranks of ``axes``; returns a new tensor (``t``
-    itself is left as it is) in ``t``'s dtype and device."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, mesh, axes, *, where: str,
+               op: str = "sum") -> torch.Tensor:
+    """Sum (or, with ``op="max"``, maximum) of ``t`` over the ranks of
+    ``axes``; returns a new tensor (``t`` itself is left as it is) in
+    ``t``'s dtype and device."""
     axes = _axes(axes)
     group = mesh.group(axes)
     if group is None:
         return t
     buf = t.detach().contiguous().to("cpu" if _staged(mesh, t) else t.device,
                                      copy=True)
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=_OPS[op], group=group)
     _note(where, axes, t.numel() * t.element_size())
     return buf.to(t.device)
 

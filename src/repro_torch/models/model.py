@@ -9,9 +9,13 @@ ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
+from math import prod
 from typing import Any, Dict
 
 import torch
+
+from repro_torch import tree
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
@@ -61,15 +65,27 @@ def forward(cfg: ArchConfig, params, batch: Dict[str, Any]):
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def loss_fn(cfg: ArchConfig, params, batch: Dict[str, Any]):
-    """Mean next-token cross-entropy over valid labels (labels >= 0)."""
+def _nll(cfg: ArchConfig, params, batch: Dict[str, Any]):
+    """(next-token NLL (B, S) fp32, valid-label mask (B, S), aux)."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"].long()
-    valid = labels >= 0
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    return nll, labels >= 0, aux
+
+
+def loss_fn(cfg: ArchConfig, params, batch: Dict[str, Any]):
+    """Mean next-token cross-entropy over valid labels (labels >= 0)."""
+    nll, valid, aux = _nll(cfg, params, batch)
     task = (nll * valid).sum() / valid.sum().clamp(min=1)
     return task, {"task_loss": task, "aux_loss": aux}
+
+
+def per_example_loss(cfg: ArchConfig, params, batch: Dict[str, Any]):
+    """Per-example mean NLL (B,) and aux: the federated train step weights
+    these per agent."""
+    nll, valid, aux = _nll(cfg, params, batch)
+    return (nll * valid).sum(-1) / valid.sum(-1).clamp(min=1), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device=None):
@@ -86,3 +102,29 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, cur_pos):
     x, cache = tf.stack_decode(cfg, params["stack"], cache, x, cur_pos)
     x = norm_apply(cfg, params["final_norm"], x)
     return lm_logits(cfg, params["embed"], x), cache
+
+
+# --------------------------------------------------------------------------
+# analytic parameter counts (shapes on the meta device: nothing allocated)
+# --------------------------------------------------------------------------
+
+class _MetaGenerator(torch.Generator):
+    """A generator the initialisers read as lying on the meta device, so
+    ``init_params`` builds shapes and dtypes only."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+@functools.lru_cache(maxsize=64)
+def _param_shapes(cfg: ArchConfig):
+    params = init_params(cfg, _MetaGenerator(), device="meta")
+    return tuple(tuple(l.shape) for l in tree.leaves(params))
+
+
+def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Exact parameter count of ``init_params(cfg)``.  ``active_only``
+    changes nothing here: it scales routed experts, and no MoE is
+    ported."""
+    return sum(prod(s) for s in _param_shapes(cfg))

@@ -2,8 +2,12 @@
 pattern (attention + MLP residual sub-blocks) and the xLSTM ``mlstm`` and
 ``slstm`` patterns: layer params stacked on a leading L axis as
 ``stack_init`` builds them in JAX, applied by a Python loop over that axis
-where JAX scans.  No remat: ``jax.checkpoint`` changes no forward value.
-The per-layer decode caches (the KV cache, the mLSTM and sLSTM states) are
+where JAX scans.  Under autograd (training) each stacked leaf is unbound
+once a forward, so the backward stacks each leaf's layer gradients once
+instead of building a zero (L, ...) gradient a layer, and each layer is
+recomputed in the backward (``torch.utils.checkpoint``), the reference's
+``jax.checkpoint``; no-grad prefill indexes the layers as views.  The
+per-layer decode caches (the KV cache, the mLSTM and sLSTM states) are
 stacked on L too and updated in place.
 
 Every other pattern (encdec with its cross-attention, mamba, zamba_super)
@@ -11,9 +15,11 @@ and the MoE and MLA kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -50,6 +56,21 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a layer-stacked params dict, one ``unbind`` a
+    leaf (whose backward is one stack)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
 
 
 # --------------------------------------------------------------------------
@@ -155,6 +176,12 @@ def stack_init(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
 
 def stack_prefill(cfg: ArchConfig, params, x, positions):
     for seg_params, (pattern, repeat) in zip(params["segments"], cfg.layout_):
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or _requires_grad(seg_params)):
+            layer = functools.partial(layer_prefill, cfg, pattern)
+            for p in _unbind(seg_params, repeat):
+                x = checkpoint(layer, p, x, positions, use_reentrant=False)
+            continue
         for i in range(repeat):
             x = layer_prefill(cfg, pattern, _index(seg_params, i), x,
                               positions)

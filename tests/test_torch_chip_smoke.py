@@ -53,7 +53,7 @@ def test_ptxas_lines_name_their_kernel():
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
                  "stream_path", "serve_path", "sharded_path", "serving_path",
-                 "xlstm_serving")
+                 "xlstm_serving", "train_path")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -64,7 +64,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--sweep", ["sweep_path"]),
                                        ("--stream", ["stream_path"]),
                                        ("--serve", ["serve_path"]),
-                                       ("--sharded", ["sharded_path"])])
+                                       ("--sharded", ["sharded_path"]),
+                                       ("--train", ["train_path"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -94,6 +95,7 @@ def test_phase_selection():
     assert cs.selected_phases(["--stream"]) == ("1", "3t")
     assert cs.selected_phases(["--serve"]) == ("1", "3v")
     assert cs.selected_phases(["--sharded"]) == ("1", "3h")
+    assert cs.selected_phases(["--train"]) == ("1", "5")
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
     assert "3v" in cs.FULL_RUN and "3h" in cs.FULL_RUN
     with pytest.raises(SystemExit):
@@ -135,7 +137,21 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
             agg_row("dual_proximal_sgd", "scaled_broadcast")]
     attn = [{"entry": "prefill", "max_abs_err": 4e-3, "ms": 2.6,
              "plain_ms": 126.0, "bound_ms": 1.1, "bound_by": "operations",
-             "library_ms": 1.7, "shape": {}, "dtype": "bfloat16"}]
+             "library_ms": 1.7, "shape": {}, "dtype": "bfloat16"},
+            {"entry": "layer", "max_abs_err": 4e-3, "ms": 0.7,
+             "plain_ms": 30.0, "bound_ms": 0.07, "bound_by": "operations",
+             "library_ms": 0.5, "shape": {}, "dtype": "bfloat16"}]
+    train_rows = [
+        {"kernel": "flash_attention_bwd", "entry": "layer",
+         "max_abs_err": 0.03, "ms": 1.9, "plain_ms": 40.0, "bound_ms": 0.17,
+         "bound_by": "operations", "library_ms": 1.2, "shape": {},
+         "dtype": "bfloat16", "tol": "2^-7"},
+        {"kernel": "dual_proximal_sgd", "entry": "bf16_embed",
+         "max_abs_err": 4e-3, "ms": 0.7, "plain_ms": 5.0, "bound_ms": 0.46,
+         "bound_by": "bytes", "library_ms": None, "shape": {"N": 1},
+         "dtype": "bfloat16"}]
+    train_counts = {"flash_attention": 300, "flash_attention_bwd": 150,
+                    "dual_proximal_sgd": 176}
     scan = [{"entry": "layer", "r_dtype": "bfloat16", "max_abs_err": 4e-7,
              "ms": 8.7, "plain_ms": 3000.0, "bound_ms": 0.58,
              "bound_by": "operations", "shape": {}, "latency_floor_ms": 4.3}]
@@ -191,6 +207,8 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         dual_proximal_sgd=512)))
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
+    monkeypatch.setattr(cs, "train_path",
+                        lambda dev: (train_rows, train_counts))
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
         "the full run profiles its round inside the main path"))
     assert cs.main([]) == 0
@@ -203,7 +221,8 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "weighted_agg_matmul", "weighted_agg_matmul", "flash_attention",
-        "slstm_scan"]
+        "slstm_scan", "flash_attention", "flash_attention_bwd",
+        "dual_proximal_sgd"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
     # the flat path's, the async path's, the sweep's, the serve loop's,
@@ -215,7 +234,13 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     # sharded pod shape, with the sharded rounds' launches
     assert [k["launches"] for k in kernels] == [
         50 + 150 + 30 + 9 + 4, 5 + 18 + 6 + 13 + 72 + 64,
-        120 + 360 + 1350 + 36 + 144 + 512, 30, 6, 1350, 72, 64, 28, 3]
+        120 + 360 + 1350 + 36 + 144 + 512, 30, 6, 1350, 72, 64, 28, 3,
+        300, 150, 176]
+    # the training path's rows: #4 forward and backward at the layer
+    # shape, #3's bf16 mode at the embedding leaf
+    assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
+                                                  "bf16_embed"]
+    assert kernels[-2]["source"].endswith("flash_attention_bwd.cu")
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,
                                               "stream": 4, "sharded": 0}

@@ -911,3 +911,102 @@ def test_cuda_streamed_round_memory_does_not_grow_with_the_fleet(cuda):
         assert torch.equal(first, last) and torch.isfinite(first).all()
         del state
     assert abs(peaks[1] - peaks[0]) <= 0.01 * peaks[0], peaks
+
+
+# --------------------------------------------------------------------------
+# the training path: #3 on bf16 leaves, #4's backward, no grad-less output
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1001, 100_000])
+@pytest.mark.parametrize("anchor_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dual_proximal_sgd_bf16_leaves_match_plain(cuda, anchor_dtype,
+                                                        N):
+    """bf16 w, g and out (a training leaf): fp32 math rounded to bf16,
+    within one bf16 ulp of the plain version (the kernel contracts the
+    multiply-adds); in place too."""
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    w, g = (torch.randn(N, device=cuda, generator=gen).bfloat16()
+            for _ in range(2))
+    a1, a2 = (torch.randn(N, device=cuda, generator=gen).to(anchor_dtype)
+              for _ in range(2))
+    kw = dict(lr=0.1, mu1=0.01, mu2=0.005)
+    want = ref.dual_proximal_sgd_ref(w, g, a1, a2, **kw)
+    got = tdps.dual_proximal_sgd(w, g, a1, a2, **kw)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    tdps.dual_proximal_sgd(w, g, a1, a2, out=w, **kw)
+    assert torch.equal(w, got)
+    with pytest.raises(ValueError):
+        tdps.dual_proximal_sgd(w, g.float(), a1, a2, **kw)
+
+
+def _bwd_inputs(dev, B, S, H, KV, D, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, S, n, D, device=dev, generator=gen).bfloat16()
+            for n in (H, KV, KV, H)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (2, 200, 4, 2, 64, True, 0), (1, 300, 4, 2, 64, True, 100),
+    (1, 130, 4, 2, 128, True, 0), (1, 1000, 16, 8, 128, False, 0),
+    (1, 1024, 16, 8, 128, True, 256), (2, 64, 4, 4, 64, False, 0)])
+def test_cuda_flash_attention_backward_matches_autograd_of_plain(
+        cuda, B, S, H, KV, D, causal, window):
+    """``ops.flash_attention`` under autograd on the card (the forward and
+    backward kernels) against autograd of the plain version: dQ, dK, dV
+    within 2^-7 (max|want| + |want|), the bf16 rounding of P and dS as
+    product operands and of the outputs."""
+    from repro_torch.kernels import ops
+    q, k, v, do = _bwd_inputs(cuda, B, S, H, KV, D)
+    kw = dict(causal=causal, window=window)
+    want_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_ref(*want_in, **kw).backward(do)
+    got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(tfa.launches)
+    out = ops.flash_attention(*got_in, **kw)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert tfa.launches["flash_attention_bwd"] == (
+        before["flash_attention_bwd"] + 1)
+    for g, w in zip(got_in, want_in):
+        tol = 2.0 ** -7
+        torch.testing.assert_close(
+            g.grad.float(), w.grad.float(), rtol=tol,
+            atol=tol * w.grad.float().abs().max().item())
+
+
+@pytest.mark.gpu
+def test_cuda_no_gradless_kernel_output(cuda):
+    """Under grad, a CUDA route either carries a gradient or raises: the
+    forward kernel of a fp32 or D = 32 attention (no backward kernel), the
+    sLSTM scan and the aggregation and update kernels (no backward) raise
+    by name."""
+    from repro_torch.kernels import ops
+    w = torch.randn(4, 10, device=cuda, requires_grad=True)
+    weights = torch.ones(4, device=cuda)
+    with pytest.raises(NotImplementedError, match="dual_proximal_sgd"):
+        ops.dual_proximal_sgd(w, w.detach(), w.detach(), w.detach(),
+                              lr=0.1, mu1=0.0, mu2=0.0)
+    with pytest.raises(NotImplementedError, match="cloud_agg"):
+        ops.cloud_agg(w, weights)
+    with torch.no_grad():
+        assert ops.cloud_agg(w, weights).shape == (10,)
+    q, k, v, _ = _bwd_inputs(cuda, 1, 64, 4, 2, 32)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    q, k, v, _ = _bwd_inputs(cuda, 1, 64, 4, 2, 64)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.float().requires_grad_(), k.float(),
+                            v.float())
+    with torch.no_grad():
+        assert ops.flash_attention(q.float(), k.float(), v.float()).shape \
+            == q.shape
+    wx = torch.randn(1, 8, 4 * 64, device=cuda, requires_grad=True)
+    r = torch.randn(4, 16, 64, device=cuda)
+    b = torch.zeros(4 * 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="xlstm-125m training"):
+        ops.slstm_scan(wx, r, b)
+    with torch.no_grad():
+        assert ops.slstm_scan(wx, r, b).shape == (1, 8, 64)

@@ -226,3 +226,35 @@ def test_xlstm_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init_cache(cfg, 1, 4)
     assert serve.main([*argv, "--device", "cpu"])["tokens"].shape == (1, 1)
+
+
+def test_train_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.train, "
+            "repro_torch.launch.h2fed_round, repro_torch.launch.steps, "
+            "repro_torch.optim.sgd, repro_torch.optim.adam, "
+            "repro_torch.core.orchestrator; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    """The train step, the hierarchical round and the training launcher
+    take cuda unless asked for the CPU, and raise when it is absent."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.launch import h2fed_round, steps, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, hp = get_reduced_config("qwen3-0.6b"), H2FedParams()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_train_step(cfg, hp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        h2fed_round.make_h2fed_round(cfg, hp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--mesh", "1,1,1", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.init_train_state(cfg, torch.Generator().manual_seed(0))
