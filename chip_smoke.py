@@ -30,8 +30,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    cases at its heads (S=129 causal, S=1000 non-causal); bound at
    989 TFLOP/s bf16 / 67 TFLOP/s fp32 over the live (query, key) pairs;
    ``library_ms`` is one ``scaled_dot_product_attention`` call (timed only,
-   the port never calls it).  Then the serving path's shape (B=4, S=8192)
-   in bf16, the plain version run one batch row at a time.
+   the port never calls it); for bf16 also ``ms_with_lse``, the forward
+   that saves the log-sum-exp for the backward, timed in turns with the
+   forward without it (``cuda_ms_pair``).  Then the serving path's
+   shape (B=4, S=8192) in bf16, the plain version run one batch row at a
+   time, with and without the log-sum-exp.
 2c. slstm_scan against its plain version with R in bf16 and fp32: the
    shapes of the JAX package's kernel tests, saturated gates (inputs x25)
    and the xlstm-125m layer (B=4, S=8192, H=4, P=192); bound at 67 TFLOP/s
@@ -188,10 +191,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    over one prefill call and 8 decode steps.
 5. The LLM training path (``launch/steps``, ``launch/h2fed_round``,
    ``launch/train``).  (a) The backward kernel of flash_attention
-   (``csrc/flash_attention_bwd.cu``) against autograd of the plain version
-   at the qwen3-0.6b layer (B=1, S=4096, H=16, KV=8, D=128, causal), with a
-   1024 window, and at D=64: dQ, dK and dV within 2^-7 (max|want| +
-   |want|); bound: the 5 products of the live pairs at 989 TFLOP/s or the
+   (``csrc/flash_attention_bwd.cu``, given the forward's output and saved
+   log-sum-exp) against autograd of the plain version at the qwen3-0.6b
+   layer (B=1, S=4096, H=16, KV=8, D=128, causal), with a 1024 window, and
+   at D=64: dQ, dK and dV within 2^-7 (max|want| + |want|); bound: the 5
+   products of the live pairs (the kernel's ``products_per_pair``) at 989
+   TFLOP/s or the
    bytes at 3.35 TB/s; ``library_ms`` SDPA's forward + backward less its
    forward (timed only).  (b) #3's bf16 mode against its plain version at
    the embedding leaf (151,936 x 1024) and a stacked MLP leaf (28 x 1024 x
@@ -341,6 +346,30 @@ def cuda_ms(fn, reps: int = 11, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def cuda_ms_pair(fa, fb, reps: int = 12, inner: int = 10) -> tuple:
+    """``cuda_ms`` of two calls measured in turns, a before b in even
+    reps and b before a in odd ones, so that neither a drift of the card's
+    clocks under a long run nor the place in a pair favours one: (median ms
+    of a, median ms of b)."""
+    for _ in range(2):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for rep in range(reps):
+        order = ((fa, times[0]), (fb, times[1]))
+        for fn, out in (order if rep % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / inner)
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def host_device_split(fn, n_host: int = 1000, n_prof: int = 20) -> dict:
@@ -2882,16 +2911,22 @@ def attention_cases(dev):
             del got, want
             b_ms, b_by = attention_bound(B, S, H, KV, D, causal, window,
                                          dtype)
+            call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
             rows.append({
                 "kernel": "flash_attention", "entry": name,
                 "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
                           "causal": causal, "window": window},
                 "dtype": str(dtype)[6:], "max_abs_err": err,
-                "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                "ms": cuda_ms(call),
                 "plain_ms": cuda_ms(
                     lambda: ref.flash_attention_ref(q, k, v, **kw)),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": cuda_ms(sdpa_call(q, k, v, causal, window))})
+            if dtype == torch.bfloat16:
+                # in turns with the call that saves the log-sum-exp
+                rows[-1]["ms"], rows[-1]["ms_with_lse"] = cuda_ms_pair(
+                    call, lambda: fa.flash_attention(q, k, v,
+                                                     return_lse=True, **kw))
             print("kernel " + json.dumps(rows[-1]))
             del q, k, v
             torch.cuda.empty_cache()
@@ -2914,12 +2949,16 @@ def attention_cases(dev):
     del got
     torch.cuda.empty_cache()
     b_ms, b_by = attention_bound(B, S, H, KV, D, True, 0, torch.bfloat16)
+    ms, ms_lse = cuda_ms_pair(lambda: fa.flash_attention(q, k, v),
+                              lambda: fa.flash_attention(q, k, v,
+                                                         return_lse=True),
+                              reps=6, inner=2)
     rows.append({
         "kernel": "flash_attention", "entry": "prefill",
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": True,
                   "window": 0},
         "dtype": "bfloat16", "max_abs_err": err,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=5, inner=2),
+        "ms": ms, "ms_with_lse": ms_lse,
         "plain_ms": cuda_ms(plain_by_row), "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": cuda_ms(sdpa_call(q, k, v, True, 0), reps=5, inner=2)})
@@ -3429,8 +3468,8 @@ def attention_bwd_cases(dev):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out_ref = ref.flash_attention_ref(*leaves, **kw)
         want = torch.autograd.grad(out_ref, leaves, do, retain_graph=True)
-        out = fa.flash_attention(q, k, v, **kw)
-        got = fa.flash_attention_bwd(q, k, v, out, do, **kw)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
         errs = {}
         for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
             scale = w.float().abs().max().item()
@@ -3447,13 +3486,14 @@ def attention_bwd_cases(dev):
             "max_abs_err_by_grad": errs, "tol": f"{BWD_TOL} * (max|want| "
             f"+ |want|)",
             "ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do,
-                                                         **kw)),
+                                                         lse, **kw)),
             "plain_ms": cuda_ms(lambda: torch.autograd.grad(
                 out_ref, leaves, do, retain_graph=True)),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": sdpa_backward_ms(q, k, v, do, causal, window)})
+            "library_ms": sdpa_backward_ms(q, k, v, do, causal, window),
+            "products_per_pair": 5})
         print("kernel " + json.dumps(rows[-1]))
-        del q, k, v, do, leaves, out_ref, out
+        del q, k, v, do, leaves, out_ref, out, lse
         torch.cuda.empty_cache()
     return rows
 
@@ -3547,8 +3587,15 @@ def train_step_run(dev) -> dict:
            torch.cuda.max_memory_allocated(dev),
            "launches_per_step": per_step, "launches": launches}
     print("train step " + json.dumps(out))
-    print_profile("train step (A=2, b=1, S=4096)", 1,
-                  *device_profile(lambda: step(state, batch, mask), 1))
+    prof = device_profile(lambda: step(state, batch, mask), 1)
+    print_profile("train step (A=2, b=1, S=4096)", 1, *prof)
+    busy, kernels = prof[2], prof[3]
+    if busy:
+        bwd = sum(v for k, v in kernels.items() if "attn_bwd" in k)
+        fwd = sum(v for k, v in kernels.items() if "flash_attention" in k)
+        print(f"profile: train step: device time {busy * 1e3:.1f} ms; #4's "
+              f"backward kernels {bwd * 1e3:.2f} ms ({bwd / busy:.1%}), its "
+              f"forward {fwd * 1e3:.2f} ms ({fwd / busy:.1%})")
     del state
     torch.cuda.empty_cache()
     return out
@@ -3701,6 +3748,13 @@ def ptxas_by_kernel(log: str) -> list:
     return [f"{n}: {'; '.join(e[1])}" for n, e in zip(names, entries)]
 
 
+def ptxas_notes(log: str) -> list:
+    """ptxas's "Potential Performance Loss" notes (e.g. wgmma products it
+    serialized), which it prints as info lines, not warnings."""
+    return [line.strip().removeprefix("ptxas info    : ")
+            for line in log.splitlines() if "Performance Loss" in line]
+
+
 def device_and_build():
     """Phase 1: (device, the card's nvidia-smi line)."""
     sys.path.insert(0, str(SRC))
@@ -3718,6 +3772,8 @@ def device_and_build():
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{report['build_seconds']} s)")
     for line in ptxas_by_kernel(report["ptxas_log"]):
+        print(f"ptxas: {line}")
+    for line in ptxas_notes(report["ptxas_log"]):
         print(f"ptxas: {line}")
     return dev, card
 
@@ -3918,7 +3974,7 @@ def main(argv=None) -> int:
                            if x["kernel"] == "flash_attention_bwd"),
         **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "shape", "dtype", "tol")},
-        "entry": "train"})
+        "products_per_pair": 5, "entry": "train"})
     r = next(x for x in train_rows if x["entry"] == "bf16_embed")
     kernels.append({
         "name": "dual_proximal_sgd", "route": "cuda",

@@ -41,9 +41,9 @@ _SIGNATURES = {
     "repro_weighted_agg_matmul": (_P, _P, _P, _I, _I, _LL, _I, _I, _P),
     "repro_dual_proximal_sgd": (_P, _P, _P, _P, _I, _P, _I, _P, _LL, _I,
                                 _LL, _F, _F, _F, _P, _P, _P, _I, _I, _P),
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               *(_LL,) * 9, _I, _I, _I, _P),
-    "repro_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 7, _P),
+    "repro_flash_attention_bwd": (*(_P,) * 12, *(_I,) * 7, _P),
     "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_slstm_scan_plan": (_I, _I, _I, _P, _P),
 }

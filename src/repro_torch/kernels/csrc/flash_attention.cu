@@ -23,6 +23,11 @@
 // bf16 remainder, and both go through the tensor cores, so PV costs two
 // products and the work is three products where a bf16 P would need two
 // (the error is about 2^-16 of p, against 2^-9 for one bf16 rounding).
+// Given an lse pointer, the bf16 kernels also store each row's log-sum-exp
+// m + log2(l) (log2 units of the scores times D^-1/2 log2 e, fp32, (B, H,
+// S)) in their epilogue, after the loop, for the backward
+// (flash_attention_bwd.cu) to rebuild P without a pass of its own; a null
+// pointer stores nothing, so serving runs the code it ran before.
 // Three kernels:
 // - bf16, D = 128 (the serving path, qwen3-0.6b): Hopper's shape of a fast
 //   kernel.  One block of three warpgroups per (b, h, 128-row query tile):
@@ -47,6 +52,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_sync.cuh"
 
 namespace {
@@ -58,11 +64,28 @@ using repro::ldmatrix_x4_trans;
 using repro::mma_bf16;
 using repro::pack_bf16;
 using repro::smem_addr;
+using repro::encode_map;
+using repro::ex2;
+using repro::fence_regs;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::named_arrive;
+using repro::named_sync;
+using repro::smem_desc;
+using repro::tma_load;
+using repro::wgmma_commit;
+using repro::wgmma_fence;
+using repro::wgmma_rs;
+using repro::wgmma_ss;
+using repro::wgmma_wait_all;
 
 constexpr int kThreads = 128;  // 4 warps in the mma.sync and FMA kernels
 
 struct Params {
   void* out;
+  float* lse;  // (B, H, S) log-sum-exp for the backward, or null
   const void* q;
   const void* k;
   const void* v;
@@ -127,8 +150,10 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
+// (kThreads, 1): without the block count, ptxas capped this kernel at 96
+// registers for D = 32 and spilled
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bf16_kernel(Params p) {
   constexpr int STRIDE = D + 8;  // 16-byte rows, conflict-free fragments
   constexpr int NB = kBK / 8;    // score n-blocks of 8 keys
@@ -282,7 +307,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // out = O / l, rows past S are not stored
+  // out = O / l and the row's log-sum-exp m + log2(l), rows past S are not
+  // stored
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
   const int64_t o_ss = (int64_t)p.H * D;
   const int64_t o_sb = (int64_t)p.S * o_ss;
@@ -294,6 +320,9 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     const int row = row0 + r * 8;
     if (row < p.S) {
+      if (p.lse != nullptr && tig == 0) {
+        p.lse[((int64_t)b * p.H + h) * p.S + row] = m[r] + __log2f(lr);
+      }
       __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * D + tig * 2;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
@@ -337,158 +366,6 @@ constexpr uint32_t kTileBytes = 2 * kBoxBytes;  // 128 rows of D = 128
 static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one tensor-map box");
 // Q, K[kWsStages], V[kWsStages], the barriers, and room to align to 1 KB
 constexpr int kWsSmem = (1 + 2 * kWsStages) * kTileBytes + 128 + 1024;
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Waits for the phase of ``bar`` with this parity to complete.  A wait
-// that outlasts some 2^26 polls traps (the launch fails with an error)
-// rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// One box of a 4-D tensor map into shared memory; completion is counted in
-// bytes on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Named barriers 1 and 2 (0 is __syncthreads): bar.sync waits for
-// ``count`` threads to have arrived, bar.arrive arrives without waiting.
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of wgmma operands across
-// the asynchronous product's wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1
-// (SWIZZLE_128B).  K-major (Q, K): 8-row groups 1024 bytes apart, the
-// leading offset unused.  MN-major (V): 8-key groups 1024 bytes apart,
-// 64-column halves of D one box (16 KB) apart.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead,
-                                              uint32_t stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
-}
-
-// d (+)= A B for a 64 x 128 tile over k = 16: A and B both K-major in
-// shared memory (S = Q K^T).  scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d += A B for a 64 x 128 tile over k = 16: A from registers (the
-// m16n8k16 A fragment of each warp's 16 rows), B MN-major in shared
-// memory (O += P V, V stored key-major).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 // S = Q K^T for 64 rows x 128 keys: 8 k-steps of 16 over D; k-steps 0-3
 // walk 32 bytes at a time through the first 64-column box, 4-7 the second.
@@ -718,7 +595,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
 
-    // out = O / l, rows past S are not stored
+    // out = O / l and the row's log-sum-exp m + log2(l), rows past S are
+    // not stored
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
     const int64_t o_ss = (int64_t)p.H * kWsD;
     const int64_t o_sb = (int64_t)p.S * o_ss;
@@ -730,6 +608,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       const float inv = 1.f / fmaxf(lr, 1e-30f);
       const int row = row0 + r * 8;
       if (row < p.S) {
+        if (p.lse != nullptr && tig == 0) {
+          p.lse[((int64_t)b * p.H + h) * p.S + row] = m[r] + __log2f(lr);
+        }
         __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * kWsD + tig * 2;
 #pragma unroll
         for (int n = 0; n < 16; ++n) {
@@ -858,49 +739,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// cuTensorMapEncodeTiled, fetched once from the driver through the runtime
-// (the link line needs no -lcuda).
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-    }
-  }
-  return fn;
-}
-
-// The (D, S, heads, B) tensor map of a bf16 (B, S, heads, D) tensor with
-// strides in elements: boxes of 64 columns x 128 rows with the 128-byte
-// swizzle; rows past S read as zeros.
-bool encode_map(CUtensorMap* map, const void* base, int S, int heads, int B,
-                int64_t ss, int64_t sh, int64_t sb) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kWsD, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBoxCols, kWsBK, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
   const int KV = p.H / p.group;
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, p.q, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb) ||
-      !encode_map(&tk, p.k, p.S, KV, B, p.k_ss, p.k_sh, p.k_sb) ||
-      !encode_map(&tv, p.v, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb)) {
+  if (!encode_map(&tq, p.q, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb, kWsBQ) ||
+      !encode_map(&tk, p.k, p.S, KV, B, p.k_ss, p.k_sh, p.k_sb, kWsBK) ||
+      !encode_map(&tv, p.v, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb, kWsBK)) {
     return cudaErrorInvalidValue;
   }
   const int64_t blocks = (int64_t)((p.S + kWsBQ - 1) / kWsBQ) * p.H * B;
@@ -947,15 +791,16 @@ cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 // driver refuses or a grid of 2^31 blocks or more.  Strides are in
 // elements; the caller checks devices, dtypes (q/k/v/out all bf16 or all
 // fp32), shapes, a unit stride on the last axis, 16-byte aligned rows for
-// bf16, S >= 1, H % KV == 0 and 1 <= B, H <= 65535.
+// bf16, S >= 1, H % KV == 0 and 1 <= B, H <= 65535.  lse, a contiguous
+// fp32 (B, H, S) tensor or null, takes each row's log-sum-exp (bf16 only).
 extern "C" int repro_flash_attention(
-    void* out, const void* q, const void* k, const void* v, int B, int S,
-    int H, int KV, int D, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, int causal, int window, int is_bf16,
-    void* stream) {
-  Params p{out,  q,    k,    v,    S,    H,    H / KV, q_sb, q_ss,
-           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   0.f,  causal,
+    void* out, void* lse, const void* q, const void* k, const void* v, int B,
+    int S, int H, int KV, int D, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, int causal, int window,
+    int is_bf16, void* stream) {
+  Params p{out,  static_cast<float*>(lse), q, k, v, S, H, H / KV, q_sb,
+           q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0.f, causal,
            window};
   p.scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

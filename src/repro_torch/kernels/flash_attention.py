@@ -12,16 +12,31 @@ strides: the last axis must be contiguous and, for bf16, every row must
 start on 16 bytes (what the TMA copies of the bf16 D = 128 kernel need).
 D is 32, 64 or 128.
 
+With ``return_lse=True`` the bf16 forward also returns each row's
+log-sum-exp, the fp32 (B, H, S) ``log2 sum_t 2^(score_t * D**-0.5 *
+log2 e)`` over the live keys (``kernels/ref.attention_lse_ref``), written in
+the kernel's epilogue; without it the kernel stores nothing more.
+
 The backward, ``csrc/flash_attention_bwd.cu``, has no TPU counterpart
 (the JAX package differentiates its jnp attention): dQ, dK and dV of the
-same function for bf16 q / k / v with D = 64 or 128.  ``FlashAttention``
-ties the two into one ``torch.autograd.Function``, which is what
-``kernels/ops.flash_attention`` calls on CUDA tensors.
+same function for bf16 q / k / v with D = 64 or 128, from the forward's
+output and saved lse.  It does 5 products a live (query, key) pair (S,
+dP, dV, dK, dQ) in one fused kernel a (key tile, KV head, batch row): at
+D = 128 two wgmma warpgroups of 64 keys each, fed by TMA through a
+2-stage ring (register budget of a thread: 128 fp32 for the dK and dV
+accumulators across the loop, 32 for half a tile's S^T and dP^T, 32 for
+the dQ share; 236 in all with addressing, under the 255 of a 256-thread
+block, see the source); at D = 64 mma.sync with cp.async double
+buffering.  dQ of the key tiles sums into an fp32 scratch by bulk
+reduce-adds in no fixed order, so it may differ in its last bits from run
+to run.  ``FlashAttention`` ties the two into one
+``torch.autograd.Function``, which is what ``kernels/ops.flash_attention``
+calls on CUDA tensors.
 
 Takes CUDA tensors only and raises on anything else; ``kernels/ops``
 routes CPU tensors to ``kernels/ref.flash_attention_ref``.  ``launches``
 counts launches: one a forward call, and one a backward call (which runs
-the backward's three kernels, see the source).
+the backward's three kernels: prep, the fused kernel, the dQ pass).
 """
 from __future__ import annotations
 
@@ -59,9 +74,12 @@ def _check_operand(t: torch.Tensor, name: str, device: torch.device,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: (B, S, H, D); k, v: (B, S, KV, D) with H % KV == 0.  Returns a
-    new contiguous (B, S, H, D) tensor in q's dtype."""
+    new contiguous (B, S, H, D) tensor in q's dtype, and with
+    ``return_lse`` (bf16 only) also the rows' fp32 (B, H, S) log-sum-exp
+    in log2 units, as the backward takes it."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: q must be on cuda, got {dev}")
@@ -83,17 +101,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    if return_lse and q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: the log-sum-exp is saved for "
+                         f"bf16 only, got {q.dtype}")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    rc = _lib.library().repro_flash_attention(
-        out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        B, S, H, KV, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(rc, "flash_attention")
-    launches["flash_attention"] += 1
-    return out
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    if out.numel():
+        rc = _lib.library().repro_flash_attention(
+            out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, KV, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _lib.check(rc, "flash_attention")
+        launches["flash_attention"] += 1
+    return (out, lse) if return_lse else out
 
 
 def backward_supported(q: torch.Tensor) -> bool:
@@ -102,10 +125,12 @@ def backward_supported(q: torch.Tensor) -> bool:
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True, window: int = 0):
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` at the upstream
-    gradient ``dout``, given its output ``out``; bf16, D = 64 or 128.
+    gradient ``dout``, given its output ``out`` and log-sum-exp ``lse``
+    (``flash_attention(..., return_lse=True)``); bf16, D = 64 or 128.
     Every operand is made contiguous; the gradients are new contiguous
     tensors in q's (k's) shape."""
     dev = q.device
@@ -130,37 +155,54 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"or batch {B}")
     if window < 0:
         raise ValueError(f"flash_attention_bwd: window {window} < 0")
+    if (lse.device != dev or lse.dtype != torch.float32
+            or tuple(lse.shape) != (B, H, S)):
+        raise ValueError(f"flash_attention_bwd: lse must be a float32 "
+                         f"({B}, {H}, {S}) tensor on {dev}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
+    # the prep kernel fills these: lse and Delta padded to whole 64-row
+    # tiles, and the zeroed fp32 dQ scratch
+    s_pad = -(-S // 64) * 64
+    lse_pad = torch.empty((B, H, s_pad), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse_pad)
+    dq_acc = torch.empty((B, H, s_pad, D), dtype=torch.float32, device=dev)
     rc = _lib.library().repro_flash_attention_bwd(
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), B, S, H, KV, D, int(bool(causal)),
-        int(window), torch.cuda.current_stream(dev).cuda_stream)
+        lse_pad.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), B, S, H, KV, D, int(bool(causal)), int(window),
+        torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel with the backward kernel as its gradient.  Saves
-    q, k, v and the output; under ``torch.utils.checkpoint`` the forward
-    runs again in the backward pass, so it launches twice a step."""
+    """The forward kernel with the backward kernel as its gradient.  When a
+    gradient is wanted, the forward also writes the log-sum-exp and saves
+    it with q, k, v and the output; under ``torch.utils.checkpoint`` the
+    forward runs again in the backward pass (and writes it again), so it
+    launches twice a step."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        out = flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+        if any(ctx.needs_input_grad[:3]):
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = flash_attention(q, k, v, causal=causal, window=window)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
                                          causal=ctx.causal,
                                          window=ctx.window)
         return dq, dk, dv, None, None

@@ -44,6 +44,27 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def attention_lse_ref(q, k, *, causal: bool = True,
+                      window: int = 0) -> torch.Tensor:
+    """The log-sum-exp that ``flash_attention(..., return_lse=True)`` saves
+    for the backward: (B, H, S) fp32 ``log2 sum_t 2^(q_s . k_t * D**-0.5 *
+    log2 e)`` over the live keys, i.e. the natural logsumexp of the scaled
+    scores times log2 e.  q: (B,S,H,D); k: (B,S,KV,D)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, D).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * D ** -0.5
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1) * 1.4426950408889634
+    return lse.reshape(B, H, S)
+
+
 def slstm_scan_ref(wx, r_gates, b_gates) -> torch.Tensor:
     """Per-step scan for the sLSTM kernel, all fp32 (R cast to fp32).
 

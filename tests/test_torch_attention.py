@@ -86,6 +86,63 @@ def test_flash_attention_matches_pallas_and_chunked(dtype, B, S, H, KV, D,
     _close(got, chunked, tol)
 
 
+def _np_lse_log2(q, k, causal, window):
+    """Masked logsumexp of the scaled scores times log2 e, in float64."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kh = np.repeat(k.astype(np.float64), G, axis=2)
+    s = np.einsum("bshd,bthd->bhst", q.astype(np.float64), kh) / np.sqrt(D)
+    pos = np.arange(S)
+    live = np.ones((S, S), bool)
+    if causal:
+        live &= pos[None, :] <= pos[:, None]
+    if window:
+        live &= pos[None, :] > pos[:, None] - window
+    s = np.where(live, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    lse = m[..., 0] + np.log(np.exp(s - m).sum(-1))
+    return lse / np.log(2.0)
+
+
+# (B, S, H, KV, D, causal, window): ragged S, GQA, a window, non-causal
+LSE_CASES = [(2, 70, 4, 2, 64, True, 0), (1, 130, 4, 4, 32, True, 16),
+             (1, 65, 2, 1, 128, False, 0), (2, 33, 4, 2, 64, False, 8)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", LSE_CASES)
+def test_attention_lse_ref_matches_numpy(B, S, H, KV, D, causal, window):
+    """``ref.attention_lse_ref`` (what the forward kernel saves for the
+    backward) against a float64 numpy masked logsumexp times log2 e,
+    within 1e-5 relative (fp32 scores and sums, with a 1e-5 floor on the
+    largest value for rows whose lse is near 0); and 2^(score * D^-1/2 *
+    log2 e - lse) are the plain version's probabilities: their PV product
+    is its output within ATTN_F32."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(S + D)
+    q, k, v = (rng.standard_normal((B, S, n, D)).astype(np.float32)
+               for n in (H, KV, KV))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = ref.attention_lse_ref(tq, tk, causal=causal, window=window)
+    want = _np_lse_log2(q, k, causal, window)
+    assert got.dtype == torch.float32 and got.shape == (B, H, S)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    G = H // KV
+    kh, vh = (torch.from_numpy(np.repeat(x, G, axis=2)) for x in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", tq, kh) * (D ** -0.5 / np.log(2.0))
+    p = torch.exp2(s - got[..., None])
+    pos = torch.arange(S)
+    live = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        live &= pos[None, :] <= pos[:, None]
+    if window:
+        live &= pos[None, :] > pos[:, None] - window
+    out = torch.einsum("bhst,bthd->bshd", torch.where(live, p, 0.0), vh)
+    torch.testing.assert_close(
+        out, ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                     window=window), **ATTN_F32)
+
+
 @pytest.mark.parametrize("window", [0, 6])
 def test_gqa_prefill_matches_jax(window):
     """The whole GQA prefill (projections, qk-norm, RoPE, attention,

@@ -49,6 +49,17 @@ def test_ptxas_lines_name_their_kernel():
     assert "168" not in second
 
 
+def test_ptxas_notes_keep_serialization_lines():
+    log = LOG + ("ptxas info    : (C7512) Potential Performance Loss: "
+                 "wgmma.mma_async instructions are serialized due to "
+                 "insufficient register resources for the function 'k'\n")
+    notes = _chip_smoke().ptxas_notes(log)
+    assert notes == ["(C7512) Potential Performance Loss: wgmma.mma_async "
+                     "instructions are serialized due to insufficient "
+                     "register resources for the function 'k'"]
+    assert _chip_smoke().ptxas_notes(LOG) == []
+
+
 # the functions that run each phase after the build, by name
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
@@ -241,6 +252,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
                                                   "bf16_embed"]
     assert kernels[-2]["source"].endswith("flash_attention_bwd.cu")
+    assert kernels[-2]["products_per_pair"] == 5
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,
                                               "stream": 4, "sharded": 0}

@@ -947,17 +947,59 @@ def _bwd_inputs(dev, B, S, H, KV, D, seed=0):
             for n in (H, KV, KV, H)]
 
 
+# (B, S, H, KV, D, causal, window) of the log-sum-exp checks: S ragged
+# against the 128-row (D = 128) and the 64-row (D = 64) query tiles
+LSE_CASES = [(2, 130, 4, 2, 128, True, 0), (2, 200, 4, 2, 64, True, 0),
+             (1, 1000, 8, 4, 128, True, 100), (2, 130, 4, 4, 64, True, 33),
+             (2, 200, 4, 1, 128, False, 0), (1, 1000, 4, 2, 64, False, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", LSE_CASES)
+def test_cuda_flash_attention_lse_matches_plain(cuda, B, S, H, KV, D,
+                                                causal, window):
+    """The forward's saved log-sum-exp against the plain masked logsumexp
+    times log2 e (``ref.attention_lse_ref``, fp32): within 1e-5 relative,
+    with a floor of 1e-5 of the largest value for rows near 0 (fp32
+    scores and sums of exponentials in another order)."""
+    q, k, v, _ = _bwd_inputs(cuda, B, S, H, KV, D)
+    kw = dict(causal=causal, window=window)
+    before = tfa.launches["flash_attention"]
+    out, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert tfa.launches["flash_attention"] == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    want = ref.attention_lse_ref(q, k, **kw)
+    torch.testing.assert_close(lse, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    with pytest.raises(ValueError, match="bf16"):
+        tfa.flash_attention(q.float(), k.float(), v.float(), return_lse=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", LSE_CASES)
+def test_cuda_flash_attention_output_same_with_lse(cuda, B, S, H, KV, D,
+                                                   causal, window):
+    """Saving the log-sum-exp leaves the forward's output bit for bit."""
+    q, k, v, _ = _bwd_inputs(cuda, B, S, H, KV, D)
+    kw = dict(causal=causal, window=window)
+    out, _ = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, **kw))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
     (2, 200, 4, 2, 64, True, 0), (1, 300, 4, 2, 64, True, 100),
     (1, 130, 4, 2, 128, True, 0), (1, 1000, 16, 8, 128, False, 0),
-    (1, 1024, 16, 8, 128, True, 256), (2, 64, 4, 4, 64, False, 0)])
+    (1, 1024, 16, 8, 128, True, 256), (2, 64, 4, 4, 64, False, 0),
+    (1, 257, 4, 4, 128, True, 100), (1, 513, 8, 2, 128, True, 200),
+    (2, 300, 4, 1, 64, True, 0), (1, 200, 8, 2, 128, False, 70)])
 def test_cuda_flash_attention_backward_matches_autograd_of_plain(
         cuda, B, S, H, KV, D, causal, window):
     """``ops.flash_attention`` under autograd on the card (the forward and
     backward kernels) against autograd of the plain version: dQ, dK, dV
     within 2^-7 (max|want| + |want|), the bf16 rounding of P and dS as
-    product operands and of the outputs."""
+    product operands and of the outputs.  GQA groups 1, 2 and 4; windows
+    that are not a multiple of the tiles."""
     from repro_torch.kernels import ops
     q, k, v, do = _bwd_inputs(cuda, B, S, H, KV, D)
     kw = dict(causal=causal, window=window)
@@ -975,6 +1017,29 @@ def test_cuda_flash_attention_backward_matches_autograd_of_plain(
         torch.testing.assert_close(
             g.grad.float(), w.grad.float(), rtol=tol,
             atol=tol * w.grad.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (1, 1024, 16, 8, 128, True, 0), (2, 300, 4, 2, 64, True, 100)])
+def test_cuda_flash_attention_backward_repeats_within_tolerance(
+        cuda, B, S, H, KV, D, causal, window):
+    """Two backward calls on the same inputs: dK and dV bit for bit (each
+    sums in registers in a fixed order), dQ within 2^-7 (max|a| + |a|) of
+    the first call's.  dQ sums the key tiles' shares by bulk reduce-adds
+    in whatever order the blocks reach them, so its last bits may differ
+    from run to run."""
+    q, k, v, do = _bwd_inputs(cuda, B, S, H, KV, D)
+    kw = dict(causal=causal, window=window)
+    out, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    first = tfa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    second = tfa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    tol = 2.0 ** -7
+    torch.testing.assert_close(
+        second[0].float(), first[0].float(), rtol=tol,
+        atol=tol * first[0].float().abs().max().item())
 
 
 @pytest.mark.gpu
