@@ -34,7 +34,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    that saves the log-sum-exp for the backward, timed in turns with the
    forward without it (``cuda_ms_pair``).  Then the serving path's
    shape (B=4, S=8192) in bf16, the plain version run one batch row at a
-   time, with and without the log-sum-exp.
+   time, with and without the log-sum-exp.  Then MLA's head dims (q/k 192,
+   v 128; ``flash_attention_mla``) at deepseek-v2-lite's layer (B=1,
+   S=4096, H=KV=16) causal and with a 1024 window, S=129 causal and
+   S=1000 non-causal, bf16 and fp32, and its prefill shape (B=4, S=8192)
+   in bf16; bound 2 (192 + 128) flops a live pair and head; ``library_ms``
+   SDPA, with v zero-padded to 192 where no fused backend takes v's width
+   (``library_padded_v``).
 2c. slstm_scan against its plain version with R in bf16 and fp32: the
    shapes of the JAX package's kernel tests, saturated gates (inputs x25)
    and the xlstm-125m layer (B=4, S=8192, H=4, P=192); bound at 67 TFLOP/s
@@ -116,7 +122,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    A=16,384, N=31,810, fp32 and bf16 rows) against its plain version,
    with its time, its byte bound and ``torch.matmul``'s time.  (e) The
    host-streamed flat round's wall, launches and device busy share at the
-   main fleet beside the resident round's.
+   main fleet beside the resident round's.  (f) Resident fleets past the
+   ring kernel's shared memory: the resident flat and async rounds at A =
+   5,000, R = 10 (the ring takes 4,001 agents for ``agg_blend``, 2,334 a
+   cohort for ``agg_absorb``), counted (#2's agent tiles, ``agg_blend_tiled``
+   / ``agg_absorb_tiled``, and no ring launch on the RSU layer), against
+   the host-streamed rounds of the same spec: cloud and RSU rows within
+   1e-4, accuracy within 2e-3.
 3v. The continuous serving loop (``fedsim/serving``, ``core/load_gen``)
    on the nominal cell's spec of ``benchmarks/serving_loop.py`` (batch 16,
    LAR 2, E 1, lr 0.1, decay 1.0), 100 samples an agent, from the MLP's
@@ -189,6 +201,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    on the card against the host's plain versions (fp32: logits within 1e-3
    and equal greedy tokens; bf16: atol 0.15, rtol 0.05); ``torch.profiler``
    over one prefill call and 8 decode steps.
+4c. deepseek-v2-lite-16b serving (MLA + MoE) at full width and depth in
+   bf16 (16,210,311,168 params drawn on the card): ``make_prefill_step`` at
+   B=4, S=8192 (exactly 27 ``flash_attention_mla`` launches a call and no
+   other attention; ms, tokens/s, peak memory) and ``torch.profiler`` over
+   one call; decode against prefill logits at every position of 1x64
+   tokens with ``capacity_factor = n_experts`` (no drops; atol 0.15, rtol
+   0.05); one decode step's profile at batch 8; the serve launcher
+   ``--arch deepseek-v2-lite-16b --full-config`` (decode tok/s, finite
+   logits) and kimi-k2-1t-a32b's full config refused; a reduced deepseek
+   with MLA's full head dims (so #4's MLA variant runs) and a reduced
+   kimi-k2 (GQA, D = 64) on the card against the host's plain versions
+   (fp32 within 1e-3 and equal greedy tokens; bf16 atol 0.15, rtol 0.05).
 5. The LLM training path (``launch/steps``, ``launch/h2fed_round``,
    ``launch/train``).  (a) The backward kernel of flash_attention
    (``csrc/flash_attention_bwd.cu``, given the forward's output and saved
@@ -222,7 +246,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    rounds' launches, #2 at the sharded pod shape with the sharded
    rounds' launches, and the training path's: #4 forward and backward at
    the layer shape and #3's bf16 mode, with phase 5's steps' and rounds'
-   launches), the card's line, and the result line.
+   launches; #4's MLA variant at the deepseek prefill shape with phase
+   4c's launches), the card's line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
@@ -232,8 +257,8 @@ phase 2 only (the aggregation and update kernels'), and ``--round`` phase
 device busy share a round, from the MLP's initial weights), and
 ``--async`` phase 1 and phase 3b, ``--sweep`` phase 1 and phase 3s,
 ``--stream`` phase 1 and phase 3t, ``--serve`` phase 1 and phase 3v, and
-``--sharded`` phase 1 and phase 3h, and ``--train`` phase 1 and phase 5;
-none of them prints a result line.
+``--sharded`` phase 1 and phase 3h, ``--train`` phase 1 and phase 5, and
+``--moe`` phase 1 and phase 4c; none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -265,6 +290,8 @@ SOURCES = {"fused_agg_blend": "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
                "src/repro_torch/kernels/csrc/dual_proximal_sgd.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_mla":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu"}
@@ -272,6 +299,10 @@ REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             "weighted_agg_matmul": "src/repro/kernels/masked_hier_agg.py:86",
             "dual_proximal_sgd": "src/repro/kernels/dual_proximal_sgd.py:44",
             "flash_attention": "src/repro/kernels/flash_attention.py:93",
+            # the same Pallas kernel, whose function MLA's prefill
+            # computes with chunked_attention (src/repro/models/
+            # attention.py:70) on v zero-padded to q's 192
+            "flash_attention_mla": "src/repro/kernels/flash_attention.py:93",
             # no TPU kernel: the reference differentiates its jnp
             # chunked_attention (the training forward) with jax.grad
             "flash_attention_bwd": "src/repro/models/attention.py:70",
@@ -284,6 +315,14 @@ ATTN_CASES = (("small", 2, 200, 4, 2, 64, True, 0),
               ("s129", 2, 129, 16, 8, 128, True, 0),
               ("s1000", 1, 1000, 16, 8, 128, False, 0))
 PREFILL_B, PREFILL_S = 4, 8192
+# (name, B, S, H, KV, causal, window) at MLA's head dims (q/k 192 = 128 +
+# 64 RoPE dims, v 128): deepseek-v2-lite's layer (H = KV = 16) and two
+# ragged cases
+MLA_DQK, MLA_DV = 192, 128
+MLA_ATTN_CASES = (("mla_layer", 1, 4096, 16, 16, True, 0),
+                  ("mla_layer_w1024", 1, 4096, 16, 16, True, 1024),
+                  ("mla_s129", 1, 129, 16, 16, True, 0),
+                  ("mla_s1000", 1, 1000, 16, 16, False, 0))
 # (name, B, S, H, P, input scale): the JAX kernel tests' shapes, saturated
 # gates, and "layer", xlstm-125m's (d = 768)
 SLSTM_CASES = (("test_1", 1, 17, 2, 32, 1.0), ("test_2", 2, 100, 4, 64, 1.0),
@@ -296,12 +335,12 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
 FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "3h", "4",
-            "4b", "5", "6")
+            "4b", "4c", "5", "6")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
          "--sweep": ("1", "3s"), "--stream": ("1", "3t"),
          "--serve": ("1", "3v"), "--sharded": ("1", "3h"),
-         "--train": ("1", "5")}
+         "--train": ("1", "5"), "--moe": ("1", "4c")}
 
 
 def selected_phases(argv) -> tuple:
@@ -1694,6 +1733,15 @@ def _cloud(state) -> torch.Tensor:
     return state.cloud_flat
 
 
+def _rsu(state) -> torch.Tensor:
+    """The (R, N) RSU rows of any engine's final state."""
+    if hasattr(state, "rsu_params"):
+        p = state.rsu_params
+        return torch.cat([p[k].reshape(p[k].shape[0], -1)
+                          for k in sorted(p)], dim=1)
+    return state.rsu_flat
+
+
 def _limit(what, err, limit):
     if not err <= limit:
         raise AssertionError(f"{what}: {err:.3e} past {limit}")
@@ -2012,15 +2060,70 @@ def stream_round_profile(dev, params, n: int = 3) -> None:
                   *device_profile(one_round, n))
 
 
+# resident fleets past the ring kernel's shared memory: 4,001 agents at R
+# = 10 for agg_blend, 2,334 a cohort for the async tick's agg_absorb
+RESIDENT_A, RESIDENT_R, RESIDENT_CHUNK = 5_000, 10, 2_048
+
+
+def resident_past_ring(dev, params):
+    """Phase 3t (f): the resident flat and async rounds at A = 5,000, R =
+    10 (N = 31,810), past what the ring kernel's shared memory holds, so
+    ``agg_blend`` and ``agg_absorb`` take #2's agent tiles (counted: no
+    ring launch on the RSU layer), against the host-streamed rounds of the
+    same spec, 1 round, the card's own draws replayed on both: cloud and
+    RSU rows within 1e-4, accuracy within 2e-3.  Returns the resident
+    runs' launch counts."""
+    a_spec, _ = straggler_specs()
+    specs = [s.replace(n_agents=RESIDENT_A, n_rsus=RESIDENT_R,
+                       n_train=50_000, batch=8, rounds=1)
+             for s in (quickstart_spec(), a_spec)]
+    paths = {}
+    for s in specs:
+        res = s.resolve()
+        draws = card_draws(dev, s, res, 1)
+        if s.engine == "flat":
+            draws = [[(m, a) for m, a, _ in rd] for rd in draws]
+        resident, rh, counts, secs = timed_run(res, params, draws=draws)
+        lar = s.hp.lar
+        want = ({"agg_blend_tiled": lar, "agg_blend": 0, "cloud_blend": 1}
+                if s.engine == "flat" else
+                {"agg_absorb_tiled": 2 * lar, "agg_absorb": 0,
+                 "cloud_blend": 1})
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"resident {s.engine} at A={RESIDENT_A}: "
+                                 f"launches {counts}, want {want}")
+        host = s.replace(fleet_store="host", chunk_agents=RESIDENT_CHUNK)
+        st, sh, _, _ = timed_run(host.resolve(), params, draws=draws)
+        errs = {"cloud": (_cloud(st) - _cloud(resident)).abs().max().item(),
+                "rsu rows": (st.rsu_flat - _rsu(resident)).abs().max()
+                .item(),
+                "acc": float(abs(sh["acc"] - rh["acc"]).max())}
+        for k, v in errs.items():
+            _limit(f"resident {s.engine} A={RESIDENT_A} vs streamed {k}", v,
+                   2e-3 if k == "acc" else 1e-4)
+        paths[f"resident_{s.engine}"] = counts
+        print(f"stream: resident {s.engine} round at A={RESIDENT_A}, "
+              f"R={RESIDENT_R} (past the ring), {secs * 1e3:.1f} ms with "
+              f"set-up and eval, launches "
+              f"{ {k: v for k, v in counts.items() if v} }; against the "
+              f"host-streamed round (chunks of {RESIDENT_CHUNK}): max abs "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + " (limit 1e-4, acc 2e-3)")
+        del resident, st
+        torch.cuda.empty_cache()
+    return paths
+
+
 def stream_path(dev):
     """Phase 3t; returns (#2's rows at the chunk shape, the launch counts
-    of the counted streamed runs)."""
+    of the counted streamed and resident-past-the-ring runs)."""
     from repro_torch.configs.mnist_mlp import CONFIG
     from repro_torch.models import mlp
     rows = chunk_agg_cases(dev)
     params = mlp.init_params(CONFIG, torch.Generator().manual_seed(0),
                              device=dev)
     paths = stream_equivalence(dev, params)
+    paths.update(resident_past_ring(dev, params))
     stream_twoaxis(dev)
     big = fleet_round(dev, FLEET_A, profile=True)
     small = fleet_round(dev, FLEET_SMALL_A)
@@ -2861,34 +2964,62 @@ def live_pairs(S: int, causal: bool, window: int) -> int:
     return total
 
 
-def attention_bound(B, S, H, KV, D, causal, window, dtype):
-    """(bound ms, bound_by): q, k, v read and out written once; 4*D flops
-    per live pair and head (QK^T and PV), at the dtype's peak."""
+def attention_bound(B, S, H, KV, D, causal, window, dtype, Dv=None):
+    """(bound ms, bound_by): q, k, v read and out written once; 2*(D + Dv)
+    flops per live pair and head (QK^T over D, PV over v's Dv), at the
+    dtype's peak."""
+    Dv = D if Dv is None else Dv
     sx = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * sx
-    flops = 4 * B * H * D * live_pairs(S, causal, window)
+    nbytes = (B * S * H * (D + Dv) + B * S * KV * (D + Dv)) * sx
+    flops = 2 * B * H * (D + Dv) * live_pairs(S, causal, window)
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     return bound(nbytes, flops, peak)
 
 
 def sdpa_call(q, k, v, causal, window):
     """One ``scaled_dot_product_attention`` call on the same inputs (the
-    library yardstick, timed only); k/v repeated to H heads first."""
+    library yardstick, timed only); k/v repeated to H heads first.  Where
+    v is narrower than q and k (MLA) and no fused SDPA backend (flash,
+    memory-efficient, cuDNN) takes it, v is zero-padded to q's width and
+    the call's output sliced back, as the reference pads it (the call's
+    ``padded_v`` attribute says which)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-    if not window:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=causal)
-    S = q.shape[1]
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] > pos[:, None] - window
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                  attn_mask=mask)
+    kw = dict(is_causal=causal)
+    if window:
+        S = q.shape[1]
+        pos = torch.arange(S, device=q.device)
+        mask = pos[None, :] > pos[:, None] - window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+        kw = dict(attn_mask=mask)
+    if v.shape[-1] == q.shape[-1]:
+        call = lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)  # noqa: E731
+        call.padded_v = False
+        return call
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    try:
+        with sdpa_kernel(fused):
+            F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+        def call():
+            with sdpa_kernel(fused):
+                return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        call.padded_v = False
+    except RuntimeError:
+        Dv = v.shape[-1]
+        vp = F.pad(vt, (0, q.shape[-1] - Dv))
+
+        def call():
+            return F.scaled_dot_product_attention(qt, kt, vp,
+                                                  **kw)[..., :Dv]
+        call.padded_v = True
+    return call
 
 
 def attention_cases(dev):
@@ -2963,6 +3094,76 @@ def attention_cases(dev):
         "bound_by": b_by,
         "library_ms": cuda_ms(sdpa_call(q, k, v, True, 0), reps=5, inner=2)})
     print("kernel " + json.dumps(rows[-1]))
+    del q, k, v
+    torch.cuda.empty_cache()
+    rows += mla_attention_cases(dev)
+    return rows
+
+
+def mla_attention_cases(dev):
+    """Phase 2b at MLA's head dims (q/k 192, v 128, deepseek-v2-lite's 16
+    heads): the layer causal and with a 1024 window, S=129 causal, S=1000
+    non-causal, bf16 and fp32; then the prefill shape (B=4, S=8192) in
+    bf16, the plain version one batch row at a time."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def inputs(B, S, H, KV, dtype, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k = (torch.randn(B, S, n, MLA_DQK, device=dev,
+                            generator=gen).to(dtype) for n in (H, KV))
+        v = torch.randn(B, S, KV, MLA_DV, device=dev,
+                        generator=gen).to(dtype)
+        return q, k, v
+
+    def row(name, B, S, H, KV, causal, window, dtype, err, ms, plain_ms,
+            lib):
+        b_ms, b_by = attention_bound(B, S, H, KV, MLA_DQK, causal, window,
+                                     dtype, Dv=MLA_DV)
+        r = {"kernel": "flash_attention_mla", "entry": name,
+             "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": MLA_DQK,
+                       "Dv": MLA_DV, "causal": causal, "window": window},
+             "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": cuda_ms(lib, reps=5, inner=2),
+             "library_padded_v": lib.padded_v}
+        print("kernel " + json.dumps(r))
+        return r
+
+    rows = []
+    for name, B, S, H, KV, causal, window in MLA_ATTN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(B, S, H, KV, dtype, S + H)
+            kw = dict(causal=causal, window=window)
+            err = compare(fa.flash_attention(q, k, v, **kw),
+                          ref.flash_attention_ref(q, k, v, **kw), dtype,
+                          f"flash_attention_mla {name} {dtype}")
+            rows.append(row(
+                name, B, S, H, KV, causal, window, dtype, err,
+                cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                        reps=5, inner=2),
+                sdpa_call(q, k, v, causal, window)))
+            del q, k, v
+            torch.cuda.empty_cache()
+    B, S, H = PREFILL_B, PREFILL_S, 16
+    q, k, v = inputs(B, S, H, H, torch.bfloat16, 1)
+
+    def plain_by_row():
+        return torch.cat([ref.flash_attention_ref(q[b:b + 1], k[b:b + 1],
+                                                  v[b:b + 1])
+                          for b in range(B)])
+    got = fa.flash_attention(q, k, v)
+    err = max(compare(got[b:b + 1], ref.flash_attention_ref(
+        q[b:b + 1], k[b:b + 1], v[b:b + 1]), torch.bfloat16,
+        f"flash_attention_mla prefill row {b}") for b in range(B))
+    del got
+    torch.cuda.empty_cache()
+    rows.append(row("prefill", B, S, H, H, True, 0, torch.bfloat16, err,
+                    cuda_ms(lambda: fa.flash_attention(q, k, v), reps=6,
+                            inner=2),
+                    cuda_ms(plain_by_row, reps=3, inner=1),
+                    sdpa_call(q, k, v, True, 0)))
     del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -3193,34 +3394,9 @@ def serving_path(dev):
     torch.cuda.empty_cache()
 
     # a reduced qwen3 on the card against the host's plain versions
-    for dtype, atol, rtol in (("float32", 1e-3, 0.0),
-                              ("bfloat16", 0.15, 0.05)):
-        rcfg = get_reduced_config("qwen3-0.6b").replace(dtype=dtype,
-                                                        param_dtype=dtype)
-        host = M.init_params(rcfg, torch.Generator().manual_seed(3),
-                             device="cpu")
-        card = tree.map_tree(lambda t: t.to(dev), host)
-        ptoks = torch.from_numpy(np.random.default_rng(4).integers(
-            0, rcfg.vocab_size, (2, 48)))
-        lg_card = make_prefill_step(rcfg, device=dev)(card, {"tokens": ptoks})
-        lg_host = make_prefill_step(rcfg, device="cpu")(host,
-                                                        {"tokens": ptoks})
-        err = _logits_check(lg_card.cpu(), lg_host, f"card vs host {dtype}",
-                            atol, rtol)
-        dec_card = serve.greedy_decode(rcfg, card, ptoks, 8, device=dev)
-        dec_host = serve.greedy_decode(rcfg, host, ptoks, 8, device="cpu")
-        same = bool(np.array_equal(dec_card["tokens"], dec_host["tokens"]))
-        print(f"serving: reduced qwen3 {dtype}, card vs host: prefill "
-              f"logits max abs diff {err:.3e}, greedy tokens equal: {same}")
-        if dtype == "float32":
-            if not same:
-                raise AssertionError(f"fp32 greedy tokens differ: "
-                                     f"{dec_card['tokens']} vs "
-                                     f"{dec_host['tokens']}")
-            err = _logits_check(dec_card["logits"].cpu(), dec_host["logits"],
-                                "card vs host fp32 decode", atol, rtol)
-            print(f"serving: reduced qwen3 float32, card vs host: last "
-                  f"decode logits max abs diff {err:.3e}")
+    rcfg = get_reduced_config("qwen3-0.6b")
+    reduced_card_vs_host(dev, "serving", "qwen3-0.6b", rcfg,
+                         ("flash_attention", rcfg.n_layers))
     return prefill_counts["flash_attention"]
 
 
@@ -3370,39 +3546,228 @@ def xlstm_serving(dev):
 
     # a reduced xlstm on the card (the kernel) against the host (the plain
     # per-step scan), same params
+    reduced_card_vs_host(dev, "xlstm", "xlstm-125m",
+                         get_reduced_config("xlstm-125m"), ("slstm_scan", 3))
+    return prefill_counts["slstm_scan"]
+
+
+# -- phase 4c: deepseek-v2-lite-16b serving (MLA + MoE) ----------------------
+
+MOE_ARCH, KIMI_ARCH = "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"
+
+
+def _no_drops(cfg):
+    """``cfg`` with capacity_factor = n_experts: no group drops a token, so
+    a 1-token decode group and a 64-token prefill group route alike (the
+    reference's own decode check, tests/test_arch_smoke.py:137-144)."""
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def reduced_card_vs_host(dev, tag, arch, rcfg, counted):
+    """A reduced ``arch`` on the card against the host's plain versions
+    with the same params: fp32 prefill logits within 1e-3 and equal greedy
+    tokens, bf16 within atol 0.15 / rtol 0.05; the counted prefill must
+    launch ``counted`` = (launch key, launches).  Lines start ``tag:``."""
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
     for dtype, atol, rtol in (("float32", 1e-3, 0.0),
                               ("bfloat16", 0.15, 0.05)):
-        rcfg = get_reduced_config("xlstm-125m").replace(dtype=dtype,
-                                                        param_dtype=dtype)
-        host = M.init_params(rcfg, torch.Generator().manual_seed(3),
+        c = rcfg.replace(dtype=dtype, param_dtype=dtype)
+        host = M.init_params(c, torch.Generator().manual_seed(3),
                              device="cpu")
         card = tree.map_tree(lambda t: t.to(dev), host)
         ptoks = torch.from_numpy(np.random.default_rng(4).integers(
-            0, rcfg.vocab_size, (2, 48)))
+            0, c.vocab_size, (2, 48)))
         ops.reset_launch_counts()
-        lg_card = make_prefill_step(rcfg, device=dev)(card, {"tokens": ptoks})
-        if ops.launch_counts()["slstm_scan"] != 3:
-            raise AssertionError(f"reduced xlstm prefill launches "
-                                 f"{ops.launch_counts()}")
-        lg_host = make_prefill_step(rcfg, device="cpu")(host,
-                                                        {"tokens": ptoks})
+        lg_card = make_prefill_step(c, device=dev)(card, {"tokens": ptoks})
+        torch.cuda.synchronize()
+        key, want = counted
+        if ops.launch_counts()[key] != want:
+            raise AssertionError(f"reduced {arch} prefill launches "
+                                 f"{ops.launch_counts()}, want {want} {key}")
+        lg_host = make_prefill_step(c, device="cpu")(host, {"tokens": ptoks})
         err = _logits_check(lg_card.cpu(), lg_host,
-                            f"xlstm card vs host {dtype}", atol, rtol)
-        dec_card = serve.greedy_decode(rcfg, card, ptoks, 8, device=dev)
-        dec_host = serve.greedy_decode(rcfg, host, ptoks, 8, device="cpu")
+                            f"{arch} card vs host {dtype}", atol, rtol)
+        dec_card = serve.greedy_decode(c, card, ptoks, 8, device=dev)
+        dec_host = serve.greedy_decode(c, host, ptoks, 8, device="cpu")
         same = bool(np.array_equal(dec_card["tokens"], dec_host["tokens"]))
-        print(f"xlstm: reduced xlstm {dtype}, card vs host: prefill logits "
-              f"max abs diff {err:.3e}, greedy tokens equal: {same}")
+        print(f"{tag}: reduced {arch} {dtype} ({want} {key} launches a "
+              f"prefill), card vs host: prefill logits max abs diff "
+              f"{err:.3e}, greedy tokens equal: {same}")
         if dtype == "float32":
             if not same:
-                raise AssertionError(f"xlstm fp32 greedy tokens differ: "
+                raise AssertionError(f"{arch} fp32 greedy tokens differ: "
                                      f"{dec_card['tokens']} vs "
                                      f"{dec_host['tokens']}")
             err = _logits_check(dec_card["logits"].cpu(), dec_host["logits"],
-                                "xlstm card vs host fp32 decode", atol, rtol)
-            print(f"xlstm: reduced xlstm float32, card vs host: last decode "
-                  f"logits max abs diff {err:.3e}")
-    return prefill_counts["slstm_scan"]
+                                f"{arch} card vs host fp32 decode", atol,
+                                rtol)
+            print(f"{tag}: reduced {arch} float32, card vs host: last "
+                  f"decode logits max abs diff {err:.3e}")
+
+
+def kernel_kind(name: str) -> str:
+    """A kernel's kind by its name, for a device-time breakdown."""
+    low = name.lower()
+    for kind, keys in (("#4 attention", ("flash_attention",)),
+                       ("GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+                       ("index / gather / scatter", ("index",)),
+                       ("sort", ("sort", "radix")),
+                       ("reductions", ("reduce",)),
+                       ("elementwise / copies", ("elementwise", "copy",
+                                                 "memcpy", "memset",
+                                                 "fill", "cat"))):
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def moe_serving(dev):
+    """Phase 4c; returns the flash_attention_mla launches of the counted
+    prefill call."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config, get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    if n_params != M.count_params_analytic(cfg):
+        raise AssertionError(f"{MOE_ARCH}: {n_params} params drawn, "
+                             f"{M.count_params_analytic(cfg)} counted")
+    print(f"moe: {MOE_ARCH} full width and depth, {n_params} params "
+          f"({w_bytes / 1e9:.2f} GB, {cfg.param_dtype}; "
+          f"{M.count_params_analytic(cfg, active_only=True)} active a "
+          f"token), drawn on the card in {time.perf_counter() - t0:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+    # prefill at B=4, S=8192: one counted call, then timed calls
+    prefill = make_prefill_step(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           device=dev, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (counts["flash_attention_mla"] != cfg.n_layers
+            or counts["flash_attention"]):
+        raise AssertionError(f"{MOE_ARCH} prefill launches {counts}, want "
+                             f"{cfg.n_layers} flash_attention_mla and no "
+                             f"other attention")
+    if (tuple(logits.shape) != (PREFILL_B, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"{MOE_ARCH} prefill: bad logits "
+                             f"{tuple(logits.shape)}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    print(f"moe: prefill B={PREFILL_B} S={PREFILL_S}: {ms:.1f} ms a call "
+          f"(median of 3, host clock; {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{PREFILL_B * PREFILL_S / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB ({w_bytes / 1e9:.2f} GB of weights), "
+          f"launches {counts}")
+    prof = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    print_profile(f"{MOE_ARCH} prefill B={PREFILL_B} S={PREFILL_S}", 1, *prof)
+    if prof[2]:
+        shares = {}
+        for k, v in prof[3].items():
+            shares[kernel_kind(k)] = shares.get(kernel_kind(k), 0.0) + v
+        print(f"profile: {MOE_ARCH} prefill: {prof[2] * 1e3:.1f} ms device "
+              f"time: " + "; ".join(
+                  f"{kind} {v * 1e3:.1f} ms ({v / prof[2]:.1%})"
+                  for kind, v in sorted(shares.items(), key=lambda kv: -kv[1])))
+    del tokens, logits
+    torch.cuda.empty_cache()
+
+    # decode == prefill at every position, full width (1 x 64 tokens), no
+    # capacity drops
+    ncfg = _no_drops(cfg)
+    s = 64
+    toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                         generator=gen)
+    with torch.no_grad():
+        full, _ = M.forward(ncfg, params, {"tokens": toks})
+        cache = M.init_cache(ncfg, 1, s, device=dev)
+        outs = []
+        for t in range(s):
+            lg, cache = M.decode_step(ncfg, params, cache, toks[:, t:t + 1],
+                                      torch.tensor([t], dtype=torch.int32,
+                                                   device=dev))
+            outs.append(lg[:, 0])
+    err = _logits_check(torch.stack(outs, 1), full,
+                        f"{MOE_ARCH} decode vs prefill", 0.15, 0.05)
+    print(f"moe: decode vs prefill logits, 1x{s} tokens, full width, "
+          f"capacity_factor {ncfg.moe.capacity_factor:g}: max abs diff "
+          f"{err:.4f} (limit 0.15 + 0.05|logit|)")
+    del full, cache, outs
+
+    # where a decode step's time goes: batch 8, as the serve launcher
+    B, n = 8, 8
+    step = make_serve_step(cfg, device=dev)
+    cache = M.init_cache(cfg, B, 2 * n, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
+    pos = [0]
+
+    def decode_once():
+        nonlocal cache
+        _, cache = step(params, cache, tok, torch.full(
+            (B,), pos[0], dtype=torch.int32, device=dev))
+        pos[0] += 1
+    decode_once()
+    print_profile(f"{MOE_ARCH} decode step, batch {B}", n,
+                  *device_profile(decode_once, n))
+    del cache, params
+    torch.cuda.empty_cache()
+
+    # the serve launcher at its defaults, full width (its own params)
+    ops.reset_launch_counts()
+    res = serve.main(["--arch", MOE_ARCH, "--full-config"])
+    torch.cuda.synchronize()
+    print(f"moe: serve launcher --arch {MOE_ARCH} --full-config: decode "
+          f"{res['tok_per_s']:.1f} tok/s, launches {ops.launch_counts()}")
+    if not torch.isfinite(res["logits"]).all():
+        raise AssertionError(f"{MOE_ARCH} serve: non-finite logits")
+    try:
+        serve.main(["--arch", KIMI_ARCH, "--full-config"])
+    except ValueError as e:
+        print(f"moe: serve launcher --arch {KIMI_ARCH} --full-config "
+              f"refused: {e}")
+    else:
+        raise AssertionError(f"{KIMI_ARCH} --full-config was not refused")
+    del res
+    torch.cuda.empty_cache()
+
+    # reduced models on the card against the host: deepseek cut in depth,
+    # width, experts and vocab but with MLA's full head dims (q/k 192, v
+    # 128), so that #4's MLA variant runs; kimi-k2 (GQA, D = 64)
+    rcfg = get_reduced_config(MOE_ARCH).replace(mla=cfg.mla)
+    reduced_card_vs_host(dev, "moe", MOE_ARCH, rcfg,
+                         ("flash_attention_mla", rcfg.n_layers))
+    kcfg = get_reduced_config(KIMI_ARCH)
+    reduced_card_vs_host(dev, "moe", KIMI_ARCH, kcfg,
+                         ("flash_attention", kcfg.n_layers))
+    return counts["flash_attention_mla"]
 
 
 # -- phase 5: the LLM training path ------------------------------------------
@@ -3811,6 +4176,8 @@ def main(argv=None) -> int:
             serve_path(dev)
         if "3h" in phases:
             sharded_path(dev)
+        if "4c" in phases:
+            moe_serving(dev)
         if "5" in phases:
             train_path(dev)
         return 0
@@ -3823,6 +4190,7 @@ def main(argv=None) -> int:
     shard_rows, shard_counts = sharded_path(dev)
     flash_launches = serving_path(dev)
     scan_launches = xlstm_serving(dev)
+    mla_launches = moe_serving(dev)
     train_rows, train_counts = train_path(dev)
 
     def pick(kernel, entry):
@@ -3855,7 +4223,8 @@ def main(argv=None) -> int:
         "fused_agg_blend": sum(c[k] for c in streamed for k in (
             "agg_blend", "cloud_blend", "agg_absorb")),
         "weighted_agg_matmul": sum(c[k] for c in streamed for k in (
-            "weighted_agg_matmul", "scatter_accumulate", "chunk_agg")),
+            "weighted_agg_matmul", "scatter_accumulate", "chunk_agg",
+            "agg_blend_tiled", "agg_absorb_tiled")),
         "dual_proximal_sgd": sum(c["dual_proximal_sgd"] for c in streamed)}
     # the sharded rounds (every rank's count a case, at 1, 2 and 4 ranks
     # and the N-sharded cell): #2 as block_local_agg, #3 each step; the
@@ -3929,15 +4298,31 @@ def main(argv=None) -> int:
                              "library_ms", "entry")},
         "shape": {k: r[k] for k in ("A", "R", "N")}})
     # the serving path's shape: what each of its prefill launches computes
-    r = next(x for x in attn_rows if x["entry"] == "prefill")
+    r = next(x for x in attn_rows if x["entry"] == "prefill"
+             and x["kernel"] == "flash_attention")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCES["flash_attention"],
         "replaces": REPLACES["flash_attention"], "launches": flash_launches,
-        "max_abs_err": max(x["max_abs_err"] for x in attn_rows),
+        "max_abs_err": max(x["max_abs_err"] for x in attn_rows
+                           if x["kernel"] == "flash_attention"),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "entry": "prefill", "shape": r["shape"], "dtype": r["dtype"]})
+    # MLA's head dims at deepseek-v2-lite's prefill shape, as each of its
+    # prefill launches (phase 4c)
+    mla_rows = [x for x in attn_rows if x["kernel"] == "flash_attention_mla"]
+    r = next(x for x in mla_rows if x["entry"] == "prefill")
+    kernels.append({
+        "name": "flash_attention_mla", "route": "cuda",
+        "source": SOURCES["flash_attention_mla"],
+        "replaces": REPLACES["flash_attention_mla"],
+        "launches": mla_launches,
+        "max_abs_err": max(x["max_abs_err"] for x in mla_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "library_padded_v", "shape",
+                             "dtype")},
+        "entry": "prefill"})
     # the xlstm-125m layer with bf16 R, as each of its prefill launches
     r = next(x for x in scan_rows
              if x["entry"] == "layer" and x["r_dtype"] == "bfloat16")
@@ -3959,7 +4344,8 @@ def main(argv=None) -> int:
         "source": SOURCES["flash_attention"],
         "replaces": REPLACES["flash_attention"],
         "launches": train_counts["flash_attention"],
-        "max_abs_err": max(x["max_abs_err"] for x in attn_rows),
+        "max_abs_err": max(x["max_abs_err"] for x in attn_rows
+                           if x["kernel"] == "flash_attention"),
         **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "shape", "dtype")},
         "entry": "train"})

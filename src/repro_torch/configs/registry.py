@@ -10,12 +10,13 @@ from repro_torch.models.config import ArchConfig, reduced
 _MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
     "xlstm-125m": "xlstm_125m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 # ids the JAX package knows and the port does not run yet
 UNPORTED = ("phi-3-vision-4.2b", "zamba2-2.7b",
-            "command-r-35b", "kimi-k2-1t-a32b", "yi-34b", "whisper-tiny",
-            "deepseek-v2-lite-16b", "nemotron-4-340b")
+            "command-r-35b", "yi-34b", "whisper-tiny", "nemotron-4-340b")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -3,10 +3,14 @@
 //   out[b,s,h,:] = softmax_t(q[b,s,h,:] . k[b,t,h/G,:] * D^-1/2 + mask) @ v[b,t,h/G,:]
 //
 // mask: t < S always, t <= s when causal, t > s - window when window > 0.
-// q is (B,S,H,D), k and v (B,S,KV,D), G = H/KV, read through their strides
-// (the last axis contiguous); out is a new contiguous (B,S,H,D) tensor in
-// q's dtype.  Scores, the running (max, sum) and the output accumulator are
-// fp32; bf16 or fp32 inputs; D is 32, 64 or 128 (a template per D).
+// q is (B,S,H,D), k (B,S,KV,D) and v (B,S,KV,Dv), G = H/KV, read through
+// their strides (the last axis contiguous); out is a new contiguous
+// (B,S,H,Dv) tensor in q's dtype.  Scores, the running (max, sum) and the
+// output accumulator are fp32; bf16 or fp32 inputs; (D, Dv) is (32, 32),
+// (64, 64), (128, 128) or MLA's (192, 128) (a template per pair): MLA's
+// prefill folds 64 RoPE dims into q and k (128 + 64) and keeps v at 128,
+// where the reference pads v with zeros to 192 for its shared kernel and
+// so spends a third of the PV products and output bytes on zeros.
 //
 // Replaces the Pallas kernel flash_attention (body _attn_kernel) of
 // src/repro/kernels/flash_attention.py.  As there, the running (m, l, acc)
@@ -36,12 +40,18 @@
 //   two consumer warpgroups (64 query rows each, registers raised with
 //   setmaxnreg) that run QK^T and PV as wgmma.mma_async m64n128k16, with
 //   the online softmax on the fp32 accumulator in registers.
-// - bf16, D = 32 or 64 (test shapes): mma.sync m16n8k16 (bf16 in, fp32
+// - bf16, D = 32 or 64 (test shapes) and MLA's D = 192, Dv = 128
+//   (deepseek-v2-lite's prefill): mma.sync m16n8k16 (bf16 in, fp32
 //   accumulate), flash-attention-2 style: one block of 4 warps per
 //   (b, h, 64-row query tile), each warp owning 16 query rows; K and V
 //   tiles of 64 keys stream through padded shared memory with cp.async,
 //   the next K tile loading while this tile's softmax and PV product run.
-//   The score fragment is reused in registers as the A operand of PV.
+//   The score fragment is reused in registers as the A operand of PV.  At
+//   192 / 128 a warp holds its Q fragments for 12 k-steps (48 registers)
+//   and a 16 x 128 fp32 accumulator (64), and a block's Q, K and V tiles
+//   take 68.6 KB of shared memory; it is the simple kernel, and the TMA +
+//   wgmma shape of the D = 128 kernel (its 128-byte swizzle assumes
+//   256-byte rows, where a 384-byte row needs two boxes) is later work.
 // - fp32 inputs (the fp32 test configurations) run on the FMA units: one
 //   block of 4 warps per (b, h, 32-row tile), a lane per key for the scores
 //   and a lane per output column for the PV product.
@@ -84,7 +94,7 @@ using repro::wgmma_wait_all;
 constexpr int kThreads = 128;  // 4 warps in the mma.sync and FMA kernels
 
 struct Params {
-  void* out;
+  void* out;  // (B, S, H, Dv), contiguous
   float* lse;  // (B, H, S) log-sum-exp for the backward, or null
   const void* q;
   const void* k;
@@ -93,7 +103,7 @@ struct Params {
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
-  float scale_log2;  // D^-1/2 * log2(e): scores go through exp2
+  float scale_log2;  // D^-1/2 * log2(e) (q's and k's D): scores use exp2
   int causal, window;
 };
 
@@ -152,13 +162,14 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
 
 // (kThreads, 1): without the block count, ptxas capped this kernel at 96
 // registers for D = 32 and spilled
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bf16_kernel(Params p) {
-  constexpr int STRIDE = D + 8;  // 16-byte rows, conflict-free fragments
-  constexpr int NB = kBK / 8;    // score n-blocks of 8 keys
-  constexpr int ND = D / 8;      // output n-blocks of 8 columns
-  constexpr int KS = D / 16;     // k-steps over D
+  constexpr int STRIDE = D + 8;    // 16-byte rows, conflict-free fragments
+  constexpr int VSTRIDE = DV + 8;  // the same for V's rows
+  constexpr int NB = kBK / 8;      // score n-blocks of 8 keys
+  constexpr int ND = DV / 8;       // output n-blocks of 8 columns
+  constexpr int KS = D / 16;       // k-steps over D
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kBQ * STRIDE;
@@ -181,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   load_tile_bf16<D, STRIDE>(Qs, qh, p.q_ss, q0, p.S);
   load_tile_bf16<D, STRIDE>(Ks, kh, p.k_ss, lo * kBK, p.S);
   cp_async_commit();
-  load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, lo * kBK, p.S);
+  load_tile_bf16<DV, VSTRIDE>(Vs, vh, p.v_ss, lo * kBK, p.S);
   cp_async_commit();
   cp_async_wait<1>();  // Q and the first K tile
   __syncthreads();
@@ -287,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
       split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
       const __nv_bfloat16* vrow =
-          Vs + (kk * 16 + (lane & 15)) * STRIDE + (lane >> 4) * 8;
+          Vs + (kk * 16 + (lane & 15)) * VSTRIDE + (lane >> 4) * 8;
 #pragma unroll
       for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
         uint32_t bv[4];
@@ -300,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // every warp is done with Vs
     if (has_next) {
-      load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, k0 + kBK, p.S);
+      load_tile_bf16<DV, VSTRIDE>(Vs, vh, p.v_ss, k0 + kBK, p.S);
       cp_async_commit();
       cp_async_wait<1>();  // the next K tile
       __syncthreads();
@@ -310,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // out = O / l and the row's log-sum-exp m + log2(l), rows past S are not
   // stored
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-  const int64_t o_ss = (int64_t)p.H * D;
+  const int64_t o_ss = (int64_t)p.H * DV;
   const int64_t o_sb = (int64_t)p.S * o_ss;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -323,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (p.lse != nullptr && tig == 0) {
         p.lse[((int64_t)b * p.H + h) * p.S + row] = m[r] + __log2f(lr);
       }
-      __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * D + tig * 2;
+      __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * DV + tig * 2;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         *reinterpret_cast<uint32_t*>(dst + nd * 8) =
@@ -640,14 +651,14 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int stride,
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(Params p) {
-  constexpr int NC = D / 32;  // output columns per lane
+  constexpr int NC = DV / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [kFBQ][D], broadcast
   float* Ks = Qs + kFBQ * D;                       // [kFBK][D+1], lane = key
-  float* Vs = Ks + kFBK * (D + 1);                 // [kFBK][D], lane = column
+  float* Vs = Ks + kFBK * (D + 1);                 // [kFBK][DV], lane = column
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nq = (p.S + kFBQ - 1) / kFBQ;
@@ -675,7 +686,7 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = j * kFBK;
     __syncthreads();  // the previous tile is consumed
     load_tile_f32<D>(Ks, D + 1, kh, p.k_ss, k0, kFBK, p.S);
-    load_tile_f32<D>(Vs, D, vh, p.v_ss, k0, kFBK, p.S);
+    load_tile_f32<DV>(Vs, DV, vh, p.v_ss, k0, kFBK, p.S);
     __syncthreads();
 
     float s[kRows];
@@ -714,7 +725,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int jj = 0; jj < kFBK; ++jj) {
       float vv[NC];
 #pragma unroll
-      for (int i = 0; i < NC; ++i) vv[i] = Vs[jj * D + lane + 32 * i];
+      for (int i = 0; i < NC; ++i) vv[i] = Vs[jj * DV + lane + 32 * i];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pj = __shfl_sync(0xffffffffu, s[r], jj);
@@ -725,14 +736,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float* out = static_cast<float*>(p.out);
-  const int64_t o_ss = (int64_t)p.H * D;
+  const int64_t o_ss = (int64_t)p.H * DV;
   const int64_t o_sb = (int64_t)p.S * o_ss;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = rbase + r;
     if (row < p.S) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
-      float* dst = out + b * o_sb + row * o_ss + h * D;
+      float* dst = out + b * o_sb + row * o_ss + h * DV;
 #pragma unroll
       for (int i = 0; i < NC; ++i) dst[lane + 32 * i] = o[r][i] * inv;
     }
@@ -758,28 +769,28 @@ cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    if constexpr (D == kWsD) {
+    if constexpr (D == kWsD && DV == kWsD) {
       return launch_ws(p, B, stream);
     } else {
-      const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
+      const int smem = ((kBQ + kBK) * (D + 8) + kBK * (DV + 8)) * 2;
       cudaError_t e = cudaFuncSetAttribute(
-          flash_attention_bf16_kernel<D>,
+          flash_attention_bf16_kernel<D, DV>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
       const dim3 grid((p.S + kBQ - 1) / kBQ, p.H, B);
-      flash_attention_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+      flash_attention_bf16_kernel<D, DV><<<grid, kThreads, smem, stream>>>(p);
     }
   } else {
-    const int smem = (kFBQ * D + kFBK * (D + 1) + kFBK * D) * 4;
+    const int smem = (kFBQ * D + kFBK * (D + 1) + kFBK * DV) * 4;
     cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_f32_kernel<D>,
+        flash_attention_f32_kernel<D, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((p.S + kFBQ - 1) / kFBQ, p.H, B);
-    flash_attention_f32_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    flash_attention_f32_kernel<D, DV><<<grid, kThreads, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -787,7 +798,7 @@ cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 == cudaSuccess), or
-// cudaErrorInvalidValue for a head dim without a template, a tensor map the
+// cudaErrorInvalidValue for a (D, Dv) pair without a template, a tensor map the
 // driver refuses or a grid of 2^31 blocks or more.  Strides are in
 // elements; the caller checks devices, dtypes (q/k/v/out all bf16 or all
 // fp32), shapes, a unit stride on the last axis, 16-byte aligned rows for
@@ -795,7 +806,7 @@ cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 // fp32 (B, H, S) tensor or null, takes each row's log-sum-exp (bf16 only).
 extern "C" int repro_flash_attention(
     void* out, void* lse, const void* q, const void* k, const void* v, int B,
-    int S, int H, int KV, int D, long long q_sb, long long q_ss,
+    int S, int H, int KV, int D, int Dv, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int window,
     int is_bf16, void* stream) {
@@ -804,10 +815,14 @@ extern "C" int repro_flash_attention(
            window};
   p.scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return (int)launch<32>(p, B, is_bf16, s);
-    case 64: return (int)launch<64>(p, B, is_bf16, s);
-    case 128: return (int)launch<128>(p, B, is_bf16, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (D == Dv) {
+    switch (D) {
+      case 32: return (int)launch<32, 32>(p, B, is_bf16, s);
+      case 64: return (int)launch<64, 64>(p, B, is_bf16, s);
+      case 128: return (int)launch<128, 128>(p, B, is_bf16, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (D == 192 && Dv == 128) return (int)launch<192, 128>(p, B, is_bf16, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,11 +6,13 @@
                       @ v[b, t, h // G]
 
 with ``t <= s`` when causal, ``t > s - window`` when ``window > 0``; fp32
-scores and accumulation, the output in q's dtype.  q is (B, S, H, D) and
-k / v are (B, S, KV, D), all bf16 or all fp32, read in place through their
-strides: the last axis must be contiguous and, for bf16, every row must
-start on 16 bytes (what the TMA copies of the bf16 D = 128 kernel need).
-D is 32, 64 or 128.
+scores and accumulation, the output in q's dtype.  q is (B, S, H, D), k is
+(B, S, KV, D) and v (B, S, KV, Dv), all bf16 or all fp32, read in place
+through their strides: the last axis must be contiguous and, for bf16,
+every row must start on 16 bytes (what the TMA copies of the bf16 D = 128
+kernel need).  (D, Dv) is (32, 32), (64, 64), (128, 128) or MLA's (192,
+128): deepseek-v2-lite's prefill folds 64 RoPE dims into q and k and keeps
+v at 128, where the reference zero-pads v to 192 (``HEAD_DIMS``).
 
 With ``return_lse=True`` the bf16 forward also returns each row's
 log-sum-exp, the fp32 (B, H, S) ``log2 sum_t 2^(score_t * D**-0.5 *
@@ -35,8 +37,9 @@ calls on CUDA tensors.
 
 Takes CUDA tensors only and raises on anything else; ``kernels/ops``
 routes CPU tensors to ``kernels/ref.flash_attention_ref``.  ``launches``
-counts launches: one a forward call, and one a backward call (which runs
-the backward's three kernels: prep, the fused kernel, the dQ pass).
+counts launches: one a forward call (under ``flash_attention_mla`` at
+MLA's head dims), and one a backward call (which runs the backward's three
+kernels: prep, the fused kernel, the dQ pass).
 """
 from __future__ import annotations
 
@@ -46,13 +49,14 @@ import torch
 
 from repro_torch.kernels import _lib
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))   # (D, Dv)
 DTYPES = (torch.bfloat16, torch.float32)
 BWD_HEAD_DIMS = (64, 128)
 BWD_DTYPES = (torch.bfloat16,)
 MAX_GRID_YZ = 65535     # H on gridDim.y, B on gridDim.z
 
-launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_mla": 0,
+                            "flash_attention_bwd": 0}
 
 
 def _check_operand(t: torch.Tensor, name: str, device: torch.device,
@@ -76,8 +80,8 @@ def _check_operand(t: torch.Tensor, name: str, device: torch.device,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     return_lse: bool = False):
-    """q: (B, S, H, D); k, v: (B, S, KV, D) with H % KV == 0.  Returns a
-    new contiguous (B, S, H, D) tensor in q's dtype, and with
+    """q: (B, S, H, D); k: (B, S, KV, D); v: (B, S, KV, Dv) with H % KV ==
+    0.  Returns a new contiguous (B, S, H, Dv) tensor in q's dtype, and with
     ``return_lse`` (bf16 only) also the rows' fp32 (B, H, S) log-sum-exp
     in log2 units, as the backward takes it."""
     dev = q.device
@@ -88,12 +92,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_operand(t, name, dev, q.dtype)
     B, S, H, D = q.shape
-    KV = k.shape[2]
-    if tuple(k.shape) != (B, S, KV, D) or v.shape != k.shape:
+    KV, Dv = k.shape[2], v.shape[-1]
+    if tuple(k.shape) != (B, S, KV, D) or tuple(v.shape) != (B, S, KV, Dv):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be ({B}, {S}, KV, {D})")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+                         f"{tuple(v.shape)} must be ({B}, {S}, KV, {D}) and "
+                         f"({B}, {S}, KV, Dv)")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (q/k, v) {(D, Dv)} "
+                         f"not in {HEAD_DIMS}")
     if KV < 1 or H % KV:
         raise ValueError(f"flash_attention: {H} heads over {KV} kv heads")
     if not (B <= MAX_GRID_YZ and H <= MAX_GRID_YZ and S < 2 ** 31):
@@ -104,24 +110,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if return_lse and q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention: the log-sum-exp is saved for "
                          f"bf16 only, got {q.dtype}")
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if return_lse else None)
     if out.numel():
         rc = _lib.library().repro_flash_attention(
             out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, KV, D,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, KV, D, Dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
         _lib.check(rc, "flash_attention")
-        launches["flash_attention"] += 1
+        launches["flash_attention" if D == Dv else "flash_attention_mla"] += 1
     return (out, lse) if return_lse else out
 
 
-def backward_supported(q: torch.Tensor) -> bool:
-    """Whether the backward kernel takes q's dtype and head dim."""
-    return q.dtype in BWD_DTYPES and q.shape[-1] in BWD_HEAD_DIMS
+def backward_supported(q: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the backward kernel takes q's dtype and head dims (one D
+    for q, k and v)."""
+    return (q.dtype in BWD_DTYPES and q.shape[-1] in BWD_HEAD_DIMS
+            and v.shape[-1] == q.shape[-1])
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -136,7 +144,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd: q must be on cuda, got {dev}")
-    if not backward_supported(q):
+    if not backward_supported(q, v):
         raise ValueError(f"flash_attention_bwd: takes {BWD_DTYPES} with head "
                          f"dim in {BWD_HEAD_DIMS}, got {q.dtype} "
                          f"{tuple(q.shape)}")

@@ -23,6 +23,10 @@ They take any A: past the shared memory of one weight chunk they stage W
 in agent tiles.  W stays fp32 and the kernels
 accumulate in fp32 whatever the fleet dtype.
 
+Past the ring kernel's shared memory (``ring_fits``), ``agg_blend`` and
+``agg_absorb`` take the matmul kernel's agent tiles instead, as the
+streamed rounds do, so the resident engines take any fleet.
+
 The scenario axis: every entry also takes a multi-scenario sweep's S
 stacked fleets, a leading S axis on X (S, A, N), the buffers (S, R, N) and
 the weights, and serves all of them in one launch (the kernels put the
@@ -41,7 +45,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.aggregation import (build_weight_matrix, cohort_mass,
+from repro_torch.core.aggregation import (buffer_absorb, build_weight_matrix,
+                                          cohort_mass, normalize_blend,
                                           normalized_weights,
                                           unnormalized_weight_matrix)
 from repro_torch.kernels import _lib
@@ -60,7 +65,8 @@ _SHARED_BITS = {"weights": 64, "mask": 128, "rsu_assign": 256}
 launches: Dict[str, int] = {"agg_blend": 0, "cloud_blend": 0,
                             "agg_absorb": 0, "weighted_agg_matmul": 0,
                             "scatter_accumulate": 0, "chunk_agg": 0,
-                            "block_local_agg": 0}
+                            "block_local_agg": 0, "agg_blend_tiled": 0,
+                            "agg_absorb_tiled": 0}
 
 
 def _require(t: torch.Tensor, name: str, shape: Tuple[int, ...],
@@ -98,16 +104,22 @@ def _row_chunk(R: int, sizes) -> int:
     return next((c for c in sizes if R <= c), sizes[-1])
 
 
-def _check_ring_smem(entry: str, R: int, n_agents: int,
-                     build: bool) -> None:
-    """The ring kernel keeps a (row chunk x agents) weight tile, 4 floats a
+def ring_fits(R: int, n_agents: int, build: bool) -> bool:
+    """Whether the ring kernel takes ``n_agents`` agents (of every cohort)
+    at R rows.  It keeps a (row chunk x agents) weight tile, 4 floats a
     row, (``build``) 8 bytes an agent and its ring (at least
     RING_MIN_BYTES) in shared memory, the chunk the smallest of 1, 2, 4,
-    8, 12, 16 that holds R."""
+    8, 12, 16 that holds R.  This is the one place that chooses between the
+    ring and the agent-tiled route of ``agg_blend`` and ``agg_absorb``."""
     row_chunk = _row_chunk(R, (1, 2, 4, 8, 12, 16))
     need = ((row_chunk + 2 * build) * n_agents + 4 * row_chunk) * 4
-    if need + RING_MIN_BYTES > SMEM_BYTES:
-        raise ValueError(f"{entry}: {n_agents} agents x {row_chunk} rows of "
+    return need + RING_MIN_BYTES <= SMEM_BYTES
+
+
+def _check_ring_smem(entry: str, R: int, n_agents: int,
+                     build: bool) -> None:
+    if not ring_fits(R, n_agents, build):
+        raise ValueError(f"{entry}: {n_agents} agents at {R} rows of "
                          f"weights and the copy ring exceed {SMEM_BYTES} "
                          f"bytes of shared memory")
 
@@ -324,11 +336,20 @@ def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
     ``mask`` (A,) bool or float32, ``rsu_assign`` (A,) int64 or int32.
     Returns (rsu' (R, N) in prev's dtype, mass (R,)).  For S scenarios at
     once: X (S, A, N), prev (S, R, N), weights / mask / rsu_assign (S, A)
-    or one shared (A,); returns (S, R, N) and (S, R)."""
+    or one shared (A,); returns (S, R, N) and (S, R).  Past what the
+    ring's shared memory holds (``ring_fits``: 4,001 agents at R = 10) the
+    same function takes the agent-tiled route of the streamed rounds: the
+    matmul kernel's unnormalized sums into fp32 (one launch, counted as
+    ``agg_blend_tiled``), then ``normalize_blend``."""
     if weights.dtype != torch.float32:
         weights = weights.float()
     if mask.dtype not in _MASK_KINDS:
         mask = mask.float()
+    if not ring_fits(n_rsus, stacked_flat.shape[-2], build=True):
+        num, mass = scatter_accumulate(stacked_flat, weights * mask.float(),
+                                       rsu_assign, n_rsus,
+                                       entry="agg_blend_tiled")
+        return normalize_blend(num, mass, prev), mass
     out = torch.empty_like(prev)
     mass = prev.new_empty(prev.shape[:-1], dtype=torch.float32)
     _agg_blend_launch("agg_blend", stacked_flat, weights, mask, rsu_assign,
@@ -345,7 +366,23 @@ def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
     total mass, new mass).  With a leading scenario axis: x (S, A, N), w
     (S, A), buf (S, R, N), buf_mass (S, R), rsu_assign (A,) or (S, A).  The
     weights of every cohort share the ring's shared memory: at R = 10 the
-    async tick's two cohorts take up to 2,334 agents each."""
+    async tick's two cohorts take up to 2,334 agents each, one cohort
+    4,668.  Past that (``ring_fits``) each cohort's unnormalized sums come
+    from the matmul kernel's agent tiles into fp32 running sums (one launch
+    a cohort, counted as ``agg_absorb_tiled``), merged by
+    ``buffer_absorb``."""
+    if not ring_fits(n_rsus, sum(x.shape[-2] for x, _ in arrivals),
+                     build=False):
+        num = torch.zeros(buf.shape, dtype=torch.float32, device=buf.device)
+        new_mass = torch.zeros(buf.shape[:-1], dtype=torch.float32,
+                               device=buf.device)
+        for x, w in arrivals:
+            n, m = scatter_accumulate(x, w, rsu_assign, n_rsus,
+                                      entry="agg_absorb_tiled")
+            num.add_(n)
+            new_mass.add_(m)
+        out, total = buffer_absorb(buf, buf_mass, num, new_mass, keep=keep)
+        return out, total, new_mass
     mats, xs = [], []
     new_mass = torch.zeros(buf.shape[:-1], dtype=torch.float32,
                            device=buf.device)

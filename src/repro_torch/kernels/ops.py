@@ -134,7 +134,9 @@ def cloud_agg(rsu_flat, rsu_weights) -> torch.Tensor:
 
 
 def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
-    """Fused RSU aggregation + mass guard; (rsu' in prev's dtype, mass)."""
+    """Fused RSU aggregation + mass guard; (rsu' in prev's dtype, mass).
+    On CUDA one launch of #1's ring, or past its shared memory
+    (``masked_hier_agg.ring_fits``) one of #2's agent tiles."""
     if stacked_flat.is_cuda:
         _no_backward("agg_blend", stacked_flat, weights, mask, prev)
         return _mha.agg_blend(stacked_flat, weights, mask, rsu_assign,
@@ -145,7 +147,9 @@ def agg_blend(stacked_flat, weights, mask, rsu_assign, n_rsus: int, prev):
 
 def agg_absorb(arrivals, rsu_assign, n_rsus: int, buf, buf_mass, *,
                keep=0.0):
-    """Fused multi-cohort absorb; (buf', total mass, new mass)."""
+    """Fused multi-cohort absorb; (buf', total mass, new mass).  On CUDA
+    one launch of #1's ring, or past its shared memory one of #2's agent
+    tiles a cohort."""
     if buf.is_cuda:
         _no_backward("agg_absorb", buf, buf_mass, keep,
                      *(t for pair in arrivals for t in pair))
@@ -165,16 +169,21 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
-    """Online-softmax attention; q (B,S,H,D), k/v (B,S,KV,D); out in q's
-    dtype.  On CUDA the forward and backward kernels as one autograd
-    function; a gradient the backward kernel does not take (fp32, or D =
-    32) raises rather than come back without one."""
+    """Online-softmax attention; q (B,S,H,D), k (B,S,KV,D), v (B,S,KV,Dv)
+    (MLA: D = 192, Dv = 128); out (B,S,H,Dv) in q's dtype.  On CUDA the
+    forward and backward kernels as one autograd function; a gradient the
+    backward kernel does not take (fp32, D = 32, or MLA's D != Dv) raises
+    rather than come back without one."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if _needs_grad(q, k, v) and not _fa.backward_supported(q):
+    if _needs_grad(q, k, v) and not _fa.backward_supported(q, v):
+        wait = ("; MLA training on the card waits for one (ROADMAP queue 1, "
+                "the model zoo: deepseek-v2-lite training)"
+                if v.shape[-1] != q.shape[-1] else "")
         raise NotImplementedError(
-            f"flash_attention: the backward kernel takes bf16 with head dim "
-            f"in {_fa.BWD_HEAD_DIMS}, got {q.dtype} head dim {q.shape[-1]}")
+            f"flash_attention: the backward kernel takes bf16 with one head "
+            f"dim in {_fa.BWD_HEAD_DIMS}, got {q.dtype} head dims "
+            f"{q.shape[-1]} / {v.shape[-1]}{wait}")
     return _fa.FlashAttention.apply(q, k, v, causal, window)
 
 

@@ -24,7 +24,9 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """Dense-softmax attention in fp32.  q: (B,S,H,D); k/v: (B,S,KV,D)."""
+    """Dense-softmax attention in fp32.  q: (B,S,H,D); k: (B,S,KV,D); v:
+    (B,S,KV,Dv), whose head dim may differ from q's and k's (MLA: 192 and
+    128); scale D**-0.5; out (B,S,H,Dv) in q's dtype."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -41,7 +43,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bskgt,btkd->bskgd", p, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def attention_lse_ref(q, k, *, causal: bool = True,

@@ -24,6 +24,11 @@ the JAX package's train launcher is restored.
         [--ckpt-dir results/ckpt] [--batch 8] [--prompt-len 32] [--gen 32] \\
         [--window 0] [--full-config] [--device cuda]
 
+``--arch`` takes qwen3-0.6b, xlstm-125m, deepseek-v2-lite-16b (MLA + MoE;
+at full width 32.4 GB of bf16 params) and kimi-k2-1t-a32b (reduced only:
+its full config does not fit one card and is refused before any
+allocation).
+
 ``--device cpu`` runs the plain PyTorch versions on the host.
 """
 from __future__ import annotations
@@ -83,6 +88,22 @@ def _parser() -> argparse.ArgumentParser:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+CARD_BYTES = 80e9     # one H100's device memory
+
+
+def check_fits_one_card(cfg, dev: torch.device) -> None:
+    """Raise before allocating when the params alone outgrow one card
+    (kimi-k2-1t-a32b's 1.04e12); on the host, against one H100's 80 GB."""
+    n = M.count_params_analytic(cfg)
+    need = n * cfg.weight_dtype.itemsize
+    have = (torch.cuda.get_device_properties(dev).total_memory
+            if dev.type == "cuda" else CARD_BYTES)
+    if need > have:
+        raise ValueError(f"{cfg.name}: {n:,} params take {need / 1e9:.1f} GB, "
+                         f"more than one card's {have / 1e9:.1f} GB; serve it "
+                         f"reduced (without --full-config)")
 
 
 def greedy_decode(cfg, params, prompts, n_gen: int, *, device=None) -> dict:
@@ -195,6 +216,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
     if args.window:
         cfg = cfg.replace(attn_window=args.window)
+    if not args.reduced:
+        check_fits_one_card(cfg, dev)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)

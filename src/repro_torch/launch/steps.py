@@ -59,7 +59,7 @@ def make_train_step(cfg: ArchConfig, hp: H2FedParams, beta: float = 0.9, *,
     leaf and out of place, so the peak holds the fp32 temporaries of one
     leaf; the state handed in is left as it is."""
     dev = resolve_device(device)
-    aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+    aux_w = M.aux_weight(cfg)
 
     def train_step(state: TrainState, batch: Dict[str, Any], mask):
         """batch leaves: (A, b, ...); mask: (A,) float connectivity.
@@ -112,7 +112,7 @@ def make_prefill_step(cfg: ArchConfig, *, device=None):
         step's ``logits[:, -1, :]``, without its (B, S, V) fp32 logits
         (about 20 GB at B=4, S=8192 for qwen3-0.6b)."""
         batch = {k: v.to(dev) for k, v in batch.items()}
-        x = M.hidden_states(cfg, params, batch)
+        x, _ = M.hidden_states(cfg, params, batch)
         return lm_logits(cfg, params["embed"], x[:, -1:])[:, 0]
     return prefill_step
 

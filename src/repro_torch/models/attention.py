@@ -1,12 +1,16 @@
-"""GQA self-attention (RoPE, qk-norm, sliding window) and its KV cache
-(the GQA part of ``repro/models/attention.py``).
+"""Self-attention of ``repro/models/attention.py``: GQA (RoPE, qk-norm,
+sliding window) with its KV cache, and MLA (DeepSeek-V2: a compressed KV
+cache and decoupled RoPE).
 
 Prefill goes through ``kernels.ops.flash_attention`` where the JAX package
 calls its jnp ``chunked_attention``: the hand-written Hopper kernel on the
-card, the dense plain version on the host.  Decode attends one new token
-over the cache in plain PyTorch, as the JAX package computes it outside
-any Pallas kernel.  MLA and cross-attention are not ported yet
-(``models/transformer`` refuses the MLA kind and the encdec pattern).
+card, the dense plain version on the host.  MLA's prefill folds the RoPE
+dims into q and k (head dim 128 + 64 = 192, scale 192**-0.5) and keeps v
+at its own 128, where the reference pads v to 192 for its shared kernel.
+Decode attends one new token over the cache in plain PyTorch, as the JAX
+package computes it outside any Pallas kernel; MLA decodes in the
+weight-absorbed form, in the compressed space.  Cross-attention is not
+ported yet (``models/transformer`` refuses the encdec pattern).
 """
 from __future__ import annotations
 
@@ -75,19 +79,26 @@ def init_kv_cache(batch: int, length: int, n_kv: int, head_dim: int, dtype,
     )
 
 
-def cache_append(cache: KVCache, k_new, v_new, positions) -> KVCache:
-    """Write one token's k/v at each row's ring slot ``idx % T``.
-    k_new: (B, 1, KV, D).  Unlike the JAX version, which returns a new
-    cache, the buffers are written in place (no copy of the whole cache per
-    token); the returned cache is the same object."""
-    T = cache.k.shape[1]
-    rows = torch.arange(cache.k.shape[0], device=cache.k.device)
+def _ring_write(cache, news, positions):
+    """Write one token's entries ``news`` (each (B, 1, ...), one a leading
+    buffer of ``cache``) and its positions at each row's ring slot ``idx %
+    T``, in place.  Unlike the JAX version, which returns a new cache, no
+    copy of the whole cache is made per token; the returned cache is the
+    same object."""
+    T = cache.pos.shape[1]
+    rows = torch.arange(cache.pos.shape[0], device=cache.pos.device)
     slot = (cache.idx % T).long()
-    cache.k[rows, slot] = k_new[:, 0]
-    cache.v[rows, slot] = v_new[:, 0]
+    for buf, new in zip(cache, news):
+        buf[rows, slot] = new[:, 0]
     cache.pos[rows, slot] = positions.to(torch.int32)
     cache.idx.add_(1)
     return cache
+
+
+def cache_append(cache: KVCache, k_new, v_new, positions) -> KVCache:
+    """Write one token's k/v (B, 1, KV, D) at each row's ring slot, in
+    place."""
+    return _ring_write(cache, (k_new, v_new), positions)
 
 
 # --------------------------------------------------------------------------
@@ -152,3 +163,125 @@ def gqa_decode(cfg: ArchConfig, p, x, cache: KVCache, cur_pos):
     B = x.shape[0]
     return out.reshape(B, 1, -1) @ p["wo"], cache
 
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV cache + decoupled RoPE
+# --------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor        # (..., B, T, kv_lora)
+    krope: torch.Tensor      # (..., B, T, rope_hd)
+    pos: torch.Tensor        # (..., B, T) int32 absolute positions, -1 = empty
+    idx: torch.Tensor        # (..., B) int32 next write slot (ring index)
+
+    def layer(self, i: int) -> "MLACache":
+        """Layer ``i`` of a layer-stacked cache, as views."""
+        return MLACache(self.ckv[i], self.krope[i], self.pos[i], self.idx[i])
+
+
+def init_mla_cache(batch: int, length: int, cfg: ArchConfig, dtype, *,
+                   lead=(), device=None) -> MLACache:
+    """kv_lora + rope_hd values a token and layer (576 at deepseek-v2-lite);
+    ``lead`` stacks the cache (a leading L axis)."""
+    m, lead = cfg.mla, tuple(lead)
+    return MLACache(
+        ckv=torch.zeros(lead + (batch, length, m.kv_lora_rank), dtype=dtype,
+                        device=device),
+        krope=torch.zeros(lead + (batch, length, m.rope_head_dim),
+                          dtype=dtype, device=device),
+        pos=torch.full(lead + (batch, length), -1, dtype=torch.int32,
+                       device=device),
+        idx=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
+    )
+
+
+def mla_init(cfg: ArchConfig, gen: torch.Generator, *, lead=()):
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    wd, lead = cfg.weight_dtype, tuple(lead)
+    return {
+        "wq": dense_init(gen, lead + (d, H * (m.q_head_dim
+                                              + m.rope_head_dim)), wd),
+        "wdkv": dense_init(gen, lead + (d, m.kv_lora_rank
+                                        + m.rope_head_dim), wd),
+        "wuk": dense_init(gen, lead + (m.kv_lora_rank, H * m.q_head_dim), wd),
+        "wuv": dense_init(gen, lead + (m.kv_lora_rank, H * m.v_head_dim), wd),
+        "wo": dense_init(gen, lead + (H * m.v_head_dim, d), wd),
+    }
+
+
+def _mla_q(cfg: ArchConfig, p, x, positions):
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, H, m.q_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.q_head_dim], q[..., m.q_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv(cfg: ArchConfig, p, x, positions):
+    m = cfg.mla
+    dkv = x @ p["wdkv"]
+    ckv, krope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    krope = apply_rope(krope[..., None, :], positions,
+                       cfg.rope_theta)[..., 0, :]
+    return ckv, krope
+
+
+def _mla_expand(cfg: ArchConfig, p, ckv):
+    """Up-project the compressed cache to per-head k_nope and v."""
+    m, H = cfg.mla, cfg.n_heads
+    B, T, _ = ckv.shape
+    k_nope = (ckv @ p["wuk"]).reshape(B, T, H, m.q_head_dim)
+    v = (ckv @ p["wuv"]).reshape(B, T, H, m.v_head_dim)
+    return k_nope, v
+
+
+def mla_prefill(cfg: ArchConfig, p, x, positions):
+    """positions: (S,), 0..S-1, shared across the batch (see
+    ``gqa_prefill``).  q and k are ``[nope | rope]`` (the shared krope
+    broadcast to every head), v its own width; attention scales by q's
+    head dim, as the reference's ``chunked_attention`` on its padded v."""
+    if tuple(positions.shape) != (x.shape[1],):
+        raise ValueError(f"mla_prefill: positions of shape "
+                         f"{tuple(positions.shape)} for {x.shape[1]} tokens; "
+                         f"prefill attends positions 0..S-1 only")
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(cfg, p, x, positions[None, :])
+    ckv, krope = _mla_kv(cfg, p, x, positions[None, :])
+    k_nope, v = _mla_expand(cfg, p, ckv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        B, S, H, m.rope_head_dim)], dim=-1)
+    out = ops.flash_attention(q, k, v, causal=True, window=cfg.attn_window)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def mla_decode(cfg: ArchConfig, p, x, cache: MLACache, cur_pos):
+    """Weight-absorbed MLA decode (DeepSeek-V2): q_nope goes through w_uk
+    into the compressed kv_lora space, the scores and the context are
+    taken there over the cache, and w_uv expands the context, so a step
+    costs O(T * kv_lora) rather than O(T * H * head_dim).  Plain fp32
+    einsums, as in the reference.  x: (B, 1, d); cur_pos: (B,).  The
+    cache is written in place at each row's ring slot ``idx % T``."""
+    m, H = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(cfg, p, x, cur_pos[:, None])    # (B,1,H,.)
+    cache = _ring_write(cache, _mla_kv(cfg, p, x, cur_pos[:, None]),
+                        cur_pos)
+    wuk = p["wuk"].reshape(m.kv_lora_rank, H, m.q_head_dim)
+    q_c = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], wuk)
+    scale = (m.q_head_dim + m.rope_head_dim) ** -0.5
+    ckv = cache.ckv.float()
+    s = (torch.einsum("bhl,btl->bht", q_c.float(), ckv)
+         + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(),
+                        cache.krope.float())) * scale
+    valid = (cache.pos >= 0) & (cache.pos <= cur_pos[:, None])
+    if cfg.attn_window:
+        valid &= cache.pos > (cur_pos[:, None] - cfg.attn_window)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    ctx_c = torch.einsum("bht,btl->bhl", w, ckv)
+    wuv = p["wuv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bhl,lhd->bhd", ctx_c, wuv.float()).to(x.dtype)
+    return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache

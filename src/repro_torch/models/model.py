@@ -16,7 +16,6 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import tree
-
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
@@ -48,21 +47,21 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *,
 
 
 def hidden_states(cfg: ArchConfig, params, batch: Dict[str, Any]):
-    """The final-normed hidden states (B, S, d) of a token batch."""
+    """(the final-normed hidden states (B, S, d) of a token batch, the
+    summed MoE load-balance loss: an fp32 scalar, 0 without MoE)."""
     _check_text_only(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    x = tf.stack_prefill(cfg, params["stack"], x, positions)
-    return norm_apply(cfg, params["final_norm"], x)
+    x, aux = tf.stack_prefill(cfg, params["stack"], x, positions)
+    return norm_apply(cfg, params["final_norm"], x), aux
 
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, Any]):
-    """Full-sequence forward.  Returns (fp32 logits (B, S, V), aux); aux is
-    0 (no MoE is ported)."""
-    x = hidden_states(cfg, params, batch)
-    return (lm_logits(cfg, params["embed"], x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    """Full-sequence forward.  Returns (fp32 logits (B, S, V), aux), aux
+    the layers' summed MoE load-balance loss (0 without MoE)."""
+    x, aux = hidden_states(cfg, params, batch)
+    return lm_logits(cfg, params["embed"], x), aux
 
 
 def _nll(cfg: ArchConfig, params, batch: Dict[str, Any]):
@@ -74,16 +73,24 @@ def _nll(cfg: ArchConfig, params, batch: Dict[str, Any]):
     return nll, labels >= 0, aux
 
 
+def aux_weight(cfg: ArchConfig) -> float:
+    """The MoE load-balance loss's weight in the loss (0 without MoE)."""
+    return cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+
+
 def loss_fn(cfg: ArchConfig, params, batch: Dict[str, Any]):
-    """Mean next-token cross-entropy over valid labels (labels >= 0)."""
+    """Mean next-token cross-entropy over valid labels (labels >= 0), plus
+    ``router_aux_weight`` times the MoE aux loss."""
     nll, valid, aux = _nll(cfg, params, batch)
     task = (nll * valid).sum() / valid.sum().clamp(min=1)
-    return task, {"task_loss": task, "aux_loss": aux}
+    return task + aux_weight(cfg) * aux, {"task_loss": task,
+                                           "aux_loss": aux}
 
 
 def per_example_loss(cfg: ArchConfig, params, batch: Dict[str, Any]):
-    """Per-example mean NLL (B,) and aux: the federated train step weights
-    these per agent."""
+    """Per-example mean NLL (B,) and the MoE aux loss: the federated train
+    step weights the NLL per agent and adds ``router_aux_weight * aux``
+    (the reference's ``per_example_loss`` returns the two apart too)."""
     nll, valid, aux = _nll(cfg, params, batch)
     return (nll * valid).sum(-1) / valid.sum(-1).clamp(min=1), aux
 
@@ -118,13 +125,25 @@ class _MetaGenerator(torch.Generator):
 
 
 @functools.lru_cache(maxsize=64)
-def _param_shapes(cfg: ArchConfig):
+def _param_paths(cfg: ArchConfig):
+    """(path, shape) of every leaf of ``init_params(cfg)``, built on the
+    meta device."""
     params = init_params(cfg, _MetaGenerator(), device="meta")
-    return tuple(tuple(l.shape) for l in tree.leaves(params))
+    return tuple((path, tuple(leaf.shape))
+                 for path, leaf in tree.leaves_with_paths(params))
 
 
 def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Exact parameter count of ``init_params(cfg)``.  ``active_only``
-    changes nothing here: it scales routed experts, and no MoE is
-    ported."""
-    return sum(prod(s) for s in _param_shapes(cfg))
+    """Exact parameter count of ``init_params(cfg)``, built on the meta
+    device.  ``active_only`` scales each routed expert leaf (``w_gate`` /
+    ``w_up`` / ``w_down`` outside ``shared``, with an E axis) by ``top_k /
+    n_experts``, as the reference does."""
+    total = 0
+    for path, shape in _param_paths(cfg):
+        n = prod(shape)
+        if (active_only and cfg.moe is not None
+                and any(w in path for w in ("w_gate", "w_up", "w_down"))
+                and "shared" not in path and cfg.moe.n_experts in shape):
+            n = n * cfg.moe.top_k // cfg.moe.n_experts
+        total += n
+    return total

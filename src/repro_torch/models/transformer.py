@@ -1,17 +1,20 @@
 """Block assembly (``repro/models/transformer.py``) for the ``decoder``
-pattern (attention + MLP residual sub-blocks) and the xLSTM ``mlstm`` and
-``slstm`` patterns: layer params stacked on a leading L axis as
-``stack_init`` builds them in JAX, applied by a Python loop over that axis
-where JAX scans.  Under autograd (training) each stacked leaf is unbound
-once a forward, so the backward stacks each leaf's layer gradients once
-instead of building a zero (L, ...) gradient a layer, and each layer is
-recomputed in the backward (``torch.utils.checkpoint``), the reference's
-``jax.checkpoint``; no-grad prefill indexes the layers as views.  The
-per-layer decode caches (the KV cache, the mLSTM and sLSTM states) are
-stacked on L too and updated in place.
+pattern (attention + feed-forward residual sub-blocks) and the xLSTM
+``mlstm`` and ``slstm`` patterns: layer params stacked on a leading L axis
+as ``stack_init`` builds them in JAX, applied by a Python loop over that
+axis where JAX scans.  The attention is GQA or MLA (``cfg.attn_impl``), the
+feed-forward an MLP or, with ``cfg.moe``, the MoE layer, whose load-balance
+loss the stack sums layer by layer as the reference's scan carries it.
+Under autograd (training) each stacked leaf is unbound once a forward, so
+the backward stacks each leaf's layer gradients once instead of building a
+zero (L, ...) gradient a layer, and each layer is recomputed in the
+backward (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``;
+no-grad prefill indexes the layers as views.  The per-layer decode caches
+(the KV cache, the MLA cache, the mLSTM and sLSTM states) are stacked on L
+too and updated in place.
 
 Every other pattern (encdec with its cross-attention, mamba, zamba_super)
-and the MoE and MLA kinds raise ``NotImplementedError``.
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (mlp_apply, mlp_init, norm_apply,
@@ -30,8 +34,7 @@ from repro_torch.models.layers import (mlp_apply, mlp_init, norm_apply,
 PATTERNS = {"decoder": ("attn", "ffn"),     # the ported layer patterns
             "mlstm": ("mlstm",),
             "slstm": ("slstm",)}
-_INIT = {"attn": attn_mod.gqa_init, "ffn": mlp_init,
-         "mlstm": xlstm_mod.mlstm_init, "slstm": xlstm_mod.slstm_init}
+KINDS = ("attn", "ffn", "mlstm", "slstm")
 _STATE = {"mlstm": xlstm_mod.init_mlstm_state,
           "slstm": xlstm_mod.init_slstm_state}
 _DECODE = {"mlstm": xlstm_mod.mlstm_decode, "slstm": xlstm_mod.slstm_decode}
@@ -42,12 +45,8 @@ def _unported(what: str):
                               f"queue 1, the model zoo)")
 
 
-def _check(cfg: ArchConfig, kind: str) -> None:
-    if kind == "attn" and cfg.attn_impl == "mla":
-        _unported("MLA attention")
-    if kind == "ffn" and cfg.moe is not None:
-        _unported("the MoE feed-forward")
-    if kind not in _INIT:
+def _check(kind: str) -> None:
+    if kind not in KINDS:
         _unported(f"the {kind!r} block")
 
 
@@ -78,48 +77,69 @@ def _requires_grad(tree) -> bool:
 # --------------------------------------------------------------------------
 
 def sub_init(cfg: ArchConfig, kind: str, gen: torch.Generator, *, lead=()):
-    _check(cfg, kind)
-    inner = _INIT[kind](cfg, gen, lead=lead)
+    _check(kind)
+    if kind == "attn":
+        init = attn_mod.mla_init if cfg.attn_impl == "mla" else \
+            attn_mod.gqa_init
+    elif kind == "ffn":
+        init = moe_mod.moe_init if cfg.moe is not None else mlp_init
+    else:
+        init = {"mlstm": xlstm_mod.mlstm_init,
+                "slstm": xlstm_mod.slstm_init}[kind]
     return {"norm": norm_init(cfg, cfg.d_model, lead=lead, device=gen.device),
-            "inner": inner}
+            "inner": init(cfg, gen, lead=lead)}
 
 
 def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions):
-    """Returns the residual delta (the JAX version also returns an aux
-    loss, which is zero for these kinds)."""
-    _check(cfg, kind)
+    """Returns (residual delta, aux loss): the MoE layer's load-balance
+    loss, None for every other kind (the reference's zero)."""
+    _check(kind)
     xn = norm_apply(cfg, p["norm"], x)
     if kind == "attn":
-        return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions)
+        if cfg.attn_impl == "mla":
+            return attn_mod.mla_prefill(cfg, p["inner"], xn, positions), None
+        return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions), None
     if kind == "mlstm":
-        return xlstm_mod.mlstm_prefill(cfg, p["inner"], xn)
+        return xlstm_mod.mlstm_prefill(cfg, p["inner"], xn), None
     if kind == "slstm":
-        return xlstm_mod.slstm_prefill(cfg, p["inner"], xn)
-    return mlp_apply(cfg, p["inner"], xn)
+        return xlstm_mod.slstm_prefill(cfg, p["inner"], xn), None
+    if cfg.moe is not None:
+        return moe_mod.moe_apply(cfg, p["inner"], xn)
+    return mlp_apply(cfg, p["inner"], xn), None
 
 
 def sub_init_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, *,
                    lead=(), device=None):
-    _check(cfg, kind)
+    _check(kind)
     if kind in _STATE:
         return _STATE[kind](cfg, batch, lead=lead, device=device)
     if kind != "attn":
         return None
     length = (min(cache_len, cfg.attn_window) if cfg.attn_window
               else cache_len)
+    if cfg.attn_impl == "mla":
+        return attn_mod.init_mla_cache(batch, length, cfg,
+                                       cfg.activation_dtype, lead=lead,
+                                       device=device)
     return attn_mod.init_kv_cache(batch, length, cfg.n_kv_heads,
                                   cfg.head_dim_, cfg.activation_dtype,
                                   lead=lead, device=device)
 
 
 def sub_decode(cfg: ArchConfig, kind: str, p, x, cache, cur_pos):
-    """Returns (residual delta, cache); the cache is updated in place."""
-    _check(cfg, kind)
+    """Returns (residual delta, cache); the cache is updated in place.  The
+    MoE layer routes the step's B tokens as one group, and its aux loss is
+    dropped, as in the reference."""
+    _check(kind)
     xn = norm_apply(cfg, p["norm"], x)
     if kind == "attn":
+        if cfg.attn_impl == "mla":
+            return attn_mod.mla_decode(cfg, p["inner"], xn, cache, cur_pos)
         return attn_mod.gqa_decode(cfg, p["inner"], xn, cache, cur_pos)
     if kind in _DECODE:
         return _DECODE[kind](cfg, p["inner"], xn, cache)
+    if cfg.moe is not None:
+        return moe_mod.moe_apply(cfg, p["inner"], xn)[0], None
     return mlp_apply(cfg, p["inner"], xn), None
 
 
@@ -138,9 +158,14 @@ def layer_init(cfg: ArchConfig, pattern: str, gen, *, lead=()):
 
 
 def layer_prefill(cfg, pattern, p, x, positions):
+    """Returns (x, the layer's aux loss, or None without MoE)."""
+    aux = None
     for kind in _kinds(pattern):
-        x = x + sub_prefill(cfg, kind, p[kind], x, positions)
-    return x
+        delta, a = sub_prefill(cfg, kind, p[kind], x, positions)
+        x = x + delta
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def layer_init_cache(cfg, pattern, batch, cache_len, *, lead=(),
@@ -175,17 +200,22 @@ def stack_init(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
 
 
 def stack_prefill(cfg: ArchConfig, params, x, positions):
+    """Returns (x, aux): aux is the fp32 sum of the layers' MoE
+    load-balance losses, 0 without MoE."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (pattern, repeat) in zip(params["segments"], cfg.layout_):
         if torch.is_grad_enabled() and (x.requires_grad
                                         or _requires_grad(seg_params)):
             layer = functools.partial(layer_prefill, cfg, pattern)
             for p in _unbind(seg_params, repeat):
-                x = checkpoint(layer, p, x, positions, use_reentrant=False)
+                x, a = checkpoint(layer, p, x, positions, use_reentrant=False)
+                aux = aux if a is None else aux + a
             continue
         for i in range(repeat):
-            x = layer_prefill(cfg, pattern, _index(seg_params, i), x,
-                              positions)
-    return x
+            x, a = layer_prefill(cfg, pattern, _index(seg_params, i), x,
+                                 positions)
+            aux = aux if a is None else aux + a
+    return x, aux
 
 
 def stack_init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,

@@ -4,7 +4,7 @@ holding no leaf, as ``jax.tree_util`` flattens them.  The checkpoint
 reader and the weight converter map leaves one for one in this order."""
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Tuple
 
 
 def leaves(tree) -> List[Any]:
@@ -20,6 +20,17 @@ def _iter_leaves(tree) -> Iterator[Any]:
             yield from _iter_leaves(t)
     elif tree is not None:
         yield tree
+
+
+def leaves_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(``"/key/0/..."`` path, leaf) of every leaf, in leaf order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in leaves_with_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, t in enumerate(tree)
+                for pl in leaves_with_paths(t, f"{prefix}/{i}")]
+    return [] if tree is None else [(prefix, tree)]
 
 
 def map_tree(fn: Callable[[Any], Any], tree):

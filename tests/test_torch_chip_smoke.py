@@ -64,7 +64,7 @@ def test_ptxas_notes_keep_serialization_lines():
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
                  "stream_path", "serve_path", "sharded_path", "serving_path",
-                 "xlstm_serving", "train_path")
+                 "xlstm_serving", "moe_serving", "train_path")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -76,7 +76,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--stream", ["stream_path"]),
                                        ("--serve", ["serve_path"]),
                                        ("--sharded", ["sharded_path"]),
-                                       ("--train", ["train_path"])])
+                                       ("--train", ["train_path"]),
+                                       ("--moe", ["moe_serving"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -107,6 +108,8 @@ def test_phase_selection():
     assert cs.selected_phases(["--serve"]) == ("1", "3v")
     assert cs.selected_phases(["--sharded"]) == ("1", "3h")
     assert cs.selected_phases(["--train"]) == ("1", "5")
+    assert cs.selected_phases(["--moe"]) == ("1", "4c")
+    assert "4c" in cs.FULL_RUN
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
     assert "3v" in cs.FULL_RUN and "3h" in cs.FULL_RUN
     with pytest.raises(SystemExit):
@@ -146,12 +149,18 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
             agg_row("weighted_agg_matmul", "weighted_agg_matmul",
                     library_ms=0.016),
             agg_row("dual_proximal_sgd", "scaled_broadcast")]
-    attn = [{"entry": "prefill", "max_abs_err": 4e-3, "ms": 2.6,
+    attn = [{"kernel": "flash_attention", "entry": "prefill",
+             "max_abs_err": 4e-3, "ms": 2.6,
              "plain_ms": 126.0, "bound_ms": 1.1, "bound_by": "operations",
              "library_ms": 1.7, "shape": {}, "dtype": "bfloat16"},
-            {"entry": "layer", "max_abs_err": 4e-3, "ms": 0.7,
+            {"kernel": "flash_attention", "entry": "layer",
+             "max_abs_err": 4e-3, "ms": 0.7,
              "plain_ms": 30.0, "bound_ms": 0.07, "bound_by": "operations",
-             "library_ms": 0.5, "shape": {}, "dtype": "bfloat16"}]
+             "library_ms": 0.5, "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_mla", "entry": "prefill",
+             "max_abs_err": 8e-3, "ms": 9.0, "plain_ms": 200.0,
+             "bound_ms": 1.4, "bound_by": "operations", "library_ms": 3.0,
+             "library_padded_v": True, "shape": {}, "dtype": "bfloat16"}]
     train_rows = [
         {"kernel": "flash_attention_bwd", "entry": "layer",
          "max_abs_err": 0.03, "ms": 1.9, "plain_ms": 40.0, "bound_ms": 0.17,
@@ -168,6 +177,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
              "bound_by": "operations", "shape": {}, "latency_floor_ms": 4.3}]
     counts = {"agg_blend": 40, "cloud_blend": 10, "agg_absorb": 0,
               "weighted_agg_matmul": 0, "scatter_accumulate": 0,
+              "agg_blend_tiled": 0, "agg_absorb_tiled": 0,
               "dual_proximal_sgd": 120}
     async_counts = dict(counts, agg_blend=0, cloud_blend=30, agg_absorb=120,
                         dual_proximal_sgd=360)
@@ -202,7 +212,13 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "flat": dict(counts, agg_blend=0, cloud_blend=2, chunk_agg=24,
                      dual_proximal_sgd=72),
         "async": dict(counts, agg_blend=0, cloud_blend=2, chunk_agg=48,
-                      dual_proximal_sgd=72)}))
+                      dual_proximal_sgd=72),
+        "resident_flat": dict(counts, agg_blend=0, cloud_blend=1,
+                              chunk_agg=0, agg_blend_tiled=4,
+                              dual_proximal_sgd=8),
+        "resident_async": dict(counts, agg_blend=0, cloud_blend=1,
+                               chunk_agg=0, agg_absorb_tiled=8,
+                               dual_proximal_sgd=8)}))
     serve_counts = dict(counts, agg_blend=0, cloud_blend=3, agg_absorb=6,
                         dual_proximal_sgd=36)
     monkeypatch.setattr(cs, "serve_path", lambda dev: {
@@ -218,6 +234,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         dual_proximal_sgd=512)))
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
+    monkeypatch.setattr(cs, "moe_serving", lambda dev: 27)
     monkeypatch.setattr(cs, "train_path",
                         lambda dev: (train_rows, train_counts))
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -232,8 +249,8 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "weighted_agg_matmul", "weighted_agg_matmul", "flash_attention",
-        "slstm_scan", "flash_attention", "flash_attention_bwd",
-        "dual_proximal_sgd"]
+        "flash_attention_mla", "slstm_scan", "flash_attention",
+        "flash_attention_bwd", "dual_proximal_sgd"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
     # the flat path's, the async path's, the sweep's, the serve loop's,
@@ -244,21 +261,25 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     # chunk shape, with the streamed rounds' launches, and #2 at the
     # sharded pod shape, with the sharded rounds' launches
     assert [k["launches"] for k in kernels] == [
-        50 + 150 + 30 + 9 + 4, 5 + 18 + 6 + 13 + 72 + 64,
-        120 + 360 + 1350 + 36 + 144 + 512, 30, 6, 1350, 72, 64, 28, 3,
-        300, 150, 176]
+        50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
+        120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
+        27, 3, 300, 150, 176]
     # the training path's rows: #4 forward and backward at the layer
     # shape, #3's bf16 mode at the embedding leaf
     assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
                                                   "bf16_embed"]
     assert kernels[-2]["source"].endswith("flash_attention_bwd.cu")
+    # #4 at MLA's head dims, with phase 4c's prefill launches
+    assert kernels[9]["source"].endswith("flash_attention.cu")
+    assert kernels[9]["replaces"] == kernels[8]["replaces"]
+    assert kernels[9]["library_padded_v"] is True
     assert kernels[-2]["products_per_pair"] == 5
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,
-                                              "stream": 4, "sharded": 0}
+                                              "stream": 6, "sharded": 0}
     assert kernels[1]["launches_by_path"] == {"flat": 5, "async": 18,
                                               "sweep": 6, "serve": 13,
-                                              "stream": 72, "sharded": 64}
+                                              "stream": 84, "sharded": 64}
     assert kernels[2]["launches_by_path"]["serve"] == 36
     assert kernels[2]["launches_by_path"]["sharded"] == 512
     assert kernels[7]["entry"] == "block_local_agg"

@@ -354,8 +354,9 @@ def test_cuda_agg_absorb_two_cohorts_vector_keep(cuda, dtype, A, R, N):
     stragglers) and an (R,) keep on the card, in one launch.  Rows that
     screen_updates scrubbed back to their start (NaN payloads) carry
     weight 0.  An RSU with no mass and no retained buffer keeps its row
-    bit for bit.  A = 2334 is the largest the tick takes at R = 10 (12 rows of
-    weights for 2A agents and the copy ring in shared memory)."""
+    bit for bit.  A = 2334 is the largest the ring takes at R = 10 (12 rows
+    of weights for 2A agents and the copy ring in shared memory); one agent
+    more takes the agent-tiled route (#2's sums, one launch a cohort)."""
     from repro_torch.core.aggregation import screen_updates
     x, prev, w, mask, assign = _agg_inputs(cuda, A, R, N, dtype, A * R)
     g = torch.Generator(device=cuda).manual_seed(N)
@@ -389,12 +390,18 @@ def test_cuda_agg_absorb_two_cohorts_vector_keep(cuda, dtype, A, R, N):
                                keep.double() * bm.double() + exact,
                                rtol=1e-6, atol=0)
     assert torch.equal(got[0], prev[0]) and torch.isfinite(got.float()).all()
-    if A == 2334:                        # one agent more does not fit
+    if A == 2334:                        # one agent more: the tiled route
         one = torch.zeros(A + 1, device=cuda)
-        more = [(torch.cat([c, c[:1]]), one) for c, _ in arrivals]
-        with pytest.raises(ValueError, match="shared memory"):
-            tmha.agg_absorb(more, torch.cat([assign, assign[:1]]), R, prev,
-                            bm, keep=keep)
+        more = [(torch.cat([c, c[:1]]), torch.cat([w_, one[:1]]))
+                for c, w_ in arrivals]
+        before = dict(tmha.launches)
+        got2, _, new2 = tmha.agg_absorb(more, torch.cat([assign, assign[:1]]),
+                                        R, prev, bm, keep=keep)
+        assert tmha.launches["agg_absorb"] == before["agg_absorb"]
+        assert (tmha.launches["agg_absorb_tiled"]
+                == before["agg_absorb_tiled"] + 2)
+        torch.testing.assert_close(got2.float(), want.float(), **tol)
+        torch.testing.assert_close(new2.double(), exact, rtol=1e-6, atol=0)
     torch.cuda.synchronize()
 
 
@@ -408,8 +415,9 @@ def test_cuda_agg_absorb_one_cohort(cuda, dtype, A, R, N):
     launch.  Then a tick whose every arrival was rejected: all-zero
     weights, where an RSU that retains no mass keeps its row bit for bit
     through the mass guard and one that does is renormalized by its
-    retained mass.  A = 4668 is the most one cohort takes at R = 10 (12
-    rows of weights and the copy ring in shared memory).  The masses are
+    retained mass.  A = 4668 is the most one cohort takes on the ring at R
+    = 10 (12 rows of weights and the copy ring in shared memory); one more
+    takes the agent-tiled route.  The masses are
     held to the exact (fp64) sums: the plain version's ``index_add_``
     adds in an order that varies from run to run."""
     x, prev, w, mask, assign = _agg_inputs(cuda, A, R, N, dtype, A + N)
@@ -437,12 +445,18 @@ def test_cuda_agg_absorb_one_cohort(cuda, dtype, A, R, N):
         assert torch.isfinite(got.float()).all()
     assert not new.any()                 # the empty tick absorbed nothing
     torch.testing.assert_close(got.float(), prev.float(), **tol)
-    if A == 4668:                        # one agent more does not fit
-        with pytest.raises(ValueError, match="shared memory"):
-            tmha.agg_absorb(((torch.cat([x, x[:1]]),
-                              torch.cat([w_arr, w_arr[:1]])),),
-                            torch.cat([assign, assign[:1]]), R, prev, bm,
-                            keep=0.4)
+    if A == 4668:                        # one agent more: the tiled route
+        more = ((torch.cat([x, x[:1]]),
+                 torch.cat([w_arr, torch.zeros_like(w_arr[:1])])),)
+        before = dict(tmha.launches)
+        got, _, new = tmha.agg_absorb(more, torch.cat([assign, assign[:1]]),
+                                      R, prev, bm, keep=0.4)
+        assert tmha.launches["agg_absorb"] == before["agg_absorb"]
+        assert (tmha.launches["agg_absorb_tiled"]
+                == before["agg_absorb_tiled"] + 1)
+        want, _, _ = ref.agg_absorb_ref(((x, w_arr),), assign, R, prev, bm,
+                                        keep=0.4)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
     torch.cuda.synchronize()
 
 
@@ -480,6 +494,60 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D,
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert tfa.launches["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+
+
+# (B, S, H, KV, causal, window) at MLA's head dims (q/k 192, v 128):
+# deepseek-v2-lite's layer (H = KV = 16) causal and with a 1024 window,
+# one row past a 64-row tile, a ragged thousand non-causal, GQA 2 with a
+# window, one token
+MLA_CASES = [(1, 4096, 16, 16, True, 0), (1, 4096, 16, 16, True, 1024),
+             (2, 129, 16, 16, True, 0), (1, 1000, 16, 16, False, 0),
+             (2, 300, 8, 4, True, 33), (3, 1, 4, 4, True, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,causal,window", MLA_CASES)
+def test_cuda_flash_attention_mla_dims_match_plain(cuda, dtype, B, S, H, KV,
+                                                   causal, window):
+    """Kernel #4 at Dqk = 192, Dv = 128 (the mma.sync kernel in bf16, the
+    FMA kernel in fp32) against the plain version, scale 192**-0.5; the
+    output is v's width."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k = (torch.randn(B, S, n, 192, device=cuda, generator=g).to(dtype)
+            for n in (H, KV))
+    v = torch.randn(B, S, KV, 128, device=cuda, generator=g).to(dtype)
+    before = dict(tfa.launches)
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (B, S, H, 128)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+    assert (tfa.launches["flash_attention_mla"]
+            == before["flash_attention_mla"] + 1)
+    assert tfa.launches["flash_attention"] == before["flash_attention"]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_mla_dims_refuse_grad_and_other_pairs(cuda):
+    """Under grad at Dqk = 192 the route raises (no backward kernel takes
+    MLA's head dims); (D, Dv) pairs without a kernel are refused."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k = (torch.randn(1, 64, 4, 192, device=cuda, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn(1, 64, 4, 128, device=cuda, generator=g).to(
+        torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="the model zoo"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).shape == (1, 64, 4, 128)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q[..., :128].contiguous(), k[..., :128], v[..., :64])
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q.detach(), k, v[..., :96])
     torch.cuda.synchronize()
 
 
@@ -641,6 +709,80 @@ def test_cuda_xlstm_prefill_runs_the_scan(cuda):
         want, _ = M.forward(cfg, host, {"tokens": toks})
     assert ops.launch_counts()["slstm_scan"] == 3
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- resident fleets past the ring's shared memory --------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_resident_fleets_past_the_ring(cuda, dtype):
+    """``agg_blend`` at A = 5,000, R = 10 (the ring takes 4,001) and
+    ``agg_absorb`` with two cohorts of 3,000 (the ring takes 2,334 each)
+    take the agent-tiled route: no ring launch, one #2 launch a call or
+    cohort, and the plain versions' results, the masses against the exact
+    fp64 sums."""
+    A, R, N = 5000, 10, 4099
+    x, prev, w, mask, assign = _agg_inputs(cuda, A, R, N, dtype, 17)
+    tol = F32 if dtype == torch.float32 else BF16
+    before = dict(tmha.launches)
+    got, mass = tmha.agg_blend(x, w, mask, assign, R, prev)
+    assert tmha.launches["agg_blend"] == before["agg_blend"]
+    assert tmha.launches["agg_blend_tiled"] == before["agg_blend_tiled"] + 1
+    want, _ = ref.agg_blend_ref(x, w, mask, assign, R, prev)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(mass.double(),
+                               exact_mass(w * mask.float(), assign, R),
+                               rtol=1e-6, atol=0)
+    assert torch.equal(got[0], prev[0])      # RSU 0 has no mass
+    a = 3000                             # two cohorts of 3,000 agents
+    arrivals = ((x[:a], w[:a] * mask[:a].float()),
+                (x[A - a:].flip(0).contiguous(), w[A - a:] * 0.5))
+    bm = torch.linspace(0.0, 1.0, R, device=cuda)
+    before = dict(tmha.launches)
+    got, total, new = tmha.agg_absorb(arrivals, assign[:a], R, prev, bm,
+                                      keep=0.5)
+    assert tmha.launches["agg_absorb"] == before["agg_absorb"]
+    assert tmha.launches["agg_absorb_tiled"] == before["agg_absorb_tiled"] + 2
+    want, _, _ = ref.agg_absorb_ref(arrivals, assign[:a], R, prev, bm,
+                                    keep=0.5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    exact = sum(exact_mass(c_w, assign[:a], R) for _, c_w in arrivals)
+    torch.testing.assert_close(new.double(), exact, rtol=1e-6, atol=0)
+    torch.testing.assert_close(total.double(), 0.5 * bm.double() + exact,
+                               rtol=1e-6, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_ring_route_unchanged_below_its_limit(cuda):
+    """At the ring's last fleet (4,001 agents at R = 10 for ``agg_blend``,
+    4,668 in one cohort for ``agg_absorb``) the call is one ring launch and
+    no tiled one, bit for bit the same on a repeat."""
+    assert tmha.ring_fits(10, 4001, build=True)
+    assert not tmha.ring_fits(10, 4002, build=True)
+    assert tmha.ring_fits(10, 4668, build=False)
+    assert not tmha.ring_fits(10, 4669, build=False)
+    x, prev, w, mask, assign = _agg_inputs(cuda, 4668, 10, 1000,
+                                           torch.float32, 5)
+    before = dict(tmha.launches)
+    got, _ = tmha.agg_blend(x[:4001], w[:4001], mask[:4001], assign[:4001],
+                            10, prev)
+    again, _ = tmha.agg_blend(x[:4001], w[:4001], mask[:4001], assign[:4001],
+                              10, prev)
+    absorbed, _, _ = tmha.agg_absorb(((x, w),), assign, 10, prev,
+                                     torch.ones(10, device=cuda), keep=0.5)
+    assert tmha.launches["agg_blend"] == before["agg_blend"] + 2
+    assert tmha.launches["agg_absorb"] == before["agg_absorb"] + 1
+    assert tmha.launches["agg_blend_tiled"] == before["agg_blend_tiled"]
+    assert tmha.launches["agg_absorb_tiled"] == before["agg_absorb_tiled"]
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, ref.agg_blend_ref(x[:4001], w[:4001], mask[:4001],
+                               assign[:4001], 10, prev)[0], **F32)
+    torch.testing.assert_close(absorbed, ref.agg_absorb_ref(
+        ((x, w),), assign, 10, prev, torch.ones(10, device=cuda),
+        keep=0.5)[0], **F32)
+    torch.cuda.synchronize()
 
 
 # -- the scenario axis: S stacked fleets, one launch a call ----------------
@@ -808,20 +950,28 @@ def test_cuda_sweep_dual_proximal_sgd(cuda, anchor_dtype, S, A, R, N):
 def test_cuda_sweep_shared_memory_limit_is_per_scenario(cuda):
     """The ring kernel stages one scenario's weights a block, so the limit
     is on A, not S*A: 50 scenarios of 100 agents (5,000 rows, past what
-    one scenario may hold at R = 10) run and match the plain version, and
-    one scenario of 4,100 agents is refused."""
+    one scenario may hold at R = 10) run on the ring and match the plain
+    version; one scenario of 4,100 agents takes the agent-tiled route and
+    matches too."""
     S, A, R, N = 50, 100, 10, 513
     x, prev, w, mask, assign = _sweep_inputs(cuda, S, A, R, N, torch.float32,
                                              5)
+    before = dict(tmha.launches)
     got, _ = tmha.agg_blend(x, w, mask, assign, R, prev)
+    assert tmha.launches["agg_blend"] == before["agg_blend"] + 1
     want, _ = ref.agg_blend_ref(x, w, mask, assign, R, prev)
     torch.testing.assert_close(got, want, **F32)
-    big = torch.randn(1, 4100, 64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        tmha.agg_blend(big, torch.ones(4100, device=cuda),
-                       torch.ones(1, 4100, device=cuda, dtype=torch.bool),
-                       torch.arange(4100, device=cuda) % R, R,
-                       torch.zeros(1, R, 64, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    big = torch.randn(1, 4100, 64, device=cuda, generator=g)
+    args = (torch.ones(4100, device=cuda),
+            torch.ones(1, 4100, device=cuda, dtype=torch.bool),
+            torch.arange(4100, device=cuda) % R, R,
+            torch.zeros(1, R, 64, device=cuda))
+    before = dict(tmha.launches)
+    got, _ = tmha.agg_blend(big, *args)
+    assert tmha.launches["agg_blend"] == before["agg_blend"]
+    assert tmha.launches["agg_blend_tiled"] == before["agg_blend_tiled"] + 1
+    torch.testing.assert_close(got, ref.agg_blend_ref(big, *args)[0], **F32)
     torch.cuda.synchronize()
 
 

@@ -14,6 +14,7 @@ anchor), 0.15 / 0.05 in bf16.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 
@@ -216,9 +217,15 @@ def test_serve_launcher_restores_jax_checkpoint(tmp_path, monkeypatch,
     assert res["tokens"].shape == (3, 6)
 
 
+def _sub(cfg, name):
+    """A sub-config (moe, mla) as a dict, None when absent."""
+    sub = getattr(cfg, name)
+    return None if sub is None else dataclasses.asdict(sub)
+
+
 def test_registry_knows_every_jax_arch():
     """Each id of the JAX registry is either ported (same config, field
-    for field) or refused by name."""
+    for field, the MoE and MLA sub-configs included) or refused by name."""
     assert set(tregistry.ARCH_IDS) | set(tregistry.UNPORTED) == set(
         jregistry.ARCH_IDS)
     for arch in tregistry.ARCH_IDS:
@@ -226,12 +233,17 @@ def test_registry_knows_every_jax_arch():
         for field in ("n_layers", "d_model", "n_heads", "n_kv_heads",
                       "head_dim_", "d_ff", "vocab_size", "qk_norm",
                       "rope_theta", "tie_embeddings", "mlp_type",
-                      "attn_window", "norm_eps", "dtype", "param_dtype"):
+                      "attn_window", "norm_eps", "dtype", "param_dtype",
+                      "attn_impl"):
             assert getattr(t, field) == getattr(j, field), field
-        assert tregistry.get_reduced_config(arch) == tregistry.get_config(
-            arch).replace(**{f: getattr(jregistry.get_reduced_config(arch), f)
-                             for f in ("n_layers", "d_model", "n_heads",
-                                       "n_kv_heads", "d_ff", "vocab_size",
-                                       "head_dim", "max_seq_len",
-                                       "attn_chunk", "attn_window",
-                                       "layout", "mlstm_chunk")})
+        jr, tr = (jregistry.get_reduced_config(arch),
+                  tregistry.get_reduced_config(arch))
+        for name in ("moe", "mla"):
+            assert _sub(t, name) == _sub(j, name), name
+            assert _sub(tr, name) == _sub(jr, name), name
+        assert tr == t.replace(
+            moe=tr.moe, mla=tr.mla,
+            **{f: getattr(jr, f) for f in (
+                "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                "vocab_size", "head_dim", "max_seq_len", "attn_chunk",
+                "attn_window", "layout", "mlstm_chunk")})
