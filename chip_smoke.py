@@ -35,11 +35,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    forward without it (``cuda_ms_pair``).  Then the serving path's
    shape (B=4, S=8192) in bf16, the plain version run one batch row at a
    time, with and without the log-sum-exp.  Then MLA's head dims (q/k 192,
-   v 128; ``flash_attention_mla``) at deepseek-v2-lite's layer (B=1,
-   S=4096, H=KV=16) causal and with a 1024 window, S=129 causal and
-   S=1000 non-causal, bf16 and fp32, and its prefill shape (B=4, S=8192)
-   in bf16; bound 2 (192 + 128) flops a live pair and head; ``library_ms``
-   SDPA, with v zero-padded to 192 where no fused backend takes v's width
+   v 128; ``flash_attention_mla``: in bf16 the D = 128 kernel's TMA +
+   wgmma design with q/k rows of three 128-byte boxes, in fp32 the FMA
+   kernel) at deepseek-v2-lite's layer (B=1, S=4096, H=KV=16) causal and
+   with a 1024 window, S=129 causal and S=1000 non-causal, bf16 and fp32,
+   and its prefill shape (B=4, S=8192) in bf16, each held to the plain
+   version elementwise at ``TOL`` (P stays fp32 as bf16 hi + lo parts, so
+   PV is two products: one bf16 P would miss that tolerance on outputs
+   near zero); bound 2 (192 + 128) flops a live pair and head (the hi + lo
+   work is 2 (192 + 2 x 128), 1.4x that); ``library_ms`` SDPA, with v
+   zero-padded to 192 where no fused backend takes v's width
    (``library_padded_v``).
 2c. slstm_scan against its plain version with R in bf16 and fp32: the
    shapes of the JAX package's kernel tests, saturated gates (inputs x25)

@@ -26,35 +26,42 @@
 // stay fp32 as in the TPU kernel: each is split into a bf16 high part and a
 // bf16 remainder, and both go through the tensor cores, so PV costs two
 // products and the work is three products where a bf16 P would need two
-// (the error is about 2^-16 of p, against 2^-9 for one bf16 rounding).
+// (the error is about 2^-16 of p, against 2^-9 for one bf16 rounding; a
+// single bf16 P would put outputs near zero outside the one-ulp elementwise
+// tolerance that chip_smoke.py's phase 2b holds the kernel to).  At MLA's
+// dims that is 2 (192 + 2 x 128) flops a live pair, 1.4x the 2 (192 + 128)
+// of the bound.
 // Given an lse pointer, the bf16 kernels also store each row's log-sum-exp
 // m + log2(l) (log2 units of the scores times D^-1/2 log2 e, fp32, (B, H,
 // S)) in their epilogue, after the loop, for the backward
 // (flash_attention_bwd.cu) to rebuild P without a pass of its own; a null
 // pointer stores nothing, so serving runs the code it ran before.
 // Three kernels:
-// - bf16, D = 128 (the serving path, qwen3-0.6b): Hopper's shape of a fast
-//   kernel.  One block of three warpgroups per (b, h, 128-row query tile):
-//   a producer warpgroup whose one elected thread issues TMA copies of Q
-//   and of 128-key K/V tiles into a 2-stage ring guarded by mbarriers, and
-//   two consumer warpgroups (64 query rows each, registers raised with
-//   setmaxnreg) that run QK^T and PV as wgmma.mma_async m64n128k16, with
-//   the online softmax on the fp32 accumulator in registers.
-// - bf16, D = 32 or 64 (test shapes) and MLA's D = 192, Dv = 128
-//   (deepseek-v2-lite's prefill): mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), flash-attention-2 style: one block of 4 warps per
-//   (b, h, 64-row query tile), each warp owning 16 query rows; K and V
-//   tiles of 64 keys stream through padded shared memory with cp.async,
-//   the next K tile loading while this tile's softmax and PV product run.
-//   The score fragment is reused in registers as the A operand of PV.  At
-//   192 / 128 a warp holds its Q fragments for 12 k-steps (48 registers)
-//   and a 16 x 128 fp32 accumulator (64), and a block's Q, K and V tiles
-//   take 68.6 KB of shared memory; it is the simple kernel, and the TMA +
-//   wgmma shape of the D = 128 kernel (its 128-byte swizzle assumes
-//   256-byte rows, where a 384-byte row needs two boxes) is later work.
-// - fp32 inputs (the fp32 test configurations) run on the FMA units: one
-//   block of 4 warps per (b, h, 32-row tile), a lane per key for the scores
-//   and a lane per output column for the PV product.
+// - bf16, D = 128 (the serving path, qwen3-0.6b) and MLA's D = 192, Dv =
+//   128 (deepseek-v2-lite's prefill), one template on D: Hopper's shape of
+//   a fast kernel.  One block of three warpgroups per (b, h, 128-row query
+//   tile): a producer warpgroup whose one elected thread issues TMA copies
+//   of Q and of 128-key K/V tiles into a 2-stage ring guarded by mbarriers,
+//   and two consumer warpgroups (64 query rows each, registers raised to
+//   240 with setmaxnreg) that run QK^T and PV as wgmma.mma_async
+//   m64n128k16, with the online softmax on the fp32 accumulator in
+//   registers.  A Q or K row is D / 64 128-byte swizzled boxes (three at
+//   192, so S = QK^T is 12 k-steps), a V row two; the rest is Dv's, the
+//   same at both widths.  At 192 a block takes 214,144 bytes of shared
+//   memory (Q 48 KB, K 2 x 48, V 2 x 32), one block an SM, and a consumer
+//   thread holds 64 fp32 of O, 64 of S and 64 registers of P's bf16 hi
+//   and lo parts, as at 128.
+// - bf16, D = 32 or 64 (test shapes, the reduced models): mma.sync
+//   m16n8k16 (bf16 in, fp32 accumulate), flash-attention-2 style: one
+//   block of 4 warps per (b, h, 64-row query tile), each warp owning 16
+//   query rows; K and V tiles of 64 keys stream through padded shared
+//   memory with cp.async, the next K tile loading while this tile's softmax
+//   and PV product run.  The score fragment is reused in registers as the
+//   A operand of PV.
+// - fp32 inputs (the fp32 test configurations, and the card-against-host
+//   checks at every head dims) run on the FMA units: one block of 4 warps
+//   per (b, h, 32-row tile), a lane per key for the scores and a lane per
+//   output column for the PV product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
@@ -162,14 +169,13 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
 
 // (kThreads, 1): without the block count, ptxas capped this kernel at 96
 // registers for D = 32 and spilled
-template <int D, int DV>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bf16_kernel(Params p) {
-  constexpr int STRIDE = D + 8;    // 16-byte rows, conflict-free fragments
-  constexpr int VSTRIDE = DV + 8;  // the same for V's rows
-  constexpr int NB = kBK / 8;      // score n-blocks of 8 keys
-  constexpr int ND = DV / 8;       // output n-blocks of 8 columns
-  constexpr int KS = D / 16;       // k-steps over D
+  constexpr int STRIDE = D + 8;  // 16-byte rows, conflict-free fragments
+  constexpr int NB = kBK / 8;    // score n-blocks of 8 keys
+  constexpr int ND = D / 8;      // output n-blocks of 8 columns
+  constexpr int KS = D / 16;     // k-steps over D
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kBQ * STRIDE;
@@ -192,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   load_tile_bf16<D, STRIDE>(Qs, qh, p.q_ss, q0, p.S);
   load_tile_bf16<D, STRIDE>(Ks, kh, p.k_ss, lo * kBK, p.S);
   cp_async_commit();
-  load_tile_bf16<DV, VSTRIDE>(Vs, vh, p.v_ss, lo * kBK, p.S);
+  load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, lo * kBK, p.S);
   cp_async_commit();
   cp_async_wait<1>();  // Q and the first K tile
   __syncthreads();
@@ -298,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
       split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
       const __nv_bfloat16* vrow =
-          Vs + (kk * 16 + (lane & 15)) * VSTRIDE + (lane >> 4) * 8;
+          Vs + (kk * 16 + (lane & 15)) * STRIDE + (lane >> 4) * 8;
 #pragma unroll
       for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
         uint32_t bv[4];
@@ -311,7 +317,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // every warp is done with Vs
     if (has_next) {
-      load_tile_bf16<DV, VSTRIDE>(Vs, vh, p.v_ss, k0 + kBK, p.S);
+      load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, k0 + kBK, p.S);
       cp_async_commit();
       cp_async_wait<1>();  // the next K tile
       __syncthreads();
@@ -321,7 +327,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // out = O / l and the row's log-sum-exp m + log2(l), rows past S are not
   // stored
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-  const int64_t o_ss = (int64_t)p.H * DV;
+  const int64_t o_ss = (int64_t)p.H * D;
   const int64_t o_sb = (int64_t)p.S * o_ss;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -334,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (p.lse != nullptr && tig == 0) {
         p.lse[((int64_t)b * p.H + h) * p.S + row] = m[r] + __log2f(lr);
       }
-      __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * DV + tig * 2;
+      __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * D + tig * 2;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         *reinterpret_cast<uint32_t*>(dst + nd * 8) =
@@ -345,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 128: TMA ring, wgmma, warp-specialised (the serving path)
+// bf16, D = 128 or MLA's 192 (Dv = 128): TMA ring, wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 //
 // One block of three warpgroups per (b, h, 128-row query tile).  Warpgroup 0
@@ -360,12 +366,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 // taken from registers (hi and lo bf16 parts, as in the mma.sync kernel)
 // and V read key-major (the MN-major B operand).  The consumers take turns
 // to issue their products, so that one's softmax runs under the other's
-// products.  Every tile is a 128-row box of 128-byte rows written by the
-// TMA with the 128-byte swizzle, which is the layout the wgmma descriptors
-// name; rows past S are zero-filled by the TMA.  Tensor maps are 4-D over
-// (D, S, heads, B) with q/k/v's own strides, so views are read in place.
+// products.  Every tile is made of 128-row boxes of 128-byte rows (64 bf16
+// columns) written by the TMA with the 128-byte swizzle, which is the
+// layout the wgmma descriptors name: a Q or K row of D values is D / 64
+// boxes (two at D = 128, three at 192), a V row two; rows past S are
+// zero-filled by the TMA.  Tensor maps are 4-D over (width, S, heads, B)
+// with q/k/v's own strides, so views are read in place.  Only the Q/K side
+// depends on D: the PV product, the softmax, the consumers' turns and the
+// epilogue are those of Dv = 128 at either width, and so is a consumer's
+// register budget (64 fp32 for O, 64 for S, 64 for P's hi and lo parts).
 
-constexpr int kWsD = 128;
+constexpr int kWsDv = 128;          // v's width and the output's
 constexpr int kWsBQ = 128;          // query rows a block, 64 a consumer
 constexpr int kWsBK = 128;          // keys a KV tile
 constexpr int kWsStages = 2;        // depth of the K/V ring
@@ -373,17 +384,30 @@ constexpr int kWsConsumers = 2;     // consumer warpgroups
 constexpr int kWsThreads = 128 * (1 + kWsConsumers);
 constexpr int kBoxCols = 64;        // bf16 in a 128-byte swizzled row
 constexpr uint32_t kBoxBytes = kWsBK * 128;     // one 128-row box
-constexpr uint32_t kTileBytes = 2 * kBoxBytes;  // 128 rows of D = 128
-static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one tensor-map box");
-// Q, K[kWsStages], V[kWsStages], the barriers, and room to align to 1 KB
-constexpr int kWsSmem = (1 + 2 * kWsStages) * kTileBytes + 128 + 1024;
+constexpr uint32_t kVTileBytes = (kWsDv / kBoxCols) * kBoxBytes;
+static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one box height");
 
-// S = Q K^T for 64 rows x 128 keys: 8 k-steps of 16 over D; k-steps 0-3
-// walk 32 bytes at a time through the first 64-column box, 4-7 the second.
+// Shared memory at q/k width D: Q and each K stage are D / 64 boxes, each V
+// stage two; then the barriers, and room to align to 1 KB.  At D = 192
+// that is 48 + 2 x 48 + 2 x 32 KB, 214,144 bytes with the rest (one block
+// an SM, under the 232,448 a block may take); at D = 128, 164,992.
+template <int D>
+struct WsLayout {
+  static_assert(D % kBoxCols == 0, "q/k rows of whole 64-column boxes");
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr uint32_t kQKTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kSmem =
+      (1 + kWsStages) * kQKTileBytes + kWsStages * kVTileBytes + 128 + 1024;
+};
+
+// S = Q K^T for 64 rows x 128 keys: D / 16 k-steps of 16; step ks lies in
+// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 192, 12
+// steps over three boxes).
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
                                          uint32_t k_tile) {
 #pragma unroll
-  for (int ks = 0; ks < kWsD / 16; ++ks) {
+  for (int ks = 0; ks < D / 16; ++ks) {
     const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
     wgmma_ss(s, smem_desc(q_rows + off, 16, 1024),
              smem_desc(k_tile + off, 16, 1024), ks > 0);
@@ -391,7 +415,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
 }
 
 // O += P V for 64 rows: P as hi + lo A fragments (one set of 4 registers
-// per 16 keys), V rows are keys (the k of this product), D contiguous.
+// per 16 keys), V rows are keys (the k of this product), Dv contiguous.
 __device__ __forceinline__ void issue_pv(float (&o)[64],
                                          const uint32_t (&pa_hi)[8][4],
                                          const uint32_t (&pa_lo)[8][4],
@@ -477,16 +501,18 @@ __device__ __forceinline__ void rescale_and_split(float (&o)[64],
 // The two consumers take turns to issue their products (named barrier
 // 1 + c is consumer c's turn; consumer 0 goes first, and every arrival on
 // the other's barrier is matched by one of its waits).
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_attention_bf16_ws_kernel(const __grid_constant__ CUtensorMap tq,
                                    const __grid_constant__ CUtensorMap tk,
                                    const __grid_constant__ CUtensorMap tv,
                                    Params p, int B) {
+  using L = WsLayout<D>;
   extern __shared__ __align__(16) unsigned char smem_ws[];
   const uint32_t sQ = (smem_addr(smem_ws) + 1023u) & ~1023u;  // swizzle atoms
-  const uint32_t sK = sQ + kTileBytes;                // stage st at st*tile
-  const uint32_t sV = sK + kWsStages * kTileBytes;
-  const uint32_t full_q = sV + kWsStages * kTileBytes;  // 8 bytes a barrier
+  const uint32_t sK = sQ + L::kQKTileBytes;     // stage st at st * tile
+  const uint32_t sV = sK + kWsStages * L::kQKTileBytes;
+  const uint32_t full_q = sV + kWsStages * kVTileBytes;  // 8 bytes a barrier
   const uint32_t full_k = full_q + 8;       // TMA bytes of K, per stage
   const uint32_t full_v = full_k + 8 * kWsStages;
   const uint32_t empty_k = full_v + 8 * kWsStages;  // consumers done with K
@@ -522,20 +548,29 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full_q, kTileBytes);
-      tma_load(sQ, &tq, full_q, 0, q0, h, b);
-      tma_load(sQ + kBoxBytes, &tq, full_q, kBoxCols, q0, h, b);
+      // each operand's own byte count (Q and K tiles D / 64 boxes, V
+      // two): with a wrong count a phase never completes (mbar_wait traps
+      // and the launch fails) or completes with a box still in flight
+      mbar_expect_tx(full_q, L::kQKTileBytes);
+#pragma unroll
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load(sQ + c * kBoxBytes, &tq, full_q, c * kBoxCols, q0, h, b);
+      }
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kWsStages, k0 = (lo + i) * kWsBK;
         const uint32_t ph = (i / kWsStages) & 1;
-        const uint32_t k_st = sK + st * kTileBytes, v_st = sV + st * kTileBytes;
+        const uint32_t k_st = sK + st * L::kQKTileBytes;
+        const uint32_t v_st = sV + st * kVTileBytes;
         // a fresh barrier passes a wait on parity 1
         mbar_wait(empty_k + 8 * st, ph ^ 1);
-        mbar_expect_tx(full_k + 8 * st, kTileBytes);
-        tma_load(k_st, &tk, full_k + 8 * st, 0, k0, kvh, b);
-        tma_load(k_st + kBoxBytes, &tk, full_k + 8 * st, kBoxCols, k0, kvh, b);
+        mbar_expect_tx(full_k + 8 * st, L::kQKTileBytes);
+#pragma unroll
+        for (int c = 0; c < L::kBoxes; ++c) {
+          tma_load(k_st + c * kBoxBytes, &tk, full_k + 8 * st, c * kBoxCols,
+                   k0, kvh, b);
+        }
         mbar_wait(empty_v + 8 * st, ph ^ 1);
-        mbar_expect_tx(full_v + 8 * st, kTileBytes);
+        mbar_expect_tx(full_v + 8 * st, kVTileBytes);
         tma_load(v_st, &tv, full_v + 8 * st, 0, k0, kvh, b);
         tma_load(v_st + kBoxBytes, &tv, full_v + 8 * st, kBoxCols, k0, kvh, b);
       }
@@ -584,7 +619,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       if (has_s) mbar_wait(full_k + 8 * st, (i / kWsStages) & 1);
       named_sync(my_turn, 2 * 128);
       wgmma_fence();
-      issue_pv(o, pa_hi, pa_lo, sV + sp * kTileBytes);
+      issue_pv(o, pa_hi, pa_lo, sV + sp * kVTileBytes);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -592,7 +627,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       fence_regs(pa_lo);
       if (has_pv) mbar_arrive(empty_v + 8 * sp);
       wgmma_fence();
-      issue_qk(s, q_rows, has_s ? sK + st * kTileBytes : sQ);
+      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kQKTileBytes : sQ);
       wgmma_commit();
       if (cw == 0 || has_s) named_arrive(their_turn, 2 * 128);
       wgmma_wait_all();
@@ -609,7 +644,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // out = O / l and the row's log-sum-exp m + log2(l), rows past S are
     // not stored
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-    const int64_t o_ss = (int64_t)p.H * kWsD;
+    const int64_t o_ss = (int64_t)p.H * kWsDv;
     const int64_t o_sb = (int64_t)p.S * o_ss;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -622,7 +657,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         if (p.lse != nullptr && tig == 0) {
           p.lse[((int64_t)b * p.H + h) * p.S + row] = m[r] + __log2f(lr);
         }
-        __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * kWsD + tig * 2;
+        __nv_bfloat16* dst =
+            out + b * o_sb + row * o_ss + h * kWsDv + tig * 2;
 #pragma unroll
         for (int n = 0; n < 16; ++n) {
           *reinterpret_cast<uint32_t*>(dst + n * 8) =
@@ -750,38 +786,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// q and k are mapped at their width D, v at 128: a map narrower than the
+// row would not fail, its last box would read zeros past the map's columns.
+template <int D>
 cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = WsLayout<D>::kSmem;
   const int KV = p.H / p.group;
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, p.q, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb, kWsBQ) ||
-      !encode_map(&tk, p.k, p.S, KV, B, p.k_ss, p.k_sh, p.k_sb, kWsBK) ||
-      !encode_map(&tv, p.v, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb, kWsBK)) {
+  if (!encode_map(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb, kWsBQ) ||
+      !encode_map(&tk, p.k, D, p.S, KV, B, p.k_ss, p.k_sh, p.k_sb, kWsBK) ||
+      !encode_map(&tv, p.v, kWsDv, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb,
+                  kWsBK)) {
     return cudaErrorInvalidValue;
   }
   const int64_t blocks = (int64_t)((p.S + kWsBQ - 1) / kWsBQ) * p.H * B;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_bf16_ws_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmem);
+      flash_attention_bf16_ws_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_attention_bf16_ws_kernel<<<(unsigned)blocks, kWsThreads, kWsSmem,
-                                   stream>>>(tq, tk, tv, p, B);
+  flash_attention_bf16_ws_kernel<D><<<(unsigned)blocks, kWsThreads, smem,
+                                      stream>>>(tq, tk, tv, p, B);
   return cudaGetLastError();
 }
 
 template <int D, int DV>
 cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    if constexpr (D == kWsD && DV == kWsD) {
-      return launch_ws(p, B, stream);
-    } else {
-      const int smem = ((kBQ + kBK) * (D + 8) + kBK * (DV + 8)) * 2;
+    if constexpr (DV == kWsDv) {  // D = 128, or MLA's 192
+      return launch_ws<D>(p, B, stream);
+    } else {  // D = Dv = 32 or 64
+      const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
       cudaError_t e = cudaFuncSetAttribute(
-          flash_attention_bf16_kernel<D, DV>,
+          flash_attention_bf16_kernel<D>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
       const dim3 grid((p.S + kBQ - 1) / kBQ, p.H, B);
-      flash_attention_bf16_kernel<D, DV><<<grid, kThreads, smem, stream>>>(p);
+      flash_attention_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(p);
     }
   } else {
     const int smem = (kFBQ * D + kFBK * (D + 1) + kFBK * DV) * 4;

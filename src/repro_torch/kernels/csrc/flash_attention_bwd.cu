@@ -791,10 +791,10 @@ cudaError_t launch_bwd(const Bwd& p, cudaStream_t stream) {
   if constexpr (D == kWD) {
     CUtensorMap tq, tdo, tk, tv;
     const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KV * D;
-    if (!encode_map(&tq, p.q, p.S, p.H, p.B, qs, D, p.S * qs, kBQ) ||
-        !encode_map(&tdo, p.dout, p.S, p.H, p.B, qs, D, p.S * qs, kBQ) ||
-        !encode_map(&tk, p.k, p.S, p.KV, p.B, ks, D, p.S * ks, kWBK) ||
-        !encode_map(&tv, p.v, p.S, p.KV, p.B, ks, D, p.S * ks, kWBK)) {
+    if (!encode_map(&tq, p.q, D, p.S, p.H, p.B, qs, D, p.S * qs, kBQ) ||
+        !encode_map(&tdo, p.dout, D, p.S, p.H, p.B, qs, D, p.S * qs, kBQ) ||
+        !encode_map(&tk, p.k, D, p.S, p.KV, p.B, ks, D, p.S * ks, kWBK) ||
+        !encode_map(&tv, p.v, D, p.S, p.KV, p.B, ks, D, p.S * ks, kWBK)) {
       return cudaErrorInvalidValue;
     }
     const int64_t blocks = (int64_t)((p.S + kWBK - 1) / kWBK) * p.KV * p.B;

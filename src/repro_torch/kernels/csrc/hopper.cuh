@@ -2,7 +2,7 @@
 // (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile loads
 // and 1-D bulk copies, the bulk reduce-add into device memory, named
 // barriers, and wgmma.mma_async with its shared-memory descriptors; on the
-// host, the bf16 (D, S, heads, B) tensor maps the TMA reads through.
+// host, the bf16 (width, S, heads, B) tensor maps the TMA reads through.
 //
 // Accumulator layout of wgmma m64nNk16 (fp32), for thread t of the
 // warpgroup (warp w = t / 32, lane = 4 g + tig): d[4n + 2r + c] is row
@@ -264,16 +264,20 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// The (D = 128, S, heads, B) tensor map of a bf16 (B, S, heads, D) tensor
-// with strides in elements: boxes of 64 columns x ``box_rows`` rows with
-// the 128-byte swizzle; rows past S read as zeros.
-inline bool encode_map(CUtensorMap* map, const void* base, int S, int heads,
-                       int B, int64_t ss, int64_t sh, int64_t sb,
+// The (width, S, heads, B) tensor map of a bf16 (B, S, heads, width)
+// tensor with strides in elements: boxes of 64 columns x ``box_rows`` rows
+// with the 128-byte swizzle, so a row is width / 64 boxes (at c0 = 0, 64,
+// ...); rows past S, and columns past ``width``, read as zeros.  Give the
+// row's true width: a map narrower than the row fails nowhere, its last
+// box just reads zeros (a 192-wide q mapped at 128 gives wrong scores
+// that only a check against the plain version shows).
+inline bool encode_map(CUtensorMap* map, const void* base, int width, int S,
+                       int heads, int B, int64_t ss, int64_t sh, int64_t sb,
                        int box_rows) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {128, (cuuint64_t)S, (cuuint64_t)heads,
-                              (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};

@@ -9,10 +9,16 @@ with ``t <= s`` when causal, ``t > s - window`` when ``window > 0``; fp32
 scores and accumulation, the output in q's dtype.  q is (B, S, H, D), k is
 (B, S, KV, D) and v (B, S, KV, Dv), all bf16 or all fp32, read in place
 through their strides: the last axis must be contiguous and, for bf16,
-every row must start on 16 bytes (what the TMA copies of the bf16 D = 128
-kernel need).  (D, Dv) is (32, 32), (64, 64), (128, 128) or MLA's (192,
-128): deepseek-v2-lite's prefill folds 64 RoPE dims into q and k and keeps
-v at 128, where the reference zero-pads v to 192 (``HEAD_DIMS``).
+every row must start on 16 bytes (what the TMA copies need).  (D, Dv) is
+(32, 32), (64, 64), (128, 128) or MLA's (192, 128): deepseek-v2-lite's
+prefill folds 64 RoPE dims into q and k and keeps v at 128, where the
+reference zero-pads v to 192 (``HEAD_DIMS``).  In bf16, D = 128 and MLA's
+192 run one warp-specialised kernel (TMA copies into an mbarrier ring,
+wgmma products; a q/k row is two or three 128-byte boxes, a v row two),
+and D = 32 / 64 an mma.sync kernel; fp32 runs on the FMA units.  The
+probabilities stay fp32, as bf16 hi + lo parts through the tensor cores,
+so the output agrees with the plain version to about one bf16 ulp
+elementwise (a single bf16 P would not, on outputs near zero).
 
 With ``return_lse=True`` the bf16 forward also returns each row's
 log-sum-exp, the fp32 (B, H, S) ``log2 sum_t 2^(score_t * D**-0.5 *

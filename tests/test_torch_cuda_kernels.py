@@ -499,11 +499,21 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D,
 
 # (B, S, H, KV, causal, window) at MLA's head dims (q/k 192, v 128):
 # deepseek-v2-lite's layer (H = KV = 16) causal and with a 1024 window,
-# one row past a 64-row tile, a ragged thousand non-causal, GQA 2 with a
-# window, one token
+# one row past a tile, a ragged thousand non-causal, GQA 2 with a window,
+# one token; then S ragged across the 128-row query and key tiles: one row
+# short of the prefill's 8192, and 257 (two tiles and a row) non-causal
 MLA_CASES = [(1, 4096, 16, 16, True, 0), (1, 4096, 16, 16, True, 1024),
              (2, 129, 16, 16, True, 0), (1, 1000, 16, 16, False, 0),
-             (2, 300, 8, 4, True, 33), (3, 1, 4, 4, True, 0)]
+             (2, 300, 8, 4, True, 33), (3, 1, 4, 4, True, 0),
+             (1, 8191, 16, 16, True, 0), (2, 257, 8, 8, False, 0)]
+
+
+def _mla_inputs(dev, B, S, H, KV, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn(B, S, n, 192, device=dev, generator=g).to(dtype)
+            for n in (H, KV))
+    v = torch.randn(B, S, KV, 128, device=dev, generator=g).to(dtype)
+    return q, k, v
 
 
 @pytest.mark.gpu
@@ -511,13 +521,10 @@ MLA_CASES = [(1, 4096, 16, 16, True, 0), (1, 4096, 16, 16, True, 1024),
 @pytest.mark.parametrize("B,S,H,KV,causal,window", MLA_CASES)
 def test_cuda_flash_attention_mla_dims_match_plain(cuda, dtype, B, S, H, KV,
                                                    causal, window):
-    """Kernel #4 at Dqk = 192, Dv = 128 (the mma.sync kernel in bf16, the
-    FMA kernel in fp32) against the plain version, scale 192**-0.5; the
-    output is v's width."""
-    g = torch.Generator(device=cuda).manual_seed(S + H)
-    q, k = (torch.randn(B, S, n, 192, device=cuda, generator=g).to(dtype)
-            for n in (H, KV))
-    v = torch.randn(B, S, KV, 128, device=cuda, generator=g).to(dtype)
+    """Kernel #4 at Dqk = 192, Dv = 128 (in bf16 the TMA + wgmma kernel,
+    Q and K rows in three 128-byte boxes; in fp32 the FMA kernel) against
+    the plain version, scale 192**-0.5; the output is v's width."""
+    q, k, v = _mla_inputs(cuda, B, S, H, KV, dtype, S + H)
     before = dict(tfa.launches)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -527,6 +534,54 @@ def test_cuda_flash_attention_mla_dims_match_plain(cuda, dtype, B, S, H, KV,
     assert (tfa.launches["flash_attention_mla"]
             == before["flash_attention_mla"] + 1)
     assert tfa.launches["flash_attention"] == before["flash_attention"]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_mla_dims_read_strided_views(cuda):
+    """At MLA's head dims, q as a slice of wider rows (64 bytes in) and k
+    and v as the two parts of one fused (B, S, KV, 192 + 128) projection,
+    read in place: the tensor maps take q's and k's 192 columns at their
+    own strides (v starts 384 bytes into each row)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, S, H, KV = 2, 333, 8, 4
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = torch.randn(B, S, H, 256, device=cuda, generator=g).to(dtype)
+        kv = torch.randn(B, S, KV, 192 + 128, device=cuda,
+                         generator=g).to(dtype)
+        q = wide[..., 32:224]
+        k, v = kv.split([192, 128], dim=-1)
+        assert not (q.is_contiguous() or k.is_contiguous()
+                    or v.is_contiguous())
+        for causal, window in ((True, 0), (True, 64), (False, 0)):
+            got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+            torch.testing.assert_close(
+                got.float(), want.float(),
+                **(F32 if dtype == torch.float32 else BF16))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,causal,window", [
+    (2, 130, 16, 16, True, 0), (1, 1000, 8, 4, True, 100),
+    (2, 257, 4, 4, False, 0)])
+def test_cuda_flash_attention_mla_dims_lse_matches_plain(cuda, B, S, H, KV,
+                                                         causal, window):
+    """The log-sum-exp saved at MLA's head dims (scale 192**-0.5) against
+    ``ref.attention_lse_ref``, as at D = 128 (1e-5 relative, a floor of
+    1e-5 of the largest value), and the output unchanged by saving it."""
+    q, k, v = _mla_inputs(cuda, B, S, H, KV, torch.bfloat16, S + 2 * H)
+    kw = dict(causal=causal, window=window)
+    before = tfa.launches["flash_attention_mla"]
+    out, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert tfa.launches["flash_attention_mla"] == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    want = ref.attention_lse_ref(q, k, **kw)
+    torch.testing.assert_close(lse, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(out, tfa.flash_attention(q, k, v, **kw))
     torch.cuda.synchronize()
 
 

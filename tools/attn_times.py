@@ -9,10 +9,11 @@ JSON line a case (CUDA-event medians, as ``chip_smoke.py``'s ``cuda_ms``):
 
 - the forward at the qwen3-0.6b layer (B=1, S=4096, H=16, KV=8, D=128,
   causal; and with a 1024 window) and at the serving path's prefill shape
-  (B=4, S=8192), without the log-sum-exp output and, where the tree's
-  forward has one, with it, the two timed in turns so that a drift of the
-  card's clocks falls on both (a tree without it: the forward against
-  itself, the same way);
+  (B=4, S=8192), and the same at MLA's head dims (q/k 192, v 128,
+  deepseek-v2-lite's H = KV = 16; ``flash_attention_mla``), without the
+  log-sum-exp output and, where the tree's forward has one, with it, the
+  two timed in turns so that a drift of the card's clocks falls on both
+  (a tree without it: the forward against itself, the same way);
 - the backward at ``chip_smoke.py``'s three ``BWD_CASES``, given the
   forward's output (and its log-sum-exp, where the tree's backward takes
   one).
@@ -36,9 +37,13 @@ from pathlib import Path
 import torch
 
 LAYER = (1, 4096, 16, 8, 128)
-FWD_CASES = (("layer", *LAYER, True, 0, 10),
-             ("layer_w1024", *LAYER, True, 1024, 10),
-             ("prefill", 4, 8192, 16, 8, 128, True, 0, 2))
+# (name, B, S, H, KV, D, Dv, causal, window, launches a timed run)
+FWD_CASES = (("layer", *LAYER, 128, True, 0, 10),
+             ("layer_w1024", *LAYER, 128, True, 1024, 10),
+             ("prefill", 4, 8192, 16, 8, 128, 128, True, 0, 2),
+             ("mla_layer", 1, 4096, 16, 16, 192, 128, True, 0, 10),
+             ("mla_layer_w1024", 1, 4096, 16, 16, 192, 128, True, 1024, 10),
+             ("mla_prefill", 4, 8192, 16, 16, 192, 128, True, 0, 2))
 BWD_CASES = (("layer", *LAYER, True, 0),
              ("layer_w1024", *LAYER, True, 1024),
              ("reduced_d64", 2, 1024, 4, 2, 64, True, 0))
@@ -91,10 +96,12 @@ def pair_ms(fa, fb, inner: int, reps: int = 12) -> tuple:
     return statistics.median(times[0]), statistics.median(times[1])
 
 
-def inputs(B, S, H, KV, D, seed):
+def inputs(B, S, H, KV, D, seed, Dv=None):
+    """q, k, v and an upstream gradient in bf16; v and the gradient are
+    ``Dv`` wide (D by default)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(B, S, n, D, device="cuda", generator=gen).bfloat16()
-            for n in (H, KV, KV, H)]
+    return [torch.randn(B, S, n, d, device="cuda", generator=gen).bfloat16()
+            for n, d in ((H, D), (KV, D), (KV, Dv or D), (H, Dv or D))]
 
 
 def main() -> int:
@@ -117,11 +124,12 @@ def main() -> int:
     print(json.dumps({"src": args.src, "card": card.strip()}))
     has_lse = "lse" in inspect.signature(fa.flash_attention_bwd).parameters
 
-    for name, B, S, H, KV, D, causal, window, inner in FWD_CASES:
-        q, k, v, _ = inputs(B, S, H, KV, D, S + H)
+    for name, B, S, H, KV, D, Dv, causal, window, inner in FWD_CASES:
+        q, k, v, _ = inputs(B, S, H, KV, D, S + H, Dv)
         kw = dict(causal=causal, window=window)
         plain = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
-        row = {"case": name, "kernel": "flash_attention"}
+        row = {"case": name, "kernel": "flash_attention" if D == Dv
+               else "flash_attention_mla"}
         if has_lse:
             with_lse = lambda: fa.flash_attention(  # noqa: E731
                 q, k, v, return_lse=True, **kw)
