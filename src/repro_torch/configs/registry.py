@@ -4,19 +4,21 @@ port runs.  The other ids of the JAX package's registry raise
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.models.config import ArchConfig, reduced
 
 _MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
     "xlstm-125m": "xlstm_125m",
+    "zamba2-2.7b": "zamba2_2_7b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 # ids the JAX package knows and the port does not run yet
-UNPORTED = ("phi-3-vision-4.2b", "zamba2-2.7b",
-            "command-r-35b", "yi-34b", "whisper-tiny", "nemotron-4-340b")
+UNPORTED = ("phi-3-vision-4.2b", "command-r-35b", "yi-34b", "whisper-tiny",
+            "nemotron-4-340b")
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -35,3 +37,9 @@ def get_config(arch_id: str) -> ArchConfig:
 def get_reduced_config(arch_id: str, **kw) -> ArchConfig:
     """Smoke-test variant: 2 layers, d_model<=512, <=4 experts."""
     return reduced(get_config(arch_id), **kw)
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    """Every ported arch's config, by id; the ``UNPORTED`` ids, which the
+    JAX package's ``all_configs`` also returns, are left out."""
+    return {a: get_config(a) for a in ARCH_IDS}

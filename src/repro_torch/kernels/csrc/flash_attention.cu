@@ -7,10 +7,11 @@
 // their strides (the last axis contiguous); out is a new contiguous
 // (B,S,H,Dv) tensor in q's dtype.  Scores, the running (max, sum) and the
 // output accumulator are fp32; bf16 or fp32 inputs; (D, Dv) is (32, 32),
-// (64, 64), (128, 128) or MLA's (192, 128) (a template per pair): MLA's
-// prefill folds 64 RoPE dims into q and k (128 + 64) and keeps v at 128,
-// where the reference pads v with zeros to 192 for its shared kernel and
-// so spends a third of the PV products and output bytes on zeros.
+// (64, 64), zamba2-2.7b's (80, 80) (d_model 2560 over 32 heads), (128,
+// 128) or MLA's (192, 128) (a template per pair): MLA's prefill folds 64
+// RoPE dims into q and k (128 + 64) and keeps v at 128, where the
+// reference pads v with zeros to 192 for its shared kernel and so spends
+// a third of the PV products and output bytes on zeros.
 //
 // Replaces the Pallas kernel flash_attention (body _attn_kernel) of
 // src/repro/kernels/flash_attention.py.  As there, the running (m, l, acc)
@@ -51,17 +52,23 @@
 //   memory (Q 48 KB, K 2 x 48, V 2 x 32), one block an SM, and a consumer
 //   thread holds 64 fp32 of O, 64 of S and 64 registers of P's bf16 hi
 //   and lo parts, as at 128.
-// - bf16, D = 32 or 64 (test shapes, the reduced models): mma.sync
-//   m16n8k16 (bf16 in, fp32 accumulate), flash-attention-2 style: one
-//   block of 4 warps per (b, h, 64-row query tile), each warp owning 16
-//   query rows; K and V tiles of 64 keys stream through padded shared
-//   memory with cp.async, the next K tile loading while this tile's softmax
-//   and PV product run.  The score fragment is reused in registers as the
-//   A operand of PV.
+// - bf16, D = 32, 64 (test shapes, the reduced models) or 80 (zamba2's
+//   shared attention block): mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate), flash-attention-2 style: one block of 4 warps per (b, h,
+//   64-row query tile), each warp owning 16 query rows; K and V tiles of 64
+//   keys stream through padded shared memory with cp.async, the next K tile
+//   loading while this tile's softmax and PV product run.  The score
+//   fragment is reused in registers as the A operand of PV.  At D = 80 a
+//   row is 5 k-steps of 16, 10 output blocks of 8 and ten 16-byte chunks,
+//   padded to 88 values (176 bytes, 11 chunks: the 8 rows a fragment load
+//   reads fall in distinct banks); a block takes 33,792 bytes of shared
+//   memory.  An 80-wide row is not a whole number of the D = 128 kernel's
+//   128-byte swizzled boxes, so that design would need padded copies.
 // - fp32 inputs (the fp32 test configurations, and the card-against-host
 //   checks at every head dims) run on the FMA units: one block of 4 warps
 //   per (b, h, 32-row tile), a lane per key for the scores and a lane per
-//   output column for the PV product.
+//   output column for the PV product (columns lane + 32 i; at Dv = 80 the
+//   third group is ragged, lanes 16-31 idle there).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
@@ -687,10 +694,18 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int stride,
   }
 }
 
+// A lane owns output columns lane + 32 i, i < NC; when DV is not a multiple
+// of 32 (zamba2's 80) the last group is ragged, and a lane past DV reads
+// and stores nothing there.
+template <int DV>
+__device__ __forceinline__ bool f32_col_live(int lane, int i) {
+  return DV % 32 == 0 || lane + 32 * i < DV;
+}
+
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(Params p) {
-  constexpr int NC = DV / 32;  // output columns per lane
+  constexpr int NC = (DV + 31) / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [kFBQ][D], broadcast
   float* Ks = Qs + kFBQ * D;                       // [kFBK][D+1], lane = key
@@ -761,7 +776,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int jj = 0; jj < kFBK; ++jj) {
       float vv[NC];
 #pragma unroll
-      for (int i = 0; i < NC; ++i) vv[i] = Vs[jj * DV + lane + 32 * i];
+      for (int i = 0; i < NC; ++i) {
+        vv[i] = f32_col_live<DV>(lane, i) ? Vs[jj * DV + lane + 32 * i] : 0.f;
+      }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pj = __shfl_sync(0xffffffffu, s[r], jj);
@@ -781,7 +798,9 @@ __global__ void __launch_bounds__(kThreads)
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       float* dst = out + b * o_sb + row * o_ss + h * DV;
 #pragma unroll
-      for (int i = 0; i < NC; ++i) dst[lane + 32 * i] = o[r][i] * inv;
+      for (int i = 0; i < NC; ++i) {
+        if (f32_col_live<DV>(lane, i)) dst[lane + 32 * i] = o[r][i] * inv;
+      }
     }
   }
 }
@@ -815,7 +834,7 @@ cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     if constexpr (DV == kWsDv) {  // D = 128, or MLA's 192
       return launch_ws<D>(p, B, stream);
-    } else {  // D = Dv = 32 or 64
+    } else {  // D = Dv = 32, 64 or 80
       const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
       cudaError_t e = cudaFuncSetAttribute(
           flash_attention_bf16_kernel<D>,
@@ -860,6 +879,7 @@ extern "C" int repro_flash_attention(
     switch (D) {
       case 32: return (int)launch<32, 32>(p, B, is_bf16, s);
       case 64: return (int)launch<64, 64>(p, B, is_bf16, s);
+      case 80: return (int)launch<80, 80>(p, B, is_bf16, s);
       case 128: return (int)launch<128, 128>(p, B, is_bf16, s);
       default: return (int)cudaErrorInvalidValue;
     }

@@ -10,15 +10,16 @@ scores and accumulation, the output in q's dtype.  q is (B, S, H, D), k is
 (B, S, KV, D) and v (B, S, KV, Dv), all bf16 or all fp32, read in place
 through their strides: the last axis must be contiguous and, for bf16,
 every row must start on 16 bytes (what the TMA copies need).  (D, Dv) is
-(32, 32), (64, 64), (128, 128) or MLA's (192, 128): deepseek-v2-lite's
-prefill folds 64 RoPE dims into q and k and keeps v at 128, where the
-reference zero-pads v to 192 (``HEAD_DIMS``).  In bf16, D = 128 and MLA's
-192 run one warp-specialised kernel (TMA copies into an mbarrier ring,
-wgmma products; a q/k row is two or three 128-byte boxes, a v row two),
-and D = 32 / 64 an mma.sync kernel; fp32 runs on the FMA units.  The
-probabilities stay fp32, as bf16 hi + lo parts through the tensor cores,
-so the output agrees with the plain version to about one bf16 ulp
-elementwise (a single bf16 P would not, on outputs near zero).
+(32, 32), (64, 64), zamba2-2.7b's (80, 80), (128, 128) or MLA's (192,
+128): deepseek-v2-lite's prefill folds 64 RoPE dims into q and k and keeps
+v at 128, where the reference zero-pads v to 192 (``HEAD_DIMS``).  In
+bf16, D = 128 and MLA's 192 run one warp-specialised kernel (TMA copies
+into an mbarrier ring, wgmma products; a q/k row is two or three 128-byte
+boxes, a v row two), and D = 32 / 64 / 80 an mma.sync kernel; fp32 runs
+on the FMA units.  The probabilities stay fp32, as bf16 hi + lo parts
+through the tensor cores, so the output agrees with the plain version to
+about one bf16 ulp elementwise (a single bf16 P would not, on outputs
+near zero).
 
 With ``return_lse=True`` the bf16 forward also returns each row's
 log-sum-exp, the fp32 (B, H, S) ``log2 sum_t 2^(score_t * D**-0.5 *
@@ -44,8 +45,9 @@ calls on CUDA tensors.
 Takes CUDA tensors only and raises on anything else; ``kernels/ops``
 routes CPU tensors to ``kernels/ref.flash_attention_ref``.  ``launches``
 counts launches: one a forward call (under ``flash_attention_mla`` at
-MLA's head dims), and one a backward call (which runs the backward's three
-kernels: prep, the fused kernel, the dQ pass).
+MLA's head dims and ``flash_attention_d80`` at zamba2's 80), and one a
+backward call (which runs the backward's three kernels: prep, the fused
+kernel, the dQ pass).
 """
 from __future__ import annotations
 
@@ -55,14 +57,23 @@ import torch
 
 from repro_torch.kernels import _lib
 
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))   # (D, Dv)
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128),
+             (192, 128))                                   # (D, Dv)
 DTYPES = (torch.bfloat16, torch.float32)
 BWD_HEAD_DIMS = (64, 128)
 BWD_DTYPES = (torch.bfloat16,)
 MAX_GRID_YZ = 65535     # H on gridDim.y, B on gridDim.z
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_mla": 0,
+                            "flash_attention_d80": 0,
                             "flash_attention_bwd": 0}
+
+
+def _launch_key(D: int, Dv: int) -> str:
+    """The count a forward launch at head dims (D, Dv) adds to."""
+    if D != Dv:
+        return "flash_attention_mla"
+    return "flash_attention_d80" if D == 80 else "flash_attention"
 
 
 def _check_operand(t: torch.Tensor, name: str, device: torch.device,
@@ -127,7 +138,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
         _lib.check(rc, "flash_attention")
-        launches["flash_attention" if D == Dv else "flash_attention_mla"] += 1
+        launches[_launch_key(D, Dv)] += 1
     return (out, lse) if return_lse else out
 
 

@@ -170,16 +170,25 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """Online-softmax attention; q (B,S,H,D), k (B,S,KV,D), v (B,S,KV,Dv)
-    (MLA: D = 192, Dv = 128); out (B,S,H,Dv) in q's dtype.  On CUDA the
-    forward and backward kernels as one autograd function; a gradient the
-    backward kernel does not take (fp32, D = 32, or MLA's D != Dv) raises
-    rather than come back without one."""
+    (MLA: D = 192, Dv = 128); out (B,S,H,Dv) in q's dtype.  On CUDA
+    without a gradient the forward kernel alone (also for operands that
+    require grad under ``torch.no_grad``: a no-grad prefill of trainable
+    params saves nothing); with one the forward and backward kernels as one
+    autograd function, and a gradient the backward kernel does not take
+    (fp32, D = 32 or 80, or MLA's D != Dv) raises rather than come back
+    without one."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if _needs_grad(q, k, v) and not _fa.backward_supported(q, v):
-        wait = ("; MLA training on the card waits for one (ROADMAP queue 1, "
-                "the model zoo: deepseek-v2-lite training)"
-                if v.shape[-1] != q.shape[-1] else "")
+    if not _needs_grad(q, k, v):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    if not _fa.backward_supported(q, v):
+        wait = ""
+        if v.shape[-1] != q.shape[-1]:
+            wait = ("; MLA training on the card waits for one (ROADMAP "
+                    "queue 1, the model zoo: deepseek-v2-lite training)")
+        elif q.shape[-1] == 80:
+            wait = ("; zamba2 training on the card waits for one (ROADMAP "
+                    "queue 1, the model zoo: zamba2 training)")
         raise NotImplementedError(
             f"flash_attention: the backward kernel takes bf16 with one head "
             f"dim in {_fa.BWD_HEAD_DIMS}, got {q.dtype} head dims "

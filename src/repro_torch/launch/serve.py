@@ -24,10 +24,11 @@ the JAX package's train launcher is restored.
         [--ckpt-dir results/ckpt] [--batch 8] [--prompt-len 32] [--gen 32] \\
         [--window 0] [--full-config] [--device cuda]
 
-``--arch`` takes qwen3-0.6b, xlstm-125m, deepseek-v2-lite-16b (MLA + MoE;
-at full width 32.4 GB of bf16 params) and kimi-k2-1t-a32b (reduced only:
-its full config does not fit one card and is refused before any
-allocation).
+``--arch`` takes qwen3-0.6b, xlstm-125m, zamba2-2.7b (Mamba-2 + a
+weight-shared attention block; at full width 4.85 GB of bf16 params),
+deepseek-v2-lite-16b (MLA + MoE; at full width 32.4 GB of bf16 params)
+and kimi-k2-1t-a32b (reduced only: its full config does not fit one card
+and is refused before any allocation).
 
 ``--device cpu`` runs the plain PyTorch versions on the host.
 """

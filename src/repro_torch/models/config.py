@@ -3,10 +3,10 @@ imports no JAX.
 
 One frozen dataclass describes every architecture family; ``layout_`` is
 the list of (pattern, repeat) segments of the layer stack.  The port runs
-the ``decoder`` pattern (GQA or MLA attention, an MLP or the MoE layer)
-and the xLSTM patterns; the sub-configs of the other families are kept so
-that a config of any family can be described and refused by name
-(``models/transformer``).  ``activation_dtype`` and ``weight_dtype`` are
+the ``decoder`` pattern (GQA or MLA attention, an MLP or the MoE layer),
+the Mamba-2 and xLSTM patterns and the ``zamba_super`` hybrid; the
+sub-configs of the other families are kept so that a config of any family
+can be described and refused by name (``models/transformer``).  ``activation_dtype`` and ``weight_dtype`` are
 torch dtypes.
 """
 from __future__ import annotations

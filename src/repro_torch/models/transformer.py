@@ -1,7 +1,8 @@
 """Block assembly (``repro/models/transformer.py``) for the ``decoder``
-pattern (attention + feed-forward residual sub-blocks) and the xLSTM
-``mlstm`` and ``slstm`` patterns: layer params stacked on a leading L axis
-as ``stack_init`` builds them in JAX, applied by a Python loop over that
+pattern (attention + feed-forward residual sub-blocks), the Mamba-2
+``mamba`` pattern, the xLSTM ``mlstm`` and ``slstm`` patterns and Zamba2's
+``zamba_super`` hybrid: layer params stacked on a leading L axis as
+``stack_init`` builds them in JAX, applied by a Python loop over that
 axis where JAX scans.  The attention is GQA or MLA (``cfg.attn_impl``), the
 feed-forward an MLP or, with ``cfg.moe``, the MoE layer, whose load-balance
 loss the stack sums layer by layer as the reference's scan carries it.
@@ -10,11 +11,16 @@ the backward stacks each leaf's layer gradients once instead of building a
 zero (L, ...) gradient a layer, and each layer is recomputed in the
 backward (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``;
 no-grad prefill indexes the layers as views.  The per-layer decode caches
-(the KV cache, the MLA cache, the mLSTM and sLSTM states) are stacked on L
-too and updated in place.
+(the KV cache, the MLA cache, the Mamba cache, the mLSTM and sLSTM states)
+are stacked on L too and updated in place.
 
-Every other pattern (encdec with its cross-attention, mamba, zamba_super)
-raises ``NotImplementedError``.
+``zamba_super`` (repeat n) applies one ``decoder`` layer whose weights all
+n applications share (``params["shared_attn"]``), each application
+followed by ``cfg.shared_every`` Mamba layers: their params stacked on
+(n, shared_every), the shared block's KV caches on (n,), the Mamba caches
+on (n, shared_every), as in the JAX tree.
+
+The encdec pattern (cross-attention) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,18 +32,28 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (mlp_apply, mlp_init, norm_apply,
                                        norm_init)
 
 PATTERNS = {"decoder": ("attn", "ffn"),     # the ported layer patterns
+            "mamba": ("mamba",),
             "mlstm": ("mlstm",),
             "slstm": ("slstm",)}
-KINDS = ("attn", "ffn", "mlstm", "slstm")
-_STATE = {"mlstm": xlstm_mod.init_mlstm_state,
+KINDS = ("attn", "ffn", "mamba", "mlstm", "slstm")
+_INIT = {"mamba": ssm_mod.mamba_init, "mlstm": xlstm_mod.mlstm_init,
+         "slstm": xlstm_mod.slstm_init}
+_PREFILL = {"mamba": ssm_mod.mamba_prefill,
+            "mlstm": xlstm_mod.mlstm_prefill,
+            "slstm": xlstm_mod.slstm_prefill}
+_STATE = {"mamba": lambda cfg, batch, **kw: ssm_mod.init_mamba_cache(
+              cfg, batch, cfg.activation_dtype, **kw),
+          "mlstm": xlstm_mod.init_mlstm_state,
           "slstm": xlstm_mod.init_slstm_state}
-_DECODE = {"mlstm": xlstm_mod.mlstm_decode, "slstm": xlstm_mod.slstm_decode}
+_DECODE = {"mamba": ssm_mod.mamba_decode, "mlstm": xlstm_mod.mlstm_decode,
+           "slstm": xlstm_mod.slstm_decode}
 
 
 def _unported(what: str):
@@ -84,8 +100,7 @@ def sub_init(cfg: ArchConfig, kind: str, gen: torch.Generator, *, lead=()):
     elif kind == "ffn":
         init = moe_mod.moe_init if cfg.moe is not None else mlp_init
     else:
-        init = {"mlstm": xlstm_mod.mlstm_init,
-                "slstm": xlstm_mod.slstm_init}[kind]
+        init = _INIT[kind]
     return {"norm": norm_init(cfg, cfg.d_model, lead=lead, device=gen.device),
             "inner": init(cfg, gen, lead=lead)}
 
@@ -99,10 +114,8 @@ def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions):
         if cfg.attn_impl == "mla":
             return attn_mod.mla_prefill(cfg, p["inner"], xn, positions), None
         return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions), None
-    if kind == "mlstm":
-        return xlstm_mod.mlstm_prefill(cfg, p["inner"], xn), None
-    if kind == "slstm":
-        return xlstm_mod.slstm_prefill(cfg, p["inner"], xn), None
+    if kind in _PREFILL:
+        return _PREFILL[kind](cfg, p["inner"], xn), None
     if cfg.moe is not None:
         return moe_mod.moe_apply(cfg, p["inner"], xn)
     return mlp_apply(cfg, p["inner"], xn), None
@@ -189,14 +202,36 @@ def layer_decode(cfg, pattern, p, x, cache, cur_pos):
 
 def stack_init(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     """{"segments": [per-segment layer params stacked on a leading L
-    axis]}, the JAX tree's structure and keys."""
+    axis]}, and with ``zamba_super`` its Mamba layers stacked on (repeat,
+    shared_every) and the one shared ``decoder`` layer as "shared_attn":
+    the JAX tree's structure and keys."""
     params: Dict[str, Any] = {"segments": []}
     for pattern, repeat in cfg.layout_:
         if pattern == "zamba_super":
-            _unported("the zamba_super hybrid pattern")
+            params["segments"].append(layer_init(
+                cfg, "mamba", gen, lead=(repeat, cfg.shared_every)))
+            params["shared_attn"] = layer_init(cfg, "decoder", gen)
+            continue
         params["segments"].append(layer_init(cfg, pattern, gen,
                                              lead=(repeat,)))
     return params
+
+
+def _applications(cfg: ArchConfig, params, seg_params, pattern: str,
+                  repeat: int, grad: bool) -> list:
+    """(pattern, one layer's params) for each layer of a segment, in the
+    order the stack applies them: under autograd from one ``unbind`` a
+    leaf, else as views."""
+    def split(tree, n):
+        return (_unbind(tree, n) if grad
+                else [_index(tree, i) for i in range(n)])
+    if pattern != "zamba_super":
+        return [(pattern, p) for p in split(seg_params, repeat)]
+    out = []
+    for run in split(seg_params, repeat):
+        out.append(("decoder", params["shared_attn"]))
+        out += [("mamba", p) for p in split(run, cfg.shared_every)]
+    return out
 
 
 def stack_prefill(cfg: ArchConfig, params, x, positions):
@@ -204,27 +239,35 @@ def stack_prefill(cfg: ArchConfig, params, x, positions):
     load-balance losses, 0 without MoE."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (pattern, repeat) in zip(params["segments"], cfg.layout_):
-        if torch.is_grad_enabled() and (x.requires_grad
-                                        or _requires_grad(seg_params)):
-            layer = functools.partial(layer_prefill, cfg, pattern)
-            for p in _unbind(seg_params, repeat):
-                x, a = checkpoint(layer, p, x, positions, use_reentrant=False)
-                aux = aux if a is None else aux + a
-            continue
-        for i in range(repeat):
-            x, a = layer_prefill(cfg, pattern, _index(seg_params, i), x,
-                                 positions)
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or _requires_grad(seg_params)
+            or _requires_grad(params.get("shared_attn", {})))
+        for kind, p in _applications(cfg, params, seg_params, pattern,
+                                     repeat, grad):
+            if grad:
+                x, a = checkpoint(functools.partial(layer_prefill, cfg, kind),
+                                  p, x, positions, use_reentrant=False)
+            else:
+                x, a = layer_prefill(cfg, kind, p, x, positions)
             aux = aux if a is None else aux + a
     return x, aux
 
 
 def stack_init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                      device=None) -> List[Dict[str, Any]]:
-    """Per segment, each sub-block's cache stacked on a leading L axis."""
+    """Per segment, each sub-block's cache stacked on a leading L axis;
+    ``zamba_super``'s as {"mamba": on (repeat, shared_every), "shared":
+    the shared block's on (repeat,)}."""
     caches = []
     for pattern, repeat in cfg.layout_:
         if pattern == "zamba_super":
-            _unported("the zamba_super hybrid pattern")
+            caches.append({
+                "mamba": layer_init_cache(
+                    cfg, "mamba", batch, cache_len,
+                    lead=(repeat, cfg.shared_every), device=device),
+                "shared": layer_init_cache(cfg, "decoder", batch, cache_len,
+                                           lead=(repeat,), device=device)})
+            continue
         caches.append(layer_init_cache(cfg, pattern, batch, cache_len,
                                        lead=(repeat,), device=device))
     return caches
@@ -233,10 +276,19 @@ def stack_init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
 def stack_decode(cfg: ArchConfig, params, caches, x, cur_pos):
     """One token through every layer; the caches are updated in place and
     returned."""
+    def at(cache, i):
+        return {k: c.layer(i) for k, c in cache.items()}
     for seg_params, seg_cache, (pattern, repeat) in zip(
             params["segments"], caches, cfg.layout_):
         for i in range(repeat):
-            layer_cache = {k: c.layer(i) for k, c in seg_cache.items()}
-            x = layer_decode(cfg, pattern, _index(seg_params, i), x,
-                             layer_cache, cur_pos)
+            if pattern != "zamba_super":
+                x = layer_decode(cfg, pattern, _index(seg_params, i), x,
+                                 at(seg_cache, i), cur_pos)
+                continue
+            x = layer_decode(cfg, "decoder", params["shared_attn"], x,
+                             at(seg_cache["shared"], i), cur_pos)
+            run, run_cache = _index(seg_params, i), at(seg_cache["mamba"], i)
+            for j in range(cfg.shared_every):
+                x = layer_decode(cfg, "mamba", _index(run, j), x,
+                                 at(run_cache, j), cur_pos)
     return x, caches

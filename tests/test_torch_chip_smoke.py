@@ -64,7 +64,8 @@ def test_ptxas_notes_keep_serialization_lines():
 PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
                  "stream_path", "serve_path", "sharded_path", "serving_path",
-                 "xlstm_serving", "moe_serving", "train_path")
+                 "xlstm_serving", "moe_serving", "hybrid_serving",
+                 "train_path")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -77,7 +78,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--serve", ["serve_path"]),
                                        ("--sharded", ["sharded_path"]),
                                        ("--train", ["train_path"]),
-                                       ("--moe", ["moe_serving"])])
+                                       ("--moe", ["moe_serving"]),
+                                       ("--hybrid", ["hybrid_serving"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -109,7 +111,8 @@ def test_phase_selection():
     assert cs.selected_phases(["--sharded"]) == ("1", "3h")
     assert cs.selected_phases(["--train"]) == ("1", "5")
     assert cs.selected_phases(["--moe"]) == ("1", "4c")
-    assert "4c" in cs.FULL_RUN
+    assert cs.selected_phases(["--hybrid"]) == ("1", "4d")
+    assert "4c" in cs.FULL_RUN and "4d" in cs.FULL_RUN
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
     assert "3v" in cs.FULL_RUN and "3h" in cs.FULL_RUN
     with pytest.raises(SystemExit):
@@ -160,7 +163,11 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
             {"kernel": "flash_attention_mla", "entry": "prefill",
              "max_abs_err": 8e-3, "ms": 9.0, "plain_ms": 200.0,
              "bound_ms": 1.4, "bound_by": "operations", "library_ms": 3.0,
-             "library_padded_v": True, "shape": {}, "dtype": "bfloat16"}]
+             "library_padded_v": True, "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_d80", "entry": "prefill",
+             "max_abs_err": 8e-3, "ms": 6.0, "plain_ms": 250.0,
+             "bound_ms": 1.4, "bound_by": "operations", "library_ms": 2.0,
+             "shape": {}, "dtype": "bfloat16"}]
     train_rows = [
         {"kernel": "flash_attention_bwd", "entry": "layer",
          "max_abs_err": 0.03, "ms": 1.9, "plain_ms": 40.0, "bound_ms": 0.17,
@@ -235,12 +242,15 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     monkeypatch.setattr(cs, "serving_path", lambda dev: 28)
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "moe_serving", lambda dev: 27)
+    monkeypatch.setattr(cs, "hybrid_serving", lambda dev: 9)
     monkeypatch.setattr(cs, "train_path",
                         lambda dev: (train_rows, train_counts))
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
         "the full run profiles its round inside the main path"))
     assert cs.main([]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
+    # each phase's wall time on a line of its own, before the result
+    assert sum(line.startswith("time: ") for line in lines[:-3]) == 14
     assert lines[-2] == card
     assert json.loads(lines[-1])["device"] == {"platform": "gpu",
                                                "kind": card, "count": 1}
@@ -249,8 +259,8 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "weighted_agg_matmul", "weighted_agg_matmul", "flash_attention",
-        "flash_attention_mla", "slstm_scan", "flash_attention",
-        "flash_attention_bwd", "dual_proximal_sgd"]
+        "flash_attention_mla", "flash_attention_d80", "slstm_scan",
+        "flash_attention", "flash_attention_bwd", "dual_proximal_sgd"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
     # the flat path's, the async path's, the sweep's, the serve loop's,
@@ -263,7 +273,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["launches"] for k in kernels] == [
         50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
         120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
-        27, 3, 300, 150, 176]
+        27, 9, 3, 300, 150, 176]
     # the training path's rows: #4 forward and backward at the layer
     # shape, #3's bf16 mode at the embedding leaf
     assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
@@ -273,6 +283,10 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert kernels[9]["source"].endswith("flash_attention.cu")
     assert kernels[9]["replaces"] == kernels[8]["replaces"]
     assert kernels[9]["library_padded_v"] is True
+    # #4 at zamba2's head dim 80, with phase 4d's prefill launches
+    assert kernels[10]["source"] == kernels[8]["source"]
+    assert kernels[10]["replaces"] == kernels[8]["replaces"]
+    assert kernels[10]["entry"] == "prefill"
     assert kernels[-2]["products_per_pair"] == 5
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,

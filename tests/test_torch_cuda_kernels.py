@@ -606,6 +606,102 @@ def test_cuda_flash_attention_mla_dims_refuse_grad_and_other_pairs(cuda):
     torch.cuda.synchronize()
 
 
+# (B, S, H, KV, causal, window) at zamba2-2.7b's head dim 80 (d_model 2560
+# over 32 heads): its shared attention layer (H = KV = 32) causal and with
+# a 1024 window, one row past a 64-row tile, a ragged thousand
+# non-causal, GQA 4 with a window, one token, GQA 2 non-causal with a
+# window, and 129 rows of 8 heads over 2
+D80_CASES = [(1, 4096, 32, 32, True, 0), (1, 4096, 32, 32, True, 1024),
+             (2, 65, 32, 32, True, 0), (1, 1000, 32, 32, False, 0),
+             (2, 300, 8, 2, True, 33), (3, 1, 4, 4, True, 0),
+             (1, 257, 4, 2, False, 17), (1, 129, 8, 2, True, 0)]
+
+
+def _d80_inputs(dev, B, S, H, KV, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(B, S, n, 80, device=dev, generator=g).to(dtype)
+                 for n in (H, KV, KV))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,causal,window", D80_CASES)
+def test_cuda_flash_attention_d80_matches_plain(cuda, dtype, B, S, H, KV,
+                                                causal, window):
+    """Kernel #4 at D = 80 (bf16: the mma.sync kernel, rows padded to 88;
+    fp32: the FMA kernel, whose third column group is ragged) against the
+    plain version, every one of the 80 output columns; counted as
+    ``flash_attention_d80``."""
+    q, k, v = _d80_inputs(cuda, B, S, H, KV, dtype, S + H)
+    before = dict(tfa.launches)
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (B, S, H, 80)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+    assert tfa.launches["flash_attention_d80"] \
+        == before["flash_attention_d80"] + 1
+    assert all(tfa.launches[k] == before[k] for k in before
+               if k != "flash_attention_d80")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_d80_reads_strided_views(cuda):
+    """At D = 80, q/k/v as views into one fused (B, S, H + 2 KV, 80)
+    projection, and q as a slice 16 values into wider rows, read in
+    place."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    B, S, H, KV = 2, 333, 8, 2
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(B, S, H + 2 * KV, 80, device=cuda,
+                          generator=g).to(dtype)
+        q, k, v = qkv.split([H, KV, KV], dim=2)
+        wide = torch.randn(B, S, H, 112, device=cuda, generator=g).to(dtype)
+        for qq in (q, wide[..., 16:96]):
+            assert not qq.is_contiguous()
+            got = tfa.flash_attention(qq, k, v, causal=True, window=64)
+            want = ref.flash_attention_ref(qq, k, v, causal=True, window=64)
+            torch.testing.assert_close(
+                got.float(), want.float(),
+                **(F32 if dtype == torch.float32 else BF16))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,causal,window", [
+    (2, 130, 32, 32, True, 0), (1, 1000, 8, 2, True, 100),
+    (2, 257, 4, 4, False, 0)])
+def test_cuda_flash_attention_d80_lse_matches_plain(cuda, B, S, H, KV,
+                                                    causal, window):
+    """The log-sum-exp the D = 80 epilogue saves (scale 80**-0.5) against
+    ``ref.attention_lse_ref``, as at D = 128, and the output unchanged by
+    saving it."""
+    q, k, v = _d80_inputs(cuda, B, S, H, KV, torch.bfloat16, S + 2 * H)
+    kw = dict(causal=causal, window=window)
+    out, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    want = ref.attention_lse_ref(q, k, **kw)
+    torch.testing.assert_close(lse, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(out, tfa.flash_attention(q, k, v, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_d80_refuses_grad(cuda):
+    """Under grad at D = 80 the route raises, naming zamba2 training (no
+    backward kernel takes 80), in bf16 and fp32; without grad it runs."""
+    from repro_torch.kernels import ops
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _d80_inputs(cuda, 1, 64, 4, 2, dtype, 3)
+        with pytest.raises(NotImplementedError, match="zamba2 training"):
+            ops.flash_attention(q.requires_grad_(), k, v)
+        with torch.no_grad():
+            assert ops.flash_attention(q, k, v).shape == (1, 64, 4, 80)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_cuda_flash_attention_prefill_shape_by_row(cuda):
     """The serving path's shape (qwen3-0.6b, B=4, S=8192) in bf16: one

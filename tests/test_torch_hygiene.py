@@ -168,8 +168,8 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         serve.main(["--serve-loop"])
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "zamba2-2.7b",
-                                  "command-r-35b", "yi-34b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "command-r-35b",
+                                  "yi-34b", "whisper-tiny",
                                   "nemotron-4-340b"])
 def test_unported_archs_refuse(arch):
     from repro_torch.configs.registry import get_config, get_reduced_config
@@ -180,14 +180,29 @@ def test_unported_archs_refuse(arch):
 
 
 def test_registry_refuses_exactly_the_unported_ids():
-    """The six ids still refused, each message naming its ROADMAP item
-    by title; the MoE archs are ported."""
+    """The five ids still refused, each message naming its ROADMAP item
+    by title; the MoE archs and the zamba2 hybrid are ported."""
     from repro_torch.configs import registry
     assert set(registry.UNPORTED) == {
-        "phi-3-vision-4.2b", "zamba2-2.7b", "command-r-35b", "yi-34b",
-        "whisper-tiny", "nemotron-4-340b"}
+        "phi-3-vision-4.2b", "command-r-35b", "yi-34b", "whisper-tiny",
+        "nemotron-4-340b"}
     for arch in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"):
         assert registry.get_config(arch).moe is not None
+    assert registry.get_config("zamba2-2.7b").layout == (("zamba_super",
+                                                          9),)
+
+
+def test_all_configs_returns_every_ported_id():
+    """``all_configs`` gives each ported arch's config by id and leaves out
+    the ``UNPORTED`` ids, which would raise."""
+    from repro_torch.configs import registry
+    configs = registry.all_configs()
+    assert tuple(configs) == registry.ARCH_IDS
+    assert not set(configs) & set(registry.UNPORTED)
+    assert {"qwen3-0.6b", "xlstm-125m", "zamba2-2.7b",
+            "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"} == set(configs)
+    for arch, cfg in configs.items():
+        assert cfg == registry.get_config(arch)
 
 
 def test_moe_mla_import_leaves_jax_unloaded():
@@ -204,17 +219,26 @@ def test_moe_mla_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "False"
 
 
+def test_ssm_zamba_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.models.ssm, "
+            "repro_torch.models.transformer, "
+            "repro_torch.configs.zamba2_2_7b; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
+
+
 def _unported_variants():
-    from repro_torch.models.config import EncoderStub, SSMConfig
-    return {"mamba": dict(layout=(("mamba", 2),), ssm=SSMConfig()),
-            "xattn": dict(layout=(("encdec", 2),)),
-            "zamba_super": dict(layout=(("zamba_super", 1),),
-                                shared_every=2, ssm=SSMConfig()),
+    from repro_torch.models.config import EncoderStub
+    return {"xattn": dict(layout=(("encdec", 2),)),
             "vision": dict(encoder=EncoderStub("vision", 16, 64))}
 
 
-@pytest.mark.parametrize("kind", ["mamba", "xattn", "zamba_super",
-                                  "vision"])
+@pytest.mark.parametrize("kind", ["xattn", "vision"])
 def test_unported_kinds_refuse(kind):
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.models import model
@@ -248,6 +272,35 @@ def test_xlstm_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init_cache(cfg, 1, 4)
     assert serve.main([*argv, "--device", "cpu"])["tokens"].shape == (1, 1)
+
+
+def test_zamba_entry_points_default_to_cuda(monkeypatch):
+    """The zamba2 serving path takes cuda unless asked for the CPU, raises
+    when it is absent (the full config too, before any allocation), and
+    runs on the CPU when asked."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced_config("zamba2-2.7b")
+    argv = ["--arch", "zamba2-2.7b", "--batch", "1", "--prompt-len", "2",
+            "--gen", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main([*argv, "--full-config"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_serve_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(cfg, 1, 4)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    assert params["stack"]["segments"][0]["mamba"]["inner"]["w_in"].device \
+        == torch.device("cpu")
 
 
 def test_train_import_leaves_jax_unloaded():

@@ -218,14 +218,15 @@ def test_serve_launcher_restores_jax_checkpoint(tmp_path, monkeypatch,
 
 
 def _sub(cfg, name):
-    """A sub-config (moe, mla) as a dict, None when absent."""
+    """A sub-config (moe, mla, ssm) as a dict, None when absent."""
     sub = getattr(cfg, name)
     return None if sub is None else dataclasses.asdict(sub)
 
 
 def test_registry_knows_every_jax_arch():
     """Each id of the JAX registry is either ported (same config, field
-    for field, the MoE and MLA sub-configs included) or refused by name."""
+    for field, the MoE, MLA and SSM sub-configs and the layout included)
+    or refused by name."""
     assert set(tregistry.ARCH_IDS) | set(tregistry.UNPORTED) == set(
         jregistry.ARCH_IDS)
     for arch in tregistry.ARCH_IDS:
@@ -234,15 +235,15 @@ def test_registry_knows_every_jax_arch():
                       "head_dim_", "d_ff", "vocab_size", "qk_norm",
                       "rope_theta", "tie_embeddings", "mlp_type",
                       "attn_window", "norm_eps", "dtype", "param_dtype",
-                      "attn_impl"):
+                      "attn_impl", "layout", "shared_every"):
             assert getattr(t, field) == getattr(j, field), field
         jr, tr = (jregistry.get_reduced_config(arch),
                   tregistry.get_reduced_config(arch))
-        for name in ("moe", "mla"):
+        for name in ("moe", "mla", "ssm"):
             assert _sub(t, name) == _sub(j, name), name
             assert _sub(tr, name) == _sub(jr, name), name
         assert tr == t.replace(
-            moe=tr.moe, mla=tr.mla,
+            moe=tr.moe, mla=tr.mla, ssm=tr.ssm,
             **{f: getattr(jr, f) for f in (
                 "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
                 "vocab_size", "head_dim", "max_seq_len", "attn_chunk",
