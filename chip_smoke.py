@@ -47,8 +47,9 @@ Phases, each printing its own lines and then its wall time (``time:
    work is 2 (192 + 2 x 128), 1.4x that); ``library_ms`` SDPA, with v
    zero-padded to 192 where no fused backend takes v's width
    (``library_padded_v``).  Then zamba2-2.7b's head dim 80
-   (``flash_attention_d80``: in bf16 the mma.sync kernel, in fp32 the FMA
-   kernel with a ragged third column group) at its shared attention layer
+   (``flash_attention_d80``: in bf16 the TMA + wgmma kernel, q/k rows of
+   two 128-byte boxes and PV as wgmma m64n80k16, in fp32 the FMA kernel
+   with a ragged third column group) at its shared attention layer
    (B=1, S=4096, H=KV=32) causal and with a 1024 window, S=129 causal,
    S=1000 non-causal and a GQA case (H=8, KV=2), bf16 and fp32, and its
    prefill shape (B=4, S=8192, H=32) in bf16; bound 320 flops a live pair
@@ -337,7 +338,8 @@ REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             "flash_attention_mla": "src/repro/kernels/flash_attention.py:93",
             # the same Pallas kernel, whose function zamba2's shared
             # attention block computes with chunked_attention at head dim
-            # 80 (d_model 2560 over 32 heads)
+            # 80 (d_model 2560 over 32 heads); in bf16 the port runs it on
+            # the D = 128 kernel's TMA + wgmma design at 80 columns
             "flash_attention_d80": "src/repro/kernels/flash_attention.py:93",
             # no TPU kernel: the reference differentiates its jnp
             # chunked_attention (the training forward) with jax.grad
@@ -4634,7 +4636,8 @@ def main(argv=None) -> int:
                              "dtype")},
         "entry": "prefill"})
     # head dim 80 at zamba2-2.7b's prefill shape, as each of its prefill
-    # launches (phase 4d)
+    # launches (phase 4d): the TMA + wgmma kernel at (80, 80), its blocks
+    # in groups of 16 (b, h) pairs
     d80_rows = [x for x in attn_rows if x["kernel"] == "flash_attention_d80"]
     r = next(x for x in d80_rows if x["entry"] == "prefill")
     kernels.append({

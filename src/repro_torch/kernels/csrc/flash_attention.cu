@@ -38,32 +38,31 @@
 // (flash_attention_bwd.cu) to rebuild P without a pass of its own; a null
 // pointer stores nothing, so serving runs the code it ran before.
 // Three kernels:
-// - bf16, D = 128 (the serving path, qwen3-0.6b) and MLA's D = 192, Dv =
-//   128 (deepseek-v2-lite's prefill), one template on D: Hopper's shape of
-//   a fast kernel.  One block of three warpgroups per (b, h, 128-row query
-//   tile): a producer warpgroup whose one elected thread issues TMA copies
-//   of Q and of 128-key K/V tiles into a 2-stage ring guarded by mbarriers,
-//   and two consumer warpgroups (64 query rows each, registers raised to
-//   240 with setmaxnreg) that run QK^T and PV as wgmma.mma_async
-//   m64n128k16, with the online softmax on the fp32 accumulator in
-//   registers.  A Q or K row is D / 64 128-byte swizzled boxes (three at
-//   192, so S = QK^T is 12 k-steps), a V row two; the rest is Dv's, the
-//   same at both widths.  At 192 a block takes 214,144 bytes of shared
-//   memory (Q 48 KB, K 2 x 48, V 2 x 32), one block an SM, and a consumer
-//   thread holds 64 fp32 of O, 64 of S and 64 registers of P's bf16 hi
-//   and lo parts, as at 128.
-// - bf16, D = 32, 64 (test shapes, the reduced models) or 80 (zamba2's
-//   shared attention block): mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), flash-attention-2 style: one block of 4 warps per (b, h,
-//   64-row query tile), each warp owning 16 query rows; K and V tiles of 64
-//   keys stream through padded shared memory with cp.async, the next K tile
-//   loading while this tile's softmax and PV product run.  The score
-//   fragment is reused in registers as the A operand of PV.  At D = 80 a
-//   row is 5 k-steps of 16, 10 output blocks of 8 and ten 16-byte chunks,
-//   padded to 88 values (176 bytes, 11 chunks: the 8 rows a fragment load
-//   reads fall in distinct banks); a block takes 33,792 bytes of shared
-//   memory.  An 80-wide row is not a whole number of the D = 128 kernel's
-//   128-byte swizzled boxes, so that design would need padded copies.
+// - bf16 at (D, Dv) = (128, 128) (the serving path, qwen3-0.6b), MLA's
+//   (192, 128) (deepseek-v2-lite's prefill) and (80, 80) (zamba2-2.7b's
+//   shared attention block, d_model 2560 over 32 heads), one template on
+//   (D, Dv): Hopper's shape of a fast kernel.  One block of three
+//   warpgroups per (b, h, 128-row query tile): a producer warpgroup whose
+//   one elected thread issues TMA copies of Q and of 128-key K/V tiles into
+//   a 2-stage ring guarded by mbarriers, and two consumer warpgroups (64
+//   query rows each, registers raised to 240 with setmaxnreg) that run
+//   QK^T as wgmma.mma_async m64n128k16 and PV as m64n<Dv>k16, with the
+//   online softmax on the fp32 accumulator in registers.  A Q or K row is
+//   ceil(D / 64) 128-byte swizzled boxes (three at 192, so S = QK^T is 12
+//   k-steps; two at 80, the second zero past column 16, so 5 k-steps), a
+//   V row ceil(Dv / 64).  At 192 a block takes 214,144 bytes of shared
+//   memory (Q 48 KB, K 2 x 48, V 2 x 32), at 128 and 80 164,992, one block
+//   an SM; a consumer thread holds Dv / 2 fp32 of O (64, or 40 at 80), 64
+//   of S and 64 registers of P's bf16 hi and lo parts.  The blocks run in
+//   groups of 16 (b, h) pairs, so that those in flight share K/V through
+//   the L2.
+// - bf16, D = 32 or 64 (test shapes, the reduced models): mma.sync
+//   m16n8k16 (bf16 in, fp32 accumulate), flash-attention-2 style: one
+//   block of 4 warps per (b, h, 64-row query tile), each warp owning 16
+//   query rows; K and V tiles of 64 keys stream through padded shared
+//   memory with cp.async, the next K tile loading while this tile's
+//   softmax and PV product run.  The score fragment is reused in registers
+//   as the A operand of PV.
 // - fp32 inputs (the fp32 test configurations, and the card-against-host
 //   checks at every head dims) run on the FMA units: one block of 4 warps
 //   per (b, h, 32-row tile), a lane per key for the scores and a lane per
@@ -358,7 +357,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 128 or MLA's 192 (Dv = 128): TMA ring, wgmma, warp-specialised
+// bf16, (D, Dv) = (128, 128), MLA's (192, 128) or zamba2's (80, 80): TMA
+// ring, wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 //
 // One block of three warpgroups per (b, h, 128-row query tile).  Warpgroup 0
@@ -375,41 +375,57 @@ __global__ void __launch_bounds__(kThreads, 1)
 // to issue their products, so that one's softmax runs under the other's
 // products.  Every tile is made of 128-row boxes of 128-byte rows (64 bf16
 // columns) written by the TMA with the 128-byte swizzle, which is the
-// layout the wgmma descriptors name: a Q or K row of D values is D / 64
-// boxes (two at D = 128, three at 192), a V row two; rows past S are
-// zero-filled by the TMA.  Tensor maps are 4-D over (width, S, heads, B)
-// with q/k/v's own strides, so views are read in place.  Only the Q/K side
-// depends on D: the PV product, the softmax, the consumers' turns and the
-// epilogue are those of Dv = 128 at either width, and so is a consumer's
-// register budget (64 fp32 for O, 64 for S, 64 for P's hi and lo parts).
+// layout the wgmma descriptors name: a Q or K row of D values is
+// ceil(D / 64) boxes (two at D = 80 or 128, three at 192), a V row
+// ceil(Dv / 64); rows past S, and columns past the row's width (80 to 127
+// of an 80-wide row's second box), are zero-filled by the TMA.  Tensor
+// maps are 4-D over (width, S, heads, B) with q/k/v's own strides, so views
+// are read in place.  The softmax and the consumers' turns are the same at
+// every width; PV is wgmma m64n<Dv>k16, and a consumer holds Dv / 2 fp32 of
+// O beside 64 of S and 64 registers of P's hi and lo parts.
+//
+// Block order: groups of kWsGroup (b, h) pairs, the group slowest; in a
+// group, the query tiles longest first, and for each tile the group's
+// pairs with h fastest.  So the ~132 blocks in flight hold ~132 / kWsGroup
+// neighbouring tiles of each of kWsGroup heads, which read the same K/V
+// tiles at about the same time and share them through the 50 MB L2 (as
+// do the heads of a GQA group), while the grid's tail is the last
+// group's shortest tiles.  Up to kWsGroup pairs this is the order with the
+// head fastest and the tile slowest; beyond it, that order left one tile
+// of each (b, h) in flight (zamba2's prefill, B = 4, H = KV = 32: 128
+// pairs on 132 SMs), so every query tile read its K/V from device memory,
+// some 10.9 GB a call.
 
-constexpr int kWsDv = 128;          // v's width and the output's
 constexpr int kWsBQ = 128;          // query rows a block, 64 a consumer
 constexpr int kWsBK = 128;          // keys a KV tile
 constexpr int kWsStages = 2;        // depth of the K/V ring
 constexpr int kWsConsumers = 2;     // consumer warpgroups
+constexpr int kWsGroup = 16;        // (b, h) pairs a group of the block order
 constexpr int kWsThreads = 128 * (1 + kWsConsumers);
 constexpr int kBoxCols = 64;        // bf16 in a 128-byte swizzled row
 constexpr uint32_t kBoxBytes = kWsBK * 128;     // one 128-row box
-constexpr uint32_t kVTileBytes = (kWsDv / kBoxCols) * kBoxBytes;
 static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one box height");
 
-// Shared memory at q/k width D: Q and each K stage are D / 64 boxes, each V
-// stage two; then the barriers, and room to align to 1 KB.  At D = 192
-// that is 48 + 2 x 48 + 2 x 32 KB, 214,144 bytes with the rest (one block
-// an SM, under the 232,448 a block may take); at D = 128, 164,992.
-template <int D>
+// Shared memory at head dims (D, Dv): Q and each K stage are ceil(D / 64)
+// boxes, each V stage ceil(Dv / 64); then the barriers, and room to align
+// to 1 KB.  At (192, 128) that is 48 + 2 x 48 + 2 x 32 KB, 214,144 bytes
+// with the rest (one block an SM, under the 232,448 a block may take); at
+// (128, 128) and (80, 80), 164,992.
+template <int D, int Dv>
 struct WsLayout {
-  static_assert(D % kBoxCols == 0, "q/k rows of whole 64-column boxes");
-  static constexpr int kBoxes = D / kBoxCols;
+  static_assert(D % 16 == 0 && Dv % 16 == 0, "whole k-steps and n-blocks");
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
+  static constexpr int kVBoxes = (Dv + kBoxCols - 1) / kBoxCols;
   static constexpr uint32_t kQKTileBytes = kBoxes * kBoxBytes;
+  static constexpr uint32_t kVTileBytes = kVBoxes * kBoxBytes;
   static constexpr int kSmem =
       (1 + kWsStages) * kQKTileBytes + kWsStages * kVTileBytes + 128 + 1024;
 };
 
 // S = Q K^T for 64 rows x 128 keys: D / 16 k-steps of 16; step ks lies in
-// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 192, 12
-// steps over three boxes).
+// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 80, 5 steps,
+// the last at the start of box 1, whose columns past 16 are zeros no step
+// reads; at D = 192, 12 steps over three boxes).
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
                                          uint32_t k_tile) {
@@ -422,8 +438,10 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
 }
 
 // O += P V for 64 rows: P as hi + lo A fragments (one set of 4 registers
-// per 16 keys), V rows are keys (the k of this product), Dv contiguous.
-__device__ __forceinline__ void issue_pv(float (&o)[64],
+// per 16 keys), V rows are keys (the k of this product), Dv contiguous in
+// 64-column boxes kBoxBytes apart (the descriptor's leading offset).
+template <int Dv>
+__device__ __forceinline__ void issue_pv(float (&o)[Dv / 2],
                                          const uint32_t (&pa_hi)[8][4],
                                          const uint32_t (&pa_lo)[8][4],
                                          uint32_t v_tile) {
@@ -486,14 +504,15 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
 
 // O *= alpha (skipped when no row of the warp moved its max), then P as A
 // fragments, each p split into a bf16 high part and a bf16 remainder.
-__device__ __forceinline__ void rescale_and_split(float (&o)[64],
+template <int N>
+__device__ __forceinline__ void rescale_and_split(float (&o)[N],
                                                   const float (&alpha)[2],
                                                   const float (&s)[64],
                                                   uint32_t (&pa_hi)[8][4],
                                                   uint32_t (&pa_lo)[8][4]) {
   if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-    for (int n = 0; n < 64; ++n) o[n] *= alpha[(n >> 1) & 1];
+    for (int n = 0; n < N; ++n) o[n] *= alpha[(n >> 1) & 1];
   }
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
@@ -508,31 +527,33 @@ __device__ __forceinline__ void rescale_and_split(float (&o)[64],
 // The two consumers take turns to issue their products (named barrier
 // 1 + c is consumer c's turn; consumer 0 goes first, and every arrival on
 // the other's barrier is matched by one of its waits).
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_attention_bf16_ws_kernel(const __grid_constant__ CUtensorMap tq,
                                    const __grid_constant__ CUtensorMap tk,
                                    const __grid_constant__ CUtensorMap tv,
                                    Params p, int B) {
-  using L = WsLayout<D>;
+  using L = WsLayout<D, Dv>;
   extern __shared__ __align__(16) unsigned char smem_ws[];
   const uint32_t sQ = (smem_addr(smem_ws) + 1023u) & ~1023u;  // swizzle atoms
   const uint32_t sK = sQ + L::kQKTileBytes;     // stage st at st * tile
   const uint32_t sV = sK + kWsStages * L::kQKTileBytes;
-  const uint32_t full_q = sV + kWsStages * kVTileBytes;  // 8 bytes a barrier
+  const uint32_t full_q = sV + kWsStages * L::kVTileBytes;  // 8 bytes each
   const uint32_t full_k = full_q + 8;       // TMA bytes of K, per stage
   const uint32_t full_v = full_k + 8 * kWsStages;
   const uint32_t empty_k = full_v + 8 * kWsStages;  // consumers done with K
   const uint32_t empty_v = empty_k + 8 * kWsStages;
 
-  // longest rows first across the whole grid: the query tile is the
-  // slowest-varying index of blockIdx.x
+  // blockIdx.x as (group, tile, pair in the group), the group slowest;
+  // tiles longest first, and the last group may hold fewer pairs
   const int nq = (p.S + kWsBQ - 1) / kWsBQ;
-  int idx = blockIdx.x;
-  const int h = idx % p.H;
-  idx /= p.H;
-  const int b = idx % B;
-  const int q0 = (nq - 1 - idx / B) * kWsBQ;
+  const int64_t group_blocks = (int64_t)kWsGroup * nq;
+  const int group = (int)(blockIdx.x / group_blocks);
+  const int width = min(kWsGroup, p.H * B - group * kWsGroup);
+  const int in_group = (int)(blockIdx.x - group * group_blocks);
+  const int bh = group * kWsGroup + in_group % width;
+  const int h = bh % p.H, b = bh / p.H;
+  const int q0 = (nq - 1 - in_group / width) * kWsBQ;
   const int kvh = h / p.group;
   int lo, hi;
   kv_tiles(p, q0, kWsBQ, kWsBK, lo, hi);
@@ -555,9 +576,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      // each operand's own byte count (Q and K tiles D / 64 boxes, V
-      // two): with a wrong count a phase never completes (mbar_wait traps
-      // and the launch fails) or completes with a box still in flight
+      // each operand's own byte count, whole boxes (their zero fill
+      // included): with a wrong count a phase never completes (mbar_wait
+      // traps and the launch fails) or completes with a box still in
+      // flight
       mbar_expect_tx(full_q, L::kQKTileBytes);
 #pragma unroll
       for (int c = 0; c < L::kBoxes; ++c) {
@@ -567,7 +589,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         const int st = i % kWsStages, k0 = (lo + i) * kWsBK;
         const uint32_t ph = (i / kWsStages) & 1;
         const uint32_t k_st = sK + st * L::kQKTileBytes;
-        const uint32_t v_st = sV + st * kVTileBytes;
+        const uint32_t v_st = sV + st * L::kVTileBytes;
         // a fresh barrier passes a wait on parity 1
         mbar_wait(empty_k + 8 * st, ph ^ 1);
         mbar_expect_tx(full_k + 8 * st, L::kQKTileBytes);
@@ -577,9 +599,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                    k0, kvh, b);
         }
         mbar_wait(empty_v + 8 * st, ph ^ 1);
-        mbar_expect_tx(full_v + 8 * st, kVTileBytes);
-        tma_load(v_st, &tv, full_v + 8 * st, 0, k0, kvh, b);
-        tma_load(v_st + kBoxBytes, &tv, full_v + 8 * st, kBoxCols, k0, kvh, b);
+        mbar_expect_tx(full_v + 8 * st, L::kVTileBytes);
+#pragma unroll
+        for (int c = 0; c < L::kVBoxes; ++c) {
+          tma_load(v_st + c * kBoxBytes, &tv, full_v + 8 * st, c * kBoxCols,
+                   k0, kvh, b);
+        }
       }
     }
   } else {
@@ -594,9 +619,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const uint32_t q_rows = sQ + 64 * cw * 128;
     const int my_turn = 1 + cw, their_turn = 2 - cw;
 
-    float o[64];
+    float o[Dv / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < Dv / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // rows g and g+8, log2 units
     float l[2] = {0.f, 0.f};              // this thread's part of the sums
     float alpha[2];
@@ -626,7 +651,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       if (has_s) mbar_wait(full_k + 8 * st, (i / kWsStages) & 1);
       named_sync(my_turn, 2 * 128);
       wgmma_fence();
-      issue_pv(o, pa_hi, pa_lo, sV + sp * kVTileBytes);
+      issue_pv<Dv>(o, pa_hi, pa_lo, sV + sp * L::kVTileBytes);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -651,7 +676,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // out = O / l and the row's log-sum-exp m + log2(l), rows past S are
     // not stored
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-    const int64_t o_ss = (int64_t)p.H * kWsDv;
+    const int64_t o_ss = (int64_t)p.H * Dv;
     const int64_t o_sb = (int64_t)p.S * o_ss;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -664,10 +689,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         if (p.lse != nullptr && tig == 0) {
           p.lse[((int64_t)b * p.H + h) * p.S + row] = m[r] + __log2f(lr);
         }
-        __nv_bfloat16* dst =
-            out + b * o_sb + row * o_ss + h * kWsDv + tig * 2;
+        __nv_bfloat16* dst = out + b * o_sb + row * o_ss + h * Dv + tig * 2;
 #pragma unroll
-        for (int n = 0; n < 16; ++n) {
+        for (int n = 0; n < Dv / 8; ++n) {
           *reinterpret_cast<uint32_t*>(dst + n * 8) =
               pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
         }
@@ -805,36 +829,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// q and k are mapped at their width D, v at 128: a map narrower than the
+// q and k are mapped at their width D, v at Dv: a map narrower than the
 // row would not fail, its last box would read zeros past the map's columns.
-template <int D>
+template <int D, int Dv>
 cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
-  constexpr int smem = WsLayout<D>::kSmem;
+  constexpr int smem = WsLayout<D, Dv>::kSmem;
   const int KV = p.H / p.group;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb, kWsBQ) ||
       !encode_map(&tk, p.k, D, p.S, KV, B, p.k_ss, p.k_sh, p.k_sb, kWsBK) ||
-      !encode_map(&tv, p.v, kWsDv, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb,
-                  kWsBK)) {
+      !encode_map(&tv, p.v, Dv, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb, kWsBK)) {
     return cudaErrorInvalidValue;
   }
   const int64_t blocks = (int64_t)((p.S + kWsBQ - 1) / kWsBQ) * p.H * B;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_bf16_ws_kernel<D>,
+      flash_attention_bf16_ws_kernel<D, Dv>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_attention_bf16_ws_kernel<D><<<(unsigned)blocks, kWsThreads, smem,
-                                      stream>>>(tq, tk, tv, p, B);
+  flash_attention_bf16_ws_kernel<D, Dv><<<(unsigned)blocks, kWsThreads, smem,
+                                          stream>>>(tq, tk, tv, p, B);
   return cudaGetLastError();
 }
 
 template <int D, int DV>
 cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    if constexpr (DV == kWsDv) {  // D = 128, or MLA's 192
-      return launch_ws<D>(p, B, stream);
-    } else {  // D = Dv = 32, 64 or 80
+    if constexpr (D >= 80) {  // (80, 80), (128, 128), MLA's (192, 128)
+      return launch_ws<D, DV>(p, B, stream);
+    } else {  // D = Dv = 32 or 64
       const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
       cudaError_t e = cudaFuncSetAttribute(
           flash_attention_bf16_kernel<D>,

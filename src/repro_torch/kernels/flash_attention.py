@@ -13,10 +13,12 @@ every row must start on 16 bytes (what the TMA copies need).  (D, Dv) is
 (32, 32), (64, 64), zamba2-2.7b's (80, 80), (128, 128) or MLA's (192,
 128): deepseek-v2-lite's prefill folds 64 RoPE dims into q and k and keeps
 v at 128, where the reference zero-pads v to 192 (``HEAD_DIMS``).  In
-bf16, D = 128 and MLA's 192 run one warp-specialised kernel (TMA copies
-into an mbarrier ring, wgmma products; a q/k row is two or three 128-byte
-boxes, a v row two), and D = 32 / 64 / 80 an mma.sync kernel; fp32 runs
-on the FMA units.  The probabilities stay fp32, as bf16 hi + lo parts
+bf16, (128, 128), MLA's (192, 128) and (80, 80) run one warp-specialised
+kernel (TMA copies into an mbarrier ring, wgmma products; a q/k row is
+two or three 128-byte boxes, the second of an 80-wide row zero past its
+16 columns, and PV a wgmma m64n<Dv>k16; blocks ordered in groups of 16
+(b, h) pairs, so that the blocks in flight share K/V in the L2), and D =
+32 / 64 an mma.sync kernel; fp32 runs on the FMA units.  The probabilities stay fp32, as bf16 hi + lo parts
 through the tensor cores, so the output agrees with the plain version to
 about one bf16 ulp elementwise (a single bf16 P would not, on outputs
 near zero).

@@ -465,7 +465,9 @@ def test_cuda_agg_absorb_one_cohort(cuda, dtype, A, R, N):
 # token, one row past a tile, a ragged thousand, a window wider than S,
 # no GQA, non-causal with and without a window, and D = 32; then the edges
 # of the D = 128 kernel's 128-row tiles: S = 1, 127, 128, 129 and 1000 over
-# groups 1, 2 and 4, a window of 1, windows of S and more, non-causal
+# groups 1, 2 and 4, a window of 1, windows of S and more, non-causal;
+# then 36 (b, h) pairs, so that the TMA kernel's block order ends in a
+# group of 4 pairs after two of 16
 ATTN_CASES = [(2, 200, 4, 2, 64, True, 0), (1, 4096, 16, 8, 128, True, 0),
               (1, 4096, 16, 8, 128, True, 1024), (3, 1, 4, 2, 64, True, 0),
               (1, 65, 2, 1, 128, True, 0), (2, 1000, 4, 2, 64, True, 100),
@@ -476,7 +478,8 @@ ATTN_CASES = [(2, 200, 4, 2, 64, True, 0), (1, 4096, 16, 8, 128, True, 0),
               (2, 129, 8, 2, 128, True, 0), (1, 129, 4, 4, 128, True, 129),
               (1, 1000, 8, 2, 128, True, 0), (2, 1000, 4, 1, 128, True, 1),
               (1, 1000, 4, 4, 128, True, 4096),
-              (1, 1000, 8, 4, 128, False, 0)]
+              (1, 1000, 8, 4, 128, False, 0),
+              (3, 300, 12, 4, 128, True, 0)]
 
 
 @pytest.mark.gpu
@@ -501,11 +504,13 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D,
 # deepseek-v2-lite's layer (H = KV = 16) causal and with a 1024 window,
 # one row past a tile, a ragged thousand non-causal, GQA 2 with a window,
 # one token; then S ragged across the 128-row query and key tiles: one row
-# short of the prefill's 8192, and 257 (two tiles and a row) non-causal
+# short of the prefill's 8192, and 257 (two tiles and a row) non-causal;
+# then 24 (b, h) pairs, a group of 16 and one of 8 in the block order
 MLA_CASES = [(1, 4096, 16, 16, True, 0), (1, 4096, 16, 16, True, 1024),
              (2, 129, 16, 16, True, 0), (1, 1000, 16, 16, False, 0),
              (2, 300, 8, 4, True, 33), (3, 1, 4, 4, True, 0),
-             (1, 8191, 16, 16, True, 0), (2, 257, 8, 8, False, 0)]
+             (1, 8191, 16, 16, True, 0), (2, 257, 8, 8, False, 0),
+             (2, 300, 12, 12, True, 0)]
 
 
 def _mla_inputs(dev, B, S, H, KV, dtype, seed):
@@ -608,13 +613,21 @@ def test_cuda_flash_attention_mla_dims_refuse_grad_and_other_pairs(cuda):
 
 # (B, S, H, KV, causal, window) at zamba2-2.7b's head dim 80 (d_model 2560
 # over 32 heads): its shared attention layer (H = KV = 32) causal and with
-# a 1024 window, one row past a 64-row tile, a ragged thousand
-# non-causal, GQA 4 with a window, one token, GQA 2 non-causal with a
-# window, and 129 rows of 8 heads over 2
+# a 1024 window, 65 rows, a ragged thousand non-causal, GQA 4 with a
+# window, one token, GQA 2 non-causal with a window, 129 rows of 8 heads
+# over 2; then the kernel's 128-row tile edges (one row short of a tile,
+# one tile, one row short of 64 tiles), and more blocks than SMs (two
+# batch rows of 32 heads, 16 query tiles each) with a 1024 window, so
+# that the block order's decode of (b, h, tile) is checked where the
+# blocks of several groups of 16 (b, h) pairs are in flight, and 36
+# pairs of GQA 3 (groups of 16, 16 and 4)
 D80_CASES = [(1, 4096, 32, 32, True, 0), (1, 4096, 32, 32, True, 1024),
              (2, 65, 32, 32, True, 0), (1, 1000, 32, 32, False, 0),
              (2, 300, 8, 2, True, 33), (3, 1, 4, 4, True, 0),
-             (1, 257, 4, 2, False, 17), (1, 129, 8, 2, True, 0)]
+             (1, 257, 4, 2, False, 17), (1, 129, 8, 2, True, 0),
+             (1, 127, 4, 4, True, 0), (1, 128, 4, 4, True, 0),
+             (1, 8191, 4, 4, True, 0), (2, 2048, 32, 32, True, 1024),
+             (3, 700, 12, 4, True, 0)]
 
 
 def _d80_inputs(dev, B, S, H, KV, dtype, seed):
@@ -628,10 +641,11 @@ def _d80_inputs(dev, B, S, H, KV, dtype, seed):
 @pytest.mark.parametrize("B,S,H,KV,causal,window", D80_CASES)
 def test_cuda_flash_attention_d80_matches_plain(cuda, dtype, B, S, H, KV,
                                                 causal, window):
-    """Kernel #4 at D = 80 (bf16: the mma.sync kernel, rows padded to 88;
-    fp32: the FMA kernel, whose third column group is ragged) against the
-    plain version, every one of the 80 output columns; counted as
-    ``flash_attention_d80``."""
+    """Kernel #4 at D = 80 (bf16: the TMA + wgmma kernel, q/k rows of
+    two 128-byte boxes of which the second is zero past column 16, PV as
+    wgmma m64n80k16; fp32: the FMA kernel, whose third column group is
+    ragged) against the plain version, every one of the 80 output
+    columns; counted as ``flash_attention_d80``."""
     q, k, v = _d80_inputs(cuda, B, S, H, KV, dtype, S + H)
     before = dict(tfa.launches)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
@@ -649,8 +663,9 @@ def test_cuda_flash_attention_d80_matches_plain(cuda, dtype, B, S, H, KV,
 @pytest.mark.gpu
 def test_cuda_flash_attention_d80_reads_strided_views(cuda):
     """At D = 80, q/k/v as views into one fused (B, S, H + 2 KV, 80)
-    projection, and q as a slice 16 values into wider rows, read in
-    place."""
+    projection, and q as a slice 16 values into wider rows, read in place
+    (bf16: through the TMA kernel's tensor maps, 80 columns wide, so the
+    columns past a view's 80 read as zeros and not as its neighbours)."""
     g = torch.Generator(device=cuda).manual_seed(9)
     B, S, H, KV = 2, 333, 8, 2
     for dtype in (torch.float32, torch.bfloat16):
@@ -671,7 +686,7 @@ def test_cuda_flash_attention_d80_reads_strided_views(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,causal,window", [
     (2, 130, 32, 32, True, 0), (1, 1000, 8, 2, True, 100),
-    (2, 257, 4, 4, False, 0)])
+    (2, 257, 4, 4, False, 0), (1, 8191, 4, 4, True, 0)])
 def test_cuda_flash_attention_d80_lse_matches_plain(cuda, B, S, H, KV,
                                                     causal, window):
     """The log-sum-exp the D = 80 epilogue saves (scale 80**-0.5) against

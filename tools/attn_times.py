@@ -2,33 +2,45 @@
 """Time the attention kernel (#4) and its backward from one source tree,
 so that two versions can be compared on one card in one call.
 
-    python3 tools/attn_times.py --src SRC [--check]
+    python3 tools/attn_times.py --src SRC [--variant V.py] [--check]
 
 Builds the kernels of the ``repro_torch`` package under SRC and prints one
 JSON line a case (CUDA-event medians, as ``chip_smoke.py``'s ``cuda_ms``):
 
 - the forward at the qwen3-0.6b layer (B=1, S=4096, H=16, KV=8, D=128,
   causal; and with a 1024 window) and at the serving path's prefill shape
-  (B=4, S=8192), and the same at MLA's head dims (q/k 192, v 128,
-  deepseek-v2-lite's H = KV = 16; ``flash_attention_mla``), without the
-  log-sum-exp output and, where the tree's forward has one, with it, the
-  two timed in turns so that a drift of the card's clocks falls on both
-  (a tree without it: the forward against itself, the same way);
+  (B=4, S=8192), the same at MLA's head dims (q/k 192, v 128,
+  deepseek-v2-lite's H = KV = 16; ``flash_attention_mla``) and at
+  zamba2-2.7b's head dim 80 (H = KV = 32; ``flash_attention_d80``), with
+  a GQA control at 80 (KV = 8, whose heads share K/V in any block order),
+  without the log-sum-exp output and, where the tree's forward has one,
+  with it, the two timed in turns so that a drift of the card's clocks
+  falls on both (a tree without it: the forward against itself, the same
+  way);
 - the backward at ``chip_smoke.py``'s three ``BWD_CASES``, given the
   forward's output (and its log-sum-exp, where the tree's backward takes
   one).
 
-With ``--check`` it also holds dQ, dK and dV against autograd of the plain
-version at those shapes and at ragged ones (S = 130, 300, 513, 1000; GQA
-groups 1, 2, 4; windows of 100 and 200), within 2^-7 (max|want| +
-|want|), and exits 1 on a miss.  Run the parent's tree and this one in
-turns (parent, this, this, parent) to compare them.
+With ``--check`` it also holds each forward's output against the plain
+version (one batch row at a time) within one bf16 ulp and 2e-5, and dQ,
+dK and dV against autograd of the plain version at those shapes and at
+ragged ones (S = 130, 300, 513, 1000; GQA groups 1, 2, 4; windows of 100
+and 200), within 2^-7 (max|want| + |want|), and exits 1 on a miss.  Run
+the parent's tree and this one in turns (parent, this, this, parent) to
+compare them.
+
+``--variant V.py`` (a file that defines ``V = {name: source}`` with one
+entry, as ``tools/ptxas_variants.py`` takes them) times SRC with that
+source in place of ``csrc/flash_attention.cu``: SRC's package is copied
+to ``build/attn_times/<name>/`` and built there.
 """
 from __future__ import annotations
 
 import argparse
 import inspect
 import json
+import runpy
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,7 +55,11 @@ FWD_CASES = (("layer", *LAYER, 128, True, 0, 10),
              ("prefill", 4, 8192, 16, 8, 128, 128, True, 0, 2),
              ("mla_layer", 1, 4096, 16, 16, 192, 128, True, 0, 10),
              ("mla_layer_w1024", 1, 4096, 16, 16, 192, 128, True, 1024, 10),
-             ("mla_prefill", 4, 8192, 16, 16, 192, 128, True, 0, 2))
+             ("mla_prefill", 4, 8192, 16, 16, 192, 128, True, 0, 2),
+             ("d80_layer", 1, 4096, 32, 32, 80, 80, True, 0, 10),
+             ("d80_layer_w1024", 1, 4096, 32, 32, 80, 80, True, 1024, 10),
+             ("d80_prefill", 4, 8192, 32, 32, 80, 80, True, 0, 2),
+             ("d80_prefill_kv8", 4, 8192, 32, 8, 80, 80, True, 0, 2))
 BWD_CASES = (("layer", *LAYER, True, 0),
              ("layer_w1024", *LAYER, True, 1024),
              ("reduced_d64", 2, 1024, 4, 2, 64, True, 0))
@@ -52,6 +68,23 @@ CHECK_CASES = (("s130", 1, 130, 4, 2, 128, True, 0),
                ("g4_w200", 1, 513, 8, 2, 128, True, 200),
                ("d64_w100", 1, 300, 4, 2, 64, True, 100))
 TOL = 2.0 ** -7
+FWD_ATOL = 2e-5         # chip_smoke.py's bf16 tolerance: one ulp and 2e-5
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def variant_tree(src: Path, variant: str) -> Path:
+    """A copy of SRC's package under build/attn_times/<name>/ with the
+    variant's source as csrc/flash_attention.cu."""
+    (name, text), = runpy.run_path(variant)["V"].items()
+    dst = ROOT / "build" / "attn_times" / name / "src"
+    # over an earlier copy, whose kernel build (named by a hash of its
+    # sources) is reused only where the sources are the same
+    shutil.copytree(src / "repro_torch", dst / "repro_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"),
+                    dirs_exist_ok=True)
+    (dst / "repro_torch" / "kernels" / "csrc" /
+     "flash_attention.cu").write_text(text)
+    return dst
 
 
 def cuda_ms(fn, reps: int = 11, inner: int = 10) -> float:
@@ -107,12 +140,16 @@ def inputs(B, S, H, KV, D, seed, Dv=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default="src")
+    ap.add_argument("--variant")
     ap.add_argument("--check", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attn_times: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.src).resolve()))
+    src = Path(args.src).resolve()
+    if args.variant:
+        src = variant_tree(src, args.variant)
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _lib
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -121,15 +158,16 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(json.dumps({"src": args.src, "card": card.strip()}))
+    print(json.dumps({"src": args.src, "variant": args.variant,
+                      "card": card.strip()}))
     has_lse = "lse" in inspect.signature(fa.flash_attention_bwd).parameters
+    failed = []
 
     for name, B, S, H, KV, D, Dv, causal, window, inner in FWD_CASES:
         q, k, v, _ = inputs(B, S, H, KV, D, S + H, Dv)
         kw = dict(causal=causal, window=window)
         plain = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
-        row = {"case": name, "kernel": "flash_attention" if D == Dv
-               else "flash_attention_mla"}
+        row = {"case": name, "kernel": fa._launch_key(D, Dv)}
         if has_lse:
             with_lse = lambda: fa.flash_attention(  # noqa: E731
                 q, k, v, return_lse=True, **kw)
@@ -137,11 +175,23 @@ def main() -> int:
             row.update(ms=a, ms_with_lse=b)
         else:
             row.update(ms=pair_ms(plain, plain, inner)[0])
+        if args.check:
+            got, err = plain(), 0.0
+            for b in range(B):   # the plain version one batch row at a time
+                want = ref.flash_attention_ref(
+                    q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw).float()
+                diff = (got[b:b + 1].float() - want).abs()
+                err = max(err, diff.max().item())
+                if not (bool(torch.isfinite(got[b]).all()) and bool(
+                        (diff <= FWD_ATOL + TOL * want.abs()).all())):
+                    failed.append(f"{name} out row {b}")
+                del want, diff
+            row["max_abs_err"] = err
+            del got
         print(json.dumps(row), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
 
-    failed = []
     cases = BWD_CASES + (CHECK_CASES if args.check else ())
     for name, B, S, H, KV, D, causal, window in cases:
         q, k, v, do = inputs(B, S, H, KV, D, S + D)
