@@ -28,7 +28,9 @@ Phases, each printing its own lines and then its wall time (``time:
 2b. flash_attention against its plain version in bf16 and fp32: a small
    ragged case (B=2, S=200, H=4, KV=2, D=64), the qwen3-0.6b layer (B=1,
    S=4096, H=16, KV=8, D=128) causal and with a 1024 window, and two ragged
-   cases at its heads (S=129 causal, S=1000 non-causal); bound at
+   cases at its heads (S=129 causal, S=1000 non-causal), and
+   whisper-tiny's decoder self-attention at its prefill shape (B=32,
+   S=448, H=KV=6, D=64, causal: the mma.sync kernel in bf16); bound at
    989 TFLOP/s bf16 / 67 TFLOP/s fp32 over the live (query, key) pairs;
    ``library_ms`` is one ``scaled_dot_product_attention`` call (timed only,
    the port never calls it); for bf16 also ``ms_with_lse``, the forward
@@ -53,7 +55,19 @@ Phases, each printing its own lines and then its wall time (``time:
    (B=1, S=4096, H=KV=32) causal and with a 1024 window, S=129 causal,
    S=1000 non-causal and a GQA case (H=8, KV=2), bf16 and fp32, and its
    prefill shape (B=4, S=8192, H=32) in bf16; bound 320 flops a live pair
-   and head; ``library_ms`` SDPA.
+   and head; ``library_ms`` SDPA.  Then phi-3-vision-4.2b's head dim 96
+   (``flash_attention_d96``: in bf16 the TMA + wgmma kernel, q/k rows of
+   two 128-byte boxes, the second zero past column 32, and PV as wgmma
+   m64n96k16; in fp32 the FMA kernel) at its layer (B=1, S=4096,
+   H=KV=32) causal and with a 1024 window, S=129 causal, S=1000
+   non-causal and a GQA case (H=8, KV=2), bf16 and fp32, and its prefill
+   shape (B=4, 576 patches + 3,520 tokens = 4,096 positions, H=32) in
+   bf16.  Last, keys of their own length (``flash_attention_cross``: S
+   queries over T keys, non-causal, whisper's cross-attention) at
+   whisper-tiny's prefill (B=32, S=448, T=1500, H=6, D=64), one decode
+   token over 1500 frames at batch 8, a ragged case (S=100, T=257) and at
+   D = 128, 80 and 96 on the TMA + wgmma kernel, bf16 and fp32; bound
+   over the S x T pairs; ``library_ms`` SDPA.
 2c. slstm_scan against its plain version with R in bf16 and fp32: the
    shapes of the JAX package's kernel tests, saturated gates (inputs x25)
    and the xlstm-125m layer (B=4, S=8192, H=4, P=192); bound at 67 TFLOP/s
@@ -242,6 +256,35 @@ Phases, each printing its own lines and then its wall time (``time:
    the reduced chunk 16): fp32 within 1e-3 and equal greedy tokens, bf16
    atol 0.15, rtol 0.05, and bf16 decode against prefill on the card at
    that tolerance.
+4e. whisper-tiny serving (the ``encdec`` stack: self-attention,
+   cross-attention to 1500 encoder frames, GELU MLP) at full width and
+   depth in bf16 (41,958,528 params drawn on the card): (a)
+   ``make_prefill_step`` at B=32 over the 448-token decoder context with
+   memory (32, 1500, 384) (exactly 4 ``flash_attention`` (D = 64) and 4
+   ``flash_attention_cross`` launches a call and no other attention; ms,
+   tokens/s, peak memory) and ``torch.profiler`` over one call; (b) fp32
+   decode against fp32 prefill logits at every position of 2x32 tokens
+   over the same memory (atol 1e-3, rtol 0.05), and the bf16 gap; (c) a
+   decode step at batch 8 (4 ``flash_attention_cross`` launches of one
+   query over 1500 frames) and its profile; (d) the serve launcher
+   ``--arch whisper-tiny --full-config`` (the memory drawn from its seed;
+   decode tok/s, finite logits, 4 cross launches a step); (e) the reduced
+   whisper on the card against the host's plain versions (48 tokens over
+   16 frames; fp32 within 1e-3 and equal greedy tokens, bf16 atol 0.15,
+   rtol 0.05).
+4f. phi-3-vision-4.2b serving (the VLM input merge: 576 patch embeddings
+   projected and prepended to the tokens) at full width and depth in bf16
+   (3,824,225,280 params drawn on the card): (a) ``make_prefill_step`` at
+   B=4 with (4, 576, 1024) patch embeddings and 3,520 text tokens, 4,096
+   positions a row (exactly 32 ``flash_attention_d96`` launches a call
+   and no other attention; ms, tokens/s, peak memory) and
+   ``torch.profiler`` over one call (busy share, top kernels, #4's share
+   of device time); (b) text decode against text prefill logits at every
+   position of 1x64 tokens, bf16 (atol 0.15, rtol 0.05); (c) the serve
+   launcher's refusal of the VLM; (d) a reduced phi-3 at head dim 96 (so
+   #4 at 96 runs), 16 patches before 48 tokens, on the card against the
+   host's plain versions (fp32 within 1e-3 and equal greedy tokens, bf16
+   atol 0.15, rtol 0.05).
 5. The LLM training path (``launch/steps``, ``launch/h2fed_round``,
    ``launch/train``).  (a) The backward kernel of flash_attention
    (``csrc/flash_attention_bwd.cu``, given the forward's output and saved
@@ -277,7 +320,10 @@ Phases, each printing its own lines and then its wall time (``time:
    the layer shape and #3's bf16 mode, with phase 5's steps' and rounds'
    launches; #4's MLA variant at the deepseek prefill shape with phase
    4c's launches; #4 at head dim 80 at the zamba2 prefill shape with
-   phase 4d's launches), the card's line, and the result line.
+   phase 4d's launches; #4 at head dim 96 at the phi-3-vision prefill
+   shape with phase 4f's launches; #4 with keys of their own length at
+   whisper's prefill shape with phase 4e's cross-attention launches),
+   the card's line, and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
@@ -288,7 +334,8 @@ device busy share a round, from the MLP's initial weights), and
 ``--async`` phase 1 and phase 3b, ``--sweep`` phase 1 and phase 3s,
 ``--stream`` phase 1 and phase 3t, ``--serve`` phase 1 and phase 3v, and
 ``--sharded`` phase 1 and phase 3h, ``--train`` phase 1 and phase 5,
-``--moe`` phase 1 and phase 4c, and ``--hybrid`` phase 1 and phase 4d;
+``--moe`` phase 1 and phase 4c, ``--hybrid`` phase 1 and phase 4d,
+``--audio`` phase 1 and phase 4e, and ``--vision`` phase 1 and phase 4f;
 none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
@@ -325,6 +372,10 @@ SOURCES = {"fused_agg_blend": "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_d80":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_d96":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_cross":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu"}
@@ -341,17 +392,32 @@ REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             # 80 (d_model 2560 over 32 heads); in bf16 the port runs it on
             # the D = 128 kernel's TMA + wgmma design at 80 columns
             "flash_attention_d80": "src/repro/kernels/flash_attention.py:93",
+            # the same Pallas kernel, whose function phi-3-vision's
+            # attention computes with chunked_attention at head dim 96
+            # (d_model 3072 over 32 heads), on the TMA + wgmma design
+            "flash_attention_d96": "src/repro/kernels/flash_attention.py:93",
+            # the same Pallas kernel's function with keys of their own
+            # length: whisper's cross-attention, which the reference
+            # computes with chunked_attention (src/repro/models/
+            # attention.py:391, xattn_apply), as the Pallas kernel takes
+            # one length only
+            "flash_attention_cross":
+                "src/repro/kernels/flash_attention.py:93",
             # no TPU kernel: the reference differentiates its jnp
             # chunked_attention (the training forward) with jax.grad
             "flash_attention_bwd": "src/repro/models/attention.py:70",
             "slstm_scan": "src/repro/kernels/slstm_scan.py:90"}
+AUDIO_B, AUDIO_S = 32, 448     # whisper-tiny's prefill: its decoder context
 # (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's; the
-# two ragged D = 128 cases end one row past a 128-row tile and mid-tile
+# two ragged D = 128 cases end one row past a 128-row tile and mid-tile;
+# "whisper_self" is whisper-tiny's decoder self-attention at its prefill
+# shape (the mma.sync kernel in bf16)
 ATTN_CASES = (("small", 2, 200, 4, 2, 64, True, 0),
               ("layer", 1, 4096, 16, 8, 128, True, 0),
               ("layer_w1024", 1, 4096, 16, 8, 128, True, 1024),
               ("s129", 2, 129, 16, 8, 128, True, 0),
-              ("s1000", 1, 1000, 16, 8, 128, False, 0))
+              ("s1000", 1, 1000, 16, 8, 128, False, 0),
+              ("whisper_self", AUDIO_B, AUDIO_S, 6, 6, 64, True, 0))
 PREFILL_B, PREFILL_S = 4, 8192
 # (name, B, S, H, KV, causal, window) at MLA's head dims (q/k 192 = 128 +
 # 64 RoPE dims, v 128): deepseek-v2-lite's layer (H = KV = 16) and two
@@ -361,13 +427,30 @@ MLA_ATTN_CASES = (("mla_layer", 1, 4096, 16, 16, True, 0),
                   ("mla_layer_w1024", 1, 4096, 16, 16, True, 1024),
                   ("mla_s129", 1, 129, 16, 16, True, 0),
                   ("mla_s1000", 1, 1000, 16, 16, False, 0))
-# (name, B, S, H, KV, causal, window) at zamba2-2.7b's head dim 80: its
-# shared attention layer (H = KV = 32), two ragged cases and GQA
-D80_ATTN_CASES = (("d80_layer", 1, 4096, 32, 32, True, 0),
-                  ("d80_layer_w1024", 1, 4096, 32, 32, True, 1024),
-                  ("d80_s129", 1, 129, 32, 32, True, 0),
-                  ("d80_s1000", 1, 1000, 32, 32, False, 0),
-                  ("d80_gqa", 2, 1000, 8, 2, True, 0))
+# (name, B, S, H, KV, causal, window) at the head dims of zamba2-2.7b (80)
+# and phi-3-vision-4.2b (96), both with 32 heads: the layer (H = KV = 32),
+# two ragged cases and GQA; each dim's prefill shape is HEAD_DIM_PREFILL's
+HEAD_DIM_ATTN_CASES = (("layer", 1, 4096, 32, 32, True, 0),
+                       ("layer_w1024", 1, 4096, 32, 32, True, 1024),
+                       ("s129", 1, 129, 32, 32, True, 0),
+                       ("s1000", 1, 1000, 32, 32, False, 0),
+                       ("gqa", 2, 1000, 8, 2, True, 0))
+VLM_B, VLM_PATCHES, VLM_TOKENS = 4, 576, 3520   # 4,096 positions a row
+# (B, S) of each head dim's prefill: zamba2's, and phi-3-vision's 576
+# patches + 3,520 tokens
+HEAD_DIM_PREFILL = {80: (PREFILL_B, PREFILL_S),
+                    96: (VLM_B, VLM_PATCHES + VLM_TOKENS)}
+# (name, B, S, T, H, KV, D): S queries over T keys, non-causal (whisper's
+# cross-attention): whisper-tiny's prefill (B=32 over its 448-token
+# decoder context, 1500 encoder frames, 6 heads of 64), a decode step at
+# the launcher's batch 8, a ragged case, and T != S on the TMA + wgmma
+# kernel at 128, 80 and 96
+CROSS_ATTN_CASES = (("whisper_prefill", AUDIO_B, AUDIO_S, 1500, 6, 6, 64),
+                    ("whisper_decode", 8, 1, 1500, 6, 6, 64),
+                    ("cross_ragged", 2, 100, 257, 4, 2, 64),
+                    ("cross_d128", 2, 300, 1000, 8, 4, 128),
+                    ("cross_d80", 1, 200, 513, 4, 2, 80),
+                    ("cross_d96", 1, 70, 130, 4, 4, 96))
 # (name, B, S, H, P, input scale): the JAX kernel tests' shapes, saturated
 # gates, and "layer", xlstm-125m's (d = 768)
 SLSTM_CASES = (("test_1", 1, 17, 2, 32, 1.0), ("test_2", 2, 100, 4, 64, 1.0),
@@ -380,13 +463,14 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
 FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "3h", "4",
-            "4b", "4c", "4d", "5", "6")
+            "4b", "4c", "4d", "4e", "4f", "5", "6")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
          "--sweep": ("1", "3s"), "--stream": ("1", "3t"),
          "--serve": ("1", "3v"), "--sharded": ("1", "3h"),
          "--train": ("1", "5"), "--moe": ("1", "4c"),
-         "--hybrid": ("1", "4d")}
+         "--hybrid": ("1", "4d"), "--audio": ("1", "4e"),
+         "--vision": ("1", "4f")}
 
 
 def selected_phases(argv) -> tuple:
@@ -3017,9 +3101,12 @@ def sharded_path(dev):
     return rows, totals
 
 
-def live_pairs(S: int, causal: bool, window: int) -> int:
+def live_pairs(S: int, causal: bool, window: int, T=None) -> int:
     """(query, key) pairs the masks keep: keys t < S, t <= s when causal,
-    t > s - window when window > 0."""
+    t > s - window when window > 0; S * T for S queries over T keys of
+    their own length (non-causal, no window)."""
+    if T is not None and T != S:
+        return S * T
     total = 0
     for s in range(S):
         hi = s if causal else S - 1
@@ -3028,14 +3115,16 @@ def live_pairs(S: int, causal: bool, window: int) -> int:
     return total
 
 
-def attention_bound(B, S, H, KV, D, causal, window, dtype, Dv=None):
+def attention_bound(B, S, H, KV, D, causal, window, dtype, Dv=None,
+                    T=None):
     """(bound ms, bound_by): q, k, v read and out written once; 2*(D + Dv)
     flops per live pair and head (QK^T over D, PV over v's Dv), at the
-    dtype's peak."""
+    dtype's peak.  T: the keys' length when it is not S."""
     Dv = D if Dv is None else Dv
+    T = S if T is None else T
     sx = torch.finfo(dtype).bits // 8
-    nbytes = (B * S * H * (D + Dv) + B * S * KV * (D + Dv)) * sx
-    flops = 2 * B * H * (D + Dv) * live_pairs(S, causal, window)
+    nbytes = (B * S * H * (D + Dv) + B * T * KV * (D + Dv)) * sx
+    flops = 2 * B * H * (D + Dv) * live_pairs(S, causal, window, T)
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     return bound(nbytes, flops, peak)
 
@@ -3161,7 +3250,9 @@ def attention_cases(dev):
     del q, k, v
     torch.cuda.empty_cache()
     rows += mla_attention_cases(dev)
-    rows += d80_attention_cases(dev)
+    rows += head_dim_attention_cases(dev, 80)
+    rows += head_dim_attention_cases(dev, 96)
+    rows += cross_attention_cases(dev)
     return rows
 
 
@@ -3234,24 +3325,27 @@ def mla_attention_cases(dev):
     return rows
 
 
-def d80_attention_cases(dev):
-    """Phase 2b at zamba2-2.7b's head dim 80: ``D80_ATTN_CASES`` in bf16
-    and fp32, then its prefill shape (B=4, S=8192, H=KV=32) in bf16, the
-    plain version one batch row at a time."""
+def head_dim_attention_cases(dev, D: int):
+    """Phase 2b at head dim ``D`` (80: zamba2-2.7b, 96: phi-3-vision-4.2b),
+    counted as ``flash_attention_d{D}``: ``HEAD_DIM_ATTN_CASES`` in bf16
+    and fp32, then the dim's prefill shape (``HEAD_DIM_PREFILL``, H=KV=32,
+    causal) in bf16, the plain version one batch row at a time."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    kernel = f"flash_attention_d{D}"
+
     def inputs(B, S, H, KV, dtype, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return tuple(torch.randn(B, S, n, 80, device=dev,
+        return tuple(torch.randn(B, S, n, D, device=dev,
                                  generator=gen).to(dtype)
                      for n in (H, KV, KV))
 
     def row(name, B, S, H, KV, causal, window, dtype, err, ms, plain_ms,
             lib_ms):
-        b_ms, b_by = attention_bound(B, S, H, KV, 80, causal, window, dtype)
-        r = {"kernel": "flash_attention_d80", "entry": name,
-             "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": 80,
+        b_ms, b_by = attention_bound(B, S, H, KV, D, causal, window, dtype)
+        r = {"kernel": kernel, "entry": name,
+             "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
                        "causal": causal, "window": window},
              "dtype": str(dtype)[6:], "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -3260,13 +3354,14 @@ def d80_attention_cases(dev):
         return r
 
     rows = []
-    for name, B, S, H, KV, causal, window in D80_ATTN_CASES:
+    for name, B, S, H, KV, causal, window in HEAD_DIM_ATTN_CASES:
+        name = f"d{D}_{name}"
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = inputs(B, S, H, KV, dtype, S + H)
             kw = dict(causal=causal, window=window)
             err = compare(fa.flash_attention(q, k, v, **kw),
                           ref.flash_attention_ref(q, k, v, **kw), dtype,
-                          f"flash_attention_d80 {name} {dtype}")
+                          f"{kernel} {name} {dtype}")
             rows.append(row(
                 name, B, S, H, KV, causal, window, dtype, err,
                 cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
@@ -3276,7 +3371,7 @@ def d80_attention_cases(dev):
                         inner=2)))
             del q, k, v
             torch.cuda.empty_cache()
-    B, S, H = PREFILL_B, PREFILL_S, 32
+    (B, S), H = HEAD_DIM_PREFILL[D], 32
     q, k, v = inputs(B, S, H, H, torch.bfloat16, 1)
 
     def plain_by_row():
@@ -3286,7 +3381,7 @@ def d80_attention_cases(dev):
     got = fa.flash_attention(q, k, v)
     err = max(compare(got[b:b + 1], ref.flash_attention_ref(
         q[b:b + 1], k[b:b + 1], v[b:b + 1]), torch.bfloat16,
-        f"flash_attention_d80 prefill row {b}") for b in range(B))
+        f"{kernel} prefill row {b}") for b in range(B))
     del got
     torch.cuda.empty_cache()
     rows.append(row("prefill", B, S, H, H, True, 0, torch.bfloat16, err,
@@ -3296,6 +3391,44 @@ def d80_attention_cases(dev):
                     cuda_ms(sdpa_call(q, k, v, True, 0), reps=5, inner=2)))
     del q, k, v
     torch.cuda.empty_cache()
+    return rows
+
+
+def cross_attention_cases(dev):
+    """Phase 2b with keys of their own length (``CROSS_ATTN_CASES``, S
+    queries over T keys, non-causal) in bf16 and fp32: error against the
+    plain version, the kernel's time, its bound over the S x T pairs and
+    one ``scaled_dot_product_attention`` call's time."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = []
+    for name, B, S, T, H, KV, D in CROSS_ATTN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(S + T + D)
+            q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(B, T, KV, D, device=dev,
+                                generator=gen).to(dtype) for _ in range(2))
+            err = compare(fa.flash_attention(q, k, v, causal=False),
+                          ref.flash_attention_ref(q, k, v, causal=False),
+                          dtype, f"flash_attention_cross {name} {dtype}")
+            b_ms, b_by = attention_bound(B, S, H, KV, D, False, 0, dtype,
+                                         T=T)
+            r = {"kernel": "flash_attention_cross", "entry": name,
+                 "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV,
+                           "D": D, "causal": False, "window": 0},
+                 "dtype": str(dtype)[6:], "max_abs_err": err,
+                 "ms": cuda_ms(lambda: fa.flash_attention(q, k, v,
+                                                          causal=False)),
+                 "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
+                     q, k, v, causal=False), reps=5, inner=2),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": cuda_ms(sdpa_call(q, k, v, False, 0),
+                                       reps=5, inner=2)}
+            print("kernel " + json.dumps(r))
+            rows.append(r)
+            del q, k, v
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -3526,7 +3659,7 @@ def serving_path(dev):
     # a reduced qwen3 on the card against the host's plain versions
     rcfg = get_reduced_config("qwen3-0.6b")
     reduced_card_vs_host(dev, "serving", "qwen3-0.6b", rcfg,
-                         ("flash_attention", rcfg.n_layers))
+                         {"flash_attention": rcfg.n_layers})
     return prefill_counts["flash_attention"]
 
 
@@ -3677,7 +3810,7 @@ def xlstm_serving(dev):
     # a reduced xlstm on the card (the kernel) against the host (the plain
     # per-step scan), same params
     reduced_card_vs_host(dev, "xlstm", "xlstm-125m",
-                         get_reduced_config("xlstm-125m"), ("slstm_scan", 3))
+                         get_reduced_config("xlstm-125m"), {"slstm_scan": 3})
     return prefill_counts["slstm_scan"]
 
 
@@ -3695,12 +3828,15 @@ def _no_drops(cfg):
         cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
 
 
-def reduced_card_vs_host(dev, tag, arch, rcfg, counted, seq: int = 48):
+def reduced_card_vs_host(dev, tag, arch, rcfg, counted, seq: int = 48,
+                         extra=None):
     """A reduced ``arch`` on the card against the host's plain versions
     with the same params: fp32 prefill logits of 2 x ``seq`` tokens within
     1e-3 and equal greedy tokens, bf16 within atol 0.15 / rtol 0.05; the
-    counted prefill must launch ``counted`` = (launch key, launches).
-    Lines start ``tag:``."""
+    counted prefill must launch ``counted`` ({launch key: launches}).
+    ``extra``: the batch's other inputs (CPU tensors with a batch of 2:
+    ``memory``, which the greedy decode attends too, or
+    ``patch_embeds``).  Lines start ``tag:``."""
     from repro_torch import tree
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -3714,20 +3850,24 @@ def reduced_card_vs_host(dev, tag, arch, rcfg, counted, seq: int = 48):
         card = tree.map_tree(lambda t: t.to(dev), host)
         ptoks = torch.from_numpy(np.random.default_rng(4).integers(
             0, c.vocab_size, (2, seq)))
+        batch = {"tokens": ptoks, **(extra or {})}
         ops.reset_launch_counts()
-        lg_card = make_prefill_step(c, device=dev)(card, {"tokens": ptoks})
+        lg_card = make_prefill_step(c, device=dev)(card, batch)
         torch.cuda.synchronize()
-        key, want = counted
-        if ops.launch_counts()[key] != want:
+        got = {k: ops.launch_counts()[k] for k in counted}
+        if got != counted:
             raise AssertionError(f"reduced {arch} prefill launches "
-                                 f"{ops.launch_counts()}, want {want} {key}")
-        lg_host = make_prefill_step(c, device="cpu")(host, {"tokens": ptoks})
+                                 f"{ops.launch_counts()}, want {counted}")
+        lg_host = make_prefill_step(c, device="cpu")(host, batch)
         err = _logits_check(lg_card.cpu(), lg_host,
                             f"{arch} card vs host {dtype}", atol, rtol)
-        dec_card = serve.greedy_decode(c, card, ptoks, 8, device=dev)
-        dec_host = serve.greedy_decode(c, host, ptoks, 8, device="cpu")
+        memory = batch.get("memory")
+        dec_card = serve.greedy_decode(c, card, ptoks, 8, device=dev,
+                                       memory=memory)
+        dec_host = serve.greedy_decode(c, host, ptoks, 8, device="cpu",
+                                       memory=memory)
         same = bool(np.array_equal(dec_card["tokens"], dec_host["tokens"]))
-        print(f"{tag}: reduced {arch} {dtype} ({want} {key} launches a "
+        print(f"{tag}: reduced {arch} {dtype} ({counted} launches a "
               f"prefill), card vs host: prefill logits max abs diff "
               f"{err:.3e}, greedy tokens equal: {same}")
         if dtype == "float32":
@@ -3772,17 +3912,11 @@ def print_kinds(what: str, prof) -> None:
         for kind, v in sorted(shares.items(), key=lambda kv: -kv[1])))
 
 
-def moe_serving(dev):
-    """Phase 4c; returns the flash_attention_mla launches of the counted
-    prefill call."""
+def _full_params(dev, cfg, tag):
+    """``cfg``'s params drawn on the card from seed 0, held to
+    ``count_params_analytic``: (params, their bytes)."""
     from repro_torch import tree
-    from repro_torch.configs.registry import get_config, get_reduced_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import model as M
-
-    cfg = get_config(MOE_ARCH)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -3791,51 +3925,85 @@ def moe_serving(dev):
     n_params = sum(t.numel() for t in tree.leaves(params))
     w_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
     if n_params != M.count_params_analytic(cfg):
-        raise AssertionError(f"{MOE_ARCH}: {n_params} params drawn, "
+        raise AssertionError(f"{cfg.name}: {n_params} params drawn, "
                              f"{M.count_params_analytic(cfg)} counted")
-    print(f"moe: {MOE_ARCH} full width and depth, {n_params} params "
-          f"({w_bytes / 1e9:.2f} GB, {cfg.param_dtype}; "
-          f"{M.count_params_analytic(cfg, active_only=True)} active a "
-          f"token), drawn on the card in {time.perf_counter() - t0:.2f} s, "
-          f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    print(f"{tag}: {cfg.name} full width and depth, {n_params} params "
+          f"({w_bytes / 1e9:.2f} GB, {cfg.param_dtype}; attention head dim "
+          f"{cfg.head_dim_}), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return params, w_bytes
 
-    # prefill at B=4, S=8192: one counted call, then timed calls
-    prefill = make_prefill_step(cfg, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
-                           device=dev, generator=gen)
+
+def _counted_prefill(dev, tag, cfg, prefill, params, batch, want, w_bytes,
+                     n_tokens):
+    """One prefill call with the launch counts set to 0 just before and
+    read just after: #4's counts must be ``want`` exactly (every other
+    attention count 0), the logits (B, V) finite.  Then 3 timed calls (ms,
+    tokens/s over ``n_tokens`` a call, peak memory) and one call under
+    ``torch.profiler`` (busy share, top kernels, device time by kind).
+    Returns the counts."""
+    from repro_torch.kernels import ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
-    logits = prefill(params, {"tokens": tokens})
+    logits = prefill(params, batch)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    if (counts["flash_attention_mla"] != cfg.n_layers
-            or counts["flash_attention"]):
-        raise AssertionError(f"{MOE_ARCH} prefill launches {counts}, want "
-                             f"{cfg.n_layers} flash_attention_mla and no "
-                             f"other attention")
-    if (tuple(logits.shape) != (PREFILL_B, cfg.vocab_size)
+    attention = {k: v for k, v in counts.items()
+                 if k.startswith("flash_attention")}
+    if attention != {**dict.fromkeys(attention, 0), **want}:
+        raise AssertionError(f"{cfg.name} prefill launches {counts}, want "
+                             f"{want} and no other attention")
+    B = batch["tokens"].shape[0]
+    if (tuple(logits.shape) != (B, cfg.vocab_size)
             or not torch.isfinite(logits).all()):
-        raise AssertionError(f"{MOE_ARCH} prefill: bad logits "
+        raise AssertionError(f"{cfg.name} prefill: bad logits "
                              f"{tuple(logits.shape)}")
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        prefill(params, {"tokens": tokens})
+        prefill(params, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = statistics.median(times) * 1e3
-    print(f"moe: prefill B={PREFILL_B} S={PREFILL_S}: {ms:.1f} ms a call "
-          f"(median of 3, host clock; {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
-          f"{PREFILL_B * PREFILL_S / ms * 1e3:.0f} tokens/s, peak memory "
+    shape = "x".join(str(n) for n in batch["tokens"].shape)
+    print(f"{tag}: prefill tokens {shape}: {ms:.2f} ms a call (median of 3, "
+          f"host clock; {', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+          f"{n_tokens} positions a call, {n_tokens / ms * 1e3:.0f} "
+          f"positions/s, peak memory "
           f"{peak / 1e9:.2f} GB ({w_bytes / 1e9:.2f} GB of weights), "
           f"launches {counts}")
-    prof = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
-    print_profile(f"{MOE_ARCH} prefill B={PREFILL_B} S={PREFILL_S}", 1, *prof)
-    print_kinds(f"{MOE_ARCH} prefill", prof)
-    del tokens, logits
+    prof = device_profile(lambda: prefill(params, batch), 1)
+    print_profile(f"{cfg.name} prefill {shape}", 1, *prof)
+    print_kinds(f"{cfg.name} prefill", prof)
+    return counts
+
+
+def moe_serving(dev):
+    """Phase 4c; returns the flash_attention_mla launches of the counted
+    prefill call."""
+    from repro_torch.configs.registry import get_config, get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    cfg = get_config(MOE_ARCH)
+    params, w_bytes = _full_params(dev, cfg, "moe")
+    print(f"moe: {M.count_params_analytic(cfg, active_only=True)} params "
+          f"active a token")
+
+    # prefill at B=4, S=8192: one counted call, then timed calls
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           device=dev, generator=gen)
+    counts = _counted_prefill(
+        dev, "moe", cfg, make_prefill_step(cfg, device=dev), params,
+        {"tokens": tokens}, {"flash_attention_mla": cfg.n_layers}, w_bytes,
+        PREFILL_B * PREFILL_S)
+    del tokens
     torch.cuda.empty_cache()
 
     # decode == prefill at every position, full width (1 x 64 tokens), no
@@ -3901,10 +4069,10 @@ def moe_serving(dev):
     # 128), so that #4's MLA variant runs; kimi-k2 (GQA, D = 64)
     rcfg = get_reduced_config(MOE_ARCH).replace(mla=cfg.mla)
     reduced_card_vs_host(dev, "moe", MOE_ARCH, rcfg,
-                         ("flash_attention_mla", rcfg.n_layers))
+                         {"flash_attention_mla": rcfg.n_layers})
     kcfg = get_reduced_config(KIMI_ARCH)
     reduced_card_vs_host(dev, "moe", KIMI_ARCH, kcfg,
-                         ("flash_attention", kcfg.n_layers))
+                         {"flash_attention": kcfg.n_layers})
     return counts["flash_attention_mla"]
 
 
@@ -3913,19 +4081,23 @@ def moe_serving(dev):
 HYBRID_ARCH = "zamba2-2.7b"
 
 
-def _decode_vs_prefill(cfg, params, toks, dev):
+def _decode_vs_prefill(cfg, params, toks, dev, memory=None):
     """(decode logits at every position from a fresh cache, the forward's
-    logits) of tokens (B, S), no grad."""
+    logits) of tokens (B, S), no grad; an audio model attends ``memory``
+    in both."""
     from repro_torch.models import model as M
     B, s = toks.shape
+    batch = {"tokens": toks}
+    if memory is not None:
+        batch["memory"] = memory
     with torch.no_grad():
-        full, _ = M.forward(cfg, params, {"tokens": toks})
+        full, _ = M.forward(cfg, params, batch)
         cache = M.init_cache(cfg, B, s, device=dev)
         outs = []
         for t in range(s):
             lg, cache = M.decode_step(cfg, params, cache, toks[:, t:t + 1],
                                       torch.full((B,), t, dtype=torch.int32,
-                                                 device=dev))
+                                                 device=dev), memory=memory)
             outs.append(lg[:, 0])
     return torch.stack(outs, 1), full
 
@@ -3942,62 +4114,18 @@ def hybrid_serving(dev):
 
     cfg = get_config(HYBRID_ARCH)
     n_apps = cfg.layout_[0][1]          # applications of the shared block
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.leaves(params))
-    w_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
-    if n_params != M.count_params_analytic(cfg):
-        raise AssertionError(f"{HYBRID_ARCH}: {n_params} params drawn, "
-                             f"{M.count_params_analytic(cfg)} counted")
-    print(f"hybrid: {HYBRID_ARCH} full width and depth, {n_params} params "
-          f"({w_bytes / 1e9:.2f} GB, {cfg.param_dtype}; attention head dim "
-          f"{cfg.head_dim_}, {n_apps} applications of the shared block), "
-          f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    params, w_bytes = _full_params(dev, cfg, "hybrid")
 
-    # (a) prefill at B=4, S=8192: one counted call, then timed calls
-    prefill = make_prefill_step(cfg, device=dev)
+    # (a) prefill at B=4, S=8192: one counted call, then timed calls; the
+    # shared block's attention launches once an application
     gen = torch.Generator(device=dev).manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
                            device=dev, generator=gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launch_counts()
-    logits = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    attention = {k: v for k, v in counts.items()
-                 if k.startswith("flash_attention")}
-    if attention != {**dict.fromkeys(attention, 0),
-                     "flash_attention_d80": n_apps}:
-        raise AssertionError(f"{HYBRID_ARCH} prefill launches {counts}, want "
-                             f"{n_apps} flash_attention_d80 and no other "
-                             f"attention")
-    if (tuple(logits.shape) != (PREFILL_B, cfg.vocab_size)
-            or not torch.isfinite(logits).all()):
-        raise AssertionError(f"{HYBRID_ARCH} prefill: bad logits "
-                             f"{tuple(logits.shape)}")
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    ms = statistics.median(times) * 1e3
-    print(f"hybrid: prefill B={PREFILL_B} S={PREFILL_S}: {ms:.1f} ms a call "
-          f"(median of 3, host clock; "
-          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
-          f"{PREFILL_B * PREFILL_S / ms * 1e3:.0f} tokens/s, peak memory "
-          f"{peak / 1e9:.2f} GB ({w_bytes / 1e9:.2f} GB of weights), "
-          f"launches {counts}")
-    prof = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
-    print_profile(f"{HYBRID_ARCH} prefill B={PREFILL_B} S={PREFILL_S}", 1,
-                  *prof)
-    print_kinds(f"{HYBRID_ARCH} prefill", prof)
-    del tokens, logits
+    counts = _counted_prefill(
+        dev, "hybrid", cfg, make_prefill_step(cfg, device=dev), params,
+        {"tokens": tokens}, {"flash_attention_d80": n_apps}, w_bytes,
+        PREFILL_B * PREFILL_S)
+    del tokens
     torch.cuda.empty_cache()
 
     # (b) decode == prefill at every position, full width (1 x 64 tokens):
@@ -4054,7 +4182,7 @@ def hybrid_serving(dev):
     # tokens (the reduced chunk is 16)
     rcfg = get_reduced_config(HYBRID_ARCH).replace(head_dim=80)
     reduced_card_vs_host(dev, "hybrid", HYBRID_ARCH, rcfg,
-                         ("flash_attention_d80", rcfg.layout_[0][1]),
+                         {"flash_attention_d80": rcfg.layout_[0][1]},
                          seq=37)
     rp = M.init_params(rcfg, torch.Generator(device=dev).manual_seed(3),
                        device=dev)
@@ -4067,6 +4195,181 @@ def hybrid_serving(dev):
           f"prefill on the card, 2x37 tokens: max abs diff {err:.4f} "
           f"(limit 0.15 + 0.05|logit|)")
     return counts["flash_attention_d80"]
+
+
+# -- phase 4e: whisper-tiny serving (the encdec stack, cross-attention) ----
+
+AUDIO_ARCH = "whisper-tiny"
+
+
+def audio_serving(dev):
+    """Phase 4e; returns the launches of the counted prefill call."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config, get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    cfg = get_config(AUDIO_ARCH)
+    L, M_frames = cfg.n_layers, cfg.encoder.n_positions
+    params, w_bytes = _full_params(dev, cfg, "audio")
+
+    # (a) prefill at B=32 over the 448-token decoder context, 1500 frames
+    # of memory a row: L self-attention and L cross-attention launches
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (AUDIO_B, AUDIO_S),
+                                     device=dev, generator=gen),
+             "memory": torch.randn(AUDIO_B, M_frames, cfg.encoder.d_embed,
+                                   device=dev, generator=gen)}
+    counts = _counted_prefill(
+        dev, "audio", cfg, make_prefill_step(cfg, device=dev), params, batch,
+        {"flash_attention": L, "flash_attention_cross": L}, w_bytes,
+        AUDIO_B * AUDIO_S)
+    del batch
+    torch.cuda.empty_cache()
+
+    # (b) decode == prefill at every position of 2 x 32 tokens with the
+    # same memory: fp32 at the reference's fp32 tolerance, and the bf16 gap
+    s = 32
+    toks = torch.randint(0, cfg.vocab_size, (2, s), device=dev,
+                         generator=gen)
+    mem = torch.randn(2, M_frames, cfg.encoder.d_embed, device=dev,
+                      generator=gen)
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree.map_tree(lambda t: t.float(), params)
+    err = _logits_check(*_decode_vs_prefill(c32, p32, toks, dev, mem),
+                        f"{AUDIO_ARCH} fp32 decode vs prefill", 1e-3, 0.05)
+    del p32
+    dec, full = _decode_vs_prefill(cfg, params, toks, dev, mem)
+    gap = (dec.float() - full.float()).abs().max().item()
+    print(f"audio: decode vs prefill logits, 2x{s} tokens over {M_frames} "
+          f"frames, full width: fp32 max abs diff {err:.3e} (limit 1e-3 + "
+          f"0.05|logit|), bf16 {gap:.4f}")
+    del dec, full
+
+    # (c) a decode step at batch 8, as the serve launcher: L
+    # cross-attention launches of one query over the frames
+    B, n = 8, 8
+    step = make_serve_step(cfg, device=dev)
+    cache = M.init_cache(cfg, B, 2 * n, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
+    memory = torch.randn(B, M_frames, cfg.encoder.d_embed, device=dev,
+                         generator=gen)
+    pos = [0]
+
+    def decode_once():
+        nonlocal cache
+        _, cache = step(params, cache, tok, torch.full(
+            (B,), pos[0], dtype=torch.int32, device=dev), memory)
+        pos[0] += 1
+    ops.reset_launch_counts()
+    decode_once()
+    torch.cuda.synchronize()
+    step_counts = ops.launch_counts()
+    if step_counts["flash_attention_cross"] != L:
+        raise AssertionError(f"{AUDIO_ARCH} decode step launches "
+                             f"{step_counts}, want {L} flash_attention_cross")
+    print_profile(f"{AUDIO_ARCH} decode step, batch {B}", n,
+                  *device_profile(decode_once, n))
+    del cache, params, memory
+    torch.cuda.empty_cache()
+
+    # (d) the serve launcher at its defaults, full width (its own params,
+    # the memory drawn from its seed as the reference's launcher draws it)
+    ops.reset_launch_counts()
+    res = serve.main(["--arch", AUDIO_ARCH, "--full-config"])
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    print(f"audio: serve launcher --arch {AUDIO_ARCH} --full-config: decode "
+          f"{res['tok_per_s']:.1f} tok/s, launches {launched}")
+    if not torch.isfinite(res["logits"]).all():
+        raise AssertionError(f"{AUDIO_ARCH} serve: non-finite logits")
+    if launched["flash_attention_cross"] != L * (32 + 32):
+        raise AssertionError(f"{AUDIO_ARCH} serve: {launched} launches, "
+                             f"want {L} flash_attention_cross a step")
+    del res
+    torch.cuda.empty_cache()
+
+    # (e) the reduced whisper on the card against the host: 48 tokens over
+    # 16 frames of memory (T != S, so the cross-attention's launches are
+    # counted as such)
+    rcfg = get_reduced_config(AUDIO_ARCH)
+    rmem = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, rcfg.encoder.n_positions, rcfg.encoder.d_embed)).astype(
+            np.float32))
+    reduced_card_vs_host(dev, "audio", AUDIO_ARCH, rcfg,
+                         {"flash_attention": rcfg.n_layers,
+                          "flash_attention_cross": rcfg.n_layers},
+                         extra={"memory": rmem})
+    return counts
+
+
+# -- phase 4f: phi-3-vision-4.2b serving (the VLM input merge, head dim 96) -
+
+VISION_ARCH = "phi-3-vision-4.2b"
+
+
+def vision_serving(dev):
+    """Phase 4f; returns the launches of the counted prefill call."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = get_config(VISION_ARCH)
+    params, w_bytes = _full_params(dev, cfg, "vision")
+
+    # (a) prefill at B=4: 576 patch embeddings and 3,520 text tokens a row,
+    # 4,096 positions through 32 layers, one #4 launch at 96 a layer
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (VLM_B, VLM_TOKENS),
+                                     device=dev, generator=gen),
+             "patch_embeds": torch.randn(VLM_B, VLM_PATCHES,
+                                         cfg.encoder.d_embed, device=dev,
+                                         generator=gen)}
+    counts = _counted_prefill(
+        dev, "vision", cfg, make_prefill_step(cfg, device=dev), params, batch,
+        {"flash_attention_d96": cfg.n_layers}, w_bytes,
+        VLM_B * (VLM_PATCHES + VLM_TOKENS))
+    del batch
+    torch.cuda.empty_cache()
+
+    # (b) text decode == text prefill at every position of 1 x 64 tokens:
+    # a VLM decodes text from a fresh cache, so the prefill is the
+    # language backbone's alone (the same params, no patches); bf16 at
+    # the serving path's tolerance
+    s = 64
+    toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                         generator=gen)
+    text = cfg.replace(encoder=dataclasses.replace(cfg.encoder, kind="none"))
+    err = _logits_check(*_decode_vs_prefill(text, params, toks, dev),
+                        f"{VISION_ARCH} decode vs prefill", 0.15, 0.05)
+    print(f"vision: text decode vs prefill logits, 1x{s} tokens, full "
+          f"width, bf16: max abs diff {err:.4f} (limit 0.15 + "
+          f"0.05|logit|)")
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) the text decode launcher refuses the VLM, as the reference's
+    try:
+        serve.main(["--arch", VISION_ARCH, "--full-config"])
+    except SystemExit as e:
+        print(f"vision: serve launcher --arch {VISION_ARCH} refused: {e}")
+    else:
+        raise AssertionError(f"{VISION_ARCH}: the serve launcher took a VLM")
+
+    # (d) a reduced phi-3 at head dim 96 (so #4 at 96 runs) on the card
+    # against the host, 16 patches before 48 tokens
+    rcfg = get_reduced_config(VISION_ARCH).replace(head_dim=96)
+    patches = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, rcfg.encoder.n_positions, rcfg.encoder.d_embed)).astype(
+            np.float32))
+    reduced_card_vs_host(dev, "vision", VISION_ARCH, rcfg,
+                         {"flash_attention_d96": rcfg.n_layers},
+                         extra={"patch_embeds": patches})
+    return counts
 
 
 # -- phase 5: the LLM training path ------------------------------------------
@@ -4489,6 +4792,10 @@ def main(argv=None) -> int:
             run_phase(moe_serving, dev)
         if "4d" in phases:
             run_phase(hybrid_serving, dev)
+        if "4e" in phases:
+            run_phase(audio_serving, dev)
+        if "4f" in phases:
+            run_phase(vision_serving, dev)
         if "5" in phases:
             run_phase(train_path, dev)
         return 0
@@ -4503,6 +4810,8 @@ def main(argv=None) -> int:
     scan_launches = run_phase(xlstm_serving, dev)
     mla_launches = run_phase(moe_serving, dev)
     d80_launches = run_phase(hybrid_serving, dev)
+    audio_counts = run_phase(audio_serving, dev)
+    vision_counts = run_phase(vision_serving, dev)
     train_rows, train_counts = run_phase(train_path, dev)
 
     def pick(kernel, entry):
@@ -4649,6 +4958,50 @@ def main(argv=None) -> int:
         **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "shape", "dtype")},
         "entry": "prefill"})
+    # head dim 96 at phi-3-vision's prefill shape (576 patches + 3,520
+    # tokens), as each of its prefill launches (phase 4f)
+    d96_rows = [x for x in attn_rows if x["kernel"] == "flash_attention_d96"]
+    r = next(x for x in d96_rows if x["entry"] == "prefill")
+    kernels.append({
+        "name": "flash_attention_d96", "route": "cuda",
+        "source": SOURCES["flash_attention_d96"],
+        "replaces": REPLACES["flash_attention_d96"],
+        "launches": vision_counts["flash_attention_d96"],
+        "max_abs_err": max(x["max_abs_err"] for x in d96_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "dtype")},
+        "entry": "prefill"})
+    # whisper's decoder self-attention (D = 64, the mma.sync kernel) at
+    # its prefill shape (B=32, S=448), as each of its self-attention
+    # launches (phase 4e)
+    self_rows = [x for x in attn_rows if x["kernel"] == "flash_attention"
+                 and x["entry"] == "whisper_self"]
+    r = next(x for x in self_rows if x["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": audio_counts["flash_attention"],
+        "max_abs_err": max(x["max_abs_err"] for x in self_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "dtype")},
+        "entry": "whisper_self"})
+    # keys of their own length at whisper's prefill shape (B=32, 448
+    # tokens over 1500 frames), as each of its cross-attention launches
+    # (phase 4e)
+    cross_rows = [x for x in attn_rows
+                  if x["kernel"] == "flash_attention_cross"]
+    r = next(x for x in cross_rows if x["entry"] == "whisper_prefill"
+             and x["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention_cross", "route": "cuda",
+        "source": SOURCES["flash_attention_cross"],
+        "replaces": REPLACES["flash_attention_cross"],
+        "launches": audio_counts["flash_attention_cross"],
+        "max_abs_err": max(x["max_abs_err"] for x in cross_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "dtype")},
+        "entry": "whisper_prefill"})
     # the xlstm-125m layer with bf16 R, as each of its prefill launches
     r = next(x for x in scan_rows
              if x["entry"] == "layer" and x["r_dtype"] == "bfloat16")

@@ -14,11 +14,12 @@ _MODULES = {
     "zamba2-2.7b": "zamba2_2_7b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "whisper-tiny": "whisper_tiny",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 # ids the JAX package knows and the port does not run yet
-UNPORTED = ("phi-3-vision-4.2b", "command-r-35b", "yi-34b", "whisper-tiny",
-            "nemotron-4-340b")
+UNPORTED = ("command-r-35b", "yi-34b", "nemotron-4-340b")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -2,16 +2,22 @@
 //
 //   out[b,s,h,:] = softmax_t(q[b,s,h,:] . k[b,t,h/G,:] * D^-1/2 + mask) @ v[b,t,h/G,:]
 //
-// mask: t < S always, t <= s when causal, t > s - window when window > 0.
-// q is (B,S,H,D), k (B,S,KV,D) and v (B,S,KV,Dv), G = H/KV, read through
+// mask: t < T always, t <= s when causal, t > s - window when window > 0.
+// q is (B,S,H,D), k (B,T,KV,D) and v (B,T,KV,Dv), G = H/KV, read through
 // their strides (the last axis contiguous); out is a new contiguous
-// (B,S,H,Dv) tensor in q's dtype.  Scores, the running (max, sum) and the
+// (B,S,H,Dv) tensor in q's dtype.  T, the number of keys, is S for
+// self-attention; whisper's cross-attention (S decoder tokens over T = 1500
+// encoder frames) passes its own, with causal = 0 and window = 0 (the
+// caller checks that).  The query tiles, the output, the log-sum-exp and
+// the block order stay on S; the key tiles, their tail masks and the K/V
+// loads and tensor maps are on T.  Scores, the running (max, sum) and the
 // output accumulator are fp32; bf16 or fp32 inputs; (D, Dv) is (32, 32),
-// (64, 64), zamba2-2.7b's (80, 80) (d_model 2560 over 32 heads), (128,
-// 128) or MLA's (192, 128) (a template per pair): MLA's prefill folds 64
-// RoPE dims into q and k (128 + 64) and keeps v at 128, where the
-// reference pads v with zeros to 192 for its shared kernel and so spends
-// a third of the PV products and output bytes on zeros.
+// (64, 64), zamba2-2.7b's (80, 80) (d_model 2560 over 32 heads),
+// phi-3-vision's (96, 96) (d_model 3072 over 32 heads), (128, 128) or
+// MLA's (192, 128) (a template per pair): MLA's prefill folds 64 RoPE dims
+// into q and k (128 + 64) and keeps v at 128, where the reference pads v
+// with zeros to 192 for its shared kernel and so spends a third of the PV
+// products and output bytes on zeros.
 //
 // Replaces the Pallas kernel flash_attention (body _attn_kernel) of
 // src/repro/kernels/flash_attention.py.  As there, the running (m, l, acc)
@@ -39,8 +45,9 @@
 // pointer stores nothing, so serving runs the code it ran before.
 // Three kernels:
 // - bf16 at (D, Dv) = (128, 128) (the serving path, qwen3-0.6b), MLA's
-//   (192, 128) (deepseek-v2-lite's prefill) and (80, 80) (zamba2-2.7b's
-//   shared attention block, d_model 2560 over 32 heads), one template on
+//   (192, 128) (deepseek-v2-lite's prefill), (80, 80) (zamba2-2.7b's
+//   shared attention block, d_model 2560 over 32 heads) and (96, 96)
+//   (phi-3-vision-4.2b, d_model 3072 over 32 heads), one template on
 //   (D, Dv): Hopper's shape of a fast kernel.  One block of three
 //   warpgroups per (b, h, 128-row query tile): a producer warpgroup whose
 //   one elected thread issues TMA copies of Q and of 128-key K/V tiles into
@@ -49,11 +56,12 @@
 //   QK^T as wgmma.mma_async m64n128k16 and PV as m64n<Dv>k16, with the
 //   online softmax on the fp32 accumulator in registers.  A Q or K row is
 //   ceil(D / 64) 128-byte swizzled boxes (three at 192, so S = QK^T is 12
-//   k-steps; two at 80, the second zero past column 16, so 5 k-steps), a
-//   V row ceil(Dv / 64).  At 192 a block takes 214,144 bytes of shared
-//   memory (Q 48 KB, K 2 x 48, V 2 x 32), at 128 and 80 164,992, one block
-//   an SM; a consumer thread holds Dv / 2 fp32 of O (64, or 40 at 80), 64
-//   of S and 64 registers of P's bf16 hi and lo parts.  The blocks run in
+//   k-steps; two at 80, the second zero past column 16, so 5 k-steps; two
+//   at 96, the second zero past column 32, so 6 k-steps), a V row
+//   ceil(Dv / 64).  At 192 a block takes 214,144 bytes of shared memory
+//   (Q 48 KB, K 2 x 48, V 2 x 32), at 128, 96 and 80 164,992, one block an
+//   SM; a consumer thread holds Dv / 2 fp32 of O (64, 48 at 96, 40 at 80),
+//   64 of S and 64 registers of P's bf16 hi and lo parts.  The blocks run in
 //   groups of 16 (b, h) pairs, so that those in flight share K/V through
 //   the L2.
 // - bf16, D = 32 or 64 (test shapes, the reduced models): mma.sync
@@ -112,7 +120,7 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  int S, H, group;
+  int S, T, H, group;  // queries, keys, heads, H / KV
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -124,7 +132,7 @@ struct Params {
 __device__ __forceinline__ void kv_tiles(const Params& p, int q0, int bq,
                                          int bk, int& lo, int& hi) {
   const int q1 = min(q0 + bq, p.S) - 1;
-  const int t_hi = p.causal ? q1 : p.S - 1;
+  const int t_hi = p.causal ? q1 : p.T - 1;
   const int t_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   lo = t_lo / bk;
   hi = t_hi / bk;
@@ -133,12 +141,12 @@ __device__ __forceinline__ void kv_tiles(const Params& p, int q0, int bq,
 // True when some (row, key) pair of the tile may be masked.
 __device__ __forceinline__ bool tile_needs_mask(const Params& p, int q0,
                                                 int bq, int k0, int bk) {
-  return k0 + bk > p.S || (p.causal && k0 + bk - 1 > q0) ||
+  return k0 + bk > p.T || (p.causal && k0 + bk - 1 > q0) ||
          (p.window > 0 && k0 <= q0 + bq - 1 - p.window);
 }
 
 __device__ __forceinline__ bool live(const Params& p, int s, int t) {
-  return t < p.S && (!p.causal || t <= s) &&
+  return t < p.T && (!p.causal || t <= s) &&
          (p.window <= 0 || t > s - p.window);
 }
 
@@ -159,7 +167,7 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
 }
 
 // Copy rows [r0, r0+kBK) of one head of a (B,S,*,D) bf16 tensor into a padded
-// shared tile; rows past S become zeros.
+// shared tile; rows past S (T for keys) become zeros.
 template <int D, int STRIDE>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                                                const __nv_bfloat16* head,
@@ -202,9 +210,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   int lo, hi;
   kv_tiles(p, q0, kBQ, kBK, lo, hi);
   load_tile_bf16<D, STRIDE>(Qs, qh, p.q_ss, q0, p.S);
-  load_tile_bf16<D, STRIDE>(Ks, kh, p.k_ss, lo * kBK, p.S);
+  load_tile_bf16<D, STRIDE>(Ks, kh, p.k_ss, lo * kBK, p.T);
   cp_async_commit();
-  load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, lo * kBK, p.S);
+  load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, lo * kBK, p.T);
   cp_async_commit();
   cp_async_wait<1>();  // Q and the first K tile
   __syncthreads();
@@ -247,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // every warp is done with Ks
     if (has_next) {
-      load_tile_bf16<D, STRIDE>(Ks, kh, p.k_ss, k0 + kBK, p.S);
+      load_tile_bf16<D, STRIDE>(Ks, kh, p.k_ss, k0 + kBK, p.T);
       cp_async_commit();
     }
 
@@ -323,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // every warp is done with Vs
     if (has_next) {
-      load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, k0 + kBK, p.S);
+      load_tile_bf16<D, STRIDE>(Vs, vh, p.v_ss, k0 + kBK, p.T);
       cp_async_commit();
       cp_async_wait<1>();  // the next K tile
       __syncthreads();
@@ -357,7 +365,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, (D, Dv) = (128, 128), MLA's (192, 128) or zamba2's (80, 80): TMA
+// bf16, (D, Dv) = (128, 128), MLA's (192, 128), zamba2's (80, 80) or
+// phi-3-vision's (96, 96): TMA
 // ring, wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 //
@@ -376,11 +385,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 // products.  Every tile is made of 128-row boxes of 128-byte rows (64 bf16
 // columns) written by the TMA with the 128-byte swizzle, which is the
 // layout the wgmma descriptors name: a Q or K row of D values is
-// ceil(D / 64) boxes (two at D = 80 or 128, three at 192), a V row
-// ceil(Dv / 64); rows past S, and columns past the row's width (80 to 127
-// of an 80-wide row's second box), are zero-filled by the TMA.  Tensor
-// maps are 4-D over (width, S, heads, B) with q/k/v's own strides, so views
-// are read in place.  The softmax and the consumers' turns are the same at
+// ceil(D / 64) boxes (two at D = 80, 96 or 128, three at 192), a V row
+// ceil(Dv / 64); query rows past S, key rows past T, and columns past the
+// row's width (80 to 127 of an 80-wide row's second box, 96 to 127 of a
+// 96-wide one's), are zero-filled by the TMA.  Tensor maps are 4-D over
+// (width, rows, heads, B), rows S for q and T for k and v, with q/k/v's
+// own strides, so views are read in place.  The softmax and the consumers' turns are the same at
 // every width; PV is wgmma m64n<Dv>k16, and a consumer holds Dv / 2 fp32 of
 // O beside 64 of S and 64 registers of P's hi and lo parts.
 //
@@ -410,7 +420,7 @@ static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one box height");
 // boxes, each V stage ceil(Dv / 64); then the barriers, and room to align
 // to 1 KB.  At (192, 128) that is 48 + 2 x 48 + 2 x 32 KB, 214,144 bytes
 // with the rest (one block an SM, under the 232,448 a block may take); at
-// (128, 128) and (80, 80), 164,992.
+// (128, 128), (96, 96) and (80, 80), 164,992.
 template <int D, int Dv>
 struct WsLayout {
   static_assert(D % 16 == 0 && Dv % 16 == 0, "whole k-steps and n-blocks");
@@ -423,9 +433,10 @@ struct WsLayout {
 };
 
 // S = Q K^T for 64 rows x 128 keys: D / 16 k-steps of 16; step ks lies in
-// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 80, 5 steps,
-// the last at the start of box 1, whose columns past 16 are zeros no step
-// reads; at D = 192, 12 steps over three boxes).
+// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 96, 6 steps,
+// the last two in box 1, whose columns past 32 are zeros no step reads;
+// at D = 80, 5 steps, the last at the start of box 1, whose columns past
+// 16 are zeros no step reads; at D = 192, 12 steps over three boxes).
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
                                          uint32_t k_tile) {
@@ -468,7 +479,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
     for (int r = 0; r < 2; ++r) {
       // the live keys of this row as [first, last], counted from base
       const int row = row0 + 8 * r;
-      const int last = (p.causal ? min(row, p.S - 1) : p.S - 1) - base;
+      const int last = (p.causal ? min(row, p.T - 1) : p.T - 1) - base;
       const int first = (p.window > 0 ? row - p.window + 1 : 0) - base;
 #pragma unroll
       for (int n = 0; n < 16; ++n) {
@@ -760,8 +771,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = lo; j <= hi; ++j) {
     const int k0 = j * kFBK;
     __syncthreads();  // the previous tile is consumed
-    load_tile_f32<D>(Ks, D + 1, kh, p.k_ss, k0, kFBK, p.S);
-    load_tile_f32<DV>(Vs, DV, vh, p.v_ss, k0, kFBK, p.S);
+    load_tile_f32<D>(Ks, D + 1, kh, p.k_ss, k0, kFBK, p.T);
+    load_tile_f32<DV>(Vs, DV, vh, p.v_ss, k0, kFBK, p.T);
     __syncthreads();
 
     float s[kRows];
@@ -837,8 +848,8 @@ cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
   const int KV = p.H / p.group;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb, kWsBQ) ||
-      !encode_map(&tk, p.k, D, p.S, KV, B, p.k_ss, p.k_sh, p.k_sb, kWsBK) ||
-      !encode_map(&tv, p.v, Dv, p.S, KV, B, p.v_ss, p.v_sh, p.v_sb, kWsBK)) {
+      !encode_map(&tk, p.k, D, p.T, KV, B, p.k_ss, p.k_sh, p.k_sb, kWsBK) ||
+      !encode_map(&tv, p.v, Dv, p.T, KV, B, p.v_ss, p.v_sh, p.v_sb, kWsBK)) {
     return cudaErrorInvalidValue;
   }
   const int64_t blocks = (int64_t)((p.S + kWsBQ - 1) / kWsBQ) * p.H * B;
@@ -855,7 +866,7 @@ cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
 template <int D, int DV>
 cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    if constexpr (D >= 80) {  // (80, 80), (128, 128), MLA's (192, 128)
+    if constexpr (D >= 80) {  // (80, 80), (96, 96), (128, 128), (192, 128)
       return launch_ws<D, DV>(p, B, stream);
     } else {  // D = Dv = 32 or 64
       const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
@@ -885,15 +896,16 @@ cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 // driver refuses or a grid of 2^31 blocks or more.  Strides are in
 // elements; the caller checks devices, dtypes (q/k/v/out all bf16 or all
 // fp32), shapes, a unit stride on the last axis, 16-byte aligned rows for
-// bf16, S >= 1, H % KV == 0 and 1 <= B, H <= 65535.  lse, a contiguous
-// fp32 (B, H, S) tensor or null, takes each row's log-sum-exp (bf16 only).
+// bf16, S >= 1, T >= 1, causal = window = 0 where T != S, H % KV == 0
+// and 1 <= B, H <= 65535.  lse, a contiguous fp32 (B, H, S) tensor or
+// null, takes each row's log-sum-exp (bf16 only).
 extern "C" int repro_flash_attention(
     void* out, void* lse, const void* q, const void* k, const void* v, int B,
-    int S, int H, int KV, int D, int Dv, long long q_sb, long long q_ss,
+    int S, int T, int H, int KV, int D, int Dv, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int window,
     int is_bf16, void* stream) {
-  Params p{out,  static_cast<float*>(lse), q, k, v, S, H, H / KV, q_sb,
+  Params p{out,  static_cast<float*>(lse), q, k, v, S, T, H, H / KV, q_sb,
            q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0.f, causal,
            window};
   p.scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
@@ -903,6 +915,7 @@ extern "C" int repro_flash_attention(
       case 32: return (int)launch<32, 32>(p, B, is_bf16, s);
       case 64: return (int)launch<64, 64>(p, B, is_bf16, s);
       case 80: return (int)launch<80, 80>(p, B, is_bf16, s);
+      case 96: return (int)launch<96, 96>(p, B, is_bf16, s);
       case 128: return (int)launch<128, 128>(p, B, is_bf16, s);
       default: return (int)cudaErrorInvalidValue;
     }

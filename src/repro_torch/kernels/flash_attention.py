@@ -7,18 +7,23 @@
 
 with ``t <= s`` when causal, ``t > s - window`` when ``window > 0``; fp32
 scores and accumulation, the output in q's dtype.  q is (B, S, H, D), k is
-(B, S, KV, D) and v (B, S, KV, Dv), all bf16 or all fp32, read in place
+(B, T, KV, D) and v (B, T, KV, Dv), all bf16 or all fp32, read in place
 through their strides: the last axis must be contiguous and, for bf16,
-every row must start on 16 bytes (what the TMA copies need).  (D, Dv) is
-(32, 32), (64, 64), zamba2-2.7b's (80, 80), (128, 128) or MLA's (192,
-128): deepseek-v2-lite's prefill folds 64 RoPE dims into q and k and keeps
-v at 128, where the reference zero-pads v to 192 (``HEAD_DIMS``).  In
-bf16, (128, 128), MLA's (192, 128) and (80, 80) run one warp-specialised
-kernel (TMA copies into an mbarrier ring, wgmma products; a q/k row is
-two or three 128-byte boxes, the second of an 80-wide row zero past its
-16 columns, and PV a wgmma m64n<Dv>k16; blocks ordered in groups of 16
-(b, h) pairs, so that the blocks in flight share K/V in the L2), and D =
-32 / 64 an mma.sync kernel; fp32 runs on the FMA units.  The probabilities stay fp32, as bf16 hi + lo parts
+every row must start on 16 bytes (what the TMA copies need).  The keys
+are the queries' positions (T == S) for self-attention; whisper's
+cross-attention gives them a length of their own (S decoder tokens over T
+encoder frames), which the kernel takes with ``causal=False`` and
+``window=0`` only, the reference's ``xattn_apply``.  (D, Dv) is (32, 32),
+(64, 64), zamba2-2.7b's (80, 80), phi-3-vision's (96, 96), (128, 128) or
+MLA's (192, 128): deepseek-v2-lite's prefill folds 64 RoPE dims into q
+and k and keeps v at 128, where the reference zero-pads v to 192
+(``HEAD_DIMS``).  In bf16, (128, 128), MLA's (192, 128), (96, 96) and
+(80, 80) run one warp-specialised kernel (TMA copies into an mbarrier
+ring, wgmma products; a q/k row is two or three 128-byte boxes, the
+second of an 80- or 96-wide row zero past its 16 or 32 columns, and PV a
+wgmma m64n<Dv>k16; blocks ordered in groups of 16 (b, h) pairs, so that
+the blocks in flight share K/V in the L2), and D = 32 / 64 an mma.sync
+kernel; fp32 runs on the FMA units.  The probabilities stay fp32, as bf16 hi + lo parts
 through the tensor cores, so the output agrees with the plain version to
 about one bf16 ulp elementwise (a single bf16 P would not, on outputs
 near zero).
@@ -30,7 +35,8 @@ the kernel's epilogue; without it the kernel stores nothing more.
 
 The backward, ``csrc/flash_attention_bwd.cu``, has no TPU counterpart
 (the JAX package differentiates its jnp attention): dQ, dK and dV of the
-same function for bf16 q / k / v with D = 64 or 128, from the forward's
+same function for bf16 q / k / v with D = 64 or 128 and T == S, from the
+forward's
 output and saved lse.  It does 5 products a live (query, key) pair (S,
 dP, dV, dK, dQ) in one fused kernel a (key tile, KV head, batch row): at
 D = 128 two wgmma warpgroups of 64 keys each, fed by TMA through a
@@ -46,10 +52,11 @@ calls on CUDA tensors.
 
 Takes CUDA tensors only and raises on anything else; ``kernels/ops``
 routes CPU tensors to ``kernels/ref.flash_attention_ref``.  ``launches``
-counts launches: one a forward call (under ``flash_attention_mla`` at
-MLA's head dims and ``flash_attention_d80`` at zamba2's 80), and one a
-backward call (which runs the backward's three kernels: prep, the fused
-kernel, the dQ pass).
+counts launches: one a forward call (under ``flash_attention_cross``
+for a caller's cross-attention, ``cross=True``, or keys of their own
+length, T != S; else ``flash_attention_mla`` at MLA's head dims and the
+key of ``BY_HEAD_DIM`` at 80 and 96), and one a backward call (which runs the backward's
+three kernels: prep, the fused kernel, the dQ pass).
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ import torch
 
 from repro_torch.kernels import _lib
 
-HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128),
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
              (192, 128))                                   # (D, Dv)
 DTYPES = (torch.bfloat16, torch.float32)
 BWD_HEAD_DIMS = (64, 128)
@@ -68,14 +75,23 @@ MAX_GRID_YZ = 65535     # H on gridDim.y, B on gridDim.z
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_mla": 0,
                             "flash_attention_d80": 0,
+                            "flash_attention_d96": 0,
+                            "flash_attention_cross": 0,
                             "flash_attention_bwd": 0}
+# head dims with a count of their own: (count key, the model whose
+# training on the card waits for a backward kernel at that dim)
+BY_HEAD_DIM = {80: ("flash_attention_d80", "zamba2"),
+               96: ("flash_attention_d96", "phi-3-vision")}
 
 
-def _launch_key(D: int, Dv: int) -> str:
-    """The count a forward launch at head dims (D, Dv) adds to."""
+def _launch_key(D: int, Dv: int, cross: bool = False) -> str:
+    """The count a forward launch at head dims (D, Dv) adds to; ``cross``:
+    a cross-attention (keys that are not the queries')."""
+    if cross:
+        return "flash_attention_cross"
     if D != Dv:
         return "flash_attention_mla"
-    return "flash_attention_d80" if D == 80 else "flash_attention"
+    return BY_HEAD_DIM.get(D, ("flash_attention",))[0]
 
 
 def _check_operand(t: torch.Tensor, name: str, device: torch.device,
@@ -98,9 +114,12 @@ def _check_operand(t: torch.Tensor, name: str, device: torch.device,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    return_lse: bool = False):
-    """q: (B, S, H, D); k: (B, S, KV, D); v: (B, S, KV, Dv) with H % KV ==
-    0.  Returns a new contiguous (B, S, H, Dv) tensor in q's dtype, and with
+                    return_lse: bool = False, cross: bool = False):
+    """q: (B, S, H, D); k: (B, T, KV, D); v: (B, T, KV, Dv) with H % KV ==
+    0, and T != S only with ``causal=False`` and ``window=0``.  ``cross``:
+    the caller's cross-attention (counted as such whatever T is; takes
+    ``causal=False`` and ``window=0`` too).  Returns a
+    new contiguous (B, S, H, Dv) tensor in q's dtype, and with
     ``return_lse`` (bf16 only) also the rows' fp32 (B, H, S) log-sum-exp
     in log2 units, as the backward takes it."""
     dev = q.device
@@ -111,17 +130,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_operand(t, name, dev, q.dtype)
     B, S, H, D = q.shape
-    KV, Dv = k.shape[2], v.shape[-1]
-    if tuple(k.shape) != (B, S, KV, D) or tuple(v.shape) != (B, S, KV, Dv):
+    T, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if tuple(k.shape) != (B, T, KV, D) or tuple(v.shape) != (B, T, KV, Dv):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be ({B}, {S}, KV, {D}) and "
-                         f"({B}, {S}, KV, Dv)")
+                         f"{tuple(v.shape)} must be ({B}, T, KV, {D}) and "
+                         f"({B}, T, KV, Dv)")
+    cross = cross or T != S
+    if cross and (causal or window):
+        raise ValueError(f"flash_attention: {T} keys for {S} queries take "
+                         f"causal=False and window=0 (cross-attention), got "
+                         f"causal={causal}, window={window}")
+    if T < 1 <= S:
+        raise ValueError(f"flash_attention: no keys for {S} queries")
     if (D, Dv) not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dims (q/k, v) {(D, Dv)} "
                          f"not in {HEAD_DIMS}")
     if KV < 1 or H % KV:
         raise ValueError(f"flash_attention: {H} heads over {KV} kv heads")
-    if not (B <= MAX_GRID_YZ and H <= MAX_GRID_YZ and S < 2 ** 31):
+    if not (B <= MAX_GRID_YZ and H <= MAX_GRID_YZ and S < 2 ** 31
+            and T < 2 ** 31):
         raise ValueError(f"flash_attention: unsupported shape "
                          f"{tuple(q.shape)}")
     if window < 0:
@@ -135,20 +162,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel():
         rc = _lib.library().repro_flash_attention(
             out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, H, KV, D, Dv,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, T, H, KV, D, Dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
         _lib.check(rc, "flash_attention")
-        launches[_launch_key(D, Dv)] += 1
+        launches[_launch_key(D, Dv, cross)] += 1
     return (out, lse) if return_lse else out
 
 
 def backward_supported(q: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether the backward kernel takes q's dtype and head dims (one D
-    for q, k and v)."""
+    for q, k and v) and v's length (the queries')."""
     return (q.dtype in BWD_DTYPES and q.shape[-1] in BWD_HEAD_DIMS
-            and v.shape[-1] == q.shape[-1])
+            and v.shape[-1] == q.shape[-1] and v.shape[1] == q.shape[1])
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

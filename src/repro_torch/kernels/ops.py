@@ -167,32 +167,46 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
     return ref.cloud_blend_ref(rsu_flat, rsu_weights, prev)
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """Online-softmax attention; q (B,S,H,D), k (B,S,KV,D), v (B,S,KV,Dv)
-    (MLA: D = 192, Dv = 128); out (B,S,H,Dv) in q's dtype.  On CUDA
-    without a gradient the forward kernel alone (also for operands that
-    require grad under ``torch.no_grad``: a no-grad prefill of trainable
-    params saves nothing); with one the forward and backward kernels as one
-    autograd function, and a gradient the backward kernel does not take
-    (fp32, D = 32 or 80, or MLA's D != Dv) raises rather than come back
-    without one."""
+def _training_wait(q, v, cross: bool) -> str:
+    """Which model's training on the card waits for a backward kernel that
+    takes these operands, as the error's tail ("" when none is named)."""
+    if cross:
+        who, item = "whisper", "whisper training"
+    elif v.shape[-1] != q.shape[-1]:
+        who, item = "MLA", "deepseek-v2-lite training"
+    elif q.shape[-1] in _fa.BY_HEAD_DIM:
+        who = _fa.BY_HEAD_DIM[q.shape[-1]][1]
+        item = f"{who} training"
+    else:
+        return ""
+    return (f"; {who} training on the card waits for one (ROADMAP queue 1, "
+            f"the model zoo: {item})")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    cross: bool = False) -> torch.Tensor:
+    """Online-softmax attention; q (B,S,H,D), k (B,T,KV,D), v (B,T,KV,Dv)
+    (MLA: D = 192, Dv = 128; cross-attention, ``cross=True`` or T != S:
+    non-causal, no window); out (B,S,H,Dv) in q's dtype.  On CUDA without a gradient the
+    forward kernel alone (also for operands that require grad under
+    ``torch.no_grad``: a no-grad prefill of trainable params saves
+    nothing); with one the forward and backward kernels as one autograd
+    function, and a gradient the backward kernel does not take (fp32, D =
+    32, 80 or 96, MLA's D != Dv, or a cross-attention) raises
+    rather than come back without one."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if not _needs_grad(q, k, v):
-        return _fa.flash_attention(q, k, v, causal=causal, window=window)
-    if not _fa.backward_supported(q, v):
-        wait = ""
-        if v.shape[-1] != q.shape[-1]:
-            wait = ("; MLA training on the card waits for one (ROADMAP "
-                    "queue 1, the model zoo: deepseek-v2-lite training)")
-        elif q.shape[-1] == 80:
-            wait = ("; zamba2 training on the card waits for one (ROADMAP "
-                    "queue 1, the model zoo: zamba2 training)")
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   cross=cross)
+    cross = cross or v.shape[1] != q.shape[1]
+    if cross or not _fa.backward_supported(q, v):
         raise NotImplementedError(
-            f"flash_attention: the backward kernel takes bf16 with one head "
-            f"dim in {_fa.BWD_HEAD_DIMS}, got {q.dtype} head dims "
-            f"{q.shape[-1]} / {v.shape[-1]}{wait}")
+            f"flash_attention: the backward kernel takes bf16 self-attention "
+            f"with one head dim in {_fa.BWD_HEAD_DIMS}, got {q.dtype} head "
+            f"dims {q.shape[-1]} / {v.shape[-1]}, {q.shape[1]} queries over "
+            f"{v.shape[1]} keys{', cross-attention' if cross else ''}"
+            f"{_training_wait(q, v, cross)}")
     return _fa.FlashAttention.apply(q, k, v, causal, window)
 
 

@@ -22,24 +22,32 @@ from repro_torch.core.aggregation import (buffer_absorb, normalized_weights,
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
-    """Dense-softmax attention in fp32.  q: (B,S,H,D); k: (B,S,KV,D); v:
-    (B,S,KV,Dv), whose head dim may differ from q's and k's (MLA: 192 and
-    128); scale D**-0.5; out (B,S,H,Dv) in q's dtype."""
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    scale = D ** -0.5
-    qg = q.reshape(B, S, KV, G, D).float()
-    s = torch.einsum("bskgd,btkd->bskgt", qg, k.float()) * scale
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+def _mask(S: int, T: int, causal: bool, window: int, device):
+    """The (S, T) mask of queries at positions 0..S-1 over keys at 0..T-1,
+    as ``chunked_attention`` builds it from ``q_pos`` and ``kv_pos``."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window:
         mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Dense-softmax attention in fp32.  q: (B,S,H,D); k: (B,T,KV,D); v:
+    (B,T,KV,Dv), whose head dim may differ from q's and k's (MLA: 192 and
+    128) and whose length T may differ from S (cross-attention over an
+    encoder memory); scale D**-0.5; out (B,S,H,Dv) in q's dtype."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qg = q.reshape(B, S, KV, G, D).float()
+    s = torch.einsum("bskgd,btkd->bskgt", qg, k.float()) * scale
+    mask = _mask(S, T, causal, window, q.device)
     s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bskgt,btkd->bskgd", p, v.float())
@@ -51,18 +59,12 @@ def attention_lse_ref(q, k, *, causal: bool = True,
     """The log-sum-exp that ``flash_attention(..., return_lse=True)`` saves
     for the backward: (B, H, S) fp32 ``log2 sum_t 2^(q_s . k_t * D**-0.5 *
     log2 e)`` over the live keys, i.e. the natural logsumexp of the scaled
-    scores times log2 e.  q: (B,S,H,D); k: (B,S,KV,D)."""
+    scores times log2 e.  q: (B,S,H,D); k: (B,T,KV,D)."""
     B, S, H, D = q.shape
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, D).float()
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * D ** -0.5
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
-    s = s.masked_fill(~mask, float("-inf"))
+    s = s.masked_fill(~_mask(S, T, causal, window, q.device), float("-inf"))
     lse = torch.logsumexp(s, dim=-1) * 1.4426950408889634
     return lse.reshape(B, H, S)
 

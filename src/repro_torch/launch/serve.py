@@ -26,9 +26,13 @@ the JAX package's train launcher is restored.
 
 ``--arch`` takes qwen3-0.6b, xlstm-125m, zamba2-2.7b (Mamba-2 + a
 weight-shared attention block; at full width 4.85 GB of bf16 params),
-deepseek-v2-lite-16b (MLA + MoE; at full width 32.4 GB of bf16 params)
-and kimi-k2-1t-a32b (reduced only: its full config does not fit one card
-and is refused before any allocation).
+deepseek-v2-lite-16b (MLA + MoE; at full width 32.4 GB of bf16 params),
+whisper-tiny (the decoder, cross-attending encoder frames drawn from the
+seed, as the reference's launcher draws them) and kimi-k2-1t-a32b
+(reduced only: its full config does not fit one card and is refused
+before any allocation).  phi-3-vision-4.2b is refused, as by the
+reference: this is a text decode launcher, and a VLM needs the image
+path (``make_prefill_step`` with ``patch_embeds``).
 
 ``--device cpu`` runs the plain PyTorch versions on the host.
 """
@@ -107,13 +111,17 @@ def check_fits_one_card(cfg, dev: torch.device) -> None:
                          f"reduced (without --full-config)")
 
 
-def greedy_decode(cfg, params, prompts, n_gen: int, *, device=None) -> dict:
+def greedy_decode(cfg, params, prompts, n_gen: int, *, device=None,
+                  memory=None) -> dict:
     """Feed ``prompts`` (B, Sp) through a fresh KV cache one token at a
-    time, then decode ``n_gen`` tokens greedily, as the JAX launcher does.
+    time, then decode ``n_gen`` tokens greedily, as the JAX launcher does;
+    an audio model attends ``memory`` (B, M, d_embed) at every step.
     Returns {tokens (B, n_gen) int64 numpy, logits (B, V) fp32 of the last
     step, prefill_s, decode_s} (host clock, the device synchronised)."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts).to(dev)
+    if memory is not None:
+        memory = torch.as_tensor(memory).to(dev)
     B, Sp = prompts.shape
     cache = M.init_cache(cfg, B, Sp + n_gen, device=dev)
     step = make_serve_step(cfg, device=dev)
@@ -125,7 +133,8 @@ def greedy_decode(cfg, params, prompts, n_gen: int, *, device=None) -> dict:
     t0 = time.perf_counter()
     logits = None
     for t in range(Sp):
-        logits, cache = step(params, cache, prompts[:, t:t + 1], at(t))
+        logits, cache = step(params, cache, prompts[:, t:t + 1], at(t),
+                             memory)
     _sync(dev)
     t_pre = time.perf_counter() - t0
 
@@ -134,7 +143,7 @@ def greedy_decode(cfg, params, prompts, n_gen: int, *, device=None) -> dict:
     t0 = time.perf_counter()
     for t in range(Sp, Sp + n_gen):
         outs.append(tok[:, 0])
-        logits, cache = step(params, cache, tok, at(t))
+        logits, cache = step(params, cache, tok, at(t), memory)
         tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
     t_dec = time.perf_counter() - t0
@@ -217,6 +226,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
     if args.window:
         cfg = cfg.replace(attn_window=args.window)
+    if cfg.encoder.kind == "vision":
+        raise SystemExit("text decode launcher; VLM needs the image path")
     if not args.reduced:
         check_fits_one_card(cfg, dev)
 
@@ -229,7 +240,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rng = np.random.default_rng(args.seed)
     B, Sp = args.batch, args.prompt_len
     prompts = rng.integers(0, cfg.vocab_size, (B, Sp))
-    res = greedy_decode(cfg, params, prompts, args.gen, device=dev)
+    memory = None
+    if cfg.encoder.kind == "audio":
+        memory = rng.standard_normal(
+            (B, cfg.encoder.n_positions, cfg.encoder.d_embed)).astype(
+                np.float32)
+    res = greedy_decode(cfg, params, prompts, args.gen, device=dev,
+                        memory=memory)
     t_pre, t_dec, gen_tokens = res["prefill_s"], res["decode_s"], res["tokens"]
     res["tok_per_s"] = tok_per_s = B * args.gen / max(t_dec, 1e-9)
 

@@ -110,7 +110,9 @@ def make_prefill_step(cfg: ArchConfig, *, device=None):
         """The next-token logits (B, V) fp32 after the prompt.  The head is
         applied to the last position only: the same values as the JAX
         step's ``logits[:, -1, :]``, without its (B, S, V) fp32 logits
-        (about 20 GB at B=4, S=8192 for qwen3-0.6b)."""
+        (about 20 GB at B=4, S=8192 for qwen3-0.6b).  ``batch`` holds
+        ``tokens`` and, by the config's front end, ``patch_embeds`` (a
+        VLM) or ``memory`` (an audio model's encoder frames)."""
         batch = {k: v.to(dev) for k, v in batch.items()}
         x, _ = M.hidden_states(cfg, params, batch)
         return lm_logits(cfg, params["embed"], x[:, -1:])[:, 0]
@@ -121,9 +123,11 @@ def make_serve_step(cfg: ArchConfig, *, device=None):
     dev = resolve_device(device)
 
     @torch.no_grad()
-    def serve_step(params, cache, tokens, cur_pos):
-        """One decode step: (logits (B, V) fp32, cache updated in place)."""
-        logits, cache = M.decode_step(cfg, params, cache, tokens.to(dev),
-                                      cur_pos.to(dev))
+    def serve_step(params, cache, tokens, cur_pos, memory=None):
+        """One decode step: (logits (B, V) fp32, cache updated in place);
+        ``memory``: an audio model's encoder frames (B, M, d_embed)."""
+        logits, cache = M.decode_step(
+            cfg, params, cache, tokens.to(dev), cur_pos.to(dev),
+            memory=None if memory is None else memory.to(dev))
         return logits[:, -1, :], cache
     return serve_step

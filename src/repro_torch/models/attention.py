@@ -1,6 +1,6 @@
-"""Self-attention of ``repro/models/attention.py``: GQA (RoPE, qk-norm,
-sliding window) with its KV cache, and MLA (DeepSeek-V2: a compressed KV
-cache and decoupled RoPE).
+"""Attention of ``repro/models/attention.py``: GQA (RoPE, qk-norm, sliding
+window) with its KV cache, MLA (DeepSeek-V2: a compressed KV cache and
+decoupled RoPE), and whisper's cross-attention to an encoder memory.
 
 Prefill goes through ``kernels.ops.flash_attention`` where the JAX package
 calls its jnp ``chunked_attention``: the hand-written Hopper kernel on the
@@ -9,8 +9,11 @@ dims into q and k (head dim 128 + 64 = 192, scale 192**-0.5) and keeps v
 at its own 128, where the reference pads v to 192 for its shared kernel.
 Decode attends one new token over the cache in plain PyTorch, as the JAX
 package computes it outside any Pallas kernel; MLA decodes in the
-weight-absorbed form, in the compressed space.  Cross-attention is not
-ported yet (``models/transformer`` refuses the encdec pattern).
+weight-absorbed form, in the compressed space.  Cross-attention attends
+the S decoder tokens over the M memory frames, non-causal, through the
+same ``ops.flash_attention`` with keys of their own length, in prefill
+and in decode alike (where S = 1 and the memory is projected again at
+every step, as the reference does).
 """
 from __future__ import annotations
 
@@ -285,3 +288,33 @@ def mla_decode(cfg: ArchConfig, p, x, cache: MLACache, cur_pos):
     wuv = p["wuv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bhl,lhd->bhd", ctx_c, wuv.float()).to(x.dtype)
     return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# cross-attention (whisper decoder -> encoder memory)
+# --------------------------------------------------------------------------
+
+def xattn_init(cfg: ArchConfig, gen: torch.Generator, *, lead=()):
+    """wq, wk, wv, wo without biases; wk and wv take the memory's width
+    (``encoder.d_embed``, d_model when 0)."""
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim_
+    d_mem = cfg.encoder.d_embed or d
+    wd, lead = cfg.weight_dtype, tuple(lead)
+    return {"wq": dense_init(gen, lead + (d, H * hd), wd),
+            "wk": dense_init(gen, lead + (d_mem, H * hd), wd),
+            "wv": dense_init(gen, lead + (d_mem, H * hd), wd),
+            "wo": dense_init(gen, lead + (H * hd, d), wd)}
+
+
+def xattn_apply(cfg: ArchConfig, p, x, memory):
+    """x: (B, S, d); memory: (B, M, d_embed).  Every token attends every
+    frame (no mask): ``ops.flash_attention`` with S queries over M keys,
+    non-causal, counted as a cross-attention whether or not M == S."""
+    B, S, _ = x.shape
+    M = memory.shape[1]
+    H, hd = cfg.n_heads, cfg.head_dim_
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (memory @ p["wk"]).reshape(B, M, H, hd)
+    v = (memory @ p["wv"]).reshape(B, M, H, hd)
+    out = ops.flash_attention(q, k, v, causal=False, cross=True)
+    return out.reshape(B, S, -1) @ p["wo"]

@@ -1,11 +1,16 @@
-"""Top-level model (``repro/models/model.py``) for text-only configs:
-embeddings + block stack + LM head; loss and KV-cache decode.
+"""Top-level model (``repro/models/model.py``): embeddings + block stack +
+LM head; loss and KV-cache decode.
 
 Params are the JAX tree's structure as dicts and lists of tensors:
 ``{"embed": {"tok"}, "final_norm": {"scale"}, "stack": {"segments":
-[...]}}``, so a JAX checkpoint or params tree maps leaf by leaf in JAX's
-leaf order (``repro_torch.tree``).  The VLM and audio front ends are not
-ported and raise ``NotImplementedError``.
+[...]}}`` and, for a VLM, ``"patch_proj"``, so a JAX checkpoint or params
+tree maps leaf by leaf in JAX's leaf order (``repro_torch.tree``).  The
+modality front ends are the reference's stubs: a VLM's batch carries
+``patch_embeds`` (B, P, d_embed), which ``patch_proj`` projects and
+prepends to the token embeddings (the head drops those P positions
+again); an audio model's batch carries ``memory`` (B, M, d_embed), the
+encoder frames its cross-attention attends.  Both are cast to the
+activation dtype.
 """
 from __future__ import annotations
 
@@ -19,42 +24,63 @@ from repro_torch import tree
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (embed_tokens, embedding_init,
-                                       lm_logits, norm_apply, norm_init)
-
-
-def _check_text_only(cfg: ArchConfig) -> None:
-    if cfg.encoder.kind != "none":
-        raise NotImplementedError(
-            f"the {cfg.encoder.kind} front end of {cfg.name} is not ported "
-            f"to PyTorch yet (ROADMAP queue 1, the model zoo)")
+from repro_torch.models.layers import (dense_init, embed_tokens,
+                                       embedding_init, lm_logits, norm_apply,
+                                       norm_init)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, *,
                 device=None) -> Dict[str, Any]:
     """Random params on ``device`` (``cuda`` when None; raises without a
     GPU), drawn from ``gen``, which must lie on that device."""
-    _check_text_only(cfg)
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"init_params: generator on {gen.device}, params "
                          f"on {dev}")
-    return {
+    params = {
         "embed": embedding_init(cfg, gen),
         "stack": tf.stack_init(cfg, gen),
         "final_norm": norm_init(cfg, cfg.d_model, device=gen.device),
     }
+    if cfg.encoder.kind == "vision":
+        params["patch_proj"] = dense_init(
+            gen, (cfg.encoder.d_embed, cfg.d_model), cfg.weight_dtype)
+    return params
+
+
+def _merge_inputs(cfg: ArchConfig, params, batch: Dict[str, Any]):
+    """(the input embeddings (B, P + S, d), their positions 0..P+S-1, P):
+    the token embeddings, and for a VLM the projected patch embeddings
+    prepended (P of them), learned positions offset by P."""
+    tokens = batch["tokens"]
+    S = tokens.shape[-1]
+    if cfg.encoder.kind != "vision":
+        x = embed_tokens(cfg, params["embed"], tokens)
+        return x, torch.arange(S, device=tokens.device), 0
+    patches = batch["patch_embeds"].to(cfg.activation_dtype)
+    pe = patches @ params["patch_proj"]
+    n_p = pe.shape[1]
+    positions = torch.arange(n_p + S, device=tokens.device)
+    x_tok = embed_tokens(cfg, params["embed"], tokens,
+                         positions[n_p:].expand(tokens.shape[0], S)
+                         if cfg.pos_embed == "learned" else None)
+    return torch.cat([pe, x_tok], dim=1), positions, n_p
+
+
+def _memory(cfg: ArchConfig, memory):
+    return None if memory is None else memory.to(cfg.activation_dtype)
 
 
 def hidden_states(cfg: ArchConfig, params, batch: Dict[str, Any]):
-    """(the final-normed hidden states (B, S, d) of a token batch, the
-    summed MoE load-balance loss: an fp32 scalar, 0 without MoE)."""
-    _check_text_only(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(cfg, params["embed"], tokens)
-    positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    x, aux = tf.stack_prefill(cfg, params["stack"], x, positions)
-    return norm_apply(cfg, params["final_norm"], x), aux
+    """(the final-normed hidden states (B, S, d) of the batch's S tokens,
+    the summed MoE load-balance loss: an fp32 scalar, 0 without MoE).  A
+    VLM's patch positions are dropped; an audio model attends
+    ``batch["memory"]``."""
+    x, positions, n_prefix = _merge_inputs(cfg, params, batch)
+    x, aux = tf.stack_prefill(cfg, params["stack"], x, positions,
+                              _memory(cfg, batch.get("memory")))
+    x = norm_apply(cfg, params["final_norm"], x)
+    return (x[:, n_prefix:] if n_prefix else x), aux
 
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, Any]):
@@ -100,13 +126,16 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device=None):
                                device=resolve_device(device))
 
 
-def decode_step(cfg: ArchConfig, params, cache, tokens, cur_pos):
-    """One decode step.  tokens: (B, 1); cur_pos: (B,).  Returns (fp32
-    logits (B, 1, V), cache); the cache is updated in place."""
-    _check_text_only(cfg)
+def decode_step(cfg: ArchConfig, params, cache, tokens, cur_pos,
+                memory=None):
+    """One decode step.  tokens: (B, 1); cur_pos: (B,); memory: (B, M,
+    d_embed) for an audio model.  Returns (fp32 logits (B, 1, V), cache);
+    the cache is updated in place.  A VLM decodes text tokens only, as the
+    reference does."""
     x = embed_tokens(cfg, params["embed"], tokens,
                      cur_pos[:, None] if cfg.pos_embed == "learned" else None)
-    x, cache = tf.stack_decode(cfg, params["stack"], cache, x, cur_pos)
+    x, cache = tf.stack_decode(cfg, params["stack"], cache, x, cur_pos,
+                               _memory(cfg, memory))
     x = norm_apply(cfg, params["final_norm"], x)
     return lm_logits(cfg, params["embed"], x), cache
 

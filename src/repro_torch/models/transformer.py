@@ -1,7 +1,9 @@
 """Block assembly (``repro/models/transformer.py``) for the ``decoder``
-pattern (attention + feed-forward residual sub-blocks), the Mamba-2
-``mamba`` pattern, the xLSTM ``mlstm`` and ``slstm`` patterns and Zamba2's
-``zamba_super`` hybrid: layer params stacked on a leading L axis as
+pattern (attention + feed-forward residual sub-blocks), whisper's
+``encdec`` pattern (self-attention, cross-attention to the encoder
+memory, feed-forward), the Mamba-2 ``mamba`` pattern, the xLSTM ``mlstm``
+and ``slstm`` patterns and Zamba2's ``zamba_super`` hybrid: layer params
+stacked on a leading L axis as
 ``stack_init`` builds them in JAX, applied by a Python loop over that
 axis where JAX scans.  The attention is GQA or MLA (``cfg.attn_impl``), the
 feed-forward an MLP or, with ``cfg.moe``, the MoE layer, whose load-balance
@@ -12,15 +14,16 @@ zero (L, ...) gradient a layer, and each layer is recomputed in the
 backward (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``;
 no-grad prefill indexes the layers as views.  The per-layer decode caches
 (the KV cache, the MLA cache, the Mamba cache, the mLSTM and sLSTM states)
-are stacked on L too and updated in place.
+are stacked on L too and updated in place.  The cross-attention keeps no
+cache: ``memory`` (B, M, d_embed), threaded through every layer in
+prefill and decode, is projected again at each call, as in the
+reference.
 
 ``zamba_super`` (repeat n) applies one ``decoder`` layer whose weights all
 n applications share (``params["shared_attn"]``), each application
 followed by ``cfg.shared_every`` Mamba layers: their params stacked on
 (n, shared_every), the shared block's KV caches on (n,), the Mamba caches
 on (n, shared_every), as in the JAX tree.
-
-The encdec pattern (cross-attention) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,13 +41,14 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (mlp_apply, mlp_init, norm_apply,
                                        norm_init)
 
-PATTERNS = {"decoder": ("attn", "ffn"),     # the ported layer patterns
+PATTERNS = {"decoder": ("attn", "ffn"),
+            "encdec": ("attn", "xattn", "ffn"),
             "mamba": ("mamba",),
             "mlstm": ("mlstm",),
             "slstm": ("slstm",)}
-KINDS = ("attn", "ffn", "mamba", "mlstm", "slstm")
-_INIT = {"mamba": ssm_mod.mamba_init, "mlstm": xlstm_mod.mlstm_init,
-         "slstm": xlstm_mod.slstm_init}
+KINDS = ("attn", "ffn", "xattn", "mamba", "mlstm", "slstm")
+_INIT = {"xattn": attn_mod.xattn_init, "mamba": ssm_mod.mamba_init,
+         "mlstm": xlstm_mod.mlstm_init, "slstm": xlstm_mod.slstm_init}
 _PREFILL = {"mamba": ssm_mod.mamba_prefill,
             "mlstm": xlstm_mod.mlstm_prefill,
             "slstm": xlstm_mod.slstm_prefill}
@@ -56,14 +60,9 @@ _DECODE = {"mamba": ssm_mod.mamba_decode, "mlstm": xlstm_mod.mlstm_decode,
            "slstm": xlstm_mod.slstm_decode}
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP "
-                              f"queue 1, the model zoo)")
-
-
 def _check(kind: str) -> None:
     if kind not in KINDS:
-        _unported(f"the {kind!r} block")
+        raise ValueError(f"unknown block kind {kind!r}; known: {KINDS}")
 
 
 def _index(tree, i: int):
@@ -105,15 +104,18 @@ def sub_init(cfg: ArchConfig, kind: str, gen: torch.Generator, *, lead=()):
             "inner": init(cfg, gen, lead=lead)}
 
 
-def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions):
+def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions, memory=None):
     """Returns (residual delta, aux loss): the MoE layer's load-balance
-    loss, None for every other kind (the reference's zero)."""
+    loss, None for every other kind (the reference's zero).  ``memory``
+    (B, M, d_embed) is what ``xattn`` attends."""
     _check(kind)
     xn = norm_apply(cfg, p["norm"], x)
     if kind == "attn":
         if cfg.attn_impl == "mla":
             return attn_mod.mla_prefill(cfg, p["inner"], xn, positions), None
         return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions), None
+    if kind == "xattn":
+        return attn_mod.xattn_apply(cfg, p["inner"], xn, memory), None
     if kind in _PREFILL:
         return _PREFILL[kind](cfg, p["inner"], xn), None
     if cfg.moe is not None:
@@ -126,7 +128,7 @@ def sub_init_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, *,
     _check(kind)
     if kind in _STATE:
         return _STATE[kind](cfg, batch, lead=lead, device=device)
-    if kind != "attn":
+    if kind != "attn":       # ffn, xattn: no cache
         return None
     length = (min(cache_len, cfg.attn_window) if cfg.attn_window
               else cache_len)
@@ -139,16 +141,20 @@ def sub_init_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, *,
                                   lead=lead, device=device)
 
 
-def sub_decode(cfg: ArchConfig, kind: str, p, x, cache, cur_pos):
+def sub_decode(cfg: ArchConfig, kind: str, p, x, cache, cur_pos,
+               memory=None):
     """Returns (residual delta, cache); the cache is updated in place.  The
     MoE layer routes the step's B tokens as one group, and its aux loss is
-    dropped, as in the reference."""
+    dropped, as in the reference.  ``xattn`` attends ``memory``, projected
+    again at every step."""
     _check(kind)
     xn = norm_apply(cfg, p["norm"], x)
     if kind == "attn":
         if cfg.attn_impl == "mla":
             return attn_mod.mla_decode(cfg, p["inner"], xn, cache, cur_pos)
         return attn_mod.gqa_decode(cfg, p["inner"], xn, cache, cur_pos)
+    if kind == "xattn":
+        return attn_mod.xattn_apply(cfg, p["inner"], xn, memory), None
     if kind in _DECODE:
         return _DECODE[kind](cfg, p["inner"], xn, cache)
     if cfg.moe is not None:
@@ -162,7 +168,8 @@ def sub_decode(cfg: ArchConfig, kind: str, p, x, cache, cur_pos):
 
 def _kinds(pattern: str):
     if pattern not in PATTERNS:
-        _unported(f"the {pattern!r} layer pattern")
+        raise ValueError(f"unknown layer pattern {pattern!r}; known: "
+                         f"{tuple(PATTERNS)}")
     return PATTERNS[pattern]
 
 
@@ -170,11 +177,11 @@ def layer_init(cfg: ArchConfig, pattern: str, gen, *, lead=()):
     return {k: sub_init(cfg, k, gen, lead=lead) for k in _kinds(pattern)}
 
 
-def layer_prefill(cfg, pattern, p, x, positions):
+def layer_prefill(cfg, pattern, p, x, positions, memory=None):
     """Returns (x, the layer's aux loss, or None without MoE)."""
     aux = None
     for kind in _kinds(pattern):
-        delta, a = sub_prefill(cfg, kind, p[kind], x, positions)
+        delta, a = sub_prefill(cfg, kind, p[kind], x, positions, memory)
         x = x + delta
         if a is not None:
             aux = a if aux is None else aux + a
@@ -188,10 +195,10 @@ def layer_init_cache(cfg, pattern, batch, cache_len, *, lead=(),
     return {k: c for k, c in caches.items() if c is not None}
 
 
-def layer_decode(cfg, pattern, p, x, cache, cur_pos):
+def layer_decode(cfg, pattern, p, x, cache, cur_pos, memory=None):
     for kind in _kinds(pattern):
         delta, _ = sub_decode(cfg, kind, p[kind], x, cache.get(kind),
-                              cur_pos)
+                              cur_pos, memory)
         x = x + delta
     return x
 
@@ -234,9 +241,10 @@ def _applications(cfg: ArchConfig, params, seg_params, pattern: str,
     return out
 
 
-def stack_prefill(cfg: ArchConfig, params, x, positions):
+def stack_prefill(cfg: ArchConfig, params, x, positions, memory=None):
     """Returns (x, aux): aux is the fp32 sum of the layers' MoE
-    load-balance losses, 0 without MoE."""
+    load-balance losses, 0 without MoE.  ``memory``: the encoder frames
+    the ``encdec`` layers attend (None for the other patterns)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (pattern, repeat) in zip(params["segments"], cfg.layout_):
         grad = torch.is_grad_enabled() and (
@@ -246,9 +254,10 @@ def stack_prefill(cfg: ArchConfig, params, x, positions):
                                      repeat, grad):
             if grad:
                 x, a = checkpoint(functools.partial(layer_prefill, cfg, kind),
-                                  p, x, positions, use_reentrant=False)
+                                  p, x, positions, memory,
+                                  use_reentrant=False)
             else:
-                x, a = layer_prefill(cfg, kind, p, x, positions)
+                x, a = layer_prefill(cfg, kind, p, x, positions, memory)
             aux = aux if a is None else aux + a
     return x, aux
 
@@ -273,9 +282,9 @@ def stack_init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     return caches
 
 
-def stack_decode(cfg: ArchConfig, params, caches, x, cur_pos):
+def stack_decode(cfg: ArchConfig, params, caches, x, cur_pos, memory=None):
     """One token through every layer; the caches are updated in place and
-    returned."""
+    returned.  ``memory`` as for ``stack_prefill``."""
     def at(cache, i):
         return {k: c.layer(i) for k, c in cache.items()}
     for seg_params, seg_cache, (pattern, repeat) in zip(
@@ -283,7 +292,7 @@ def stack_decode(cfg: ArchConfig, params, caches, x, cur_pos):
         for i in range(repeat):
             if pattern != "zamba_super":
                 x = layer_decode(cfg, pattern, _index(seg_params, i), x,
-                                 at(seg_cache, i), cur_pos)
+                                 at(seg_cache, i), cur_pos, memory)
                 continue
             x = layer_decode(cfg, "decoder", params["shared_attn"], x,
                              at(seg_cache["shared"], i), cur_pos)

@@ -65,7 +65,7 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
                  "stream_path", "serve_path", "sharded_path", "serving_path",
                  "xlstm_serving", "moe_serving", "hybrid_serving",
-                 "train_path")
+                 "audio_serving", "vision_serving", "train_path")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -79,7 +79,9 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--sharded", ["sharded_path"]),
                                        ("--train", ["train_path"]),
                                        ("--moe", ["moe_serving"]),
-                                       ("--hybrid", ["hybrid_serving"])])
+                                       ("--hybrid", ["hybrid_serving"]),
+                                       ("--audio", ["audio_serving"]),
+                                       ("--vision", ["vision_serving"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -112,7 +114,10 @@ def test_phase_selection():
     assert cs.selected_phases(["--train"]) == ("1", "5")
     assert cs.selected_phases(["--moe"]) == ("1", "4c")
     assert cs.selected_phases(["--hybrid"]) == ("1", "4d")
+    assert cs.selected_phases(["--audio"]) == ("1", "4e")
+    assert cs.selected_phases(["--vision"]) == ("1", "4f")
     assert "4c" in cs.FULL_RUN and "4d" in cs.FULL_RUN
+    assert "4e" in cs.FULL_RUN and "4f" in cs.FULL_RUN
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
     assert "3v" in cs.FULL_RUN and "3h" in cs.FULL_RUN
     with pytest.raises(SystemExit):
@@ -167,7 +172,27 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
             {"kernel": "flash_attention_d80", "entry": "prefill",
              "max_abs_err": 8e-3, "ms": 6.0, "plain_ms": 250.0,
              "bound_ms": 1.4, "bound_by": "operations", "library_ms": 2.0,
-             "shape": {}, "dtype": "bfloat16"}]
+             "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_d96", "entry": "prefill",
+             "max_abs_err": 8e-3, "ms": 1.2, "plain_ms": 60.0,
+             "bound_ms": 0.42, "bound_by": "operations", "library_ms": 1.0,
+             "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention", "entry": "whisper_self",
+             "max_abs_err": 2e-3, "ms": 0.05, "plain_ms": 4.0,
+             "bound_ms": 0.01, "bound_by": "operations", "library_ms": 0.04,
+             "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention", "entry": "whisper_self",
+             "max_abs_err": 1e-6, "ms": 0.9, "plain_ms": 4.0,
+             "bound_ms": 0.2, "bound_by": "operations", "library_ms": 0.1,
+             "shape": {}, "dtype": "float32"},
+            {"kernel": "flash_attention_cross", "entry": "whisper_prefill",
+             "max_abs_err": 4e-3, "ms": 0.1, "plain_ms": 5.0,
+             "bound_ms": 0.03, "bound_by": "operations", "library_ms": 0.08,
+             "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_cross", "entry": "whisper_prefill",
+             "max_abs_err": 1e-6, "ms": 2.0, "plain_ms": 5.0,
+             "bound_ms": 0.5, "bound_by": "operations", "library_ms": 0.2,
+             "shape": {}, "dtype": "float32"}]
     train_rows = [
         {"kernel": "flash_attention_bwd", "entry": "layer",
          "max_abs_err": 0.03, "ms": 1.9, "plain_ms": 40.0, "bound_ms": 0.17,
@@ -243,6 +268,10 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "moe_serving", lambda dev: 27)
     monkeypatch.setattr(cs, "hybrid_serving", lambda dev: 9)
+    monkeypatch.setattr(cs, "audio_serving", lambda dev: {
+        "flash_attention": 4, "flash_attention_cross": 4})
+    monkeypatch.setattr(cs, "vision_serving", lambda dev: {
+        "flash_attention_d96": 32})
     monkeypatch.setattr(cs, "train_path",
                         lambda dev: (train_rows, train_counts))
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -250,7 +279,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert cs.main([]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     # each phase's wall time on a line of its own, before the result
-    assert sum(line.startswith("time: ") for line in lines[:-3]) == 14
+    assert sum(line.startswith("time: ") for line in lines[:-3]) == 16
     assert lines[-2] == card
     assert json.loads(lines[-1])["device"] == {"platform": "gpu",
                                                "kind": card, "count": 1}
@@ -259,8 +288,10 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "weighted_agg_matmul", "weighted_agg_matmul", "flash_attention",
-        "flash_attention_mla", "flash_attention_d80", "slstm_scan",
-        "flash_attention", "flash_attention_bwd", "dual_proximal_sgd"]
+        "flash_attention_mla", "flash_attention_d80", "flash_attention_d96",
+        "flash_attention", "flash_attention_cross", "slstm_scan",
+        "flash_attention",
+        "flash_attention_bwd", "dual_proximal_sgd"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
     # the flat path's, the async path's, the sweep's, the serve loop's,
@@ -273,7 +304,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["launches"] for k in kernels] == [
         50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
         120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
-        27, 9, 3, 300, 150, 176]
+        27, 9, 32, 4, 4, 3, 300, 150, 176]
     # the training path's rows: #4 forward and backward at the layer
     # shape, #3's bf16 mode at the embedding leaf
     assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
@@ -287,6 +318,19 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert kernels[10]["source"] == kernels[8]["source"]
     assert kernels[10]["replaces"] == kernels[8]["replaces"]
     assert kernels[10]["entry"] == "prefill"
+    # #4 at phi-3-vision's head dim 96, with phase 4f's prefill launches;
+    # whisper's self-attention (D = 64) and its cross-attention (keys of
+    # their own length) at its prefill shape, each a row of its own with
+    # the bf16 row's numbers and phase 4e's launches of that kind
+    assert kernels[11]["source"] == kernels[8]["source"]
+    assert kernels[11]["replaces"] == kernels[8]["replaces"]
+    assert kernels[12]["entry"] == "whisper_self"
+    assert kernels[12]["ms"] == 0.05 and kernels[12]["dtype"] == "bfloat16"
+    assert kernels[12]["max_abs_err"] == 2e-3
+    assert kernels[13]["entry"] == "whisper_prefill"
+    assert kernels[13]["ms"] == 0.1 and kernels[13]["dtype"] == "bfloat16"
+    assert kernels[13]["max_abs_err"] == 4e-3
+    assert "self_attention_launches" not in kernels[13]
     assert kernels[-2]["products_per_pair"] == 5
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,
@@ -308,3 +352,20 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert kernels[3]["library_ms"] == 0.09
     assert kernels[0]["entry"] == "agg_blend"
     assert kernels[2]["host_us"] == 12.0
+
+
+def test_reduced_card_vs_host_callers_pass_counts_by_key():
+    """Every phase hands ``reduced_card_vs_host`` the launches its reduced
+    prefill must make as a {launch key: launches} dict (the card is
+    needed to run the phases themselves)."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "reduced_card_vs_host"]
+    assert len(calls) == 7
+    for call in calls:
+        counted = call.args[4]
+        assert isinstance(counted, ast.Dict), ast.unparse(call)
+        assert all(isinstance(k, ast.Constant)
+                   and k.value.startswith(("flash_attention", "slstm_scan"))
+                   for k in counted.keys), ast.unparse(call)

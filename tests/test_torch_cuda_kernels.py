@@ -611,69 +611,74 @@ def test_cuda_flash_attention_mla_dims_refuse_grad_and_other_pairs(cuda):
     torch.cuda.synchronize()
 
 
-# (B, S, H, KV, causal, window) at zamba2-2.7b's head dim 80 (d_model 2560
-# over 32 heads): its shared attention layer (H = KV = 32) causal and with
-# a 1024 window, 65 rows, a ragged thousand non-causal, GQA 4 with a
-# window, one token, GQA 2 non-causal with a window, 129 rows of 8 heads
-# over 2; then the kernel's 128-row tile edges (one row short of a tile,
-# one tile, one row short of 64 tiles), and more blocks than SMs (two
-# batch rows of 32 heads, 16 query tiles each) with a 1024 window, so
-# that the block order's decode of (b, h, tile) is checked where the
-# blocks of several groups of 16 (b, h) pairs are in flight, and 36
-# pairs of GQA 3 (groups of 16, 16 and 4)
-D80_CASES = [(1, 4096, 32, 32, True, 0), (1, 4096, 32, 32, True, 1024),
-             (2, 65, 32, 32, True, 0), (1, 1000, 32, 32, False, 0),
-             (2, 300, 8, 2, True, 33), (3, 1, 4, 4, True, 0),
-             (1, 257, 4, 2, False, 17), (1, 129, 8, 2, True, 0),
-             (1, 127, 4, 4, True, 0), (1, 128, 4, 4, True, 0),
-             (1, 8191, 4, 4, True, 0), (2, 2048, 32, 32, True, 1024),
-             (3, 700, 12, 4, True, 0)]
+# (B, S, H, KV, causal, window) at the head dims 80 (zamba2-2.7b, d_model
+# 2560 over 32 heads) and 96 (phi-3-vision-4.2b, 3072 over 32): the layer
+# (H = KV = 32) causal and with a 1024 window, 65 rows, a ragged thousand
+# non-causal, GQA 4 with a window, one token, GQA 2 non-causal with a
+# window, 129 rows of 8 heads over 2; then the kernel's 128-row tile edges
+# (one row short of a tile, one tile, one row short of 64 tiles), 2 x 32
+# heads at S = 2048 (two batch rows of 32 heads, 16 query tiles each) with
+# a 1024 window, so that the block order's decode of (b, h, tile) is
+# checked where the blocks of several groups of 16 (b, h) pairs are in
+# flight, and 36 pairs of GQA 3 (groups of 16, 16 and 4)
+WIDE_HEAD_DIMS = (80, 96)
+WIDE_CASES = [(1, 4096, 32, 32, True, 0), (1, 4096, 32, 32, True, 1024),
+              (2, 65, 32, 32, True, 0), (1, 1000, 32, 32, False, 0),
+              (2, 300, 8, 2, True, 33), (3, 1, 4, 4, True, 0),
+              (1, 257, 4, 2, False, 17), (1, 129, 8, 2, True, 0),
+              (1, 127, 4, 4, True, 0), (1, 128, 4, 4, True, 0),
+              (1, 8191, 4, 4, True, 0), (2, 2048, 32, 32, True, 1024),
+              (3, 700, 12, 4, True, 0)]
+# the model whose training a grad at each dim names
+WIDE_TRAINING = {80: "zamba2 training", 96: "phi-3-vision training"}
 
 
-def _d80_inputs(dev, B, S, H, KV, dtype, seed):
+def _wide_inputs(dev, B, S, H, KV, D, dtype, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(torch.randn(B, S, n, 80, device=dev, generator=g).to(dtype)
+    return tuple(torch.randn(B, S, n, D, device=dev, generator=g).to(dtype)
                  for n in (H, KV, KV))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,KV,causal,window", D80_CASES)
-def test_cuda_flash_attention_d80_matches_plain(cuda, dtype, B, S, H, KV,
-                                                causal, window):
-    """Kernel #4 at D = 80 (bf16: the TMA + wgmma kernel, q/k rows of
-    two 128-byte boxes of which the second is zero past column 16, PV as
-    wgmma m64n80k16; fp32: the FMA kernel, whose third column group is
-    ragged) against the plain version, every one of the 80 output
-    columns; counted as ``flash_attention_d80``."""
-    q, k, v = _d80_inputs(cuda, B, S, H, KV, dtype, S + H)
+@pytest.mark.parametrize("B,S,H,KV,causal,window", WIDE_CASES)
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_cuda_flash_attention_wide_head_matches_plain(cuda, D, dtype, B, S,
+                                                      H, KV, causal, window):
+    """Kernel #4 at D = 80 and 96 (bf16: the TMA + wgmma kernel, q/k rows
+    of two 128-byte boxes of which the second is zero past column 16 or
+    32, PV as wgmma m64n80k16 or m64n96k16; fp32: the FMA kernel, whose
+    third column group is ragged at 80) against the plain version, every
+    output column; counted as ``flash_attention_d80`` / ``_d96``."""
+    q, k, v = _wide_inputs(cuda, B, S, H, KV, D, dtype, S + H)
+    key = f"flash_attention_d{D}"
     before = dict(tfa.launches)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    assert got.dtype == dtype and got.shape == (B, S, H, 80)
+    assert got.dtype == dtype and got.shape == (B, S, H, D)
     torch.testing.assert_close(got.float(), want.float(),
                                **(F32 if dtype == torch.float32 else BF16))
-    assert tfa.launches["flash_attention_d80"] \
-        == before["flash_attention_d80"] + 1
-    assert all(tfa.launches[k] == before[k] for k in before
-               if k != "flash_attention_d80")
+    assert tfa.launches[key] == before[key] + 1
+    assert all(tfa.launches[k] == before[k] for k in before if k != key)
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
-def test_cuda_flash_attention_d80_reads_strided_views(cuda):
-    """At D = 80, q/k/v as views into one fused (B, S, H + 2 KV, 80)
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_cuda_flash_attention_wide_head_reads_strided_views(cuda, D):
+    """At D = 80 and 96, q/k/v as views into one fused (B, S, H + 2 KV, D)
     projection, and q as a slice 16 values into wider rows, read in place
-    (bf16: through the TMA kernel's tensor maps, 80 columns wide, so the
-    columns past a view's 80 read as zeros and not as its neighbours)."""
-    g = torch.Generator(device=cuda).manual_seed(9)
+    (bf16: through the TMA kernel's tensor maps, D columns wide, so the
+    columns past a view's D read as zeros and not as its neighbours)."""
+    g = torch.Generator(device=cuda).manual_seed(D)
     B, S, H, KV = 2, 333, 8, 2
     for dtype in (torch.float32, torch.bfloat16):
-        qkv = torch.randn(B, S, H + 2 * KV, 80, device=cuda,
+        qkv = torch.randn(B, S, H + 2 * KV, D, device=cuda,
                           generator=g).to(dtype)
         q, k, v = qkv.split([H, KV, KV], dim=2)
-        wide = torch.randn(B, S, H, 112, device=cuda, generator=g).to(dtype)
-        for qq in (q, wide[..., 16:96]):
+        wide = torch.randn(B, S, H, D + 32, device=cuda,
+                           generator=g).to(dtype)
+        for qq in (q, wide[..., 16:16 + D]):
             assert not qq.is_contiguous()
             got = tfa.flash_attention(qq, k, v, causal=True, window=64)
             want = ref.flash_attention_ref(qq, k, v, causal=True, window=64)
@@ -686,13 +691,16 @@ def test_cuda_flash_attention_d80_reads_strided_views(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,causal,window", [
     (2, 130, 32, 32, True, 0), (1, 1000, 8, 2, True, 100),
-    (2, 257, 4, 4, False, 0), (1, 8191, 4, 4, True, 0)])
-def test_cuda_flash_attention_d80_lse_matches_plain(cuda, B, S, H, KV,
-                                                    causal, window):
-    """The log-sum-exp the D = 80 epilogue saves (scale 80**-0.5) against
-    ``ref.attention_lse_ref``, as at D = 128, and the output unchanged by
-    saving it."""
-    q, k, v = _d80_inputs(cuda, B, S, H, KV, torch.bfloat16, S + 2 * H)
+    (2, 257, 4, 4, False, 0), (1, 8191, 4, 4, True, 0),
+    (2, 257, 8, 2, True, 100)])
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_cuda_flash_attention_wide_head_lse_matches_plain(cuda, D, B, S, H,
+                                                          KV, causal,
+                                                          window):
+    """The log-sum-exp the D = 80 / 96 epilogue saves (scale D**-0.5)
+    against ``ref.attention_lse_ref``, as at D = 128, and the output
+    unchanged by saving it."""
+    q, k, v = _wide_inputs(cuda, B, S, H, KV, D, torch.bfloat16, S + 2 * H)
     kw = dict(causal=causal, window=window)
     out, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
@@ -704,16 +712,128 @@ def test_cuda_flash_attention_d80_lse_matches_plain(cuda, B, S, H, KV,
 
 
 @pytest.mark.gpu
-def test_cuda_flash_attention_d80_refuses_grad(cuda):
-    """Under grad at D = 80 the route raises, naming zamba2 training (no
-    backward kernel takes 80), in bf16 and fp32; without grad it runs."""
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_cuda_flash_attention_wide_head_refuses_grad(cuda, D):
+    """Under grad at D = 80 / 96 the route raises, naming zamba2 /
+    phi-3-vision training (no backward kernel takes either), in bf16 and
+    fp32; without grad it runs."""
     from repro_torch.kernels import ops
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = _d80_inputs(cuda, 1, 64, 4, 2, dtype, 3)
-        with pytest.raises(NotImplementedError, match="zamba2 training"):
+        q, k, v = _wide_inputs(cuda, 1, 64, 4, 2, D, dtype, 3)
+        with pytest.raises(NotImplementedError, match=WIDE_TRAINING[D]):
             ops.flash_attention(q.requires_grad_(), k, v)
         with torch.no_grad():
-            assert ops.flash_attention(q, k, v).shape == (1, 64, 4, 80)
+            assert ops.flash_attention(q, k, v).shape == (1, 64, 4, D)
+    torch.cuda.synchronize()
+
+
+# (B, S, T, H, KV, D): S queries over T keys of their own length,
+# non-causal (cross-attention).  D = 64 (the mma.sync kernel in bf16):
+# whisper-tiny's prefill (32 x 448 decoder tokens over 1500 frames, 6
+# heads), one decode token over 1500 frames, and 100 over a ragged 257;
+# then the TMA + wgmma kernel at 128, 80 and 96 with T past a 128-key tile
+# edge on either side of S, and one query over keys.  fp32 runs each on
+# the FMA kernel.
+CROSS_CASES = [(32, 448, 1500, 6, 6, 64), (8, 1, 1500, 6, 6, 64),
+               (2, 100, 257, 4, 2, 64), (2, 300, 1000, 8, 4, 128),
+               (1, 129, 77, 4, 4, 128), (2, 1, 300, 8, 8, 80),
+               (1, 200, 513, 4, 2, 80), (1, 70, 130, 4, 4, 96),
+               (2, 1, 129, 4, 4, 96)]
+
+
+def _cross_inputs(dev, B, S, T, H, KV, D, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, T, KV, D, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,D", CROSS_CASES)
+def test_cuda_flash_attention_cross_matches_plain(cuda, dtype, B, S, T, H,
+                                                  KV, D):
+    """Kernel #4 with keys of their own length T != S, non-causal (the
+    key tiles, their tail mask and the K/V loads and tensor maps on T; the
+    query tiles and the output on S) against the plain version; counted as
+    ``flash_attention_cross``."""
+    q, k, v = _cross_inputs(cuda, B, S, T, H, KV, D, dtype, S + T + D)
+    before = dict(tfa.launches)
+    got = tfa.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    assert got.dtype == dtype and got.shape == (B, S, H, D)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if dtype == torch.float32 else BF16))
+    assert tfa.launches["flash_attention_cross"] \
+        == before["flash_attention_cross"] + 1
+    assert all(tfa.launches[k] == before[k] for k in before
+               if k != "flash_attention_cross")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,KV,D", [(2, 100, 257, 4, 2, 64),
+                                          (1, 129, 300, 4, 4, 128),
+                                          (1, 70, 130, 4, 4, 96)])
+def test_cuda_flash_attention_cross_lse_matches_plain(cuda, B, S, T, H, KV,
+                                                      D):
+    """The log-sum-exp over T keys, (B, H, S), against
+    ``ref.attention_lse_ref``, and the output unchanged by saving it."""
+    q, k, v = _cross_inputs(cuda, B, S, T, H, KV, D, torch.bfloat16, 7)
+    out, lse = tfa.flash_attention(q, k, v, causal=False, return_lse=True)
+    assert lse.shape == (B, H, S)
+    want = ref.attention_lse_ref(q, k, causal=False)
+    torch.testing.assert_close(lse, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(out, tfa.flash_attention(q, k, v, causal=False))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_cross_refusals(cuda):
+    """Keys of their own length take causal=False and window=0 only (the
+    wrapper raises otherwise, and for no keys at all); under grad the
+    route raises, naming whisper training (the backward takes T == S);
+    without grad it runs."""
+    from repro_torch.kernels import ops
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _cross_inputs(cuda, 1, 20, 50, 4, 4, 64, dtype, 1)
+        for kw in (dict(causal=True), dict(causal=False, window=8)):
+            with pytest.raises(ValueError, match="causal=False"):
+                tfa.flash_attention(q, k, v, **kw)
+        with pytest.raises(ValueError, match="no keys"):
+            tfa.flash_attention(q, k[:, :0], v[:, :0], causal=False)
+        with pytest.raises(NotImplementedError, match="whisper training"):
+            ops.flash_attention(q.requires_grad_(), k, v, causal=False)
+        with torch.no_grad():
+            assert ops.flash_attention(q, k, v, causal=False).shape \
+                == (1, 20, 4, 64)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_cross_flag_counts_equal_lengths(cuda):
+    """A cross-attention whose memory is as long as its tokens (T == S)
+    is counted under ``flash_attention_cross`` when the caller says so
+    (``cross=True``, as ``xattn_apply`` does), takes causal=False and
+    window=0 only, and under grad raises naming whisper training."""
+    from repro_torch.kernels import ops
+    q, k, v = _cross_inputs(cuda, 2, 64, 64, 4, 4, 64, torch.bfloat16, 2)
+    before = dict(tfa.launches)
+    got = ops.flash_attention(q, k, v, causal=False, cross=True)
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(q, k, v, causal=False).float(),
+        **BF16)
+    assert tfa.launches["flash_attention_cross"] \
+        == before["flash_attention_cross"] + 1
+    assert all(tfa.launches[k] == before[k] for k in before
+               if k != "flash_attention_cross")
+    with pytest.raises(ValueError, match="causal=False"):
+        tfa.flash_attention(q, k, v, causal=True, cross=True)
+    with pytest.raises(NotImplementedError, match="whisper training"):
+        ops.flash_attention(q.requires_grad_(), k, v, causal=False,
+                            cross=True)
     torch.cuda.synchronize()
 
 

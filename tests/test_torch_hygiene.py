@@ -168,8 +168,7 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         serve.main(["--serve-loop"])
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "command-r-35b",
-                                  "yi-34b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["command-r-35b", "yi-34b",
                                   "nemotron-4-340b"])
 def test_unported_archs_refuse(arch):
     from repro_torch.configs.registry import get_config, get_reduced_config
@@ -180,16 +179,18 @@ def test_unported_archs_refuse(arch):
 
 
 def test_registry_refuses_exactly_the_unported_ids():
-    """The five ids still refused, each message naming its ROADMAP item
-    by title; the MoE archs and the zamba2 hybrid are ported."""
+    """The three dense ids still refused, each message naming its ROADMAP
+    item by title; the MoE archs, the zamba2 hybrid, whisper's encdec
+    stack and the phi-3-vision VLM are ported."""
     from repro_torch.configs import registry
-    assert set(registry.UNPORTED) == {
-        "phi-3-vision-4.2b", "command-r-35b", "yi-34b", "whisper-tiny",
-        "nemotron-4-340b"}
+    assert set(registry.UNPORTED) == {"command-r-35b", "yi-34b",
+                                      "nemotron-4-340b"}
     for arch in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"):
         assert registry.get_config(arch).moe is not None
     assert registry.get_config("zamba2-2.7b").layout == (("zamba_super",
                                                           9),)
+    assert registry.get_config("whisper-tiny").layout == (("encdec", 4),)
+    assert registry.get_config("phi-3-vision-4.2b").encoder.kind == "vision"
 
 
 def test_all_configs_returns_every_ported_id():
@@ -200,7 +201,8 @@ def test_all_configs_returns_every_ported_id():
     assert tuple(configs) == registry.ARCH_IDS
     assert not set(configs) & set(registry.UNPORTED)
     assert {"qwen3-0.6b", "xlstm-125m", "zamba2-2.7b",
-            "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"} == set(configs)
+            "deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "whisper-tiny",
+            "phi-3-vision-4.2b"} == set(configs)
     for arch, cfg in configs.items():
         assert cfg == registry.get_config(arch)
 
@@ -232,21 +234,35 @@ def test_ssm_zamba_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "False"
 
 
-def _unported_variants():
-    from repro_torch.models.config import EncoderStub
-    return {"xattn": dict(layout=(("encdec", 2),)),
-            "vision": dict(encoder=EncoderStub("vision", 16, 64))}
+def test_encdec_vlm_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.models.model, "
+            "repro_torch.configs.whisper_tiny, "
+            "repro_torch.configs.phi_3_vision_4_2b; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
 
 
-@pytest.mark.parametrize("kind", ["xattn", "vision"])
-def test_unported_kinds_refuse(kind):
+@pytest.mark.parametrize("what", ["kind", "pattern"])
+def test_unknown_blocks_raise(what):
+    """Every block kind and layer pattern of the reference is ported; a
+    name outside them raises ``ValueError``, as the reference does."""
     from repro_torch.configs.registry import get_reduced_config
-    from repro_torch.models import model
-    cfg = get_reduced_config("qwen3-0.6b").replace(
-        **_unported_variants()[kind])
-    with pytest.raises(NotImplementedError, match="the model zoo"):
-        model.init_params(cfg, torch.Generator().manual_seed(0),
-                          device="cpu")
+    from repro_torch.models import transformer
+    cfg = get_reduced_config("qwen3-0.6b")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="unknown"):
+        if what == "kind":
+            transformer.sub_init(cfg, "conv", gen)
+        else:
+            transformer.stack_init(cfg.replace(layout=(("conv", 2),)), gen)
+    assert set(transformer.KINDS) == {k for kinds in
+                                      transformer.PATTERNS.values()
+                                      for k in kinds}
 
 
 def test_xlstm_entry_points_default_to_cuda(monkeypatch):
@@ -301,6 +317,33 @@ def test_zamba_entry_points_default_to_cuda(monkeypatch):
                                device="cpu")
     assert params["stack"]["segments"][0]["mamba"]["inner"]["w_in"].device \
         == torch.device("cpu")
+
+
+def test_encdec_vlm_entry_points_default_to_cuda(monkeypatch):
+    """The whisper and phi-3-vision serving paths take cuda unless asked
+    for the CPU and raise when it is absent (the full configs too, before
+    any allocation); on the CPU the launcher serves whisper and refuses the
+    VLM, as the reference's does."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("whisper-tiny", "phi-3-vision-4.2b"):
+        cfg = get_reduced_config(arch)
+        argv = ["--arch", arch, "--batch", "1", "--prompt-len", "2",
+                "--gen", "1"]
+        for extra in ([], ["--full-config"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                serve.main([*argv, *extra])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            steps.make_prefill_step(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_params(cfg, torch.Generator().manual_seed(0))
+    assert serve.main(["--arch", "whisper-tiny", "--batch", "1",
+                       "--prompt-len", "2", "--gen", "1", "--device",
+                       "cpu"])["tokens"].shape == (1, 1)
+    with pytest.raises(SystemExit, match="VLM needs the image path"):
+        serve.main(["--arch", "phi-3-vision-4.2b", "--device", "cpu"])
 
 
 def test_train_import_leaves_jax_unloaded():

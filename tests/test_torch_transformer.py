@@ -225,8 +225,8 @@ def _sub(cfg, name):
 
 def test_registry_knows_every_jax_arch():
     """Each id of the JAX registry is either ported (same config, field
-    for field, the MoE, MLA and SSM sub-configs and the layout included)
-    or refused by name."""
+    for field, the MoE, MLA and SSM sub-configs, the encoder stub and the
+    layout included) or refused by name."""
     assert set(tregistry.ARCH_IDS) | set(tregistry.UNPORTED) == set(
         jregistry.ARCH_IDS)
     for arch in tregistry.ARCH_IDS:
@@ -239,11 +239,11 @@ def test_registry_knows_every_jax_arch():
             assert getattr(t, field) == getattr(j, field), field
         jr, tr = (jregistry.get_reduced_config(arch),
                   tregistry.get_reduced_config(arch))
-        for name in ("moe", "mla", "ssm"):
+        for name in ("moe", "mla", "ssm", "encoder"):
             assert _sub(t, name) == _sub(j, name), name
             assert _sub(tr, name) == _sub(jr, name), name
         assert tr == t.replace(
-            moe=tr.moe, mla=tr.mla, ssm=tr.ssm,
+            moe=tr.moe, mla=tr.mla, ssm=tr.ssm, encoder=tr.encoder,
             **{f: getattr(jr, f) for f in (
                 "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
                 "vocab_size", "head_dim", "max_seq_len", "attn_chunk",
