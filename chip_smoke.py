@@ -27,11 +27,19 @@ Phases, each printing its own lines and then its wall time (``time:
    path's pieces.
 2b. flash_attention against its plain version in bf16 and fp32: a small
    ragged case (B=2, S=200, H=4, KV=2, D=64), the qwen3-0.6b layer (B=1,
-   S=4096, H=16, KV=8, D=128) causal and with a 1024 window, and two ragged
-   cases at its heads (S=129 causal, S=1000 non-causal), and
-   whisper-tiny's decoder self-attention at its prefill shape (B=32,
-   S=448, H=KV=6, D=64, causal: the mma.sync kernel in bf16); bound at
-   989 TFLOP/s bf16 / 67 TFLOP/s fp32 over the live (query, key) pairs;
+   S=4096, H=16, KV=8, D=128) causal and with a 1024 window, two ragged
+   cases at its heads (S=129 causal, S=1000 non-causal), whisper-tiny's
+   decoder self-attention at its prefill shape (B=32, S=448, H=KV=6, D=64,
+   causal) and GQA 8/2 at D = 64 (B=2, S=1000, causal); in bf16 D = 64
+   runs the TMA + wgmma kernel at (64, 64), each row names the kernel
+   (``kernel_route``), and each bf16 D = 64 case is held again with the
+   log-sum-exp saved (the output at ``TOL``, the lse against the plain
+   logsumexp within 1e-5 relative, ``lse_err``) and split into device
+   time a call (``device_ms``, ``torch.profiler``) and host time a call
+   (``host_us``), since a short call's event time is its host path's,
+   with SDPA's device time beside it (``library_device_ms``);
+   bound at 989 TFLOP/s
+   bf16 / 67 TFLOP/s fp32 over the live (query, key) pairs;
    ``library_ms`` is one ``scaled_dot_product_attention`` call (timed only,
    the port never calls it); for bf16 also ``ms_with_lse``, the forward
    that saves the log-sum-exp for the backward, timed in turns with the
@@ -64,10 +72,12 @@ Phases, each printing its own lines and then its wall time (``time:
    shape (B=4, 576 patches + 3,520 tokens = 4,096 positions, H=32) in
    bf16.  Last, keys of their own length (``flash_attention_cross``: S
    queries over T keys, non-causal, whisper's cross-attention) at
-   whisper-tiny's prefill (B=32, S=448, T=1500, H=6, D=64), one decode
-   token over 1500 frames at batch 8, a ragged case (S=100, T=257) and at
-   D = 128, 80 and 96 on the TMA + wgmma kernel, bf16 and fp32; bound
-   over the S x T pairs; ``library_ms`` SDPA.
+   whisper-tiny's prefill (B=32, S=448, T=1500, H=6, D=64; the TMA +
+   wgmma kernel in bf16), one decode token over 1500 frames at batch 8
+   and one over 257 keys with GQA 4/2 (the split-key kernel in bf16), a
+   ragged case (S=100, T=257) and at D = 128, 80 and 96 on the TMA +
+   wgmma kernel, bf16 and fp32, the bf16 D = 64 cases also with the
+   log-sum-exp; bound over the S x T pairs; ``library_ms`` SDPA.
 2c. slstm_scan against its plain version with R in bf16 and fp32: the
    shapes of the JAX package's kernel tests, saturated gates (inputs x25)
    and the xlstm-125m layer (B=4, S=8192, H=4, P=192); bound at 67 TFLOP/s
@@ -261,12 +271,14 @@ Phases, each printing its own lines and then its wall time (``time:
    depth in bf16 (41,958,528 params drawn on the card): (a)
    ``make_prefill_step`` at B=32 over the 448-token decoder context with
    memory (32, 1500, 384) (exactly 4 ``flash_attention`` (D = 64) and 4
-   ``flash_attention_cross`` launches a call and no other attention; ms,
-   tokens/s, peak memory) and ``torch.profiler`` over one call; (b) fp32
-   decode against fp32 prefill logits at every position of 2x32 tokens
-   over the same memory (atol 1e-3, rtol 0.05), and the bf16 gap; (c) a
-   decode step at batch 8 (4 ``flash_attention_cross`` launches of one
-   query over 1500 frames) and its profile; (d) the serve launcher
+   ``flash_attention_cross`` launches a call, both on the TMA + wgmma
+   kernel, and no other attention; ms, tokens/s, peak memory) and
+   ``torch.profiler`` over one call; (b) fp32 decode against fp32 prefill
+   logits at every position of 2x32 tokens over the same memory (atol
+   1e-3, rtol 0.05), and the bf16 gap; (c) a decode step at batch 8 (4
+   ``flash_attention_cross`` launches of one query over 1500 frames, the
+   split-key kernel; they are the kernels line's ``whisper_decode`` row)
+   and its profile; (d) the serve launcher
    ``--arch whisper-tiny --full-config`` (the memory drawn from its seed;
    decode tok/s, finite logits, 4 cross launches a step); (e) the reduced
    whisper on the card against the host's plain versions (48 tokens over
@@ -411,13 +423,15 @@ AUDIO_B, AUDIO_S = 32, 448     # whisper-tiny's prefill: its decoder context
 # (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's; the
 # two ragged D = 128 cases end one row past a 128-row tile and mid-tile;
 # "whisper_self" is whisper-tiny's decoder self-attention at its prefill
-# shape (the mma.sync kernel in bf16)
+# shape and "d64_gqa" GQA 8/2 at D = 64 (both, and "small", on the TMA +
+# wgmma kernel at (64, 64) in bf16, held also with the log-sum-exp)
 ATTN_CASES = (("small", 2, 200, 4, 2, 64, True, 0),
               ("layer", 1, 4096, 16, 8, 128, True, 0),
               ("layer_w1024", 1, 4096, 16, 8, 128, True, 1024),
               ("s129", 2, 129, 16, 8, 128, True, 0),
               ("s1000", 1, 1000, 16, 8, 128, False, 0),
-              ("whisper_self", AUDIO_B, AUDIO_S, 6, 6, 64, True, 0))
+              ("whisper_self", AUDIO_B, AUDIO_S, 6, 6, 64, True, 0),
+              ("d64_gqa", 2, 1000, 8, 2, 64, True, 0))
 PREFILL_B, PREFILL_S = 4, 8192
 # (name, B, S, H, KV, causal, window) at MLA's head dims (q/k 192 = 128 +
 # 64 RoPE dims, v 128): deepseek-v2-lite's layer (H = KV = 16) and two
@@ -442,11 +456,14 @@ HEAD_DIM_PREFILL = {80: (PREFILL_B, PREFILL_S),
                     96: (VLM_B, VLM_PATCHES + VLM_TOKENS)}
 # (name, B, S, T, H, KV, D): S queries over T keys, non-causal (whisper's
 # cross-attention): whisper-tiny's prefill (B=32 over its 448-token
-# decoder context, 1500 encoder frames, 6 heads of 64), a decode step at
-# the launcher's batch 8, a ragged case, and T != S on the TMA + wgmma
-# kernel at 128, 80 and 96
+# decoder context, 1500 encoder frames, 6 heads of 64; the TMA + wgmma
+# kernel at (64, 64) in bf16), a decode step at the launcher's batch 8
+# and a ragged one over 257 keys with GQA (the split-key kernel), a
+# ragged case, and T != S on the TMA + wgmma kernel at 128, 80 and 96;
+# the D = 64 cases are held also with the log-sum-exp
 CROSS_ATTN_CASES = (("whisper_prefill", AUDIO_B, AUDIO_S, 1500, 6, 6, 64),
                     ("whisper_decode", 8, 1, 1500, 6, 6, 64),
+                    ("decode_ragged", 2, 1, 257, 4, 2, 64),
                     ("cross_ragged", 2, 100, 257, 4, 2, 64),
                     ("cross_d128", 2, 300, 1000, 8, 4, 128),
                     ("cross_d80", 1, 200, 513, 4, 2, 80),
@@ -543,9 +560,11 @@ def cuda_ms_pair(fa, fb, reps: int = 12, inner: int = 10) -> tuple:
 
 def host_device_split(fn, n_host: int = 1000, n_prof: int = 20) -> dict:
     """Where a call's time goes: ``device_ms``, its kernels' device time a
-    call over ``n_prof`` calls under ``torch.profiler`` (None when the
-    profiler sees no device time), and ``host_us``, the host time a call of
-    ``n_host`` calls enqueued without a synchronise, then one synchronise."""
+    call over ``n_prof`` calls under ``torch.profiler`` (a trace with no
+    device record, which the profiler gives now and then, is taken again,
+    up to 3 times; None when all 3 have none), and ``host_us``, the host
+    time a call of ``n_host`` calls enqueued without a synchronise, then
+    one synchronise."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -553,7 +572,10 @@ def host_device_split(fn, n_host: int = 1000, n_prof: int = 20) -> dict:
         fn()
     host_us = (time.perf_counter() - t0) / n_host * 1e6
     torch.cuda.synchronize()
-    busy = device_profile(fn, n_prof)[2]
+    for _ in range(3):
+        busy = device_profile(fn, n_prof)[2]
+        if busy:
+            break
     return {"device_ms": busy / n_prof * 1e3 if busy else None,
             "host_us": host_us}
 
@@ -3175,6 +3197,21 @@ def sdpa_call(q, k, v, causal, window):
     return call
 
 
+def check_lse(q, k, v, kw, what) -> float:
+    """The bf16 forward that also saves the log-sum-exp: its output held
+    to the plain version at ``TOL``, its lse to ``ref.attention_lse_ref``
+    within 1e-5 relative with a floor of 1e-5 of the largest value (fp32
+    scores and sums in another order); returns the lse's max abs error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    compare(out, ref.flash_attention_ref(q, k, v, **kw), torch.bfloat16,
+            f"{what} with lse")
+    want = ref.attention_lse_ref(q, k, **kw)
+    return compare(lse, want, torch.float32, f"{what} lse",
+                   tol=(1e-5 * want.abs().max().item(), 1e-5))
+
+
 def attention_cases(dev):
     """Phase 2b; returns result rows.  Launches made here are comparisons,
     not the serving path's."""
@@ -3198,6 +3235,8 @@ def attention_cases(dev):
             call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
             rows.append({
                 "kernel": "flash_attention", "entry": name,
+                "kernel_route": fa.forward_route(dtype, D, D, S, causal,
+                                                 window),
                 "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D,
                           "causal": causal, "window": window},
                 "dtype": str(dtype)[6:], "max_abs_err": err,
@@ -3211,6 +3250,12 @@ def attention_cases(dev):
                 rows[-1]["ms"], rows[-1]["ms_with_lse"] = cuda_ms_pair(
                     call, lambda: fa.flash_attention(q, k, v,
                                                      return_lse=True, **kw))
+                if D == 64:
+                    rows[-1]["lse_err"] = check_lse(
+                        q, k, v, kw, f"flash_attention {name}")
+                    rows[-1].update(host_device_split(call))
+                    rows[-1]["library_device_ms"] = host_device_split(
+                        sdpa_call(q, k, v, causal, window))["device_ms"]
             print("kernel " + json.dumps(rows[-1]))
             del q, k, v
             torch.cuda.empty_cache()
@@ -3415,6 +3460,7 @@ def cross_attention_cases(dev):
             b_ms, b_by = attention_bound(B, S, H, KV, D, False, 0, dtype,
                                          T=T)
             r = {"kernel": "flash_attention_cross", "entry": name,
+                 "kernel_route": fa.forward_route(dtype, D, D, S, False, 0),
                  "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV,
                            "D": D, "causal": False, "window": 0},
                  "dtype": str(dtype)[6:], "max_abs_err": err,
@@ -3425,6 +3471,13 @@ def cross_attention_cases(dev):
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": cuda_ms(sdpa_call(q, k, v, False, 0),
                                        reps=5, inner=2)}
+            if dtype == torch.bfloat16 and D == 64:
+                r["lse_err"] = check_lse(q, k, v, dict(causal=False),
+                                         f"flash_attention_cross {name}")
+                r.update(host_device_split(
+                    lambda: fa.flash_attention(q, k, v, causal=False)))
+                r["library_device_ms"] = host_device_split(
+                    sdpa_call(q, k, v, False, 0))["device_ms"]
             print("kernel " + json.dumps(r))
             rows.append(r)
             del q, k, v
@@ -4203,7 +4256,8 @@ AUDIO_ARCH = "whisper-tiny"
 
 
 def audio_serving(dev):
-    """Phase 4e; returns the launches of the counted prefill call."""
+    """Phase 4e; returns the launches of the counted prefill call and
+    those of one decode step."""
     from repro_torch import tree
     from repro_torch.configs.registry import get_config, get_reduced_config
     from repro_torch.kernels import ops
@@ -4302,7 +4356,7 @@ def audio_serving(dev):
                          {"flash_attention": rcfg.n_layers,
                           "flash_attention_cross": rcfg.n_layers},
                          extra={"memory": rmem})
-    return counts
+    return counts, step_counts
 
 
 # -- phase 4f: phi-3-vision-4.2b serving (the VLM input merge, head dim 96) -
@@ -4810,7 +4864,7 @@ def main(argv=None) -> int:
     scan_launches = run_phase(xlstm_serving, dev)
     mla_launches = run_phase(moe_serving, dev)
     d80_launches = run_phase(hybrid_serving, dev)
-    audio_counts = run_phase(audio_serving, dev)
+    audio_counts, audio_step_counts = run_phase(audio_serving, dev)
     vision_counts = run_phase(vision_serving, dev)
     train_rows, train_counts = run_phase(train_path, dev)
 
@@ -4971,7 +5025,7 @@ def main(argv=None) -> int:
         **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "shape", "dtype")},
         "entry": "prefill"})
-    # whisper's decoder self-attention (D = 64, the mma.sync kernel) at
+    # whisper's decoder self-attention (D = 64, the TMA + wgmma kernel) at
     # its prefill shape (B=32, S=448), as each of its self-attention
     # launches (phase 4e)
     self_rows = [x for x in attn_rows if x["kernel"] == "flash_attention"
@@ -4984,24 +5038,33 @@ def main(argv=None) -> int:
         "launches": audio_counts["flash_attention"],
         "max_abs_err": max(x["max_abs_err"] for x in self_rows),
         **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "shape", "dtype")},
+                             "library_ms", "shape", "dtype",
+                             "kernel_route", "device_ms", "host_us",
+                             "library_device_ms")},
         "entry": "whisper_self"})
     # keys of their own length at whisper's prefill shape (B=32, 448
-    # tokens over 1500 frames), as each of its cross-attention launches
-    # (phase 4e)
+    # tokens over 1500 frames; the TMA + wgmma kernel), as each of its
+    # cross-attention launches (phase 4e), and at a decode step's (B=8,
+    # one query over 1500 frames; the split-key kernel), as each of the
+    # step's cross-attention launches
     cross_rows = [x for x in attn_rows
                   if x["kernel"] == "flash_attention_cross"]
-    r = next(x for x in cross_rows if x["entry"] == "whisper_prefill"
-             and x["dtype"] == "bfloat16")
-    kernels.append({
-        "name": "flash_attention_cross", "route": "cuda",
-        "source": SOURCES["flash_attention_cross"],
-        "replaces": REPLACES["flash_attention_cross"],
-        "launches": audio_counts["flash_attention_cross"],
-        "max_abs_err": max(x["max_abs_err"] for x in cross_rows),
-        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "shape", "dtype")},
-        "entry": "whisper_prefill"})
+    for entry, counted in (("whisper_prefill", audio_counts),
+                           ("whisper_decode", audio_step_counts)):
+        r = next(x for x in cross_rows if x["entry"] == entry
+                 and x["dtype"] == "bfloat16")
+        kernels.append({
+            "name": "flash_attention_cross", "route": "cuda",
+            "source": SOURCES["flash_attention_cross"],
+            "replaces": REPLACES["flash_attention_cross"],
+            "launches": counted["flash_attention_cross"],
+            "max_abs_err": max(x["max_abs_err"] for x in cross_rows
+                               if x["kernel_route"] == r["kernel_route"]),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape", "dtype",
+                                 "kernel_route", "device_ms", "host_us",
+                                 "library_device_ms")},
+            "entry": entry})
     # the xlstm-125m layer with bf16 R, as each of its prefill launches
     r = next(x for x in scan_rows
              if x["entry"] == "layer" and x["r_dtype"] == "bfloat16")

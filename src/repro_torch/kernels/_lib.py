@@ -43,6 +43,9 @@ _SIGNATURES = {
                                 _LL, _F, _F, _F, _P, _P, _P, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _P, *(_I,) * 7,
                               *(_LL,) * 9, _I, _I, _I, _P),
+    "repro_flash_attention_split": (*(_P,) * 7, *(_I,) * 7, *(_LL,) * 9,
+                                    _P),
+    "repro_flash_attention_split_occupancy": (_I, _P),
     "repro_flash_attention_bwd": (*(_P,) * 12, *(_I,) * 7, _P),
     "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_slstm_scan_plan": (_I, _I, _I, _P, _P),

@@ -40,31 +40,44 @@
 // of the bound.
 // Given an lse pointer, the bf16 kernels also store each row's log-sum-exp
 // m + log2(l) (log2 units of the scores times D^-1/2 log2 e, fp32, (B, H,
-// S)) in their epilogue, after the loop, for the backward
+// S)) in their epilogue (the split-key kernel in its merge), for the backward
 // (flash_attention_bwd.cu) to rebuild P without a pass of its own; a null
 // pointer stores nothing, so serving runs the code it ran before.
-// Three kernels:
+// Four kernels:
 // - bf16 at (D, Dv) = (128, 128) (the serving path, qwen3-0.6b), MLA's
 //   (192, 128) (deepseek-v2-lite's prefill), (80, 80) (zamba2-2.7b's
-//   shared attention block, d_model 2560 over 32 heads) and (96, 96)
-//   (phi-3-vision-4.2b, d_model 3072 over 32 heads), one template on
-//   (D, Dv): Hopper's shape of a fast kernel.  One block of three
-//   warpgroups per (b, h, 128-row query tile): a producer warpgroup whose
-//   one elected thread issues TMA copies of Q and of 128-key K/V tiles into
-//   a 2-stage ring guarded by mbarriers, and two consumer warpgroups (64
-//   query rows each, registers raised to 240 with setmaxnreg) that run
-//   QK^T as wgmma.mma_async m64n128k16 and PV as m64n<Dv>k16, with the
-//   online softmax on the fp32 accumulator in registers.  A Q or K row is
-//   ceil(D / 64) 128-byte swizzled boxes (three at 192, so S = QK^T is 12
-//   k-steps; two at 80, the second zero past column 16, so 5 k-steps; two
-//   at 96, the second zero past column 32, so 6 k-steps), a V row
-//   ceil(Dv / 64).  At 192 a block takes 214,144 bytes of shared memory
-//   (Q 48 KB, K 2 x 48, V 2 x 32), at 128, 96 and 80 164,992, one block an
-//   SM; a consumer thread holds Dv / 2 fp32 of O (64, 48 at 96, 40 at 80),
-//   64 of S and 64 registers of P's bf16 hi and lo parts.  The blocks run in
-//   groups of 16 (b, h) pairs, so that those in flight share K/V through
-//   the L2.
-// - bf16, D = 32 or 64 (test shapes, the reduced models): mma.sync
+//   shared attention block, d_model 2560 over 32 heads), (96, 96)
+//   (phi-3-vision-4.2b, d_model 3072 over 32 heads) and (64, 64)
+//   (whisper-tiny's self- and cross-attention, the reduced configs), one
+//   template on (D, Dv): Hopper's shape of a fast kernel.  One block of
+//   three warpgroups per (b, h, 128-row query tile): a producer warpgroup
+//   whose one elected thread issues TMA copies of Q and of 128-key K/V
+//   tiles into a 2-stage ring guarded by mbarriers, and two consumer
+//   warpgroups (64 query rows each, registers raised to 240 with
+//   setmaxnreg) that run QK^T as wgmma.mma_async m64n128k16 and PV as
+//   m64n<Dv>k16, with the online softmax on the fp32 accumulator in
+//   registers.  A Q or K row is ceil(D / 64) 128-byte swizzled boxes (one
+//   at 64, so S = QK^T is 4 k-steps; three at 192, 12 k-steps; two at 80,
+//   the second zero past column 16, so 5 k-steps; two at 96, the second
+//   zero past column 32, so 6 k-steps), a V row ceil(Dv / 64).  At 192 a
+//   block takes 214,144 bytes of shared memory (Q 48 KB, K 2 x 48, V 2 x
+//   32), at 128, 96 and 80 164,992, at 64 82,944 (Q 16 KB, K and V 2 x 16
+//   each), one block an SM; a consumer thread holds Dv / 2 fp32 of O (64,
+//   48 at 96, 40 at 80, 32 at 64), 64 of S and 64 registers of P's bf16 hi
+//   and lo parts.  The blocks run in groups of 16 (b, h) pairs, so that
+//   those in flight share K/V through the L2.
+// - bf16 at D = Dv = 64 with at most 4 non-causal queries over many keys
+//   (whisper-tiny's decode step: one query over 1500 encoder frames, 48
+//   (b, h) pairs at batch 8): split keys.  The keys of each (b, h) are cut
+//   into ranges, one block of 4 warps a range, so that the pairs fill the
+//   card; a lane takes a key for the scores and two output columns for PV,
+//   on the FMA units (a 64-row wgmma would waste 63 of its rows), each
+//   warp keeping fp32 (m, l, acc) for every query.  The block's merged
+//   partial goes to an fp32 scratch, and the last block of a (b, h) to
+//   finish (a __threadfence and an atomic counter, which it resets for the
+//   next call) merges the ranges in order and writes the output and the
+//   lse: one launch a call.  Bound: bytes (K and V read once).
+// - bf16, D = 32 (test shapes, the reduced SSM and MLA configs): mma.sync
 //   m16n8k16 (bf16 in, fp32 accumulate), flash-attention-2 style: one
 //   block of 4 warps per (b, h, 64-row query tile), each warp owning 16
 //   query rows; K and V tiles of 64 keys stream through padded shared
@@ -112,7 +125,7 @@ using repro::wgmma_rs;
 using repro::wgmma_ss;
 using repro::wgmma_wait_all;
 
-constexpr int kThreads = 128;  // 4 warps in the mma.sync and FMA kernels
+constexpr int kThreads = 128;  // 4 warps: the mma.sync, split, FMA kernels
 
 struct Params {
   void* out;  // (B, S, H, Dv), contiguous
@@ -182,7 +195,8 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
 }
 
 // (kThreads, 1): without the block count, ptxas capped this kernel at 96
-// registers for D = 32 and spilled
+// registers for D = 32 and spilled.  Instantiated at D = 32 only: bf16
+// (64, 64) runs the TMA + wgmma kernel or the split-key kernel.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bf16_kernel(Params p) {
@@ -365,9 +379,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, (D, Dv) = (128, 128), MLA's (192, 128), zamba2's (80, 80) or
-// phi-3-vision's (96, 96): TMA
-// ring, wgmma, warp-specialised
+// bf16, (D, Dv) = (128, 128), MLA's (192, 128), zamba2's (80, 80),
+// phi-3-vision's (96, 96) or whisper's (64, 64): TMA ring, wgmma,
+// warp-specialised
 // ---------------------------------------------------------------------------
 //
 // One block of three warpgroups per (b, h, 128-row query tile).  Warpgroup 0
@@ -385,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // products.  Every tile is made of 128-row boxes of 128-byte rows (64 bf16
 // columns) written by the TMA with the 128-byte swizzle, which is the
 // layout the wgmma descriptors name: a Q or K row of D values is
-// ceil(D / 64) boxes (two at D = 80, 96 or 128, three at 192), a V row
+// ceil(D / 64) boxes (one at 64, two at 80, 96 or 128, three at 192), a V row
 // ceil(Dv / 64); query rows past S, key rows past T, and columns past the
 // row's width (80 to 127 of an 80-wide row's second box, 96 to 127 of a
 // 96-wide one's), are zero-filled by the TMA.  Tensor maps are 4-D over
@@ -420,7 +434,10 @@ static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one box height");
 // boxes, each V stage ceil(Dv / 64); then the barriers, and room to align
 // to 1 KB.  At (192, 128) that is 48 + 2 x 48 + 2 x 32 KB, 214,144 bytes
 // with the rest (one block an SM, under the 232,448 a block may take); at
-// (128, 128), (96, 96) and (80, 80), 164,992.
+// (128, 128), (96, 96) and (80, 80), 164,992; at (64, 64), 16 + 2 x 16 +
+// 2 x 16 KB, 82,944.  A deeper ring at 64, where a stage is 32 KB, ran no
+// faster on the H100 (3 stages within 0-2.7% of 2, 2 ahead in 7-14 of 20
+// reps in turns, 4 behind 3; tools/attn_ab.py, PERF.md).
 template <int D, int Dv>
 struct WsLayout {
   static_assert(D % 16 == 0 && Dv % 16 == 0, "whole k-steps and n-blocks");
@@ -433,7 +450,8 @@ struct WsLayout {
 };
 
 // S = Q K^T for 64 rows x 128 keys: D / 16 k-steps of 16; step ks lies in
-// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 96, 6 steps,
+// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 64, 4 steps
+// in box 0; at D = 96, 6 steps,
 // the last two in box 1, whose columns past 32 are zeros no step reads;
 // at D = 80, 5 steps, the last at the start of box 1, whose columns past
 // 16 are zeros no step reads; at D = 192, 12 steps over three boxes).
@@ -450,7 +468,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
 
 // O += P V for 64 rows: P as hi + lo A fragments (one set of 4 registers
 // per 16 keys), V rows are keys (the k of this product), Dv contiguous in
-// 64-column boxes kBoxBytes apart (the descriptor's leading offset).
+// 64-column boxes kBoxBytes apart (the descriptor's leading offset, unused
+// at Dv = 64).
 template <int Dv>
 __device__ __forceinline__ void issue_pv(float (&o)[Dv / 2],
                                          const uint32_t (&pa_hi)[8][4],
@@ -597,6 +616,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         tma_load(sQ + c * kBoxBytes, &tq, full_q, c * kBoxCols, q0, h, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
+        // tile i is stage i % kWsStages in its (i / kWsStages)-th round
         const int st = i % kWsStages, k0 = (lo + i) * kWsBK;
         const uint32_t ph = (i / kWsStages) & 1;
         const uint32_t k_st = sK + st * L::kQKTileBytes;
@@ -649,10 +669,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // softmax of S_i then runs while the other consumer's turn keeps the
     // tensor cores busy.  The PV product is waited for before S_i is
     // issued: P as hi and lo parts takes 64 registers, and with S and O
-    // beside it the consumer would spill.  No wgmma sits in a branch (that
-    // makes ptxas serialize them all): step 0 multiplies a zero P by V_0,
-    // which step 1 reads anyway, and the last step computes a discarded S
-    // from the Q tile.
+    // beside it the consumer would spill from Dv = 80 up (at 64, both
+    // under one wait ran 0.3-1.1% faster on the H100, ahead in 13-18 reps
+    // of 20: a win in nine of ten at one shape of six, so one order serves
+    // every width).  No wgmma sits
+    // in a branch (that makes ptxas serialize them all): step 0 multiplies
+    // a zero P by V_0, which step 1 reads anyway, and the last step
+    // computes a discarded S from the Q tile.
     for (int i = 0; i <= n_tiles; ++i) {
       const bool has_s = i < n_tiles, has_pv = i > 0;
       const int pv = has_pv ? i - 1 : 0;  // the tile whose V is read
@@ -709,6 +732,196 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, D = Dv = 64, at most 4 queries over many keys: split keys
+// ---------------------------------------------------------------------------
+//
+// One block of 4 warps per (b, h, key range): range j is [j * chunk,
+// min(T, (j + 1) * chunk)), none empty (the wrapper's split plan).  The
+// warps take the range's keys in groups of 32, in turn; in a group a lane
+// holds one key's K row (8 x 16 bytes) for the scores of every query, and
+// two output columns of the group's V rows for PV, the probabilities
+// broadcast by shuffles.  Each warp keeps fp32 (m, l, acc) a query; the
+// block merges its warps in shared memory and stores (acc[64], m, l) to
+// part[b, h, s, j, :].  The last block of a (b, h) to arrive on its counter
+// merges the ranges in order j = 0, 1, ... (so the output does not depend
+// on which block came last), writes out and the lse, and sets the counter
+// back to 0.  All softmax state is in log2 units, as the other kernels'.
+// Bound: bytes, K and V read once (B T KV 256 bytes); the scores and PV
+// are 4 S D flops a key and head on the FMA units.
+
+constexpr int kSplitWarps = kThreads / 32;
+constexpr int kSplitPart = 66;  // a partial: acc[64], then m and l
+constexpr int kSplitMaxQueries = 4;  // past it the TMA kernel is faster
+
+template <int NQ>  // the kernel's query capacity: S <= NQ
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_split_kernel(Params p, float* part, int* count,
+                                 int splits, int chunk) {
+  __shared__ float qs[NQ][64];                          // the queries, fp32
+  __shared__ float red[kSplitWarps][NQ][kSplitPart];    // warps' partials
+  __shared__ int is_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / p.group, bh = b * p.H + h;
+  const __nv_bfloat16* qh =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kh =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* vh =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  for (int i = threadIdx.x; i < NQ * 64; i += kThreads) {
+    const int s = i / 64, d = i % 64;
+    qs[s][d] = s < p.S ? __bfloat162float(qh[s * p.q_ss + d]) : 0.f;
+  }
+  __syncthreads();
+
+  const int t0 = split * chunk, t1 = min(p.T, t0 + chunk);
+  float m[NQ], l[NQ], acc[NQ][2];  // l: this lane's share of the sum
+#pragma unroll
+  for (int s = 0; s < NQ; ++s) {
+    m[s] = -INFINITY;
+    l[s] = acc[s][0] = acc[s][1] = 0.f;
+  }
+  for (int base = t0 + 32 * warp; base < t1; base += 32 * kSplitWarps) {
+    const int t = base + lane;
+    const bool live_key = t < t1;
+    // this lane's K row, and two columns of each of the group's V rows
+    // (zeros past the range, where the probabilities are 0 too)
+    uint4 kr[8];
+    const uint4* krow =
+        reinterpret_cast<const uint4*>(kh + (live_key ? t : base) * p.k_ss);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) kr[c] = __ldg(krow + c);
+    __nv_bfloat162 vv[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      vv[j] = __floats2bfloat162_rn(0.f, 0.f);
+      if (base + j < t1) {
+        vv[j] = __ldg(reinterpret_cast<const __nv_bfloat162*>(
+            vh + (base + j) * p.v_ss + 2 * lane));
+      }
+    }
+    float kf[64];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const __nv_bfloat162* pair =
+          reinterpret_cast<const __nv_bfloat162*>(&kr[c]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pair[e]);
+        kf[8 * c + 2 * e] = f.x;
+        kf[8 * c + 2 * e + 1] = f.y;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < NQ; ++s) {
+      if (s >= p.S) break;
+      float dot[4] = {0.f, 0.f, 0.f, 0.f};  // four chains of 16 FMAs
+#pragma unroll
+      for (int d = 0; d < 64; ++d)
+        dot[d % 4] = fmaf(qs[s][d], kf[d], dot[d % 4]);
+      const float x = live_key
+                          ? ((dot[0] + dot[1]) + (dot[2] + dot[3])) *
+                                p.scale_log2
+                          : -INFINITY;
+      float mx = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[s], mx);  // finite: lane 0's key is live
+      const float alpha = ex2(m[s] - m_new);
+      const float pe = ex2(x - m_new);
+      m[s] = m_new;
+      l[s] = l[s] * alpha + pe;
+      float a0 = acc[s][0] * alpha, a1 = acc[s][1] * alpha;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pe, j);
+        const float2 vf = __bfloat1622float2(vv[j]);
+        a0 = fmaf(pj, vf.x, a0);
+        a1 = fmaf(pj, vf.y, a1);
+      }
+      acc[s][0] = a0;
+      acc[s][1] = a1;
+    }
+  }
+
+  // the block's partial: the warps merged (a warp without keys has m =
+  // -inf, l = 0, acc = 0 and weighs 0)
+#pragma unroll
+  for (int s = 0; s < NQ; ++s) {
+    float ls = l[s];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ls += __shfl_xor_sync(0xffffffffu, ls, off);
+    red[warp][s][2 * lane] = acc[s][0];
+    red[warp][s][2 * lane + 1] = acc[s][1];
+    if (lane == 0) {
+      red[warp][s][64] = m[s];
+      red[warp][s][65] = ls;
+    }
+  }
+  __syncthreads();
+  const int64_t part_bh = (int64_t)bh * p.S * splits;
+  for (int i = threadIdx.x; i < p.S * 64; i += kThreads) {
+    const int s = i / 64, d = i % 64;
+    float mb = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mb = fmaxf(mb, red[w][s][64]);
+    float a = 0.f, lb = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float f = ex2(red[w][s][64] - mb);
+      a = fmaf(f, red[w][s][d], a);
+      lb = fmaf(f, red[w][s][65], lb);
+    }
+    float* dst = part + (part_bh + (int64_t)s * splits + split) * kSplitPart;
+    dst[d] = a;
+    if (d == 0) {
+      dst[64] = mb;
+      dst[65] = lb;
+    }
+  }
+  __threadfence();  // the partial is visible before the counter moves
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    is_last = atomicAdd(count + bh, 1) == splits - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();  // every other block's partial, read from the L2 below
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  for (int i = threadIdx.x; i < p.S * 64; i += kThreads) {
+    const int s = i / 64, d = i % 64;
+    const float* src = part + (part_bh + (int64_t)s * splits) * kSplitPart;
+    float mx = -INFINITY;
+    for (int j = 0; j < splits; ++j)
+      mx = fmaxf(mx, __ldcg(src + j * kSplitPart + 64));
+    float a = 0.f, lsum = 0.f;
+    for (int j = 0; j < splits; ++j) {
+      const float f = ex2(__ldcg(src + j * kSplitPart + 64) - mx);
+      a = fmaf(f, __ldcg(src + j * kSplitPart + d), a);
+      lsum = fmaf(f, __ldcg(src + j * kSplitPart + 65), lsum);
+    }
+    out[(((int64_t)b * p.S + s) * p.H + h) * 64 + d] =
+        __float2bfloat16_rn(a / lsum);
+    if (d == 0 && p.lse != nullptr) {
+      p.lse[(int64_t)bh * p.S + s] = mx + __log2f(lsum);
+    }
+  }
+  if (threadIdx.x == 0) count[bh] = 0;  // for the next call
+}
+
+// the instance that takes S <= kSplitMaxQueries queries
+using SplitKernel = void (*)(Params, float*, int*, int, int);
+SplitKernel split_kernel(int S) {
+  return S == 1   ? flash_attention_split_kernel<1>
+         : S == 2 ? flash_attention_split_kernel<2>
+                  : flash_attention_split_kernel<4>;
 }
 
 // ---------------------------------------------------------------------------
@@ -866,9 +1079,9 @@ cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
 template <int D, int DV>
 cudaError_t launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    if constexpr (D >= 80) {  // (80, 80), (96, 96), (128, 128), (192, 128)
+    if constexpr (D >= 64) {  // (64, 64) up to (192, 128)
       return launch_ws<D, DV>(p, B, stream);
-    } else {  // D = Dv = 32 or 64
+    } else {  // D = Dv = 32
       const int smem = (kBQ + 2 * kBK) * (D + 8) * 2;
       cudaError_t e = cudaFuncSetAttribute(
           flash_attention_bf16_kernel<D>,
@@ -922,4 +1135,41 @@ extern "C" int repro_flash_attention(
   }
   if (D == 192 && Dv == 128) return (int)launch<192, 128>(p, B, is_bf16, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The split-key kernel: bf16 q/k/v at D = Dv = 64, 1 <= S <=
+// kSplitMaxQueries queries, non-causal, no window, over T keys cut into
+// ``splits`` ranges of ``chunk`` keys (the last ragged; none empty).  part
+// is an fp32 scratch of B * H * S * splits * 66 values, count B * H ints
+// that are 0 on entry and left 0.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan or shape it does not take.
+extern "C" int repro_flash_attention_split(
+    void* out, void* lse, const void* q, const void* k, const void* v,
+    void* part, void* count, int B, int S, int T, int H, int KV, int splits,
+    int chunk, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, void* stream) {
+  if (S < 1 || S > kSplitMaxQueries || T < 1 || splits < 1 || chunk < 1 ||
+      (int64_t)(splits - 1) * chunk >= T || (int64_t)splits * chunk < T ||
+      KV < 1 || H % KV != 0 || B > 65535 || H > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p{out,  static_cast<float*>(lse), q, k, v, S, T, H, H / KV, q_sb,
+           q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0.f, 0, 0};
+  p.scale_log2 = 0.125f * 1.4426950408889634f;  // 64^-1/2 log2(e)
+  const dim3 grid(splits, H, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  split_kernel(S)<<<grid, kThreads, 0, s>>>(
+      p, static_cast<float*>(part), static_cast<int*>(count), splits, chunk);
+  return (int)cudaGetLastError();
+}
+
+// The split-key kernel's blocks an SM holds at once for S queries (its
+// occupancy at kThreads threads, set by its registers), in *blocks; the
+// wrapper's split plan reads it.  Returns the CUDA error, or
+// cudaErrorInvalidValue for an S it does not take.
+extern "C" int repro_flash_attention_split_occupancy(int S, int* blocks) {
+  if (S < 1 || S > kSplitMaxQueries) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, split_kernel(S), kThreads, 0);
 }

@@ -17,16 +17,31 @@ encoder frames), which the kernel takes with ``causal=False`` and
 (64, 64), zamba2-2.7b's (80, 80), phi-3-vision's (96, 96), (128, 128) or
 MLA's (192, 128): deepseek-v2-lite's prefill folds 64 RoPE dims into q
 and k and keeps v at 128, where the reference zero-pads v to 192
-(``HEAD_DIMS``).  In bf16, (128, 128), MLA's (192, 128), (96, 96) and
-(80, 80) run one warp-specialised kernel (TMA copies into an mbarrier
-ring, wgmma products; a q/k row is two or three 128-byte boxes, the
-second of an 80- or 96-wide row zero past its 16 or 32 columns, and PV a
-wgmma m64n<Dv>k16; blocks ordered in groups of 16 (b, h) pairs, so that
-the blocks in flight share K/V in the L2), and D = 32 / 64 an mma.sync
-kernel; fp32 runs on the FMA units.  The probabilities stay fp32, as bf16 hi + lo parts
-through the tensor cores, so the output agrees with the plain version to
-about one bf16 ulp elementwise (a single bf16 P would not, on outputs
-near zero).
+(``HEAD_DIMS``).  ``forward_route`` names the kernel a call runs:
+
+- ``tma_wgmma``: bf16 at (128, 128), MLA's (192, 128), (96, 96), (80, 80)
+  and (64, 64), one warp-specialised kernel (TMA copies into an mbarrier
+  ring, wgmma products; a q/k row is one to three 128-byte boxes, the
+  second of an 80- or 96-wide row zero past its 16 or 32 columns, and PV
+  a wgmma m64n<Dv>k16; blocks ordered in groups of 16 (b, h) pairs, so
+  that the blocks in flight share K/V in the L2; a 2-stage K/V ring);
+- ``split_keys``: bf16 at (64, 64) with at most ``SPLIT_MAX_QUERIES``
+  non-causal queries and no window (whisper-tiny's decode step: one
+  query over 1500 encoder frames): the keys of each (b, h) cut into
+  ``split_plan``'s ranges, a block of 4 warps a range on the FMA units,
+  and the last block of a (b, h) merges the ranges' fp32 (m, l, acc)
+  partials, all in one launch.  The partials, (B, H, S, splits, 66) fp32,
+  are allocated with the call's output; the (B * H) int32 arrival
+  counters are a buffer kept per device and stream, zeroed once, which
+  the kernel leaves at 0;
+- ``mma_sync``: bf16 at D = 32 (test shapes, the reduced SSM and MLA
+  configs), the mma.sync kernel;
+- ``fma``: fp32, the FMA units.
+
+The probabilities stay fp32, as bf16 hi + lo parts through the tensor
+cores (the split-key kernel multiplies them on the FMA units), so the
+output agrees with the plain version to about one bf16 ulp elementwise
+(a single bf16 P would not, on outputs near zero).
 
 With ``return_lse=True`` the bf16 forward also returns each row's
 log-sum-exp, the fp32 (B, H, S) ``log2 sum_t 2^(score_t * D**-0.5 *
@@ -60,7 +75,8 @@ three kernels: prep, the fused kernel, the dQ pass).
 """
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -72,6 +88,14 @@ DTYPES = (torch.bfloat16, torch.float32)
 BWD_HEAD_DIMS = (64, 128)
 BWD_DTYPES = (torch.bfloat16,)
 MAX_GRID_YZ = 65535     # H on gridDim.y, B on gridDim.z
+# the split-key route: queries a call at most (whisper's decode step has
+# 1), keys a range at most while the card has room for more blocks (one
+# 32-key group for each of a block's 4 warps), and the kernel's key group
+# (a range is a whole number of groups)
+SPLIT_MAX_QUERIES = 4
+SPLIT_KEYS = 128
+SPLIT_GROUP = 32
+SPLIT_PART = 66         # fp32 a partial: acc[64], m, l
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_mla": 0,
                             "flash_attention_d80": 0,
@@ -92,6 +116,78 @@ def _launch_key(D: int, Dv: int, cross: bool = False) -> str:
     if D != Dv:
         return "flash_attention_mla"
     return BY_HEAD_DIM.get(D, ("flash_attention",))[0]
+
+
+def forward_route(dtype: torch.dtype, D: int, Dv: int, S: int,
+                  causal: bool, window: int) -> str:
+    """The kernel a forward call runs: ``tma_wgmma``, ``split_keys``,
+    ``mma_sync`` or ``fma`` (see the module docstring)."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    if D == 32:
+        return "mma_sync"
+    if (D == Dv == 64 and not causal and not window
+            and S <= SPLIT_MAX_QUERIES):
+        return "split_keys"
+    return "tma_wgmma"
+
+
+def split_plan(B: int, H: int, S: int, T: int,
+               resident: int) -> Tuple[int, int]:
+    """(splits, chunk) for S queries over T keys at B x H (batch row,
+    head) pairs on a card that holds ``resident`` of the kernel's blocks
+    at once (``split_resident``): range j holds keys [j * chunk, min(T,
+    (j + 1) * chunk)), so the ranges cover [0, T) and none is empty.  Past
+    ``SPLIT_MAX_QUERIES`` queries (the prefill shapes) one range of all T
+    keys; else one range a ``SPLIT_KEYS`` keys, as far as the card holds
+    the blocks at once (so that they run in one wave), the keys then
+    shared out evenly in whole ``SPLIT_GROUP``-key groups.  whisper-tiny's
+    decode step (B=8, H=6, S=1, T=1500) on an H100 (132 SMs, 6 blocks of
+    the one-query instance an SM): 12 ranges of 128 keys, 576 blocks.
+
+    The cut-off of four queries is measured (``tools/attn_times.py
+    --split-cutoff``, device time at B=8, H=6, T=1500 on an H100, with
+    this plan): the split-key kernel took 0.0099, 0.0116 and 0.0151 ms at
+    1, 2 and 4 queries (12, 5 and 5 ranges), 0.0219 and 0.0371 at 8 and
+    16, the TMA + wgmma kernel 0.0232-0.0233 at each (``PERF.md`` §6); past
+    4 the lead is 6% at most and whisper's decode step has 1 query."""
+    if S > SPLIT_MAX_QUERIES:
+        return 1, T
+    room = max(1, resident // max(1, B * H))
+    splits = max(1, min(-(-T // SPLIT_KEYS), room))
+    chunk = -(-T // splits)
+    chunk = -(-chunk // SPLIT_GROUP) * SPLIT_GROUP
+    return -(-T // chunk), chunk
+
+
+_RESIDENT: Dict[Tuple[int, int], int] = {}
+
+
+def split_resident(dev: torch.device, S: int) -> int:
+    """The split-key kernel's blocks for S queries that ``dev`` holds at
+    once: its SMs times the instance's occupancy an SM (registers)."""
+    key = (dev.index, S)
+    if key not in _RESIDENT:
+        per_sm = ctypes.c_int(0)
+        _lib.check(_lib.library().repro_flash_attention_split_occupancy(
+            S, ctypes.byref(per_sm)), "flash_attention split occupancy")
+        _RESIDENT[key] = per_sm.value * torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _RESIDENT[key]
+
+
+# (device index, stream handle) -> int32 arrival counters of the
+# split-key kernel, zero between its launches on that stream
+_SPLIT_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _SPLIT_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _SPLIT_COUNTERS[key] = buf
+    return buf
 
 
 def _check_operand(t: torch.Tensor, name: str, device: torch.device,
@@ -160,12 +256,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if return_lse else None)
     if out.numel():
-        rc = _lib.library().repro_flash_attention(
-            out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, T, H, KV, D, Dv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lse_ptr = 0 if lse is None else lse.data_ptr()
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        if forward_route(q.dtype, D, Dv, S, causal, window) == "split_keys":
+            splits, chunk = split_plan(B, H, S, T, split_resident(dev, S))
+            part = torch.empty((B, H, S, splits, SPLIT_PART),
+                               dtype=torch.float32, device=dev)
+            rc = _lib.library().repro_flash_attention_split(
+                out.data_ptr(), lse_ptr, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), part.data_ptr(),
+                _split_counters(dev, stream, B * H).data_ptr(), B, S, T, H,
+                KV, splits, chunk, *strides, stream)
+        else:
+            rc = _lib.library().repro_flash_attention(
+                out.data_ptr(), lse_ptr, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), B, S, T, H, KV, D, Dv, *strides,
+                int(bool(causal)), int(window),
+                int(q.dtype == torch.bfloat16), stream)
         _lib.check(rc, "flash_attention")
         launches[_launch_key(D, Dv, cross)] += 1
     return (out, lse) if return_lse else out

@@ -1,0 +1,96 @@
+"""Which kernel #4's wrapper runs (``kernels/flash_attention.forward_route``)
+and how the split-key kernel cuts the keys (``split_plan``), on the CPU:
+both are pure functions of the call's shapes and, for the plan, of the
+kernel's blocks the card holds at once, so they are checked here without
+a card.  The kernels themselves are held to the plain version on the
+card (``tests/test_torch_cuda_kernels.py``)."""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tfa
+
+# the split-key kernel's blocks an H100 holds at once (132 SMs): 6 an SM
+# of the one-query instance, 2 of the 2- and 4-query ones (registers)
+H100_RESIDENT = 132 * 6
+H100_RESIDENT_4Q = 132 * 2
+
+# (B, H, T): whisper-tiny's decode step (8 x 6 pairs over 1500 frames) and
+# past the card (40 x 6 = 240 pairs), one key, ranges ragged against the
+# 32-key groups and the 128-key ranges, GQA-sized and wide batches, and
+# keys past a long context
+PLAN_CASES = [(8, 6, 1500), (40, 6, 1500), (1, 1, 1), (2, 4, 127),
+              (1, 6, 128), (2, 4, 129), (2, 4, 257), (1, 1, 4096),
+              (64, 32, 1500), (1, 16, 100_000), (3, 5, 31), (1, 2, 33)]
+
+
+def _ranges(T, splits, chunk):
+    return [(j * chunk, min(T, (j + 1) * chunk)) for j in range(splits)]
+
+
+@pytest.mark.parametrize("resident", [H100_RESIDENT, H100_RESIDENT_4Q, 1])
+@pytest.mark.parametrize("B,H,T", PLAN_CASES)
+def test_split_plan_covers_the_keys(B, H, T, resident):
+    """At least one range, none empty, the ranges cover [0, T) exactly
+    and in order, in whole 32-key groups (but the last), and the same plan
+    every time."""
+    splits, chunk = tfa.split_plan(B, H, 1, T, resident)
+    assert (splits, chunk) == tfa.split_plan(B, H, 1, T, resident)
+    assert splits >= 1 and chunk >= 1
+    ranges = _ranges(T, splits, chunk)
+    assert all(lo < hi for lo, hi in ranges)
+    assert ranges[0][0] == 0 and ranges[-1][1] == T
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if splits > 1:
+        assert chunk % tfa.SPLIT_GROUP == 0
+    # a range a SPLIT_KEYS keys where the card holds the blocks at once,
+    # else no more blocks than it holds
+    if B * H * -(-T // tfa.SPLIT_KEYS) <= resident:
+        assert splits == -(-T // tfa.SPLIT_KEYS)
+        assert chunk <= tfa.SPLIT_KEYS
+    else:
+        assert splits == 1 or B * H * splits <= resident
+
+
+@pytest.mark.parametrize("B,H,S,T", [(32, 6, 448, 1500), (32, 6, 448, 448),
+                                     (4, 16, 8192, 8192), (8, 6, 5, 1500),
+                                     (1, 1, 17, 3)])
+def test_split_plan_one_split_at_prefill_shapes(B, H, S, T):
+    """Past the cut-off (whisper's prefill, the serving prefill, five
+    queries) the plan is one range of all T keys, and the wrapper
+    does not take the split-key route."""
+    assert S > tfa.SPLIT_MAX_QUERIES
+    assert tfa.split_plan(B, H, S, T, H100_RESIDENT) == (1, T)
+    assert tfa.forward_route(torch.bfloat16, 64, 64, S, False,
+                             0) == "tma_wgmma"
+
+
+def test_split_plan_at_whisper_decode():
+    """whisper-tiny's decode step on an H100: 12 ranges of 128 keys, so
+    48 pairs become 576 blocks (the wrapper's docstring)."""
+    assert tfa.split_plan(8, 6, 1, 1500, H100_RESIDENT) == (12, 128)
+
+
+@pytest.mark.parametrize("dtype,D,Dv,S,causal,window,want", [
+    (torch.bfloat16, 64, 64, 1, False, 0, "split_keys"),
+    (torch.bfloat16, 64, 64, 4, False, 0, "split_keys"),
+    (torch.bfloat16, 64, 64, 5, False, 0, "tma_wgmma"),
+    (torch.bfloat16, 64, 64, 1, True, 0, "tma_wgmma"),
+    (torch.bfloat16, 64, 64, 1, False, 16, "tma_wgmma"),
+    (torch.bfloat16, 64, 64, 448, False, 0, "tma_wgmma"),
+    (torch.bfloat16, 64, 64, 448, True, 0, "tma_wgmma"),
+    (torch.bfloat16, 128, 128, 1, False, 0, "tma_wgmma"),
+    (torch.bfloat16, 192, 128, 4096, True, 0, "tma_wgmma"),
+    (torch.bfloat16, 80, 80, 1, False, 0, "tma_wgmma"),
+    (torch.bfloat16, 96, 96, 70, False, 0, "tma_wgmma"),
+    (torch.bfloat16, 32, 32, 1, False, 0, "mma_sync"),
+    (torch.bfloat16, 32, 32, 300, True, 5000, "mma_sync"),
+    (torch.float32, 64, 64, 1, False, 0, "fma"),
+    (torch.float32, 128, 128, 4096, True, 0, "fma")])
+def test_forward_route(dtype, D, Dv, S, causal, window, want):
+    """bf16 (64, 64) takes the split-key kernel at up to
+    ``SPLIT_MAX_QUERIES`` non-causal, windowless queries and the TMA +
+    wgmma kernel otherwise, as do 80 to 192; D = 32 stays on mma.sync;
+    fp32 runs on the FMA units."""
+    assert tfa.forward_route(dtype, D, Dv, S, causal, window) == want

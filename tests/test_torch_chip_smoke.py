@@ -178,20 +178,37 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
              "bound_ms": 0.42, "bound_by": "operations", "library_ms": 1.0,
              "shape": {}, "dtype": "bfloat16"},
             {"kernel": "flash_attention", "entry": "whisper_self",
+             "kernel_route": "tma_wgmma",
+             "device_ms": 0.04, "host_us": 30.0, "library_device_ms": 0.03,
              "max_abs_err": 2e-3, "ms": 0.05, "plain_ms": 4.0,
              "bound_ms": 0.01, "bound_by": "operations", "library_ms": 0.04,
              "shape": {}, "dtype": "bfloat16"},
             {"kernel": "flash_attention", "entry": "whisper_self",
+             "kernel_route": "fma",
              "max_abs_err": 1e-6, "ms": 0.9, "plain_ms": 4.0,
              "bound_ms": 0.2, "bound_by": "operations", "library_ms": 0.1,
              "shape": {}, "dtype": "float32"},
             {"kernel": "flash_attention_cross", "entry": "whisper_prefill",
+             "kernel_route": "tma_wgmma",
+             "device_ms": 0.09, "host_us": 30.0, "library_device_ms": 0.08,
              "max_abs_err": 4e-3, "ms": 0.1, "plain_ms": 5.0,
              "bound_ms": 0.03, "bound_by": "operations", "library_ms": 0.08,
              "shape": {}, "dtype": "bfloat16"},
             {"kernel": "flash_attention_cross", "entry": "whisper_prefill",
+             "kernel_route": "fma",
              "max_abs_err": 1e-6, "ms": 2.0, "plain_ms": 5.0,
              "bound_ms": 0.5, "bound_by": "operations", "library_ms": 0.2,
+             "shape": {}, "dtype": "float32"},
+            {"kernel": "flash_attention_cross", "entry": "whisper_decode",
+             "kernel_route": "split_keys",
+             "device_ms": 0.009, "host_us": 35.0, "library_device_ms": 0.02,
+             "max_abs_err": 1e-3, "ms": 0.01, "plain_ms": 0.5,
+             "bound_ms": 0.0055, "bound_by": "bytes", "library_ms": 0.08,
+             "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_cross", "entry": "whisper_decode",
+             "kernel_route": "fma",
+             "max_abs_err": 1e-6, "ms": 0.05, "plain_ms": 0.5,
+             "bound_ms": 0.0055, "bound_by": "bytes", "library_ms": 0.08,
              "shape": {}, "dtype": "float32"}]
     train_rows = [
         {"kernel": "flash_attention_bwd", "entry": "layer",
@@ -268,8 +285,9 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     monkeypatch.setattr(cs, "xlstm_serving", lambda dev: 3)
     monkeypatch.setattr(cs, "moe_serving", lambda dev: 27)
     monkeypatch.setattr(cs, "hybrid_serving", lambda dev: 9)
-    monkeypatch.setattr(cs, "audio_serving", lambda dev: {
-        "flash_attention": 4, "flash_attention_cross": 4})
+    monkeypatch.setattr(cs, "audio_serving", lambda dev: (
+        {"flash_attention": 4, "flash_attention_cross": 4},
+        {"flash_attention": 0, "flash_attention_cross": 4}))
     monkeypatch.setattr(cs, "vision_serving", lambda dev: {
         "flash_attention_d96": 32})
     monkeypatch.setattr(cs, "train_path",
@@ -289,7 +307,8 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "weighted_agg_matmul", "weighted_agg_matmul", "flash_attention",
         "flash_attention_mla", "flash_attention_d80", "flash_attention_d96",
-        "flash_attention", "flash_attention_cross", "slstm_scan",
+        "flash_attention", "flash_attention_cross", "flash_attention_cross",
+        "slstm_scan",
         "flash_attention",
         "flash_attention_bwd", "dual_proximal_sgd"]
     for k in kernels:
@@ -304,7 +323,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["launches"] for k in kernels] == [
         50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
         120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
-        27, 9, 32, 4, 4, 3, 300, 150, 176]
+        27, 9, 32, 4, 4, 4, 3, 300, 150, 176]
     # the training path's rows: #4 forward and backward at the layer
     # shape, #3's bf16 mode at the embedding leaf
     assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
@@ -321,16 +340,27 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     # #4 at phi-3-vision's head dim 96, with phase 4f's prefill launches;
     # whisper's self-attention (D = 64) and its cross-attention (keys of
     # their own length) at its prefill shape, each a row of its own with
-    # the bf16 row's numbers and phase 4e's launches of that kind
+    # the bf16 row's numbers and phase 4e's launches of that kind, then
+    # the cross-attention at a decode step's shape (the split-key kernel)
+    # with the step's launches; each cross row's error is its kernel's
     assert kernels[11]["source"] == kernels[8]["source"]
     assert kernels[11]["replaces"] == kernels[8]["replaces"]
     assert kernels[12]["entry"] == "whisper_self"
     assert kernels[12]["ms"] == 0.05 and kernels[12]["dtype"] == "bfloat16"
     assert kernels[12]["max_abs_err"] == 2e-3
+    assert kernels[12]["kernel_route"] == "tma_wgmma"
     assert kernels[13]["entry"] == "whisper_prefill"
     assert kernels[13]["ms"] == 0.1 and kernels[13]["dtype"] == "bfloat16"
     assert kernels[13]["max_abs_err"] == 4e-3
+    assert kernels[13]["kernel_route"] == "tma_wgmma"
     assert "self_attention_launches" not in kernels[13]
+    assert kernels[14]["entry"] == "whisper_decode"
+    assert kernels[14]["ms"] == 0.01 and kernels[14]["max_abs_err"] == 1e-3
+    assert kernels[14]["kernel_route"] == "split_keys"
+    assert kernels[14]["bound_by"] == "bytes"
+    assert kernels[14]["device_ms"] == 0.009
+    assert kernels[14]["host_us"] == 35.0
+    assert kernels[14]["library_device_ms"] == 0.02
     assert kernels[-2]["products_per_pair"] == 5
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,

@@ -467,7 +467,11 @@ def test_cuda_agg_absorb_one_cohort(cuda, dtype, A, R, N):
 # of the D = 128 kernel's 128-row tiles: S = 1, 127, 128, 129 and 1000 over
 # groups 1, 2 and 4, a window of 1, windows of S and more, non-causal;
 # then 36 (b, h) pairs, so that the TMA kernel's block order ends in a
-# group of 4 pairs after two of 16
+# group of 4 pairs after two of 16; then D = 64 on the TMA + wgmma kernel
+# at (64, 64) (its 128-row tiles and 2-stage K/V ring): S one row past a
+# tile, a window of 1 and of 1024 over 4096 rows (past the ring's depth),
+# GQA 8/2 and 4, 36 pairs, and one non-causal query (the split-key kernel
+# over T = S = 1)
 ATTN_CASES = [(2, 200, 4, 2, 64, True, 0), (1, 4096, 16, 8, 128, True, 0),
               (1, 4096, 16, 8, 128, True, 1024), (3, 1, 4, 2, 64, True, 0),
               (1, 65, 2, 1, 128, True, 0), (2, 1000, 4, 2, 64, True, 100),
@@ -479,7 +483,11 @@ ATTN_CASES = [(2, 200, 4, 2, 64, True, 0), (1, 4096, 16, 8, 128, True, 0),
               (1, 1000, 8, 2, 128, True, 0), (2, 1000, 4, 1, 128, True, 1),
               (1, 1000, 4, 4, 128, True, 4096),
               (1, 1000, 8, 4, 128, False, 0),
-              (3, 300, 12, 4, 128, True, 0)]
+              (3, 300, 12, 4, 128, True, 0),
+              (1, 129, 4, 4, 64, True, 0), (2, 128, 4, 4, 64, True, 1),
+              (1, 4096, 8, 8, 64, True, 1024), (1, 1000, 8, 2, 64, True, 0),
+              (2, 513, 8, 2, 64, False, 0), (3, 300, 12, 4, 64, True, 0),
+              (2, 1, 4, 4, 64, False, 0)]
 
 
 @pytest.mark.gpu
@@ -728,14 +736,22 @@ def test_cuda_flash_attention_wide_head_refuses_grad(cuda, D):
 
 
 # (B, S, T, H, KV, D): S queries over T keys of their own length,
-# non-causal (cross-attention).  D = 64 (the mma.sync kernel in bf16):
-# whisper-tiny's prefill (32 x 448 decoder tokens over 1500 frames, 6
-# heads), one decode token over 1500 frames, and 100 over a ragged 257;
-# then the TMA + wgmma kernel at 128, 80 and 96 with T past a 128-key tile
-# edge on either side of S, and one query over keys.  fp32 runs each on
-# the FMA kernel.
+# non-causal (cross-attention).  D = 64: whisper-tiny's prefill (32 x 448
+# decoder tokens over 1500 frames, 6 heads) and 100 over a ragged 257 on
+# the TMA + wgmma kernel at (64, 64) in bf16, as are five queries over
+# 1500 frames (past the split-key kernel's cut-off of four); one query
+# (the split-key kernel in bf16) over T = 1500 at B x H = 48 pairs
+# (whisper's decode step) and 240 (past the card's 132 SMs), and over T =
+# 1, 127, 128 and 257 (ragged ranges, GQA); two and three queries (its
+# 2- and 4-query instances, the latter one query short); then the TMA +
+# wgmma kernel at 128, 80 and 96 with T past a 128-key tile edge on either
+# side of S, and one query over keys.  fp32 runs each on the FMA kernel.
 CROSS_CASES = [(32, 448, 1500, 6, 6, 64), (8, 1, 1500, 6, 6, 64),
-               (2, 100, 257, 4, 2, 64), (2, 300, 1000, 8, 4, 128),
+               (2, 100, 257, 4, 2, 64), (8, 5, 1500, 6, 6, 64),
+               (8, 2, 1500, 6, 6, 64), (2, 3, 257, 4, 2, 64),
+               (40, 1, 1500, 6, 6, 64), (2, 1, 1, 4, 2, 64),
+               (2, 1, 127, 4, 4, 64), (1, 1, 128, 6, 6, 64),
+               (2, 1, 257, 4, 2, 64), (2, 300, 1000, 8, 4, 128),
                (1, 129, 77, 4, 4, 128), (2, 1, 300, 8, 8, 80),
                (1, 200, 513, 4, 2, 80), (1, 70, 130, 4, 4, 96),
                (2, 1, 129, 4, 4, 96)]
@@ -757,10 +773,12 @@ def test_cuda_flash_attention_cross_matches_plain(cuda, dtype, B, S, T, H,
     """Kernel #4 with keys of their own length T != S, non-causal (the
     key tiles, their tail mask and the K/V loads and tensor maps on T; the
     query tiles and the output on S) against the plain version; counted as
-    ``flash_attention_cross``."""
+    ``flash_attention_cross``: by the wrapper's own rule where T != S, and
+    through the caller's ``cross=True`` (as ``xattn_apply`` passes it)
+    where one query meets one key."""
     q, k, v = _cross_inputs(cuda, B, S, T, H, KV, D, dtype, S + T + D)
     before = dict(tfa.launches)
-    got = tfa.flash_attention(q, k, v, causal=False)
+    got = tfa.flash_attention(q, k, v, causal=False, cross=S == T)
     want = ref.flash_attention_ref(q, k, v, causal=False)
     assert got.dtype == dtype and got.shape == (B, S, H, D)
     torch.testing.assert_close(got.float(), want.float(),
@@ -775,11 +793,18 @@ def test_cuda_flash_attention_cross_matches_plain(cuda, dtype, B, S, T, H,
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,T,H,KV,D", [(2, 100, 257, 4, 2, 64),
                                           (1, 129, 300, 4, 4, 128),
-                                          (1, 70, 130, 4, 4, 96)])
+                                          (1, 70, 130, 4, 4, 96),
+                                          (32, 448, 1500, 6, 6, 64),
+                                          (8, 1, 1500, 6, 6, 64),
+                                          (40, 1, 1500, 6, 6, 64),
+                                          (2, 1, 257, 4, 2, 64),
+                                          (2, 3, 257, 4, 2, 64)])
 def test_cuda_flash_attention_cross_lse_matches_plain(cuda, B, S, T, H, KV,
                                                       D):
     """The log-sum-exp over T keys, (B, H, S), against
-    ``ref.attention_lse_ref``, and the output unchanged by saving it."""
+    ``ref.attention_lse_ref``, and the output unchanged by saving it.  At
+    one query (the split-key kernel) the second call also shows that the
+    first left its arrival counters at 0."""
     q, k, v = _cross_inputs(cuda, B, S, T, H, KV, D, torch.bfloat16, 7)
     out, lse = tfa.flash_attention(q, k, v, causal=False, return_lse=True)
     assert lse.shape == (B, H, S)
@@ -857,8 +882,9 @@ def test_cuda_flash_attention_prefill_shape_by_row(cuda):
 @pytest.mark.gpu
 def test_cuda_flash_attention_reads_strided_views(cuda):
     """q/k/v as views into one fused (B, S, H + 2 KV, D) projection, as a
-    caller that never copies would hand them over: at D = 64 (mma.sync) and
-    D = 128 (the tensor maps of the TMA kernel)."""
+    caller that never copies would hand them over: at D = 64 and D = 128
+    (the tensor maps of the TMA kernel at one and two 128-byte boxes a
+    row)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     B, S, H, KV = 2, 333, 8, 2
     for D in (64, 128):
@@ -1384,10 +1410,13 @@ def _bwd_inputs(dev, B, S, H, KV, D, seed=0):
 
 
 # (B, S, H, KV, D, causal, window) of the log-sum-exp checks: S ragged
-# against the 128-row (D = 128) and the 64-row (D = 64) query tiles
+# against the 128-row query tiles of the TMA + wgmma kernel at D = 128 and
+# at (64, 64), GQA 8/2 at 64 past the 2-stage ring, and one non-causal
+# query at 64 (the split-key kernel)
 LSE_CASES = [(2, 130, 4, 2, 128, True, 0), (2, 200, 4, 2, 64, True, 0),
              (1, 1000, 8, 4, 128, True, 100), (2, 130, 4, 4, 64, True, 33),
-             (2, 200, 4, 1, 128, False, 0), (1, 1000, 4, 2, 64, False, 0)]
+             (2, 200, 4, 1, 128, False, 0), (1, 1000, 4, 2, 64, False, 0),
+             (1, 1000, 8, 2, 64, True, 0), (3, 1, 4, 2, 64, False, 0)]
 
 
 @pytest.mark.gpu
@@ -1428,7 +1457,8 @@ def test_cuda_flash_attention_output_same_with_lse(cuda, B, S, H, KV, D,
     (1, 130, 4, 2, 128, True, 0), (1, 1000, 16, 8, 128, False, 0),
     (1, 1024, 16, 8, 128, True, 256), (2, 64, 4, 4, 64, False, 0),
     (1, 257, 4, 4, 128, True, 100), (1, 513, 8, 2, 128, True, 200),
-    (2, 300, 4, 1, 64, True, 0), (1, 200, 8, 2, 128, False, 70)])
+    (2, 300, 4, 1, 64, True, 0), (1, 200, 8, 2, 128, False, 70),
+    (1, 257, 8, 2, 64, True, 100), (2, 1000, 4, 4, 64, False, 0)])
 def test_cuda_flash_attention_backward_matches_autograd_of_plain(
         cuda, B, S, H, KV, D, causal, window):
     """``ops.flash_attention`` under autograd on the card (the forward and

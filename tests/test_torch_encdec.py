@@ -282,9 +282,11 @@ def test_serve_launcher_runs_whisper_reduced(capsys):
 
 
 # (B, S, T, H, KV, D): decoder tokens over encoder frames (more keys than
-# queries, fewer, one query as in decode), GQA 2, head dims 64 and 80
+# queries, fewer, one query as in decode), GQA 2, head dims 64 and 80, and
+# whisper-tiny's decode step (one query over its 1500 frames, 6 heads)
 CROSS_CASES = [(2, 19, 40, 4, 4, 64), (1, 33, 7, 2, 2, 32),
-               (2, 1, 50, 4, 2, 64), (1, 10, 129, 2, 1, 80)]
+               (2, 1, 50, 4, 2, 64), (1, 10, 129, 2, 1, 80),
+               (2, 1, 1500, 6, 6, 64)]
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,D", CROSS_CASES)

@@ -19,6 +19,13 @@ made by string replacement, for timing against the kernel as it is:
   permute, no conversion), the remainder rounded as before;
 - ``stages3``: a 3-stage K/V ring where it fits (D <= 128: 230,528 bytes
   of shared memory; MLA's 192 keeps 2);
+- ``d64_stages<N>``: an N-stage K/V ring at (64, 64) (32 KB a stage),
+  2 stages from 80 up;
+- ``pv_with_s``: at Dv = 64, PV of the tile before and S of this tile
+  issued under one wait (the kernel waits for PV before it issues S at
+  every width);
+- ``split16``: the split-key kernel with 8- and 16-query instances (the
+  kernel takes 4 at most), for ``tools/attn_times.py --split-cutoff``;
 - for timing only, with a wrong output, a part of each turn taken away:
   ``no_lo`` (PV without P's remainder: two products of a pair, not
   three), ``ex2_fma`` (each exponential an FMA and a max in place of the
@@ -33,6 +40,53 @@ from pathlib import Path
 
 SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
           "kernels" / "csrc" / "flash_attention.cu")
+
+# the layout's shared memory as the kernel has it, with the ring depth
+# kWsStages at every width
+SMEM = """\
+  static constexpr int kSmem =
+      (1 + kWsStages) * kQKTileBytes + kWsStages * kVTileBytes + 128 + 1024;"""
+
+# a consumer's turn as the kernel has it, PV waited for before S is
+# issued at every width, and with PV and S under one wait at Dv = 64
+PV_THEN_S = """\
+      issue_pv<Dv>(o, pa_hi, pa_lo, sV + sp * L::kVTileBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa_hi);
+      fence_regs(pa_lo);
+      if (has_pv) mbar_arrive(empty_v + 8 * sp);
+      wgmma_fence();
+      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kQKTileBytes : sQ);
+      wgmma_commit();
+      if (cw == 0 || has_s) named_arrive(their_turn, 2 * 128);
+      wgmma_wait_all();
+      fence_regs(s);
+"""
+PV_WITH_S = """\
+      issue_pv<Dv>(o, pa_hi, pa_lo, sV + sp * L::kVTileBytes);
+      if constexpr (Dv > 64) {
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o);
+        fence_regs(pa_hi);
+        fence_regs(pa_lo);
+        if (has_pv) mbar_arrive(empty_v + 8 * sp);
+        wgmma_fence();
+      }
+      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kQKTileBytes : sQ);
+      wgmma_commit();
+      if (cw == 0 || has_s) named_arrive(their_turn, 2 * 128);
+      wgmma_wait_all();
+      fence_regs(s);
+      if constexpr (Dv <= 64) {
+        fence_regs(o);
+        fence_regs(pa_hi);
+        fence_regs(pa_lo);
+        if (has_pv) mbar_arrive(empty_v + 8 * sp);
+      }
+"""
 
 # the block order's decode as the kernel has it
 GROUP = """\
@@ -61,13 +115,18 @@ PATCHES = {
       pa_hi[kk][r] = __byte_perm(x, y, 0x7632);
       pa_lo[kk][r] = pack_bf16(s[8 * kk + 2 * r] - __uint_as_float(x),
                                s[8 * kk + 2 * r + 1] - __uint_as_float(y));""")],
-    "stages3": [
-        ("""  static constexpr int kSmem =
-      (1 + kWsStages) * kQKTileBytes + kWsStages * kVTileBytes + 128 + 1024;""",
-         """  static constexpr int kStages = D > 128 ? 2 : 3;
-  static constexpr int kSmem =
-      (1 + kStages) * kQKTileBytes + kStages * kVTileBytes + 128 + 1024;"""),
-    ],
+    "pv_with_s": [(PV_THEN_S, PV_WITH_S)],
+    "split16": [
+        ("constexpr int kSplitMaxQueries = 4;",
+         "constexpr int kSplitMaxQueries = 16;"),
+        ("""  return S == 1   ? flash_attention_split_kernel<1>
+         : S == 2 ? flash_attention_split_kernel<2>
+                  : flash_attention_split_kernel<4>;""",
+         """  return S == 1   ? flash_attention_split_kernel<1>
+         : S == 2 ? flash_attention_split_kernel<2>
+         : S <= 4 ? flash_attention_split_kernel<4>
+         : S <= 8 ? flash_attention_split_kernel<8>
+                  : flash_attention_split_kernel<16>;""")],
     # for timing only (the output is wrong): which part of a turn holds the
     # kernel back, by taking it away
     "no_lo": [(
@@ -87,7 +146,21 @@ PATCHES = {
 
 
 def _apply(text: str, name: str) -> str:
-    if name.startswith("group"):
+    if name == "stages3" or name.startswith("d64_stages"):
+        depth = ("D > 128 ? 2 : 3" if name == "stages3" else
+                 f"D >= 80 ? 2 : {int(name[10:])}")
+        # the ring depth from the layout, in the kernels past its
+        # definition; the barriers (8 bytes each) in whole 128 bytes
+        pairs = [(SMEM, f"""\
+  static constexpr int kStages = {depth};
+  static constexpr int kSmem = (1 + kStages) * kQKTileBytes +
+      kStages * kVTileBytes + (8 * (1 + 4 * kStages) + 127) / 128 * 128 +
+      1024;""")]
+        head, tail = text.split("template <int D>\n__device__ __forceinline__ "
+                                "void issue_qk", 1)
+        text = (head + "template <int D>\n__device__ __forceinline__ void "
+                "issue_qk" + tail.replace("kWsStages", "L::kStages"))
+    elif name.startswith("group"):
         old = "constexpr int kWsGroup = 16;"
         pairs = [(old, f"constexpr int kWsGroup = {int(name[5:])};")]
     elif name.startswith("band"):
@@ -108,12 +181,6 @@ def _apply(text: str, name: str) -> str:
             raise ValueError(f"{SOURCE} no longer holds what variant {name} "
                              f"replaces:\n{old}")
         text = text.replace(old, new)
-    if name == "stages3":
-        # the kernel's ring depth from the layout, past its definition
-        head, tail = text.split("template <int D>\n__device__ __forceinline__ "
-                                "void issue_qk", 1)
-        text = (head + "template <int D>\n__device__ __forceinline__ void "
-                "issue_qk" + tail.replace("kWsStages", "L::kStages"))
     return text
 
 
