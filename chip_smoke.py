@@ -70,12 +70,21 @@ Phases, each printing its own lines and then its wall time (``time:
    H=KV=32) causal and with a 1024 window, S=129 causal, S=1000
    non-causal and a GQA case (H=8, KV=2), bf16 and fp32, and its prefill
    shape (B=4, 576 patches + 3,520 tokens = 4,096 positions, H=32) in
-   bf16.  Last, keys of their own length (``flash_attention_cross``: S
+   bf16.  Then nemotron-4-340b's head dims (192, 192)
+   (``flash_attention_d192``: in bf16 the TMA + wgmma kernel with K/V
+   tiles of 64 keys, q/k/v rows of three 128-byte boxes, QK^T as wgmma
+   m64n64k16 and PV as m64n192k16; in fp32 the FMA kernel) at its layer
+   (B=1, S=4096, H=96 over KV=8) causal and with a 1024 window, S=129
+   causal and S=1000 non-causal, bf16 and fp32, and its prefill shape
+   (B=4, S=8192) in bf16; and #4 at the prefill shapes of yi-34b (H=56)
+   and command-r-35b (H=64) over KV=8 at D = 128 (B=4, S=8192, bf16);
+   at these prefill shapes the plain version runs one batch row and at
+   most 32 heads (whole GQA groups) at a time.  Last, keys of their own length (``flash_attention_cross``: S
    queries over T keys, non-causal, whisper's cross-attention) at
    whisper-tiny's prefill (B=32, S=448, T=1500, H=6, D=64; the TMA +
    wgmma kernel in bf16), one decode token over 1500 frames at batch 8
    and one over 257 keys with GQA 4/2 (the split-key kernel in bf16), a
-   ragged case (S=100, T=257) and at D = 128, 80 and 96 on the TMA +
+   ragged case (S=100, T=257) and at D = 128, 80, 96 and 192 on the TMA +
    wgmma kernel, bf16 and fp32, the bf16 D = 64 cases also with the
    log-sum-exp; bound over the S x T pairs; ``library_ms`` SDPA.
 2c. slstm_scan against its plain version with R in bf16 and fp32: the
@@ -297,6 +306,28 @@ Phases, each printing its own lines and then its wall time (``time:
    #4 at 96 runs), 16 patches before 48 tokens, on the card against the
    host's plain versions (fp32 within 1e-3 and equal greedy tokens, bf16
    atol 0.15, rtol 0.05).
+4g. The dense model zoo in bf16 with params drawn on the card, each
+   model's params freed before the next is drawn.  (a) yi-34b (60 layers,
+   GQA 56 / 8 of 128, 34,388,917,248 params) and command-r-35b (40
+   layers, GQA 64 / 8 of 128, 32,380,690,432) at full width and depth:
+   ``make_prefill_step`` at B=4, S=8192 (exactly 60 / 40
+   ``flash_attention`` launches a call and no other attention; ms median
+   of 3, tokens/s, peak memory) and ``torch.profiler`` over one call
+   (busy share, device time by kind); decode against prefill logits at
+   every position of 1x64 tokens (atol 0.15, rtol 0.05); one decode
+   step's profile at batch 8; the serve launcher ``--arch <id>
+   --full-config`` (batch 8, 32 + 32 tokens;
+   decode tok/s, finite logits) with its peak memory held to
+   ``serve.peak_bytes``.  (b) nemotron-4-340b at full width (d_model
+   18,432, 96 heads over 8 of 192, d_ff 73,728, squared-ReLU) with its
+   depth cut to 2 of 96 layers (16,345,294,848 params): the prefill as in
+   (a) with exactly 2 ``flash_attention_d192`` launches a call, decode
+   against prefill; the launcher's ``--full-config`` refused before any
+   allocation.  (c) A reduced yi at a GQA group of 7 (d_model 448, 7
+   heads over 1, head dim 64) and a reduced nemotron at its head dim 192
+   (d_model 384, 2 heads over 1) on the card against the host's plain
+   versions (fp32 within 1e-3 and equal greedy tokens, bf16 atol 0.15,
+   rtol 0.05).
 5. The LLM training path (``launch/steps``, ``launch/h2fed_round``,
    ``launch/train``).  (a) The backward kernel of flash_attention
    (``csrc/flash_attention_bwd.cu``, given the forward's output and saved
@@ -333,7 +364,9 @@ Phases, each printing its own lines and then its wall time (``time:
    launches; #4's MLA variant at the deepseek prefill shape with phase
    4c's launches; #4 at head dim 80 at the zamba2 prefill shape with
    phase 4d's launches; #4 at head dim 96 at the phi-3-vision prefill
-   shape with phase 4f's launches; #4 with keys of their own length at
+   shape with phase 4f's launches; #4 at the yi-34b and command-r-35b
+   prefill shapes and at (192, 192) at the nemotron-4-340b prefill shape
+   with phase 4g's launches; #4 with keys of their own length at
    whisper's prefill shape with phase 4e's cross-attention launches),
    the card's line, and the result line.
 
@@ -347,8 +380,8 @@ device busy share a round, from the MLP's initial weights), and
 ``--stream`` phase 1 and phase 3t, ``--serve`` phase 1 and phase 3v, and
 ``--sharded`` phase 1 and phase 3h, ``--train`` phase 1 and phase 5,
 ``--moe`` phase 1 and phase 4c, ``--hybrid`` phase 1 and phase 4d,
-``--audio`` phase 1 and phase 4e, and ``--vision`` phase 1 and phase 4f;
-none of them prints a result line.
+``--audio`` phase 1 and phase 4e, ``--vision`` phase 1 and phase 4f, and
+``--dense`` phase 1 and phase 4g; none of them prints a result line.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -386,6 +419,8 @@ SOURCES = {"fused_agg_blend": "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_d96":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_d192":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_cross":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
@@ -408,6 +443,10 @@ REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             # attention computes with chunked_attention at head dim 96
             # (d_model 3072 over 32 heads), on the TMA + wgmma design
             "flash_attention_d96": "src/repro/kernels/flash_attention.py:93",
+            # the same Pallas kernel, whose function nemotron-4-340b's
+            # attention computes with chunked_attention at head dim 192
+            # for q, k and v (d_model 18432 over 96 heads)
+            "flash_attention_d192": "src/repro/kernels/flash_attention.py:93",
             # the same Pallas kernel's function with keys of their own
             # length: whisper's cross-attention, which the reference
             # computes with chunked_attention (src/repro/models/
@@ -449,17 +488,29 @@ HEAD_DIM_ATTN_CASES = (("layer", 1, 4096, 32, 32, True, 0),
                        ("s129", 1, 129, 32, 32, True, 0),
                        ("s1000", 1, 1000, 32, 32, False, 0),
                        ("gqa", 2, 1000, 8, 2, True, 0))
+# nemotron-4-340b's layer (96 heads over 8 of 192) and two ragged cases
+D192_ATTN_CASES = (("layer", 1, 4096, 96, 8, True, 0),
+                   ("layer_w1024", 1, 4096, 96, 8, True, 1024),
+                   ("s129", 1, 129, 96, 8, True, 0),
+                   ("s1000", 1, 1000, 96, 8, False, 0))
+HEAD_DIM_CASES = {80: HEAD_DIM_ATTN_CASES, 96: HEAD_DIM_ATTN_CASES,
+                  192: D192_ATTN_CASES}
 VLM_B, VLM_PATCHES, VLM_TOKENS = 4, 576, 3520   # 4,096 positions a row
-# (B, S) of each head dim's prefill: zamba2's, and phi-3-vision's 576
-# patches + 3,520 tokens
-HEAD_DIM_PREFILL = {80: (PREFILL_B, PREFILL_S),
-                    96: (VLM_B, VLM_PATCHES + VLM_TOKENS)}
+# (B, S, H, KV) of each head dim's prefill: zamba2's, phi-3-vision's 576
+# patches + 3,520 tokens, and nemotron-4-340b's
+HEAD_DIM_PREFILL = {80: (PREFILL_B, PREFILL_S, 32, 32),
+                    96: (VLM_B, VLM_PATCHES + VLM_TOKENS, 32, 32),
+                    192: (PREFILL_B, PREFILL_S, 96, 8)}
+# (entry, H, KV) of #4 at D = 128 at the dense models' prefill shapes
+# (B=4, S=8192): GQA groups of 7 and 8
+DENSE_PREFILL_HEADS = (("yi_prefill", 56, 8), ("command_r_prefill", 64, 8))
 # (name, B, S, T, H, KV, D): S queries over T keys, non-causal (whisper's
 # cross-attention): whisper-tiny's prefill (B=32 over its 448-token
 # decoder context, 1500 encoder frames, 6 heads of 64; the TMA + wgmma
 # kernel at (64, 64) in bf16), a decode step at the launcher's batch 8
 # and a ragged one over 257 keys with GQA (the split-key kernel), a
-# ragged case, and T != S on the TMA + wgmma kernel at 128, 80 and 96;
+# ragged case, and T != S on the TMA + wgmma kernel at 128, 80, 96 and
+# 192;
 # the D = 64 cases are held also with the log-sum-exp
 CROSS_ATTN_CASES = (("whisper_prefill", AUDIO_B, AUDIO_S, 1500, 6, 6, 64),
                     ("whisper_decode", 8, 1, 1500, 6, 6, 64),
@@ -467,7 +518,8 @@ CROSS_ATTN_CASES = (("whisper_prefill", AUDIO_B, AUDIO_S, 1500, 6, 6, 64),
                     ("cross_ragged", 2, 100, 257, 4, 2, 64),
                     ("cross_d128", 2, 300, 1000, 8, 4, 128),
                     ("cross_d80", 1, 200, 513, 4, 2, 80),
-                    ("cross_d96", 1, 70, 130, 4, 4, 96))
+                    ("cross_d96", 1, 70, 130, 4, 4, 96),
+                    ("cross_d192", 1, 300, 1000, 24, 2, 192))
 # (name, B, S, H, P, input scale): the JAX kernel tests' shapes, saturated
 # gates, and "layer", xlstm-125m's (d = 768)
 SLSTM_CASES = (("test_1", 1, 17, 2, 32, 1.0), ("test_2", 2, 100, 4, 64, 1.0),
@@ -480,14 +532,14 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
 FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "3h", "4",
-            "4b", "4c", "4d", "4e", "4f", "5", "6")
+            "4b", "4c", "4d", "4e", "4f", "4g", "5", "6")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
          "--sweep": ("1", "3s"), "--stream": ("1", "3t"),
          "--serve": ("1", "3v"), "--sharded": ("1", "3h"),
          "--train": ("1", "5"), "--moe": ("1", "4c"),
          "--hybrid": ("1", "4d"), "--audio": ("1", "4e"),
-         "--vision": ("1", "4f")}
+         "--vision": ("1", "4f"), "--dense": ("1", "4g")}
 
 
 def selected_phases(argv) -> tuple:
@@ -3297,6 +3349,8 @@ def attention_cases(dev):
     rows += mla_attention_cases(dev)
     rows += head_dim_attention_cases(dev, 80)
     rows += head_dim_attention_cases(dev, 96)
+    rows += head_dim_attention_cases(dev, 192)
+    rows += dense_prefill_attention_cases(dev)
     rows += cross_attention_cases(dev)
     return rows
 
@@ -3370,11 +3424,64 @@ def mla_attention_cases(dev):
     return rows
 
 
+def plain_in_chunks(q, k, v, max_heads: int = 32):
+    """The plain version (causal) one batch row and at most ``max_heads``
+    heads (whole GQA groups) at a time, so that its fp32 scores at S =
+    8192 stay under ~9 GB a chunk (nemotron-4-340b's 96 heads a row would
+    take 26 GB); at H <= 32 a chunk is a batch row."""
+    from repro_torch.kernels import ref
+    G = q.shape[2] // k.shape[2]
+    per = max(1, max_heads // G)          # KV heads a chunk
+    return torch.cat([torch.cat([ref.flash_attention_ref(
+        q[b:b + 1, :, j * G:(j + per) * G], k[b:b + 1, :, j:j + per],
+        v[b:b + 1, :, j:j + per]) for j in range(0, k.shape[2], per)],
+        dim=2) for b in range(q.shape[0])])
+
+
+def prefill_attention_row(dev, kernel, name, B, S, H, KV, D, seed=1):
+    """#4 at a prefill shape in bf16, causal: held to ``plain_in_chunks``
+    elementwise at ``TOL``, its time, bound, the plain version's time and
+    one SDPA call's; counted under ``kernel``."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, D, device=dev, generator=gen).to(
+        torch.bfloat16) for n in (H, KV, KV))
+    err = compare(fa.flash_attention(q, k, v), plain_in_chunks(q, k, v),
+                  torch.bfloat16, f"{kernel} {name}")
+    torch.cuda.empty_cache()
+    b_ms, b_by = attention_bound(B, S, H, KV, D, True, 0, torch.bfloat16)
+    r = {"kernel": kernel, "entry": name,
+         "kernel_route": fa.forward_route(torch.bfloat16, D, D, S, True, 0),
+         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "causal": True,
+                   "window": 0},
+         "dtype": "bfloat16", "max_abs_err": err,
+         "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=6, inner=2),
+         "plain_ms": cuda_ms(lambda: plain_in_chunks(q, k, v), reps=3,
+                             inner=1),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": cuda_ms(sdpa_call(q, k, v, True, 0), reps=5,
+                               inner=2)}
+    print("kernel " + json.dumps(r))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return r
+
+
+def dense_prefill_attention_cases(dev):
+    """Phase 2b: #4 at D = 128 at yi-34b's and command-r-35b's prefill
+    shapes (B=4, S=8192, GQA 56 / 8 and 64 / 8), what each of their
+    prefill launches computes."""
+    return [prefill_attention_row(dev, "flash_attention", name, PREFILL_B,
+                                  PREFILL_S, H, KV, 128)
+            for name, H, KV in DENSE_PREFILL_HEADS]
+
+
 def head_dim_attention_cases(dev, D: int):
-    """Phase 2b at head dim ``D`` (80: zamba2-2.7b, 96: phi-3-vision-4.2b),
-    counted as ``flash_attention_d{D}``: ``HEAD_DIM_ATTN_CASES`` in bf16
-    and fp32, then the dim's prefill shape (``HEAD_DIM_PREFILL``, H=KV=32,
-    causal) in bf16, the plain version one batch row at a time."""
+    """Phase 2b at head dim ``D`` (80: zamba2-2.7b, 96: phi-3-vision-4.2b,
+    192: nemotron-4-340b), counted as ``flash_attention_d{D}``: the dim's
+    ``HEAD_DIM_CASES`` in bf16 and fp32, then its prefill shape
+    (``HEAD_DIM_PREFILL``, causal) in bf16, the plain version in
+    ``plain_in_chunks``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -3399,7 +3506,7 @@ def head_dim_attention_cases(dev, D: int):
         return r
 
     rows = []
-    for name, B, S, H, KV, causal, window in HEAD_DIM_ATTN_CASES:
+    for name, B, S, H, KV, causal, window in HEAD_DIM_CASES[D]:
         name = f"d{D}_{name}"
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = inputs(B, S, H, KV, dtype, S + H)
@@ -3416,26 +3523,9 @@ def head_dim_attention_cases(dev, D: int):
                         inner=2)))
             del q, k, v
             torch.cuda.empty_cache()
-    (B, S), H = HEAD_DIM_PREFILL[D], 32
-    q, k, v = inputs(B, S, H, H, torch.bfloat16, 1)
-
-    def plain_by_row():
-        return torch.cat([ref.flash_attention_ref(q[b:b + 1], k[b:b + 1],
-                                                  v[b:b + 1])
-                          for b in range(B)])
-    got = fa.flash_attention(q, k, v)
-    err = max(compare(got[b:b + 1], ref.flash_attention_ref(
-        q[b:b + 1], k[b:b + 1], v[b:b + 1]), torch.bfloat16,
-        f"{kernel} prefill row {b}") for b in range(B))
-    del got
-    torch.cuda.empty_cache()
-    rows.append(row("prefill", B, S, H, H, True, 0, torch.bfloat16, err,
-                    cuda_ms(lambda: fa.flash_attention(q, k, v), reps=6,
-                            inner=2),
-                    cuda_ms(plain_by_row, reps=3, inner=1),
-                    cuda_ms(sdpa_call(q, k, v, True, 0), reps=5, inner=2)))
-    del q, k, v
-    torch.cuda.empty_cache()
+    B, S, H, KV = HEAD_DIM_PREFILL[D]
+    rows.append(prefill_attention_row(dev, kernel, "prefill", B, S, H, KV,
+                                      D))
     return rows
 
 
@@ -3593,7 +3683,7 @@ def serving_path(dev):
     from repro_torch.configs.registry import get_config, get_reduced_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as M
     from repro_torch import tree
 
@@ -3678,21 +3768,7 @@ def serving_path(dev):
     del full, cache, outs
 
     # where a decode step's time goes: batch 8, as the serve launcher
-    B, n = 8, 8
-    step = make_serve_step(cfg, device=dev)
-    cache = M.init_cache(cfg, B, 2 * n, device=dev)
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
-    pos = [0]
-
-    def decode_once():
-        nonlocal cache
-        _, cache = step(params, cache, tok, torch.full(
-            (B,), pos[0], dtype=torch.int32, device=dev))
-        pos[0] += 1
-    decode_once()
-    print_profile(f"decode step, batch {B}", n, *device_profile(decode_once,
-                                                                 n))
-    del cache
+    decode_step_profile(dev, cfg, params, gen, "decode step")
 
     # one prefill with a 1024 window at S=4096
     wcfg = cfg.replace(attn_window=1024)
@@ -3935,6 +4011,27 @@ def reduced_card_vs_host(dev, tag, arch, rcfg, counted, seq: int = 48,
                   f"decode logits max abs diff {err:.3e}")
 
 
+def decode_step_profile(dev, cfg, params, gen, what: str, n: int = 8):
+    """Where a decode step's time goes at batch 8, as the serve launcher
+    decodes: one warm-up step from a fresh cache, then ``n`` steps under
+    ``torch.profiler``."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model as M
+    B = 8
+    step = make_serve_step(cfg, device=dev)
+    cache = M.init_cache(cfg, B, 2 * n, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
+    pos = [0]
+
+    def decode_once():
+        nonlocal cache
+        _, cache = step(params, cache, tok, torch.full(
+            (B,), pos[0], dtype=torch.int32, device=dev))
+        pos[0] += 1
+    decode_once()
+    print_profile(f"{what}, batch {B}", n, *device_profile(decode_once, n))
+
+
 def kernel_kind(name: str) -> str:
     """A kernel's kind by its name, for a device-time breakdown."""
     low = name.lower()
@@ -3965,9 +4062,10 @@ def print_kinds(what: str, prof) -> None:
         for kind, v in sorted(shares.items(), key=lambda kv: -kv[1])))
 
 
-def _full_params(dev, cfg, tag):
+def _full_params(dev, cfg, tag, depth="full width and depth"):
     """``cfg``'s params drawn on the card from seed 0, held to
-    ``count_params_analytic``: (params, their bytes)."""
+    ``count_params_analytic``: (params, their bytes); ``depth`` says how
+    the config was cut, for the printed line."""
     from repro_torch import tree
     from repro_torch.models import model as M
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3980,7 +4078,7 @@ def _full_params(dev, cfg, tag):
     if n_params != M.count_params_analytic(cfg):
         raise AssertionError(f"{cfg.name}: {n_params} params drawn, "
                              f"{M.count_params_analytic(cfg)} counted")
-    print(f"{tag}: {cfg.name} full width and depth, {n_params} params "
+    print(f"{tag}: {cfg.name} {depth}, {n_params} params "
           f"({w_bytes / 1e9:.2f} GB, {cfg.param_dtype}; attention head dim "
           f"{cfg.head_dim_}), drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s, peak "
@@ -4040,7 +4138,7 @@ def moe_serving(dev):
     from repro_torch.configs.registry import get_config, get_reduced_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as M
 
     cfg = get_config(MOE_ARCH)
@@ -4082,21 +4180,8 @@ def moe_serving(dev):
     del full, cache, outs
 
     # where a decode step's time goes: batch 8, as the serve launcher
-    B, n = 8, 8
-    step = make_serve_step(cfg, device=dev)
-    cache = M.init_cache(cfg, B, 2 * n, device=dev)
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
-    pos = [0]
-
-    def decode_once():
-        nonlocal cache
-        _, cache = step(params, cache, tok, torch.full(
-            (B,), pos[0], dtype=torch.int32, device=dev))
-        pos[0] += 1
-    decode_once()
-    print_profile(f"{MOE_ARCH} decode step, batch {B}", n,
-                  *device_profile(decode_once, n))
-    del cache, params
+    decode_step_profile(dev, cfg, params, gen, f"{MOE_ARCH} decode step")
+    del params
     torch.cuda.empty_cache()
 
     # the serve launcher at its defaults, full width (its own params)
@@ -4162,7 +4247,7 @@ def hybrid_serving(dev):
     from repro_torch.configs.registry import get_config, get_reduced_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as M
 
     cfg = get_config(HYBRID_ARCH)
@@ -4201,21 +4286,8 @@ def hybrid_serving(dev):
     del dec, full
 
     # (c) where a decode step's time goes: batch 8, as the serve launcher
-    B, n = 8, 8
-    step = make_serve_step(cfg, device=dev)
-    cache = M.init_cache(cfg, B, 2 * n, device=dev)
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, generator=gen)
-    pos = [0]
-
-    def decode_once():
-        nonlocal cache
-        _, cache = step(params, cache, tok, torch.full(
-            (B,), pos[0], dtype=torch.int32, device=dev))
-        pos[0] += 1
-    decode_once()
-    print_profile(f"{HYBRID_ARCH} decode step, batch {B}", n,
-                  *device_profile(decode_once, n))
-    del cache, params
+    decode_step_profile(dev, cfg, params, gen, f"{HYBRID_ARCH} decode step")
+    del params
     torch.cuda.empty_cache()
 
     # (d) the serve launcher at its defaults, full width (its own params)
@@ -4423,6 +4495,106 @@ def vision_serving(dev):
     reduced_card_vs_host(dev, "vision", VISION_ARCH, rcfg,
                          {"flash_attention_d96": rcfg.n_layers},
                          extra={"patch_embeds": patches})
+    return counts
+
+
+# -- phase 4g: the dense model zoo (yi-34b, command-r-35b, nemotron-4-340b) -
+
+DENSE_ARCHS = ("yi-34b", "command-r-35b")
+NEMOTRON_ARCH, NEMOTRON_LAYERS = "nemotron-4-340b", 2
+
+
+def dense_serving(dev):
+    """Phase 4g; returns the #4 launches of the counted prefill calls, by
+    arch: {arch: {launch key: launches}}."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.config import reduced
+
+    counts = {}
+    s = 64
+    # (a) yi-34b and command-r-35b at full width and depth, (b) nemotron at
+    # full width, 2 of its 96 layers: each drawn, its prefill counted and
+    # timed, decode held to prefill, its params freed before the next
+    for arch in (*DENSE_ARCHS, NEMOTRON_ARCH):
+        cut = arch == NEMOTRON_ARCH
+        cfg = get_config(arch)
+        if cut:
+            cfg = cfg.replace(n_layers=NEMOTRON_LAYERS)
+        params, w_bytes = _full_params(
+            dev, cfg, "dense", f"full width, {cfg.n_layers} of "
+            f"{get_config(arch).n_layers} layers" if cut else
+            "full width and depth")
+        key = ("flash_attention_d192" if cfg.head_dim_ == 192
+               else "flash_attention")
+        gen = torch.Generator(device=dev).manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                               device=dev, generator=gen)
+        c = _counted_prefill(
+            dev, "dense", cfg, make_prefill_step(cfg, device=dev), params,
+            {"tokens": tokens}, {key: cfg.n_layers}, w_bytes,
+            PREFILL_B * PREFILL_S)
+        counts[arch] = {key: c[key]}
+        del tokens
+        torch.cuda.empty_cache()
+
+        toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                             generator=gen)
+        err = _logits_check(*_decode_vs_prefill(cfg, params, toks, dev),
+                            f"{arch} decode vs prefill", 0.15, 0.05)
+        print(f"dense: {arch} decode vs prefill logits, 1x{s} tokens, "
+              f"bf16: max abs diff {err:.4f} (limit 0.15 + 0.05|logit|)")
+        decode_step_profile(dev, cfg, params, gen, f"{arch} decode step")
+        del params
+        torch.cuda.empty_cache()
+
+        # the serve launcher at its defaults (batch 8, 32 + 32 tokens),
+        # its own params; its peak held to the reckoning it refuses by
+        full = get_config(arch)
+        argv = ["--arch", arch, "--full-config"]
+        base = torch.cuda.memory_allocated(dev)
+        if cut:
+            try:
+                serve.main(argv)
+            except ValueError as e:
+                print(f"dense: serve launcher {' '.join(argv)} refused: {e}")
+            else:
+                raise AssertionError(f"{arch} --full-config was not refused")
+            if torch.cuda.memory_allocated(dev) != base:
+                raise AssertionError(f"{arch}: the refusal allocated")
+            continue
+        need = serve.peak_bytes(full, 8, 64)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        res = serve.main(argv)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        print(f"dense: serve launcher {' '.join(argv)}: decode "
+              f"{res['tok_per_s']:.1f} tok/s, peak {peak / 1e9:.2f} GB "
+              f"(reckoned {need['total'] / 1e9:.2f}: params "
+              f"{need['params'] / 1e9:.2f}, cache {need['cache'] / 1e9:.3f}, "
+              f"transient {need['transient'] / 1e9:.2f}), launches "
+              f"{ops.launch_counts()}")
+        if not torch.isfinite(res["logits"]).all():
+            raise AssertionError(f"{arch} serve: non-finite logits")
+        if peak > need["total"]:
+            raise AssertionError(f"{arch} serve: peak {peak} bytes over the "
+                                 f"reckoned {need['total']}")
+        del res
+        torch.cuda.empty_cache()
+
+    # (c) reduced configs on the card against the host: yi at a GQA group
+    # of 7 (head dim 64), nemotron at its head dim 192 (squared-ReLU)
+    rcfg = reduced(get_config("yi-34b"), d_model=448, n_heads=7,
+                   n_kv_heads=1)
+    reduced_card_vs_host(dev, "dense", "yi-34b", rcfg,
+                         {"flash_attention": rcfg.n_layers})
+    rcfg = reduced(get_config(NEMOTRON_ARCH), d_model=384, n_heads=2,
+                   n_kv_heads=1)
+    reduced_card_vs_host(dev, "dense", NEMOTRON_ARCH, rcfg,
+                         {"flash_attention_d192": rcfg.n_layers})
     return counts
 
 
@@ -4850,6 +5022,8 @@ def main(argv=None) -> int:
             run_phase(audio_serving, dev)
         if "4f" in phases:
             run_phase(vision_serving, dev)
+        if "4g" in phases:
+            run_phase(dense_serving, dev)
         if "5" in phases:
             run_phase(train_path, dev)
         return 0
@@ -4866,6 +5040,7 @@ def main(argv=None) -> int:
     d80_launches = run_phase(hybrid_serving, dev)
     audio_counts, audio_step_counts = run_phase(audio_serving, dev)
     vision_counts = run_phase(vision_serving, dev)
+    dense_counts = run_phase(dense_serving, dev)
     train_rows, train_counts = run_phase(train_path, dev)
 
     def pick(kernel, entry):
@@ -5025,6 +5200,25 @@ def main(argv=None) -> int:
         **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "shape", "dtype")},
         "entry": "prefill"})
+    # #4 at yi-34b's and command-r-35b's prefill shapes (D = 128, GQA 7
+    # and 8), as each of their prefill launches (phase 4g), and at (192,
+    # 192) at nemotron-4-340b's (phase 4g, 2 of its 96 layers)
+    for kernel, entry, arch in (
+            ("flash_attention", "yi_prefill", "yi-34b"),
+            ("flash_attention", "command_r_prefill", "command-r-35b"),
+            ("flash_attention_d192", "prefill", NEMOTRON_ARCH)):
+        r = next(x for x in attn_rows if x["kernel"] == kernel
+                 and x["entry"] == entry)
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel],
+            "launches": dense_counts[arch][kernel],
+            "max_abs_err": max(x["max_abs_err"] for x in attn_rows
+                               if x["kernel"] == kernel),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape", "dtype",
+                                 "kernel_route")},
+            "entry": entry})
     # whisper's decoder self-attention (D = 64, the TMA + wgmma kernel) at
     # its prefill shape (B=32, S=448), as each of its self-attention
     # launches (phase 4e)

@@ -1,6 +1,5 @@
-"""Architecture registry: ``--arch <id>`` -> ArchConfig, for the archs the
-port runs.  The other ids of the JAX package's registry raise
-``NotImplementedError``: their models are still to port."""
+"""Architecture registry: ``--arch <id>`` -> ArchConfig, the JAX package's
+ten ids, each with its config copied field for field."""
 from __future__ import annotations
 
 import importlib
@@ -16,19 +15,15 @@ _MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "whisper-tiny": "whisper_tiny",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "yi-34b": "yi_34b",
+    "command-r-35b": "command_r_35b",
+    "nemotron-4-340b": "nemotron_4_340b",
 }
-
-# ids the JAX package knows and the port does not run yet
-UNPORTED = ("command-r-35b", "yi-34b", "nemotron-4-340b")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to PyTorch yet (ROADMAP queue 1, "
-            f"the model zoo); ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
@@ -41,6 +36,4 @@ def get_reduced_config(arch_id: str, **kw) -> ArchConfig:
 
 
 def all_configs() -> Dict[str, ArchConfig]:
-    """Every ported arch's config, by id; the ``UNPORTED`` ids, which the
-    JAX package's ``all_configs`` also returns, are left out."""
     return {a: get_config(a) for a in ARCH_IDS}

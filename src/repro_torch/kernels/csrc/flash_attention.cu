@@ -13,11 +13,12 @@
 // loads and tensor maps are on T.  Scores, the running (max, sum) and the
 // output accumulator are fp32; bf16 or fp32 inputs; (D, Dv) is (32, 32),
 // (64, 64), zamba2-2.7b's (80, 80) (d_model 2560 over 32 heads),
-// phi-3-vision's (96, 96) (d_model 3072 over 32 heads), (128, 128) or
-// MLA's (192, 128) (a template per pair): MLA's prefill folds 64 RoPE dims
-// into q and k (128 + 64) and keeps v at 128, where the reference pads v
-// with zeros to 192 for its shared kernel and so spends a third of the PV
-// products and output bytes on zeros.
+// phi-3-vision's (96, 96) (d_model 3072 over 32 heads), (128, 128), MLA's
+// (192, 128) or nemotron-4-340b's (192, 192) (d_model 18432 over 96 heads)
+// (a template per pair): MLA's prefill folds 64 RoPE dims into q and k
+// (128 + 64) and keeps v at 128, where the reference pads v with zeros to
+// 192 for its shared kernel and so spends a third of the PV products and
+// output bytes on zeros.
 //
 // Replaces the Pallas kernel flash_attention (body _attn_kernel) of
 // src/repro/kernels/flash_attention.py.  As there, the running (m, l, acc)
@@ -47,25 +48,29 @@
 // - bf16 at (D, Dv) = (128, 128) (the serving path, qwen3-0.6b), MLA's
 //   (192, 128) (deepseek-v2-lite's prefill), (80, 80) (zamba2-2.7b's
 //   shared attention block, d_model 2560 over 32 heads), (96, 96)
-//   (phi-3-vision-4.2b, d_model 3072 over 32 heads) and (64, 64)
-//   (whisper-tiny's self- and cross-attention, the reduced configs), one
-//   template on (D, Dv): Hopper's shape of a fast kernel.  One block of
-//   three warpgroups per (b, h, 128-row query tile): a producer warpgroup
-//   whose one elected thread issues TMA copies of Q and of 128-key K/V
-//   tiles into a 2-stage ring guarded by mbarriers, and two consumer
-//   warpgroups (64 query rows each, registers raised to 240 with
-//   setmaxnreg) that run QK^T as wgmma.mma_async m64n128k16 and PV as
-//   m64n<Dv>k16, with the online softmax on the fp32 accumulator in
-//   registers.  A Q or K row is ceil(D / 64) 128-byte swizzled boxes (one
-//   at 64, so S = QK^T is 4 k-steps; three at 192, 12 k-steps; two at 80,
-//   the second zero past column 16, so 5 k-steps; two at 96, the second
-//   zero past column 32, so 6 k-steps), a V row ceil(Dv / 64).  At 192 a
+//   (phi-3-vision-4.2b, d_model 3072 over 32 heads), (64, 64)
+//   (whisper-tiny's self- and cross-attention, the reduced configs) and
+//   (192, 192) (nemotron-4-340b), one template on (D, Dv): Hopper's shape
+//   of a fast kernel.  One block of three warpgroups per (b, h, 128-row
+//   query tile): a producer warpgroup whose one elected thread issues TMA
+//   copies of Q and of K/V tiles of BK keys into a 2-stage ring guarded by
+//   mbarriers, and two consumer warpgroups (64 query rows each, registers
+//   raised to 240 with setmaxnreg) that run QK^T as wgmma.mma_async
+//   m64n<BK>k16 and PV as m64n<Dv>k16, with the online softmax on the
+//   fp32 accumulator in registers.  A Q or K row is ceil(D / 64) 128-byte
+//   swizzled boxes (one at 64, so S = QK^T is 4 k-steps; three at 192, 12
+//   k-steps; two at 80, the second zero past column 16, so 5 k-steps; two
+//   at 96, the second zero past column 32, so 6 k-steps), a V row
+//   ceil(Dv / 64).  BK is 128, and 64 at (192, 192), where a ring of
+//   128-key tiles would pass a block's shared memory.  At (192, 128) a
 //   block takes 214,144 bytes of shared memory (Q 48 KB, K 2 x 48, V 2 x
-//   32), at 128, 96 and 80 164,992, at 64 82,944 (Q 16 KB, K and V 2 x 16
-//   each), one block an SM; a consumer thread holds Dv / 2 fp32 of O (64,
-//   48 at 96, 40 at 80, 32 at 64), 64 of S and 64 registers of P's bf16 hi
-//   and lo parts.  The blocks run in groups of 16 (b, h) pairs, so that
-//   those in flight share K/V through the L2.
+//   32), at (192, 192) 148,608 (Q 48 KB, K and V 2 x 24 each), at 128, 96
+//   and 80 164,992, at 64 82,944 (Q 16 KB, K and V 2 x 16 each), one
+//   block an SM; a consumer thread holds Dv / 2 fp32 of O (96 at 192, 64,
+//   48 at 96, 40 at 80, 32 at 64), BK / 2 of S and BK / 2 registers of P's
+//   bf16 hi and lo parts (S and P are not live at once: 160 at (192, 192)
+//   as at (192, 128)).  The blocks run in groups of 16 (b, h) pairs, so
+//   that those in flight share K/V through the L2.
 // - bf16 at D = Dv = 64 with at most 4 non-causal queries over many keys
 //   (whisper-tiny's decode step: one query over 1500 encoder frames, 48
 //   (b, h) pairs at batch 8): split keys.  The keys of each (b, h) are cut
@@ -123,6 +128,7 @@ using repro::wgmma_commit;
 using repro::wgmma_fence;
 using repro::wgmma_rs;
 using repro::wgmma_ss;
+using repro::wgmma_ss64;
 using repro::wgmma_wait_all;
 
 constexpr int kThreads = 128;  // 4 warps: the mma.sync, split, FMA kernels
@@ -380,33 +386,35 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------------------
 // bf16, (D, Dv) = (128, 128), MLA's (192, 128), zamba2's (80, 80),
-// phi-3-vision's (96, 96) or whisper's (64, 64): TMA ring, wgmma,
-// warp-specialised
+// phi-3-vision's (96, 96), whisper's (64, 64) or nemotron-4-340b's (192,
+// 192): TMA ring, wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 //
 // One block of three warpgroups per (b, h, 128-row query tile).  Warpgroup 0
 // is the producer: it gives up registers (setmaxnreg) and one of its
-// threads issues every copy.  Q arrives once; K and V tiles of 128 keys
-// stream through a ring of kWsStages stages, each operand of each stage
-// guarded by a "full" mbarrier (the TMA's transaction bytes) and an
-// "empty" one that the 256 consumer threads arrive on once they are done
-// with it.  Warpgroups 1 and 2 are consumers, 64 query rows each: S = Q K^T
-// is a wgmma with both operands in shared memory, the online softmax runs
-// on the fp32 accumulator in registers, and O += P V is a wgmma with P
-// taken from registers (hi and lo bf16 parts, as in the mma.sync kernel)
-// and V read key-major (the MN-major B operand).  The consumers take turns
-// to issue their products, so that one's softmax runs under the other's
-// products.  Every tile is made of 128-row boxes of 128-byte rows (64 bf16
-// columns) written by the TMA with the 128-byte swizzle, which is the
-// layout the wgmma descriptors name: a Q or K row of D values is
-// ceil(D / 64) boxes (one at 64, two at 80, 96 or 128, three at 192), a V row
-// ceil(Dv / 64); query rows past S, key rows past T, and columns past the
-// row's width (80 to 127 of an 80-wide row's second box, 96 to 127 of a
-// 96-wide one's), are zero-filled by the TMA.  Tensor maps are 4-D over
-// (width, rows, heads, B), rows S for q and T for k and v, with q/k/v's
-// own strides, so views are read in place.  The softmax and the consumers' turns are the same at
-// every width; PV is wgmma m64n<Dv>k16, and a consumer holds Dv / 2 fp32 of
-// O beside 64 of S and 64 registers of P's hi and lo parts.
+// threads issues every copy.  Q arrives once; K and V tiles of BK keys
+// (WsLayout: 128, or 64 at (192, 192)) stream through a ring of
+// kWsStages stages, each operand of each stage guarded by a "full"
+// mbarrier (the TMA's transaction bytes) and an "empty" one that the 256
+// consumer threads arrive on once they are done with it.  Warpgroups 1
+// and 2 are consumers, 64 query rows each: S = Q K^T is a wgmma with both
+// operands in shared memory, the online softmax runs on the fp32
+// accumulator in registers, and O += P V is a wgmma with P taken from
+// registers (hi and lo bf16 parts, as in the mma.sync kernel) and V read
+// key-major (the MN-major B operand).  The consumers take turns to issue
+// their products, so that one's softmax runs under the other's products.
+// Every tile is made of boxes of 128 rows (Q) or BK rows (K, V) of
+// 128-byte rows (64 bf16 columns) written by the TMA with the 128-byte
+// swizzle, which is the layout the wgmma descriptors name: a Q or K row of
+// D values is ceil(D / 64) boxes (one at 64, two at 80, 96 or 128, three
+// at 192), a V row ceil(Dv / 64); query rows past S, key rows past T, and
+// columns past the row's width (80 to 127 of an 80-wide row's second box,
+// 96 to 127 of a 96-wide one's), are zero-filled by the TMA.  Tensor maps
+// are 4-D over (width, rows, heads, B), rows S for q and T for k and v,
+// with q/k/v's own strides, so views are read in place.  The softmax and
+// the consumers' turns are the same at every width; PV is wgmma
+// m64n<Dv>k16, and a consumer holds Dv / 2 fp32 of O beside BK / 2 of S
+// or BK / 2 registers of P's hi and lo parts.
 //
 // Block order: groups of kWsGroup (b, h) pairs, the group slowest; in a
 // group, the query tiles longest first, and for each tile the group's
@@ -421,63 +429,85 @@ __global__ void __launch_bounds__(kThreads, 1)
 // some 10.9 GB a call.
 
 constexpr int kWsBQ = 128;          // query rows a block, 64 a consumer
-constexpr int kWsBK = 128;          // keys a KV tile
 constexpr int kWsStages = 2;        // depth of the K/V ring
 constexpr int kWsConsumers = 2;     // consumer warpgroups
 constexpr int kWsGroup = 16;        // (b, h) pairs a group of the block order
 constexpr int kWsThreads = 128 * (1 + kWsConsumers);
 constexpr int kBoxCols = 64;        // bf16 in a 128-byte swizzled row
-constexpr uint32_t kBoxBytes = kWsBK * 128;     // one 128-row box
-static_assert(kWsBQ == kWsBK, "Q and K/V tiles share one box height");
+constexpr uint32_t kQBoxBytes = kWsBQ * 128;    // one box of Q, 128 rows
+constexpr int kMaxSmem = 232448;    // shared memory a block may take
 
-// Shared memory at head dims (D, Dv): Q and each K stage are ceil(D / 64)
-// boxes, each V stage ceil(Dv / 64); then the barriers, and room to align
-// to 1 KB.  At (192, 128) that is 48 + 2 x 48 + 2 x 32 KB, 214,144 bytes
-// with the rest (one block an SM, under the 232,448 a block may take); at
+// Shared memory at head dims (D, Dv): Q is ceil(D / 64) boxes of 128 rows,
+// each K stage ceil(D / 64) boxes and each V stage ceil(Dv / 64) boxes of
+// kBK rows (the keys of a K/V tile); then the barriers, and room to align
+// to 1 KB.  kBK is 128 where that fits a block, else 64: at (192, 128) 48
+// + 2 x 48 + 2 x 32 KB, 214,144 bytes with the rest (one block an SM); at
 // (128, 128), (96, 96) and (80, 80), 164,992; at (64, 64), 16 + 2 x 16 +
-// 2 x 16 KB, 82,944.  A deeper ring at 64, where a stage is 32 KB, ran no
-// faster on the H100 (3 stages within 0-2.7% of 2, 2 ahead in 7-14 of 20
-// reps in turns, 4 behind 3; tools/attn_ab.py, PERF.md).
+// 2 x 16 KB, 82,944; at nemotron-4-340b's (192, 192) 128 keys would take
+// 48 + 2 x 48 + 2 x 48 KB, 246,912, so its tiles hold 64 keys: 48 + 2 x
+// 24 + 2 x 24 KB, 148,608.  A deeper ring at 64, where a stage is 32 KB,
+// ran no faster on the H100 (3 stages within 0-2.7% of 2, 2 ahead in 7-14
+// of 20 reps in turns, 4 behind 3; tools/attn_ab.py, PERF.md).
+__host__ __device__ constexpr int ws_smem(int boxes, int v_boxes, int bk) {
+  return boxes * kQBoxBytes + kWsStages * (boxes + v_boxes) * bk * 128 +
+         128 + 1024;
+}
+
 template <int D, int Dv>
 struct WsLayout {
   static_assert(D % 16 == 0 && Dv % 16 == 0, "whole k-steps and n-blocks");
   static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
   static constexpr int kVBoxes = (Dv + kBoxCols - 1) / kBoxCols;
-  static constexpr uint32_t kQKTileBytes = kBoxes * kBoxBytes;
-  static constexpr uint32_t kVTileBytes = kVBoxes * kBoxBytes;
-  static constexpr int kSmem =
-      (1 + kWsStages) * kQKTileBytes + kWsStages * kVTileBytes + 128 + 1024;
+  static constexpr int kBK =
+      ws_smem(kBoxes, kVBoxes, 128) <= kMaxSmem ? 128 : 64;
+  static constexpr uint32_t kKVBoxBytes = kBK * 128;  // one box of K or V
+  static constexpr uint32_t kQTileBytes = kBoxes * kQBoxBytes;
+  static constexpr uint32_t kKTileBytes = kBoxes * kKVBoxBytes;
+  static constexpr uint32_t kVTileBytes = kVBoxes * kKVBoxBytes;
+  static constexpr int kSmem = ws_smem(kBoxes, kVBoxes, kBK);
+  static_assert(kSmem <= kMaxSmem, "one block's shared memory");
 };
 
-// S = Q K^T for 64 rows x 128 keys: D / 16 k-steps of 16; step ks lies in
-// box ks / 4, 32 bytes a step along its 128-byte rows (at D = 64, 4 steps
-// in box 0; at D = 96, 6 steps,
-// the last two in box 1, whose columns past 32 are zeros no step reads;
-// at D = 80, 5 steps, the last at the start of box 1, whose columns past
-// 16 are zeros no step reads; at D = 192, 12 steps over three boxes).
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows,
+// S = Q K^T for 64 rows x BK keys (BK = 128: wgmma m64n128k16; 64:
+// m64n64k16): D / 16 k-steps of 16; step ks lies in box ks / 4 of Q and
+// of K, 32 bytes a step along its 128-byte rows (at D = 64, 4 steps in
+// box 0; at D = 96, 6 steps, the last two in box 1, whose columns past 32
+// are zeros no step reads; at D = 80, 5 steps, the last at the start of
+// box 1, whose columns past 16 are zeros no step reads; at D = 192, 12
+// steps over three boxes).
+template <int D, int NS>
+__device__ __forceinline__ void issue_qk(float (&s)[NS], uint32_t q_rows,
                                          uint32_t k_tile) {
+  constexpr int BK = 2 * NS;   // the accumulator holds BK / 2 a thread
+  static_assert(BK == 128 || BK == 64, "a K tile of 128 or 64 keys");
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
-    const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
-    wgmma_ss(s, smem_desc(q_rows + off, 16, 1024),
-             smem_desc(k_tile + off, 16, 1024), ks > 0);
+    const uint32_t col = (ks % 4) * 32;
+    const uint64_t qd = smem_desc(q_rows + (ks / 4) * kQBoxBytes + col, 16,
+                                  1024);
+    const uint64_t kd = smem_desc(k_tile + (ks / 4) * (BK * 128) + col, 16,
+                                  1024);
+    if constexpr (BK == 128) {
+      wgmma_ss(s, qd, kd, ks > 0);
+    } else {
+      wgmma_ss64<0, 0>(s, qd, kd, ks > 0);
+    }
   }
 }
 
 // O += P V for 64 rows: P as hi + lo A fragments (one set of 4 registers
-// per 16 keys), V rows are keys (the k of this product), Dv contiguous in
-// 64-column boxes kBoxBytes apart (the descriptor's leading offset, unused
-// at Dv = 64).
-template <int Dv>
+// per 16 keys, NK sets for a tile of 16 NK keys), V rows are keys (the k
+// of this product), Dv contiguous in 64-column boxes 16 NK x 128 bytes
+// apart (the descriptor's leading offset, unused at Dv = 64).
+template <int Dv, int NK>
 __device__ __forceinline__ void issue_pv(float (&o)[Dv / 2],
-                                         const uint32_t (&pa_hi)[8][4],
-                                         const uint32_t (&pa_lo)[8][4],
+                                         const uint32_t (&pa_hi)[NK][4],
+                                         const uint32_t (&pa_lo)[NK][4],
                                          uint32_t v_tile) {
 #pragma unroll
-  for (int kk = 0; kk < kWsBK / 16; ++kk) {
-    const uint64_t vd = smem_desc(v_tile + kk * 16 * 128, kBoxBytes, 1024);
+  for (int kk = 0; kk < NK; ++kk) {
+    const uint64_t vd = smem_desc(v_tile + kk * 16 * 128, NK * 16 * 128,
+                                  1024);
     wgmma_rs(o, pa_hi[kk], vd);
     wgmma_rs(o, pa_lo[kk], vd);
   }
@@ -485,11 +515,12 @@ __device__ __forceinline__ void issue_pv(float (&o)[Dv / 2],
 
 // The online softmax of one score tile in place, on the wgmma accumulator:
 // s[4n + e] is row row0 + 8(e/2), key k0 + 8n + 2 tig + (e%2), and a row's
-// 128 keys lie in one quad.  s becomes the fp32 probabilities, (m, l) move
+// 2 NS keys lie in one quad.  s becomes the fp32 probabilities, (m, l) move
 // on, and alpha is the factor for O.  Masked scores become -inf without a
 // branch per score (with one, the kernel ran markedly slower on the H100);
 // the max is taken on the raw scores (the scale is positive).
-__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
+template <int NS>
+__device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2],
                                                float (&l)[2], float (&alpha)[2],
                                                const Params& p, bool masked,
                                                int row0, int base) {
@@ -501,7 +532,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
       const int last = (p.causal ? min(row, p.T - 1) : p.T - 1) - base;
       const int first = (p.window > 0 ? row - p.window + 1 : 0) - base;
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < NS / 4; ++n) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int key = 8 * n + c;
@@ -512,7 +543,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int n = 0; n < 64; ++n) mx[(n >> 1) & 1] = fmaxf(mx[(n >> 1) & 1], s[n]);
+  for (int n = 0; n < NS; ++n) mx[(n >> 1) & 1] = fmaxf(mx[(n >> 1) & 1], s[n]);
   float m_use[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -525,7 +556,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int n = 0; n < 64; ++n) {
+  for (int n = 0; n < NS; ++n) {
     const float pe = ex2(fmaf(s[n], p.scale_log2, -m_use[(n >> 1) & 1]));
     s[n] = pe;
     l[(n >> 1) & 1] += pe;
@@ -534,18 +565,18 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
 
 // O *= alpha (skipped when no row of the warp moved its max), then P as A
 // fragments, each p split into a bf16 high part and a bf16 remainder.
-template <int N>
+template <int N, int NK>
 __device__ __forceinline__ void rescale_and_split(float (&o)[N],
                                                   const float (&alpha)[2],
-                                                  const float (&s)[64],
-                                                  uint32_t (&pa_hi)[8][4],
-                                                  uint32_t (&pa_lo)[8][4]) {
+                                                  const float (&s)[8 * NK],
+                                                  uint32_t (&pa_hi)[NK][4],
+                                                  uint32_t (&pa_lo)[NK][4]) {
   if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
     for (int n = 0; n < N; ++n) o[n] *= alpha[(n >> 1) & 1];
   }
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < NK; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pa_hi[kk][r],
@@ -564,10 +595,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                                    const __grid_constant__ CUtensorMap tv,
                                    Params p, int B) {
   using L = WsLayout<D, Dv>;
+  constexpr int BK = L::kBK;             // keys a K/V tile
   extern __shared__ __align__(16) unsigned char smem_ws[];
   const uint32_t sQ = (smem_addr(smem_ws) + 1023u) & ~1023u;  // swizzle atoms
-  const uint32_t sK = sQ + L::kQKTileBytes;     // stage st at st * tile
-  const uint32_t sV = sK + kWsStages * L::kQKTileBytes;
+  const uint32_t sK = sQ + L::kQTileBytes;      // stage st at st * tile
+  const uint32_t sV = sK + kWsStages * L::kKTileBytes;
   const uint32_t full_q = sV + kWsStages * L::kVTileBytes;  // 8 bytes each
   const uint32_t full_k = full_q + 8;       // TMA bytes of K, per stage
   const uint32_t full_v = full_k + 8 * kWsStages;
@@ -586,7 +618,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int q0 = (nq - 1 - in_group / width) * kWsBQ;
   const int kvh = h / p.group;
   int lo, hi;
-  kv_tiles(p, q0, kWsBQ, kWsBK, lo, hi);
+  kv_tiles(p, q0, kWsBQ, BK, lo, hi);
   const int n_tiles = hi - lo + 1;
 
   if (threadIdx.x == 0) {
@@ -610,31 +642,31 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       // included): with a wrong count a phase never completes (mbar_wait
       // traps and the launch fails) or completes with a box still in
       // flight
-      mbar_expect_tx(full_q, L::kQKTileBytes);
+      mbar_expect_tx(full_q, L::kQTileBytes);
 #pragma unroll
       for (int c = 0; c < L::kBoxes; ++c) {
-        tma_load(sQ + c * kBoxBytes, &tq, full_q, c * kBoxCols, q0, h, b);
+        tma_load(sQ + c * kQBoxBytes, &tq, full_q, c * kBoxCols, q0, h, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
         // tile i is stage i % kWsStages in its (i / kWsStages)-th round
-        const int st = i % kWsStages, k0 = (lo + i) * kWsBK;
+        const int st = i % kWsStages, k0 = (lo + i) * BK;
         const uint32_t ph = (i / kWsStages) & 1;
-        const uint32_t k_st = sK + st * L::kQKTileBytes;
+        const uint32_t k_st = sK + st * L::kKTileBytes;
         const uint32_t v_st = sV + st * L::kVTileBytes;
         // a fresh barrier passes a wait on parity 1
         mbar_wait(empty_k + 8 * st, ph ^ 1);
-        mbar_expect_tx(full_k + 8 * st, L::kQKTileBytes);
+        mbar_expect_tx(full_k + 8 * st, L::kKTileBytes);
 #pragma unroll
         for (int c = 0; c < L::kBoxes; ++c) {
-          tma_load(k_st + c * kBoxBytes, &tk, full_k + 8 * st, c * kBoxCols,
-                   k0, kvh, b);
+          tma_load(k_st + c * L::kKVBoxBytes, &tk, full_k + 8 * st,
+                   c * kBoxCols, k0, kvh, b);
         }
         mbar_wait(empty_v + 8 * st, ph ^ 1);
         mbar_expect_tx(full_v + 8 * st, L::kVTileBytes);
 #pragma unroll
         for (int c = 0; c < L::kVBoxes; ++c) {
-          tma_load(v_st + c * kBoxBytes, &tv, full_v + 8 * st, c * kBoxCols,
-                   k0, kvh, b);
+          tma_load(v_st + c * L::kKVBoxBytes, &tv, full_v + 8 * st,
+                   c * kBoxCols, k0, kvh, b);
         }
       }
     }
@@ -656,10 +688,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     float m[2] = {-INFINITY, -INFINITY};  // rows g and g+8, log2 units
     float l[2] = {0.f, 0.f};              // this thread's part of the sums
     float alpha[2];
-    float s[64];                          // scores, then probabilities
-    uint32_t pa_hi[8][4], pa_lo[8][4];    // P of the tile before
+    float s[BK / 2];                      // scores, then probabilities
+    uint32_t pa_hi[BK / 16][4], pa_lo[BK / 16][4];  // P of the tile before
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) pa_hi[kk][r] = pa_lo[kk][r] = 0u;
     if (cw == 1) named_arrive(1, 2 * 128);
@@ -680,7 +712,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       const bool has_s = i < n_tiles, has_pv = i > 0;
       const int pv = has_pv ? i - 1 : 0;  // the tile whose V is read
       const int st = i % kWsStages, sp = pv % kWsStages;
-      const int k0 = (lo + i) * kWsBK;
+      const int k0 = (lo + i) * BK;
       mbar_wait(full_v + 8 * sp, (pv / kWsStages) & 1);
       if (has_s) mbar_wait(full_k + 8 * st, (i / kWsStages) & 1);
       named_sync(my_turn, 2 * 128);
@@ -693,7 +725,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       fence_regs(pa_lo);
       if (has_pv) mbar_arrive(empty_v + 8 * sp);
       wgmma_fence();
-      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kQKTileBytes : sQ);
+      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kKTileBytes : sQ);
       wgmma_commit();
       if (cw == 0 || has_s) named_arrive(their_turn, 2 * 128);
       wgmma_wait_all();
@@ -701,7 +733,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       if (has_s) {
         mbar_arrive(empty_k + 8 * st);
         online_softmax(s, m, l, alpha, p,
-                       tile_needs_mask(p, rq0, 64, k0, kWsBK), row0,
+                       tile_needs_mask(p, rq0, 64, k0, BK), row0,
                        k0 + 2 * tig);
         rescale_and_split(o, alpha, s, pa_hi, pa_lo);
       }
@@ -1058,11 +1090,12 @@ __global__ void __launch_bounds__(kThreads)
 template <int D, int Dv>
 cudaError_t launch_ws(const Params& p, int B, cudaStream_t stream) {
   constexpr int smem = WsLayout<D, Dv>::kSmem;
+  constexpr int bk = WsLayout<D, Dv>::kBK;
   const int KV = p.H / p.group;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb, kWsBQ) ||
-      !encode_map(&tk, p.k, D, p.T, KV, B, p.k_ss, p.k_sh, p.k_sb, kWsBK) ||
-      !encode_map(&tv, p.v, Dv, p.T, KV, B, p.v_ss, p.v_sh, p.v_sb, kWsBK)) {
+      !encode_map(&tk, p.k, D, p.T, KV, B, p.k_ss, p.k_sh, p.k_sb, bk) ||
+      !encode_map(&tv, p.v, Dv, p.T, KV, B, p.v_ss, p.v_sh, p.v_sb, bk)) {
     return cudaErrorInvalidValue;
   }
   const int64_t blocks = (int64_t)((p.S + kWsBQ - 1) / kWsBQ) * p.H * B;
@@ -1130,6 +1163,7 @@ extern "C" int repro_flash_attention(
       case 80: return (int)launch<80, 80>(p, B, is_bf16, s);
       case 96: return (int)launch<96, 96>(p, B, is_bf16, s);
       case 128: return (int)launch<128, 128>(p, B, is_bf16, s);
+      case 192: return (int)launch<192, 192>(p, B, is_bf16, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -14,17 +14,20 @@ are the queries' positions (T == S) for self-attention; whisper's
 cross-attention gives them a length of their own (S decoder tokens over T
 encoder frames), which the kernel takes with ``causal=False`` and
 ``window=0`` only, the reference's ``xattn_apply``.  (D, Dv) is (32, 32),
-(64, 64), zamba2-2.7b's (80, 80), phi-3-vision's (96, 96), (128, 128) or
-MLA's (192, 128): deepseek-v2-lite's prefill folds 64 RoPE dims into q
-and k and keeps v at 128, where the reference zero-pads v to 192
-(``HEAD_DIMS``).  ``forward_route`` names the kernel a call runs:
+(64, 64), zamba2-2.7b's (80, 80), phi-3-vision's (96, 96), (128, 128),
+MLA's (192, 128) (deepseek-v2-lite's prefill folds 64 RoPE dims into q
+and k and keeps v at 128, where the reference zero-pads v to 192) or
+nemotron-4-340b's (192, 192) (d_model 18432 over 96 heads, q, k and v
+alike) (``HEAD_DIMS``).  ``forward_route`` names the kernel a call runs:
 
-- ``tma_wgmma``: bf16 at (128, 128), MLA's (192, 128), (96, 96), (80, 80)
-  and (64, 64), one warp-specialised kernel (TMA copies into an mbarrier
-  ring, wgmma products; a q/k row is one to three 128-byte boxes, the
-  second of an 80- or 96-wide row zero past its 16 or 32 columns, and PV
-  a wgmma m64n<Dv>k16; blocks ordered in groups of 16 (b, h) pairs, so
-  that the blocks in flight share K/V in the L2; a 2-stage K/V ring);
+- ``tma_wgmma``: bf16 at (128, 128), MLA's (192, 128), (192, 192), (96,
+  96), (80, 80) and (64, 64), one warp-specialised kernel (TMA copies into
+  an mbarrier ring, wgmma products; a q/k row is one to three 128-byte
+  boxes, the second of an 80- or 96-wide row zero past its 16 or 32
+  columns, and PV a wgmma m64n<Dv>k16; blocks ordered in groups of 16 (b,
+  h) pairs, so that the blocks in flight share K/V in the L2; a 2-stage
+  ring of 128-key K/V tiles, of 64-key tiles at (192, 192), where 128
+  would pass the shared memory a block may take);
 - ``split_keys``: bf16 at (64, 64) with at most ``SPLIT_MAX_QUERIES``
   non-causal queries and no window (whisper-tiny's decode step: one
   query over 1500 encoder frames): the keys of each (b, h) cut into
@@ -70,7 +73,7 @@ routes CPU tensors to ``kernels/ref.flash_attention_ref``.  ``launches``
 counts launches: one a forward call (under ``flash_attention_cross``
 for a caller's cross-attention, ``cross=True``, or keys of their own
 length, T != S; else ``flash_attention_mla`` at MLA's head dims and the
-key of ``BY_HEAD_DIM`` at 80 and 96), and one a backward call (which runs the backward's
+key of ``BY_HEAD_DIM`` at 80, 96 and 192), and one a backward call (which runs the backward's
 three kernels: prep, the fused kernel, the dQ pass).
 """
 from __future__ import annotations
@@ -83,7 +86,7 @@ import torch
 from repro_torch.kernels import _lib
 
 HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
-             (192, 128))                                   # (D, Dv)
+             (192, 128), (192, 192))                       # (D, Dv)
 DTYPES = (torch.bfloat16, torch.float32)
 BWD_HEAD_DIMS = (64, 128)
 BWD_DTYPES = (torch.bfloat16,)
@@ -100,12 +103,14 @@ SPLIT_PART = 66         # fp32 a partial: acc[64], m, l
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_mla": 0,
                             "flash_attention_d80": 0,
                             "flash_attention_d96": 0,
+                            "flash_attention_d192": 0,
                             "flash_attention_cross": 0,
                             "flash_attention_bwd": 0}
 # head dims with a count of their own: (count key, the model whose
 # training on the card waits for a backward kernel at that dim)
 BY_HEAD_DIM = {80: ("flash_attention_d80", "zamba2"),
-               96: ("flash_attention_d96", "phi-3-vision")}
+               96: ("flash_attention_d96", "phi-3-vision"),
+               192: ("flash_attention_d192", "nemotron-4-340b")}
 
 
 def _launch_key(D: int, Dv: int, cross: bool = False) -> str:

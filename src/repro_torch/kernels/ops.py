@@ -192,7 +192,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``torch.no_grad``: a no-grad prefill of trainable params saves
     nothing); with one the forward and backward kernels as one autograd
     function, and a gradient the backward kernel does not take (fp32, D =
-    32, 80 or 96, MLA's D != Dv, or a cross-attention) raises
+    32, 80, 96 or 192, MLA's D != Dv, or a cross-attention) raises
     rather than come back without one."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

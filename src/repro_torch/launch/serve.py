@@ -28,11 +28,14 @@ the JAX package's train launcher is restored.
 weight-shared attention block; at full width 4.85 GB of bf16 params),
 deepseek-v2-lite-16b (MLA + MoE; at full width 32.4 GB of bf16 params),
 whisper-tiny (the decoder, cross-attending encoder frames drawn from the
-seed, as the reference's launcher draws them) and kimi-k2-1t-a32b
-(reduced only: its full config does not fit one card and is refused
-before any allocation).  phi-3-vision-4.2b is refused, as by the
-reference: this is a text decode launcher, and a VLM needs the image
-path (``make_prefill_step`` with ``patch_embeds``).
+seed, as the reference's launcher draws them), the dense yi-34b (GQA 56 /
+8, 68.8 GB of bf16 params at full width) and command-r-35b (GQA 64 / 8,
+64.8 GB), and kimi-k2-1t-a32b and nemotron-4-340b (reduced only: their
+full configs, 2.09 TB and 682 GB of params, do not fit one card and are
+refused before any allocation, by ``check_fits_one_card``).
+phi-3-vision-4.2b is refused, as by the reference: this is a text decode
+launcher, and a VLM needs the image path (``make_prefill_step`` with
+``patch_embeds``).
 
 ``--device cpu`` runs the plain PyTorch versions on the host.
 """
@@ -98,17 +101,50 @@ def _sync(dev: torch.device) -> None:
 CARD_BYTES = 80e9     # one H100's device memory
 
 
-def check_fits_one_card(cfg, dev: torch.device) -> None:
-    """Raise before allocating when the params alone outgrow one card
-    (kimi-k2-1t-a32b's 1.04e12); on the host, against one H100's 80 GB."""
-    n = M.count_params_analytic(cfg)
-    need = n * cfg.weight_dtype.itemsize
+def peak_bytes(cfg, batch: int, cache_len: int) -> dict:
+    """The device memory a launcher run is reckoned to need at its peak,
+    from shapes alone (nothing is allocated): the params, the cache of
+    ``batch`` x ``cache_len``, and the larger of two transients:
+
+    - the draw's: the fp32 copy of the largest slice a leaf is drawn in
+      (``layers.dense_init`` draws a stacked leaf one slice of its leading
+      axis at a time and a 2-D leaf whole, ``embed_init`` the table whole),
+      counted as if every other param were already held;
+    - a decode step's: one layer's cache read in fp32 (``decode_attention``
+      widens K and V), and per row fp32 logits with their bf16 product and
+      the MLP's hidden width in fp32 four times over.
+
+    The prompt goes through the cache one token at a time, so the
+    launcher has no prefill of its own.  Returns the parts and their sum
+    (``"total"``), in bytes."""
+    params = M.param_bytes(cfg)
+    cache = M.cache_bytes(cfg, batch, cache_len)
+    layers = max(1, cfg.n_layers)
+    step = (2 * cache // layers
+            + batch * (6 * cfg.vocab_size
+                       + 16 * max(cfg.d_ff, cfg.d_model)))
+    draw = 4 * M.largest_draw_slice(cfg)
+    return {"params": params, "cache": cache, "transient": max(draw, step),
+            "total": params + cache + max(draw, step)}
+
+
+def check_fits_one_card(cfg, dev: torch.device, batch: int,
+                        cache_len: int) -> dict:
+    """Raise before allocating when a launcher run's reckoned peak
+    (``peak_bytes``) outgrows one card (kimi-k2-1t-a32b's and
+    nemotron-4-340b's params alone do); on the host, against one H100's
+    80 GB.  Returns the reckoning."""
+    need = peak_bytes(cfg, batch, cache_len)
     have = (torch.cuda.get_device_properties(dev).total_memory
             if dev.type == "cuda" else CARD_BYTES)
-    if need > have:
-        raise ValueError(f"{cfg.name}: {n:,} params take {need / 1e9:.1f} GB, "
-                         f"more than one card's {have / 1e9:.1f} GB; serve it "
-                         f"reduced (without --full-config)")
+    if need["total"] > have:
+        n = M.count_params_analytic(cfg)
+        raise ValueError(
+            f"{cfg.name}: {n:,} params take {need['params'] / 1e9:.1f} GB, "
+            f"a run at batch {batch} over {cache_len} positions "
+            f"{need['total'] / 1e9:.1f} GB, more than one card's "
+            f"{have / 1e9:.1f} GB; serve it reduced (without --full-config)")
+    return need
 
 
 def greedy_decode(cfg, params, prompts, n_gen: int, *, device=None,
@@ -229,7 +265,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if cfg.encoder.kind == "vision":
         raise SystemExit("text decode launcher; VLM needs the image path")
     if not args.reduced:
-        check_fits_one_card(cfg, dev)
+        check_fits_one_card(cfg, dev, args.batch,
+                            args.prompt_len + args.gen)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)

@@ -20,20 +20,28 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated normal at +-2 std, std = fan_in**-0.5, fan_in = shape[-2]
     (so a layer-stacked (L, d_in, d_out) weight has the fan-in of one
-    layer's), drawn in fp32 on ``gen``'s device, scaled in place (one fp32
-    temporary: deepseek-v2-lite's stacked experts are 20 GB of it) and
-    cast."""
+    layer's), drawn in fp32 on ``gen``'s device, scaled in place and cast
+    into the output.  A stacked leaf (3-D or more) is drawn one slice of
+    its leading axis at a time, so the fp32 temporary is one layer's (587
+    MB for yi-34b's gate, where the whole leaf's would be 35 GB beside
+    51 GB of params already drawn); a 2-D leaf is drawn whole."""
+    shape = tuple(shape)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for part in (out if out.dim() > 2 else (out,)):
+        t = torch.empty(part.shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        part.copy_(t.mul_(std))
+    return out
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype) -> torch.Tensor:
+    """N(0, 0.02^2), drawn in fp32 and scaled in place (one fp32 temporary:
+    command-r-35b's table is 8.4 GB of it), then cast."""
     t = torch.randn(tuple(shape), generator=gen, device=gen.device)
-    return (t * 0.02).to(dtype)
+    return t.mul_(0.02).to(dtype)
 
 
 # --------------------------------------------------------------------------

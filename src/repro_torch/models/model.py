@@ -155,11 +155,32 @@ class _MetaGenerator(torch.Generator):
 
 @functools.lru_cache(maxsize=64)
 def _param_paths(cfg: ArchConfig):
-    """(path, shape) of every leaf of ``init_params(cfg)``, built on the
-    meta device."""
+    """(path, shape, bytes an element) of every leaf of
+    ``init_params(cfg)``, built on the meta device."""
     params = init_params(cfg, _MetaGenerator(), device="meta")
-    return tuple((path, tuple(leaf.shape))
+    return tuple((path, tuple(leaf.shape), leaf.element_size())
                  for path, leaf in tree.leaves_with_paths(params))
+
+
+def param_bytes(cfg: ArchConfig) -> int:
+    """Bytes of ``init_params(cfg)`` (each leaf in its own dtype), built on
+    the meta device."""
+    return sum(prod(shape) * size for _, shape, size in _param_paths(cfg))
+
+
+def largest_draw_slice(cfg: ArchConfig) -> int:
+    """Elements of the largest piece ``init_params(cfg)`` draws at once:
+    a stacked leaf (3-D or more) is drawn one slice of its leading axis at
+    a time, a 2-D or 1-D leaf whole (``layers.dense_init``)."""
+    return max(prod(shape[1:]) if len(shape) > 2 else prod(shape)
+               for _, shape, _ in _param_paths(cfg))
+
+
+def cache_bytes(cfg: ArchConfig, batch: int, cache_len: int) -> int:
+    """Bytes of ``init_cache(cfg, batch, cache_len)``, built on the meta
+    device."""
+    cache = tf.stack_init_cache(cfg, batch, cache_len, device="meta")
+    return sum(t.numel() * t.element_size() for t in tree.leaves(cache))
 
 
 def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
@@ -168,7 +189,7 @@ def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
     ``w_up`` / ``w_down`` outside ``shared``, with an E axis) by ``top_k /
     n_experts``, as the reference does."""
     total = 0
-    for path, shape in _param_paths(cfg):
+    for path, shape, _ in _param_paths(cfg):
         n = prod(shape)
         if (active_only and cfg.moe is not None
                 and any(w in path for w in ("w_gate", "w_up", "w_down"))

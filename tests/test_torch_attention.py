@@ -293,12 +293,49 @@ def test_embed_and_head_match_jax(tie):
 
 def test_dense_init_statistics():
     """Truncated at +-2 std with std fan_in**-0.5 (fan-in of one layer for
-    a stacked weight); drawn on the generator's device, in its dtype."""
+    a stacked weight); drawn on the generator's device, in its dtype; a
+    2-D leaf drawn whole and each layer of a stacked one alike: mean about
+    0, std about 0.8796 of std, inside +-2 std."""
     g = torch.Generator().manual_seed(0)
-    w = tlayers.dense_init(g, (3, 256, 512), torch.bfloat16)
-    assert w.dtype == torch.bfloat16 and w.shape == (3, 256, 512)
-    wf = w.float()
     std = 256 ** -0.5
-    assert float(wf.abs().max()) <= 2 * std * (1 + 2 ** -7)
-    # the std of a standard normal truncated at +-2 is about 0.8796
-    assert abs(float(wf.std()) / std - 0.8796) < 0.01
+    for shape in ((256, 512), (3, 256, 512)):
+        w = tlayers.dense_init(g, shape, torch.bfloat16)
+        assert w.dtype == torch.bfloat16 and w.shape == shape
+        for part in w.float().reshape(-1, 256, 512):
+            assert float(part.abs().max()) <= 2 * std * (1 + 2 ** -7)
+            assert abs(float(part.mean())) / std < 0.01
+            # the std of a standard normal truncated at +-2 is about 0.8796
+            assert abs(float(part.std()) / std - 0.8796) < 0.01
+
+
+def test_dense_init_draws_a_stacked_leaf_layer_by_layer(monkeypatch):
+    """A stacked (L, ...) leaf is drawn one slice of its leading axis at a
+    time into its output (each fp32 temporary one layer's), a 2-D leaf in
+    one piece; the slices are independent draws with the statistics of a
+    whole leaf, and the generator moves on by the same draws as for L
+    separate layers."""
+    drawn = []
+    trunc = torch.nn.init.trunc_normal_
+
+    def record(t, *a, **kw):
+        drawn.append(tuple(t.shape))
+        return trunc(t, *a, **kw)
+    monkeypatch.setattr(torch.nn.init, "trunc_normal_", record)
+    g = torch.Generator().manual_seed(1)
+    w = tlayers.dense_init(g, (4, 2, 128, 256), torch.bfloat16)
+    assert drawn == [(2, 128, 256)] * 4
+    std = 128 ** -0.5
+    parts = w.float().reshape(4, -1)
+    for part in parts:
+        assert float(part.abs().max()) <= 2 * std * (1 + 2 ** -7)
+        assert abs(float(part.mean())) / std < 0.01
+        assert abs(float(part.std()) / std - 0.8796) < 0.01
+    assert not torch.equal(parts[0], parts[1])
+    drawn.clear()
+    tlayers.dense_init(g, (128, 256), torch.float32)
+    assert drawn == [(128, 256)]
+    g1, g2 = (torch.Generator().manual_seed(5) for _ in range(2))
+    stacked = tlayers.dense_init(g1, (3, 64, 32), torch.float32)
+    one_by_one = torch.stack([tlayers.dense_init(g2, (64, 32), torch.float32)
+                              for _ in range(3)])
+    assert torch.equal(stacked, one_by_one)

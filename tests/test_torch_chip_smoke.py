@@ -65,7 +65,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "flat_round", "main_path", "async_path", "sweep_path",
                  "stream_path", "serve_path", "sharded_path", "serving_path",
                  "xlstm_serving", "moe_serving", "hybrid_serving",
-                 "audio_serving", "vision_serving", "train_path")
+                 "audio_serving", "vision_serving", "dense_serving",
+                 "train_path")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -81,7 +82,8 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--moe", ["moe_serving"]),
                                        ("--hybrid", ["hybrid_serving"]),
                                        ("--audio", ["audio_serving"]),
-                                       ("--vision", ["vision_serving"])])
+                                       ("--vision", ["vision_serving"]),
+                                       ("--dense", ["dense_serving"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -116,6 +118,8 @@ def test_phase_selection():
     assert cs.selected_phases(["--hybrid"]) == ("1", "4d")
     assert cs.selected_phases(["--audio"]) == ("1", "4e")
     assert cs.selected_phases(["--vision"]) == ("1", "4f")
+    assert cs.selected_phases(["--dense"]) == ("1", "4g")
+    assert "4g" in cs.FULL_RUN
     assert "4c" in cs.FULL_RUN and "4d" in cs.FULL_RUN
     assert "4e" in cs.FULL_RUN and "4f" in cs.FULL_RUN
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
@@ -177,6 +181,18 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
              "max_abs_err": 8e-3, "ms": 1.2, "plain_ms": 60.0,
              "bound_ms": 0.42, "bound_by": "operations", "library_ms": 1.0,
              "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention", "entry": "yi_prefill",
+             "kernel_route": "tma_wgmma", "max_abs_err": 8e-3, "ms": 9.8,
+             "plain_ms": 430.0, "bound_ms": 3.9, "bound_by": "operations",
+             "library_ms": 6.1, "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention", "entry": "command_r_prefill",
+             "kernel_route": "tma_wgmma", "max_abs_err": 8e-3, "ms": 11.1,
+             "plain_ms": 490.0, "bound_ms": 4.4, "bound_by": "operations",
+             "library_ms": 6.8, "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_d192", "entry": "prefill",
+             "kernel_route": "tma_wgmma", "max_abs_err": 8e-3, "ms": 23.5,
+             "plain_ms": 900.0, "bound_ms": 10.0, "bound_by": "operations",
+             "library_ms": 15.3, "shape": {}, "dtype": "bfloat16"},
             {"kernel": "flash_attention", "entry": "whisper_self",
              "kernel_route": "tma_wgmma",
              "device_ms": 0.04, "host_us": 30.0, "library_device_ms": 0.03,
@@ -290,6 +306,10 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         {"flash_attention": 0, "flash_attention_cross": 4}))
     monkeypatch.setattr(cs, "vision_serving", lambda dev: {
         "flash_attention_d96": 32})
+    monkeypatch.setattr(cs, "dense_serving", lambda dev: {
+        "yi-34b": {"flash_attention": 60},
+        "command-r-35b": {"flash_attention": 40},
+        "nemotron-4-340b": {"flash_attention_d192": 2}})
     monkeypatch.setattr(cs, "train_path",
                         lambda dev: (train_rows, train_counts))
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -297,7 +317,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert cs.main([]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     # each phase's wall time on a line of its own, before the result
-    assert sum(line.startswith("time: ") for line in lines[:-3]) == 16
+    assert sum(line.startswith("time: ") for line in lines[:-3]) == 17
     assert lines[-2] == card
     assert json.loads(lines[-1])["device"] == {"platform": "gpu",
                                                "kind": card, "count": 1}
@@ -307,6 +327,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "fused_agg_blend", "weighted_agg_matmul", "dual_proximal_sgd",
         "weighted_agg_matmul", "weighted_agg_matmul", "flash_attention",
         "flash_attention_mla", "flash_attention_d80", "flash_attention_d96",
+        "flash_attention", "flash_attention", "flash_attention_d192",
         "flash_attention", "flash_attention_cross", "flash_attention_cross",
         "slstm_scan",
         "flash_attention",
@@ -323,7 +344,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["launches"] for k in kernels] == [
         50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
         120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
-        27, 9, 32, 4, 4, 4, 3, 300, 150, 176]
+        27, 9, 32, 60, 40, 2, 4, 4, 4, 3, 300, 150, 176]
     # the training path's rows: #4 forward and backward at the layer
     # shape, #3's bf16 mode at the embedding leaf
     assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
@@ -345,6 +366,14 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     # with the step's launches; each cross row's error is its kernel's
     assert kernels[11]["source"] == kernels[8]["source"]
     assert kernels[11]["replaces"] == kernels[8]["replaces"]
+    # #4 at yi-34b's and command-r-35b's prefill shapes (D = 128) and at
+    # (192, 192) at nemotron-4-340b's, with phase 4g's prefill launches
+    assert [k["entry"] for k in kernels[12:15]] == [
+        "yi_prefill", "command_r_prefill", "prefill"]
+    assert kernels[14]["source"] == kernels[8]["source"]
+    assert kernels[14]["replaces"] == kernels[8]["replaces"]
+    assert kernels[14]["ms"] == 23.5 and kernels[14]["library_ms"] == 15.3
+    kernels = kernels[:12] + kernels[15:]
     assert kernels[12]["entry"] == "whisper_self"
     assert kernels[12]["ms"] == 0.05 and kernels[12]["dtype"] == "bfloat16"
     assert kernels[12]["max_abs_err"] == 2e-3
@@ -392,7 +421,7 @@ def test_reduced_card_vs_host_callers_pass_counts_by_key():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and getattr(n.func, "id", None) == "reduced_card_vs_host"]
-    assert len(calls) == 7
+    assert len(calls) == 9
     for call in calls:
         counted = call.args[4]
         assert isinstance(counted, ast.Dict), ast.unparse(call)

@@ -620,7 +620,8 @@ def test_cuda_flash_attention_mla_dims_refuse_grad_and_other_pairs(cuda):
 
 
 # (B, S, H, KV, causal, window) at the head dims 80 (zamba2-2.7b, d_model
-# 2560 over 32 heads) and 96 (phi-3-vision-4.2b, 3072 over 32): the layer
+# 2560 over 32 heads), 96 (phi-3-vision-4.2b, 3072 over 32) and 192
+# (nemotron-4-340b, 18432 over 96 heads, q, k and v alike): the layer
 # (H = KV = 32) causal and with a 1024 window, 65 rows, a ragged thousand
 # non-causal, GQA 4 with a window, one token, GQA 2 non-causal with a
 # window, 129 rows of 8 heads over 2; then the kernel's 128-row tile edges
@@ -628,17 +629,22 @@ def test_cuda_flash_attention_mla_dims_refuse_grad_and_other_pairs(cuda):
 # heads at S = 2048 (two batch rows of 32 heads, 16 query tiles each) with
 # a 1024 window, so that the block order's decode of (b, h, tile) is
 # checked where the blocks of several groups of 16 (b, h) pairs are in
-# flight, and 36 pairs of GQA 3 (groups of 16, 16 and 4)
-WIDE_HEAD_DIMS = (80, 96)
+# flight, and 36 pairs of GQA 3 (groups of 16, 16 and 4); last nemotron's
+# layer (GQA 12: 96 heads over 8) causal, and GQA 12 with a window and
+# ragged S (at 192 the bf16 kernel's K/V tiles hold 64 keys, so S = 1000
+# ends mid-tile and the 256 window starts mid-tile)
+WIDE_HEAD_DIMS = (80, 96, 192)
 WIDE_CASES = [(1, 4096, 32, 32, True, 0), (1, 4096, 32, 32, True, 1024),
               (2, 65, 32, 32, True, 0), (1, 1000, 32, 32, False, 0),
               (2, 300, 8, 2, True, 33), (3, 1, 4, 4, True, 0),
               (1, 257, 4, 2, False, 17), (1, 129, 8, 2, True, 0),
               (1, 127, 4, 4, True, 0), (1, 128, 4, 4, True, 0),
               (1, 8191, 4, 4, True, 0), (2, 2048, 32, 32, True, 1024),
-              (3, 700, 12, 4, True, 0)]
+              (3, 700, 12, 4, True, 0), (1, 4096, 96, 8, True, 0),
+              (2, 1000, 24, 2, True, 256)]
 # the model whose training a grad at each dim names
-WIDE_TRAINING = {80: "zamba2 training", 96: "phi-3-vision training"}
+WIDE_TRAINING = {80: "zamba2 training", 96: "phi-3-vision training",
+                 192: "nemotron-4-340b training"}
 
 
 def _wide_inputs(dev, B, S, H, KV, D, dtype, seed):
@@ -653,11 +659,13 @@ def _wide_inputs(dev, B, S, H, KV, D, dtype, seed):
 @pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
 def test_cuda_flash_attention_wide_head_matches_plain(cuda, D, dtype, B, S,
                                                       H, KV, causal, window):
-    """Kernel #4 at D = 80 and 96 (bf16: the TMA + wgmma kernel, q/k rows
-    of two 128-byte boxes of which the second is zero past column 16 or
-    32, PV as wgmma m64n80k16 or m64n96k16; fp32: the FMA kernel, whose
-    third column group is ragged at 80) against the plain version, every
-    output column; counted as ``flash_attention_d80`` / ``_d96``."""
+    """Kernel #4 at D = 80, 96 and 192 (bf16: the TMA + wgmma kernel, q/k
+    rows of two 128-byte boxes of which the second is zero past column 16
+    or 32, PV as wgmma m64n80k16 or m64n96k16, or at 192 rows of three
+    boxes, 64-key K/V tiles and PV as m64n192k16; fp32: the FMA kernel,
+    whose third column group is ragged at 80) against the plain version,
+    every output column; counted as ``flash_attention_d80`` / ``_d96`` /
+    ``_d192``."""
     q, k, v = _wide_inputs(cuda, B, S, H, KV, D, dtype, S + H)
     key = f"flash_attention_d{D}"
     before = dict(tfa.launches)
@@ -674,10 +682,11 @@ def test_cuda_flash_attention_wide_head_matches_plain(cuda, D, dtype, B, S,
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
 def test_cuda_flash_attention_wide_head_reads_strided_views(cuda, D):
-    """At D = 80 and 96, q/k/v as views into one fused (B, S, H + 2 KV, D)
-    projection, and q as a slice 16 values into wider rows, read in place
-    (bf16: through the TMA kernel's tensor maps, D columns wide, so the
-    columns past a view's D read as zeros and not as its neighbours)."""
+    """At D = 80, 96 and 192, q/k/v as views into one fused (B, S, H + 2
+    KV, D) projection, and q as a slice 16 values into wider rows, read in
+    place (bf16: through the TMA kernel's tensor maps, D columns wide, so
+    the columns past a view's D read as zeros and not as its
+    neighbours)."""
     g = torch.Generator(device=cuda).manual_seed(D)
     B, S, H, KV = 2, 333, 8, 2
     for dtype in (torch.float32, torch.bfloat16):
@@ -705,7 +714,7 @@ def test_cuda_flash_attention_wide_head_reads_strided_views(cuda, D):
 def test_cuda_flash_attention_wide_head_lse_matches_plain(cuda, D, B, S, H,
                                                           KV, causal,
                                                           window):
-    """The log-sum-exp the D = 80 / 96 epilogue saves (scale D**-0.5)
+    """The log-sum-exp the D = 80 / 96 / 192 epilogue saves (scale D**-0.5)
     against ``ref.attention_lse_ref``, as at D = 128, and the output
     unchanged by saving it."""
     q, k, v = _wide_inputs(cuda, B, S, H, KV, D, torch.bfloat16, S + 2 * H)
@@ -722,9 +731,9 @@ def test_cuda_flash_attention_wide_head_lse_matches_plain(cuda, D, B, S, H,
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
 def test_cuda_flash_attention_wide_head_refuses_grad(cuda, D):
-    """Under grad at D = 80 / 96 the route raises, naming zamba2 /
-    phi-3-vision training (no backward kernel takes either), in bf16 and
-    fp32; without grad it runs."""
+    """Under grad at D = 80 / 96 / 192 the route raises, naming zamba2 /
+    phi-3-vision / nemotron-4-340b training (no backward kernel takes
+    any), in bf16 and fp32; without grad it runs."""
     from repro_torch.kernels import ops
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _wide_inputs(cuda, 1, 64, 4, 2, D, dtype, 3)
@@ -745,7 +754,8 @@ def test_cuda_flash_attention_wide_head_refuses_grad(cuda, D):
 # 1, 127, 128 and 257 (ragged ranges, GQA); two and three queries (its
 # 2- and 4-query instances, the latter one query short); then the TMA +
 # wgmma kernel at 128, 80 and 96 with T past a 128-key tile edge on either
-# side of S, and one query over keys.  fp32 runs each on the FMA kernel.
+# side of S, and one query over keys, and at 192 (64-key tiles) with T
+# past a 64-key tile edge, GQA 12.  fp32 runs each on the FMA kernel.
 CROSS_CASES = [(32, 448, 1500, 6, 6, 64), (8, 1, 1500, 6, 6, 64),
                (2, 100, 257, 4, 2, 64), (8, 5, 1500, 6, 6, 64),
                (8, 2, 1500, 6, 6, 64), (2, 3, 257, 4, 2, 64),
@@ -754,7 +764,8 @@ CROSS_CASES = [(32, 448, 1500, 6, 6, 64), (8, 1, 1500, 6, 6, 64),
                (2, 1, 257, 4, 2, 64), (2, 300, 1000, 8, 4, 128),
                (1, 129, 77, 4, 4, 128), (2, 1, 300, 8, 8, 80),
                (1, 200, 513, 4, 2, 80), (1, 70, 130, 4, 4, 96),
-               (2, 1, 129, 4, 4, 96)]
+               (2, 1, 129, 4, 4, 96), (1, 300, 1000, 24, 2, 192),
+               (2, 70, 65, 12, 1, 192)]
 
 
 def _cross_inputs(dev, B, S, T, H, KV, D, dtype, seed):

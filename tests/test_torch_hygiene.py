@@ -168,41 +168,46 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         serve.main(["--serve-loop"])
 
 
-@pytest.mark.parametrize("arch", ["command-r-35b", "yi-34b",
-                                  "nemotron-4-340b"])
-def test_unported_archs_refuse(arch):
-    from repro_torch.configs.registry import get_config, get_reduced_config
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError):
-        get_reduced_config(arch)
+def _jax_registry_ids():
+    """The JAX registry's ids, read from its source (importing it would
+    load JAX)."""
+    path = ROOT / "src" / "repro" / "configs" / "registry.py"
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and [t.id for t in node.targets] == ["_MODULES"]):
+            return [ast.literal_eval(k) for k in node.value.keys]
+    raise AssertionError(f"no _MODULES in {path}")
 
 
 def test_registry_refuses_exactly_the_unported_ids():
-    """The three dense ids still refused, each message naming its ROADMAP
-    item by title; the MoE archs, the zamba2 hybrid, whisper's encdec
-    stack and the phi-3-vision VLM are ported."""
+    """No id of the JAX registry is refused any more: the port's ids are
+    the JAX registry's, each served (the dense zoo since yi-34b,
+    command-r-35b and nemotron-4-340b were ported), and an id outside
+    them raises ``KeyError``, as the reference does."""
     from repro_torch.configs import registry
-    assert set(registry.UNPORTED) == {"command-r-35b", "yi-34b",
-                                      "nemotron-4-340b"}
+    assert sorted(registry.ARCH_IDS) == sorted(_jax_registry_ids())
+    assert not hasattr(registry, "UNPORTED")
     for arch in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b"):
         assert registry.get_config(arch).moe is not None
     assert registry.get_config("zamba2-2.7b").layout == (("zamba_super",
                                                           9),)
     assert registry.get_config("whisper-tiny").layout == (("encdec", 4),)
     assert registry.get_config("phi-3-vision-4.2b").encoder.kind == "vision"
+    for arch in ("yi-34b", "command-r-35b", "nemotron-4-340b"):
+        assert registry.get_config(arch).arch_type == "dense"
+        assert registry.get_reduced_config(arch).n_layers == 2
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("llama-2-7b")
 
 
 def test_all_configs_returns_every_ported_id():
-    """``all_configs`` gives each ported arch's config by id and leaves out
-    the ``UNPORTED`` ids, which would raise."""
+    """``all_configs`` gives every id of the JAX registry its config, in
+    the port's id order."""
     from repro_torch.configs import registry
     configs = registry.all_configs()
     assert tuple(configs) == registry.ARCH_IDS
-    assert not set(configs) & set(registry.UNPORTED)
-    assert {"qwen3-0.6b", "xlstm-125m", "zamba2-2.7b",
-            "deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "whisper-tiny",
-            "phi-3-vision-4.2b"} == set(configs)
+    assert set(configs) == set(_jax_registry_ids())
+    assert len(configs) == 10
     for arch, cfg in configs.items():
         assert cfg == registry.get_config(arch)
 
@@ -344,6 +349,47 @@ def test_encdec_vlm_entry_points_default_to_cuda(monkeypatch):
                        "cpu"])["tokens"].shape == (1, 1)
     with pytest.raises(SystemExit, match="VLM needs the image path"):
         serve.main(["--arch", "phi-3-vision-4.2b", "--device", "cpu"])
+
+
+def test_dense_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.configs.yi_34b, "
+            "repro_torch.configs.command_r_35b, "
+            "repro_torch.configs.nemotron_4_340b, "
+            "repro_torch.configs.registry, repro_torch.launch.serve; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
+
+
+def test_dense_entry_points_default_to_cuda(monkeypatch):
+    """The dense models' serving path takes cuda unless asked for the CPU
+    and raises when it is absent (the full configs too, before any
+    allocation); on the CPU the launcher serves the reduced models."""
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("yi-34b", "command-r-35b", "nemotron-4-340b"):
+        cfg = get_reduced_config(arch)
+        argv = ["--arch", arch, "--batch", "1", "--prompt-len", "2",
+                "--gen", "1"]
+        for extra in ([], ["--full-config"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                serve.main([*argv, *extra])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            steps.make_prefill_step(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            steps.make_serve_step(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_cache(cfg, 1, 4)
+        assert serve.main([*argv, "--device", "cpu"])["tokens"].shape == (
+            1, 1)
 
 
 def test_train_import_leaves_jax_unloaded():

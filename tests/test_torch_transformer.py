@@ -224,18 +224,19 @@ def _sub(cfg, name):
 
 
 def test_registry_knows_every_jax_arch():
-    """Each id of the JAX registry is either ported (same config, field
-    for field, the MoE, MLA and SSM sub-configs, the encoder stub and the
-    layout included) or refused by name."""
-    assert set(tregistry.ARCH_IDS) | set(tregistry.UNPORTED) == set(
-        jregistry.ARCH_IDS)
+    """Each id of the JAX registry is ported: the same config, field for
+    field (the source, the MoE, MLA and SSM sub-configs, the encoder stub
+    and the layout included), full and reduced."""
+    assert set(tregistry.ARCH_IDS) == set(jregistry.ARCH_IDS)
     for arch in tregistry.ARCH_IDS:
         j, t = jregistry.get_config(arch), tregistry.get_config(arch)
         for field in ("n_layers", "d_model", "n_heads", "n_kv_heads",
                       "head_dim_", "d_ff", "vocab_size", "qk_norm",
                       "rope_theta", "tie_embeddings", "mlp_type",
                       "attn_window", "norm_eps", "dtype", "param_dtype",
-                      "attn_impl", "layout", "shared_every"):
+                      "attn_impl", "layout", "shared_every", "name",
+                      "arch_type", "source", "mlp_bias", "norm_type",
+                      "attn_bias", "pos_embed"):
             assert getattr(t, field) == getattr(j, field), field
         jr, tr = (jregistry.get_reduced_config(arch),
                   tregistry.get_reduced_config(arch))

@@ -44,8 +44,7 @@ SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
 # the layout's shared memory as the kernel has it, with the ring depth
 # kWsStages at every width
 SMEM = """\
-  static constexpr int kSmem =
-      (1 + kWsStages) * kQKTileBytes + kWsStages * kVTileBytes + 128 + 1024;"""
+  static constexpr int kSmem = ws_smem(kBoxes, kVBoxes, kBK);"""
 
 # a consumer's turn as the kernel has it, PV waited for before S is
 # issued at every width, and with PV and S under one wait at Dv = 64
@@ -58,7 +57,7 @@ PV_THEN_S = """\
       fence_regs(pa_lo);
       if (has_pv) mbar_arrive(empty_v + 8 * sp);
       wgmma_fence();
-      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kQKTileBytes : sQ);
+      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kKTileBytes : sQ);
       wgmma_commit();
       if (cw == 0 || has_s) named_arrive(their_turn, 2 * 128);
       wgmma_wait_all();
@@ -75,7 +74,7 @@ PV_WITH_S = """\
         if (has_pv) mbar_arrive(empty_v + 8 * sp);
         wgmma_fence();
       }
-      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kQKTileBytes : sQ);
+      issue_qk<D>(s, q_rows, has_s ? sK + st * L::kKTileBytes : sQ);
       wgmma_commit();
       if (cw == 0 || has_s) named_arrive(their_turn, 2 * 128);
       wgmma_wait_all();
@@ -153,13 +152,14 @@ def _apply(text: str, name: str) -> str:
         # definition; the barriers (8 bytes each) in whole 128 bytes
         pairs = [(SMEM, f"""\
   static constexpr int kStages = {depth};
-  static constexpr int kSmem = (1 + kStages) * kQKTileBytes +
-      kStages * kVTileBytes + (8 * (1 + 4 * kStages) + 127) / 128 * 128 +
-      1024;""")]
-        head, tail = text.split("template <int D>\n__device__ __forceinline__ "
-                                "void issue_qk", 1)
-        text = (head + "template <int D>\n__device__ __forceinline__ void "
-                "issue_qk" + tail.replace("kWsStages", "L::kStages"))
+  static constexpr int kSmem = kQTileBytes +
+      kStages * (kKTileBytes + kVTileBytes) +
+      (8 * (1 + 4 * kStages) + 127) / 128 * 128 + 1024;""")]
+        head, tail = text.split("template <int D, int NS>\n__device__ "
+                                "__forceinline__ void issue_qk", 1)
+        text = (head + "template <int D, int NS>\n__device__ "
+                "__forceinline__ void issue_qk"
+                + tail.replace("kWsStages", "L::kStages"))
     elif name.startswith("group"):
         old = "constexpr int kWsGroup = 16;"
         pairs = [(old, f"constexpr int kWsGroup = {int(name[5:])};")]
