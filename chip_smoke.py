@@ -328,6 +328,22 @@ Phases, each printing its own lines and then its wall time (``time:
    (d_model 384, 2 heads over 1) on the card against the host's plain
    versions (fp32 within 1e-3 and equal greedy tokens, bf16 atol 0.15,
    rtol 0.05).
+4h. The reference's four shapes (``launch/steps.SHAPES``) on one card
+   (``launch/dryrun``): (a) every (architecture x shape) cell's peak
+   reckoned on the meta device, one line each, nothing allocated; (b)
+   three cells run at full width through ``dryrun.run_cell``, each a
+   decode step, its measured peak held to its reckoning: qwen3-0.6b
+   ``long_500k`` (batch 1 over the live 8,192-slot ring at position
+   524,287, no kernel launch), whisper-tiny ``decode_32k`` (batch 128 over
+   32,768 positions and its 1,500 frames: exactly 4
+   ``flash_attention_cross`` launches a step, all on the split-key
+   kernel) and xlstm-125m ``decode_32k`` (no kernel launch); (c) #4 at
+   that whisper step's cross-attention shape (B=128, one query over 1500
+   frames, H=6, D=64, bf16) against its plain version, with its time,
+   bound and SDPA's time; (d) the reduced qwen3 with ``long_500k``'s
+   window on the card against the host's plain versions, 8 decode steps
+   at positions 524,280-524,287 after the ring is filled from a seed
+   (fp32 within 1e-3 and equal greedy tokens, bf16 atol 0.15, rtol 0.05).
 5. The LLM training path (``launch/steps``, ``launch/h2fed_round``,
    ``launch/train``).  (a) The backward kernel of flash_attention
    (``csrc/flash_attention_bwd.cu``, given the forward's output and saved
@@ -367,8 +383,9 @@ Phases, each printing its own lines and then its wall time (``time:
    shape with phase 4f's launches; #4 at the yi-34b and command-r-35b
    prefill shapes and at (192, 192) at the nemotron-4-340b prefill shape
    with phase 4g's launches; #4 with keys of their own length at
-   whisper's prefill shape with phase 4e's cross-attention launches),
-   the card's line, and the result line.
+   whisper's prefill shape with phase 4e's cross-attention launches, and
+   at whisper's ``decode_32k`` step with phase 4h's), the card's line,
+   and the result line.
 
 ``python3 chip_smoke.py --attention`` runs phase 1 and phase 2b only (the
 flash-attention kernel's build report, checks and times), ``--scan`` phase
@@ -380,8 +397,13 @@ device busy share a round, from the MLP's initial weights), and
 ``--stream`` phase 1 and phase 3t, ``--serve`` phase 1 and phase 3v, and
 ``--sharded`` phase 1 and phase 3h, ``--train`` phase 1 and phase 5,
 ``--moe`` phase 1 and phase 4c, ``--hybrid`` phase 1 and phase 4d,
-``--audio`` phase 1 and phase 4e, ``--vision`` phase 1 and phase 4f, and
-``--dense`` phase 1 and phase 4g; none of them prints a result line.
+``--audio`` phase 1 and phase 4e, ``--vision`` phase 1 and phase 4f,
+``--dense`` phase 1 and phase 4g, and ``--cells`` phase 1 and phase 4h;
+none of them prints a result line.  ``--dryrun`` runs phase 1 and then
+``launch/dryrun --all`` on the card: all 40 cells, one line each (fits,
+the reckoned and the measured peak, ms, launches, roofline share; the
+records under ``build/dryrun_torch``), failing if a cell fails or a
+measured peak passes its reckoning.
 
 Exits 1 without printing a result when no CUDA device is present, and
 fails at import when run outside a checkout of the repository.
@@ -532,14 +554,15 @@ SLSTM_TOL = {1.0: (2e-5, 1e-5), 25.0: (5e-5, 1e-4)}    # (atol, rtol)
 # phases a run goes through; a mode flag runs the build and one kernel's
 # phase alone, with no result line (which only the full run prints)
 FULL_RUN = ("1", "2", "2b", "2c", "3", "3b", "3s", "3t", "3v", "3h", "4",
-            "4b", "4c", "4d", "4e", "4f", "4g", "5", "6")
+            "4b", "4c", "4d", "4e", "4f", "4g", "4h", "5", "6")
 MODES = {"--attention": ("1", "2b"), "--scan": ("1", "2c"),
          "--agg": ("1", "2"), "--round": ("1", "3r"), "--async": ("1", "3b"),
          "--sweep": ("1", "3s"), "--stream": ("1", "3t"),
          "--serve": ("1", "3v"), "--sharded": ("1", "3h"),
          "--train": ("1", "5"), "--moe": ("1", "4c"),
          "--hybrid": ("1", "4d"), "--audio": ("1", "4e"),
-         "--vision": ("1", "4f"), "--dense": ("1", "4g")}
+         "--vision": ("1", "4f"), "--dense": ("1", "4g"),
+         "--cells": ("1", "4h"), "--dryrun": ("1", "dryrun")}
 
 
 def selected_phases(argv) -> tuple:
@@ -561,16 +584,18 @@ def gpu_line() -> str:
 def cuda_ms(fn, reps: int = 11, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
     calls, bracketed by CUDA events, after a warm-up.  A call that takes
-    over 100 ms is timed 3 times, one call each."""
+    over 100 ms is timed 3 times, one call each, its first call the
+    warm-up."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
     end.record()
     end.synchronize()
+    warm = 2
     if start.elapsed_time(end) > 100.0:
-        reps, inner = 3, 1
-    for _ in range(2):
+        reps, inner, warm = 3, 1, 0
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -3176,17 +3201,12 @@ def sharded_path(dev):
 
 
 def live_pairs(S: int, causal: bool, window: int, T=None) -> int:
-    """(query, key) pairs the masks keep: keys t < S, t <= s when causal,
-    t > s - window when window > 0; S * T for S queries over T keys of
-    their own length (non-causal, no window)."""
-    if T is not None and T != S:
-        return S * T
-    total = 0
-    for s in range(S):
-        hi = s if causal else S - 1
-        lo = max(0, s - window + 1) if window else 0
-        total += hi - lo + 1
-    return total
+    """(query, key) pairs the masks keep (``launch/dryrun.live_pairs``):
+    keys t < S, t <= s when causal, t > s - window when window > 0; S * T
+    for S queries over T keys of their own length (non-causal, no
+    window)."""
+    from repro_torch.launch import dryrun
+    return dryrun.live_pairs(S, S if T is None else T, causal, window)
 
 
 def attention_bound(B, S, H, KV, D, causal, window, dtype, Dv=None,
@@ -3424,17 +3444,18 @@ def mla_attention_cases(dev):
     return rows
 
 
-def plain_in_chunks(q, k, v, max_heads: int = 32):
-    """The plain version (causal) one batch row and at most ``max_heads``
-    heads (whole GQA groups) at a time, so that its fp32 scores at S =
-    8192 stay under ~9 GB a chunk (nemotron-4-340b's 96 heads a row would
-    take 26 GB); at H <= 32 a chunk is a batch row."""
+def plain_in_chunks(q, k, v, max_heads: int = 32, **kw):
+    """The plain version (causal unless ``kw`` says otherwise) one batch
+    row and at most ``max_heads`` heads (whole GQA groups) at a time, so
+    that its fp32 scores at S = 8192 stay under ~9 GB a chunk
+    (nemotron-4-340b's 96 heads a row would take 26 GB); at H <= 32 a
+    chunk is a batch row."""
     from repro_torch.kernels import ref
     G = q.shape[2] // k.shape[2]
     per = max(1, max_heads // G)          # KV heads a chunk
     return torch.cat([torch.cat([ref.flash_attention_ref(
         q[b:b + 1, :, j * G:(j + per) * G], k[b:b + 1, :, j:j + per],
-        v[b:b + 1, :, j:j + per]) for j in range(0, k.shape[2], per)],
+        v[b:b + 1, :, j:j + per], **kw) for j in range(0, k.shape[2], per)],
         dim=2) for b in range(q.shape[0])])
 
 
@@ -3534,45 +3555,50 @@ def cross_attention_cases(dev):
     queries over T keys, non-causal) in bf16 and fp32: error against the
     plain version, the kernel's time, its bound over the S x T pairs and
     one ``scaled_dot_product_attention`` call's time."""
+    return [cross_attention_row(dev, case, dtype)
+            for case in CROSS_ATTN_CASES
+            for dtype in (torch.bfloat16, torch.float32)]
+
+
+def cross_attention_row(dev, case, dtype) -> dict:
+    """One ``CROSS_ATTN_CASES``-style case (name, B, S, T, H, KV, D) in
+    ``dtype``: the kernel against its plain version, its time, bound and
+    SDPA's time (bf16 D = 64 also with the lse and the host/device
+    split); prints and returns the row."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    rows = []
-    for name, B, S, T, H, KV, D in CROSS_ATTN_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            gen = torch.Generator(device=dev).manual_seed(S + T + D)
-            q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dtype)
-            k, v = (torch.randn(B, T, KV, D, device=dev,
-                                generator=gen).to(dtype) for _ in range(2))
-            err = compare(fa.flash_attention(q, k, v, causal=False),
-                          ref.flash_attention_ref(q, k, v, causal=False),
-                          dtype, f"flash_attention_cross {name} {dtype}")
-            b_ms, b_by = attention_bound(B, S, H, KV, D, False, 0, dtype,
-                                         T=T)
-            r = {"kernel": "flash_attention_cross", "entry": name,
-                 "kernel_route": fa.forward_route(dtype, D, D, S, False, 0),
-                 "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV,
-                           "D": D, "causal": False, "window": 0},
-                 "dtype": str(dtype)[6:], "max_abs_err": err,
-                 "ms": cuda_ms(lambda: fa.flash_attention(q, k, v,
-                                                          causal=False)),
-                 "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
-                     q, k, v, causal=False), reps=5, inner=2),
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": cuda_ms(sdpa_call(q, k, v, False, 0),
-                                       reps=5, inner=2)}
-            if dtype == torch.bfloat16 and D == 64:
-                r["lse_err"] = check_lse(q, k, v, dict(causal=False),
-                                         f"flash_attention_cross {name}")
-                r.update(host_device_split(
-                    lambda: fa.flash_attention(q, k, v, causal=False)))
-                r["library_device_ms"] = host_device_split(
-                    sdpa_call(q, k, v, False, 0))["device_ms"]
-            print("kernel " + json.dumps(r))
-            rows.append(r)
-            del q, k, v
-            torch.cuda.empty_cache()
-    return rows
+    name, B, S, T, H, KV, D = case
+    gen = torch.Generator(device=dev).manual_seed(S + T + D)
+    q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn(B, T, KV, D, device=dev,
+                        generator=gen).to(dtype) for _ in range(2))
+    err = compare(fa.flash_attention(q, k, v, causal=False),
+                  ref.flash_attention_ref(q, k, v, causal=False),
+                  dtype, f"flash_attention_cross {name} {dtype}")
+    b_ms, b_by = attention_bound(B, S, H, KV, D, False, 0, dtype, T=T)
+    r = {"kernel": "flash_attention_cross", "entry": name,
+         "kernel_route": fa.forward_route(dtype, D, D, S, False, 0),
+         "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV,
+                   "D": D, "causal": False, "window": 0},
+         "dtype": str(dtype)[6:], "max_abs_err": err,
+         "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=False)),
+         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
+             q, k, v, causal=False), reps=5, inner=2),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": cuda_ms(sdpa_call(q, k, v, False, 0),
+                               reps=5, inner=2)}
+    if dtype == torch.bfloat16 and D == 64:
+        r["lse_err"] = check_lse(q, k, v, dict(causal=False),
+                                 f"flash_attention_cross {name}")
+        r.update(host_device_split(
+            lambda: fa.flash_attention(q, k, v, causal=False)))
+        r["library_device_ms"] = host_device_split(
+            sdpa_call(q, k, v, False, 0))["device_ms"]
+    print("kernel " + json.dumps(r))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return r
 
 
 def slstm_inputs(dev, B, S, H, P, r_dtype, scale=1.0, seed=0):
@@ -4598,6 +4624,314 @@ def dense_serving(dev):
     return counts
 
 
+# -- phase 4h and --dryrun: the reference's shapes on one card ---------------
+#
+# the cells phase 4h runs at full width (a decode step each): qwen3 over
+# the long_500k ring (8,192 slots, position 524,287), whisper's batch 128
+# over 32,768 positions and 1,500 frames, xlstm's batch 128 states
+DRYRUN_CELLS = (("qwen3-0.6b", "long_500k"), ("whisper-tiny", "decode_32k"),
+                ("xlstm-125m", "decode_32k"))
+# #4's launches a whisper decode_32k step: one split-key cross-attention a
+# layer
+WHISPER_STEP = {"flash_attention_cross": 4}
+# the cells that fit one H100 80GB and run, each with its kernels'
+# launches a call and #4's routes (qwen3's 28 layers, xlstm's 3 sLSTM
+# blocks, whisper's 4 decoder layers); every other cell is reckoned not to
+# fit but whisper long_500k, which is skipped
+DRYRUN_RUNS = {
+    ("qwen3-0.6b", "prefill_32k"): ({"flash_attention": 28},
+                                    {"flash_attention:tma_wgmma": 28}),
+    ("qwen3-0.6b", "long_500k"): ({}, {}),
+    ("xlstm-125m", "prefill_32k"): ({"slstm_scan": 3}, {}),
+    ("xlstm-125m", "decode_32k"): ({}, {}),
+    ("xlstm-125m", "long_500k"): ({}, {}),
+    ("zamba2-2.7b", "long_500k"): ({}, {}),
+    ("deepseek-v2-lite-16b", "long_500k"): ({}, {}),
+    ("whisper-tiny", "prefill_32k"): (
+        {"flash_attention": 4, "flash_attention_cross": 4},
+        {"flash_attention:tma_wgmma": 4,
+         "flash_attention_cross:tma_wgmma": 4}),
+    ("whisper-tiny", "decode_32k"): (
+        WHISPER_STEP, {"flash_attention_cross:split_keys": 4}),
+    ("phi-3-vision-4.2b", "long_500k"): ({}, {}),
+    ("yi-34b", "long_500k"): ({}, {}),
+    ("command-r-35b", "long_500k"): ({}, {})}
+# the plain version's fp32 scores a chunk, at most (``plain_in_chunks`` at
+# the run cells' shapes)
+PLAIN_CHUNK_BYTES = 9e9
+LONG_FIRST = 524_280     # the reduced card-vs-host decode: 524,280-524,287
+
+
+def _held_to_reckoning(rec) -> None:
+    """A run cell's measured peak must not pass its reckoning, nor, where
+    the cell drew its params, the draw's peak the reckoning's draw term
+    (the params, the fp32 slice drawn at once and the runtime
+    allowance)."""
+    m, need = rec["measured"], rec["reckoned"]
+    what = f"dryrun {rec['arch']} {rec['shape']}"
+    if m["peak_bytes"] > need["total"]:
+        raise AssertionError(f"{what}: peak {m['peak_bytes']} bytes over "
+                             f"the reckoned {need['total']}")
+    draw = need["params"] + need["draw"] + need["runtime"]
+    if m["draw_peak_bytes"] is not None and m["draw_peak_bytes"] > draw:
+        raise AssertionError(f"{what}: the params' draw peaked at "
+                             f"{m['draw_peak_bytes']} bytes, over the "
+                             f"reckoned {draw}")
+
+
+def _held_to_launches(rec) -> None:
+    """A run cell's launches a call and #4's routes must be
+    ``DRYRUN_RUNS``'s."""
+    want = DRYRUN_RUNS[(rec["arch"], rec["shape"])]
+    if (rec["launches"], rec["routes"]) != want:
+        raise AssertionError(f"dryrun {rec['arch']} {rec['shape']}: "
+                             f"launches {rec['launches']} routes "
+                             f"{rec['routes']} a call, want {want}")
+
+
+def dryrun_reckoning(dev) -> None:
+    """Every (architecture x shape) cell reckoned on the meta device, one
+    line each; nothing may be allocated."""
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.launch import dryrun, steps
+    base = torch.cuda.memory_allocated(dev)
+    have = steps.card_bytes(dev)
+    cells = [(a, s) for a in ARCH_IDS for s in steps.SHAPES]
+    for arch, shape, desc, need in dryrun.reckon_cells(cells):
+        if need is None:
+            print(f"dryrun: {arch} {shape}: skipped")
+            continue
+        print(f"dryrun: {arch} {shape} ({desc}): reckoned "
+              f"{need['total'] / 1e9:.2f} GB, fits "
+              f"{need['total'] <= have} (params "
+              f"{need['params'] / 1e9:.2f}, cache "
+              f"{need['cache'] / 1e9:.2f}, state "
+              f"{need['state'] / 1e9:.2f}, transient "
+              f"{need['transient'] / 1e9:.2f})")
+    if torch.cuda.memory_allocated(dev) != base:
+        raise AssertionError("dryrun: the reckoning allocated device memory")
+
+
+def long_card_vs_host(dev) -> None:
+    """The reduced qwen3 with ``long_500k``'s window on the card against
+    the host's plain versions: the same params and the same ring (8,192
+    slots filled from a seed for position 524,280), 8 decode steps at
+    positions 524,280-524,287 (RoPE past 2^19, the ring slot idx % 8192):
+    fp32 logits within 1e-3 and equal greedy tokens, bf16 atol 0.15 /
+    rtol 0.05."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    cfg = steps.shape_adapted_config(get_reduced_config("qwen3-0.6b"),
+                                     "long_500k")
+    B, n, seq = 2, 8, steps.SHAPES["long_500k"]["seq"]
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (B, n)))
+    for dtype, atol, rtol in (("float32", 1e-3, 0.0),
+                              ("bfloat16", 0.15, 0.05)):
+        c = cfg.replace(dtype=dtype, param_dtype=dtype)
+        host = M.init_params(c, torch.Generator().manual_seed(3),
+                             device="cpu")
+        card = tree.map_tree(lambda t: t.to(dev), host)
+        h_cache = steps.fill_cache(M.init_cache(c, B, seq, device="cpu"),
+                                   torch.Generator().manual_seed(5),
+                                   LONG_FIRST)
+        c_cache = M.init_cache(c, B, seq, device=dev)
+        for dst, src in zip(tree.leaves(c_cache), tree.leaves(h_cache)):
+            dst.copy_(src)
+        h_step = steps.make_serve_step(c, device="cpu")
+        c_step = steps.make_serve_step(c, device=dev)
+        worst, same = 0.0, True
+        for i in range(n):
+            pos = torch.full((B,), LONG_FIRST + i, dtype=torch.int32)
+            want, h_cache = h_step(host, h_cache, toks[:, i:i + 1], pos)
+            got, c_cache = c_step(card, c_cache, toks[:, i:i + 1], pos)
+            worst = max(worst, _logits_check(
+                got.cpu(), want, f"long_500k card vs host {dtype} at "
+                f"{LONG_FIRST + i}", atol, rtol))
+            same &= bool((got.argmax(-1).cpu() == want.argmax(-1)).all())
+        print(f"dryrun: reduced qwen3 long_500k {dtype} (window "
+              f"{c.attn_window}, ring {c_cache[0]['attn'].pos.shape[-1]} "
+              f"slots), card vs host at positions {LONG_FIRST}-"
+              f"{LONG_FIRST + n - 1}: logits max abs diff {worst:.3e}, "
+              f"greedy tokens equal: {same}")
+        if dtype == "float32" and not same:
+            raise AssertionError("long_500k fp32 greedy tokens differ")
+
+
+def dryrun_path(dev):
+    """Phase 4h; returns (the whisper decode_32k step's launches, #4's
+    row at that step's cross-attention shape)."""
+    from repro_torch.launch import dryrun, steps
+    t0 = time.perf_counter()
+    dryrun_reckoning(dev)
+    print(f"dryrun: (a) the reckoning {time.perf_counter() - t0:.1f} s")
+    store = dryrun.ParamStore(dev, seed=0)
+    step_counts = None
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, device=dev, store=store)
+        print(f"dryrun: {arch} {shape}: {dryrun.summary(rec)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not rec["fits"]:
+            raise AssertionError(f"dryrun {arch} {shape}: reckoned not to "
+                                 f"fit")
+        _held_to_reckoning(rec)
+        _held_to_launches(rec)
+        if arch == "whisper-tiny":
+            step_counts = rec["launches"]
+    store.free()
+    t0 = time.perf_counter()
+    B = steps.SHAPES["decode_32k"]["batch"]
+    row = cross_attention_row(dev, ("whisper_decode_32k", B, 1, 1500, 6, 6,
+                                    64), torch.bfloat16)
+    print(f"dryrun: (c) #4 at the decode_32k step "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    long_card_vs_host(dev)
+    print(f"dryrun: (d) card vs host {time.perf_counter() - t0:.1f} s")
+    return step_counts, row
+
+
+def compare_rows(got, want, dtype, what, tol=None) -> float:
+    """``compare`` a batch row at a time (its fp32 copies of a 2^31-element
+    output would take ~40 GB at once); returns the max abs error."""
+    return max(compare(got[b], want[b], dtype, f"{what} row {b}", tol)
+               for b in range(got.shape[0]))
+
+
+def attention_call_row(dev, tag, q_shape, k_shape, v_shape, causal, window,
+                       dtype) -> dict:
+    """#4 at one call's shapes and dtype (``dryrun.kernel_calls``), on
+    inputs drawn from a seed, held to ``plain_in_chunks`` (a chunk's fp32
+    scores under ``PLAIN_CHUNK_BYTES``) elementwise at ``TOL``: its time,
+    bound, the plain version's time and one SDPA call's; prints and
+    returns the row."""
+    from repro_torch.kernels import flash_attention as fa
+    dtype = getattr(torch, dtype)
+    B, S, H, D = q_shape
+    _, T, KV, _ = k_shape
+    Dv = v_shape[-1]
+    kernel = fa._launch_key(D, Dv, T != S)
+    gen = torch.Generator(device=dev).manual_seed(S + T + D)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+               for shape in (q_shape, k_shape, v_shape))
+    kw = dict(causal=causal, window=window)
+    heads = max(1, int(PLAIN_CHUNK_BYTES // (4 * S * T)))
+
+    def plain():
+        return plain_in_chunks(q, k, v, max_heads=heads, **kw)
+
+    err = compare_rows(fa.flash_attention(q, k, v, **kw), plain(), dtype,
+                       f"{kernel} {tag}")
+    torch.cuda.empty_cache()
+    b_ms, b_by = attention_bound(B, S, H, KV, D, causal, window, dtype,
+                                 Dv=Dv, T=T)
+    r = {"kernel": kernel, "entry": tag,
+         "kernel_route": fa.forward_route(dtype, D, Dv, S, causal, window),
+         "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "D": D,
+                   "Dv": Dv, "causal": causal, "window": window},
+         "dtype": str(dtype)[6:], "elements": q.numel(),
+         "max_abs_err": err,
+         "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+         "plain_ms": cuda_ms(plain, reps=3, inner=1),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": cuda_ms(sdpa_call(q, k, v, causal, window), reps=5,
+                               inner=2)}
+    print("kernel " + json.dumps(r))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return r
+
+
+def slstm_call_row(dev, tag, wx_shape, r_shape, r_dtype) -> dict:
+    """#5 at one call's shapes and R dtype (``dryrun.kernel_calls``), on
+    ``slstm_inputs``, held to ``ref.slstm_scan_ref`` a batch row at a time
+    at ``SLSTM_TOL``: its time, bound and the plain version's; prints and
+    returns the row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as ss
+    B, S, _ = wx_shape
+    H, P, _ = r_shape
+    r_dtype = getattr(torch, r_dtype)
+    wx, r, b = slstm_inputs(dev, B, S, H, P, r_dtype, seed=S)
+    err = compare_rows(ss.slstm_scan(wx, r, b), ref.slstm_scan_ref(wx, r, b),
+                       torch.float32, f"slstm_scan {tag}", SLSTM_TOL[1.0])
+    torch.cuda.empty_cache()
+    d = H * P
+    nbytes = (B * S * 4 * d + B * S * d + 4 * d) * 4 \
+        + r.numel() * r.element_size()
+    b_ms, b_by = bound(nbytes, 2 * B * S * d * 4 * P)
+    row = {"kernel": "slstm_scan", "entry": tag,
+           "shape": {"B": B, "S": S, "H": H, "P": P, "scale": 1.0},
+           "r_dtype": str(r_dtype)[6:], "plan": ss.plan(d, P, r_dtype),
+           "elements": wx.numel(), "max_abs_err": err,
+           "ms": cuda_ms(lambda: ss.slstm_scan(wx, r, b)),
+           "plain_ms": cuda_ms(lambda: ref.slstm_scan_ref(wx, r, b),
+                               reps=3, inner=1),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print("kernel " + json.dumps(row))
+    del wx, r, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def cell_kernel_rows(dev, records) -> list:
+    """Each distinct hand-written kernel call of the run cells (their
+    ``calls``: #4 at qwen3's and whisper's ``prefill_32k``, whose q has
+    2^31 elements at qwen3, and at whisper's ``decode_32k``; #5 at xlstm's
+    ``prefill_32k``, 3.2e9 elements of wx) held to its plain version at
+    those shapes; returns the rows."""
+    seen, rows = [], []
+    for rec in records:
+        for call in rec["calls"]:
+            if call in seen:
+                continue
+            seen.append(call)
+            tag = f"{rec['arch']}_{rec['shape']}"
+            row = (attention_call_row if call[0] == "flash_attention"
+                   else slstm_call_row)
+            rows.append(row(dev, tag, *call[1:]))
+    return rows
+
+
+def dryrun_matrix(dev) -> list:
+    """``--dryrun``: ``launch/dryrun --all`` on the card, one line a cell
+    (records under ``build/dryrun_torch``), then each kernel at the run
+    cells' shapes against its plain version (``cell_kernel_rows``); fails
+    if a cell fails, a run cell's peak passes its reckoning or its
+    launches and routes are not ``DRYRUN_RUNS``'s, the run cells are not
+    ``DRYRUN_RUNS``'s, the 40 cells are not all accounted for, or a kernel
+    disagrees.  Returns the kernel rows."""
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.launch import dryrun, steps
+    out = Path(__file__).resolve().parent / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    cells = [(a, s) for a in ARCH_IDS for s in steps.SHAPES]
+    records, failures = dryrun.run_cells(cells, out, device=dev)
+    ran = [r for r in records if "measured" in r]
+    for rec in ran:
+        _held_to_reckoning(rec)
+        _held_to_launches(rec)
+    skipped = sum("skipped" in r for r in records)
+    print(f"dryrun: {len(records)} cells: {len(ran)} run, "
+          f"{len(records) - len(ran) - skipped} reckoned not to fit, "
+          f"{skipped} skipped, {failures} failed")
+    if failures or len(records) != len(cells):
+        raise AssertionError(f"dryrun: {failures} cells failed, "
+                             f"{len(records)} of {len(cells)} recorded")
+    run = {(r["arch"], r["shape"]) for r in ran}
+    if run != set(DRYRUN_RUNS):
+        raise AssertionError(f"dryrun: ran {sorted(run)}, want "
+                             f"{sorted(DRYRUN_RUNS)}")
+    t0 = time.perf_counter()
+    rows = cell_kernel_rows(dev, ran)
+    print(f"dryrun: {len(rows)} kernel calls at the run cells' shapes "
+          f"held to their plain versions, {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 # -- phase 5: the LLM training path ------------------------------------------
 #
 # (name, B, S, H, KV, D, causal, window): the qwen3-0.6b layer, with a 1024
@@ -5024,6 +5358,10 @@ def main(argv=None) -> int:
             run_phase(vision_serving, dev)
         if "4g" in phases:
             run_phase(dense_serving, dev)
+        if "4h" in phases:
+            run_phase(dryrun_path, dev)
+        if "dryrun" in phases:
+            run_phase(dryrun_matrix, dev)
         if "5" in phases:
             run_phase(train_path, dev)
         return 0
@@ -5041,6 +5379,7 @@ def main(argv=None) -> int:
     audio_counts, audio_step_counts = run_phase(audio_serving, dev)
     vision_counts = run_phase(vision_serving, dev)
     dense_counts = run_phase(dense_serving, dev)
+    dry_counts, dry_row = run_phase(dryrun_path, dev)
     train_rows, train_counts = run_phase(train_path, dev)
 
     def pick(kernel, entry):
@@ -5259,6 +5598,20 @@ def main(argv=None) -> int:
                                  "kernel_route", "device_ms", "host_us",
                                  "library_device_ms")},
             "entry": entry})
+    # keys of their own length at whisper decode_32k's step (B=128, one
+    # query over 1500 frames; the split-key kernel), as each of that
+    # step's cross-attention launches (phase 4h's counted step)
+    kernels.append({
+        "name": "flash_attention_cross", "route": "cuda",
+        "source": SOURCES["flash_attention_cross"],
+        "replaces": REPLACES["flash_attention_cross"],
+        "launches": dry_counts["flash_attention_cross"],
+        **{k: dry_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "shape", "dtype", "kernel_route",
+                                   "device_ms", "host_us",
+                                   "library_device_ms")},
+        "entry": "whisper_decode_32k"})
     # the xlstm-125m layer with bf16 R, as each of its prefill launches
     r = next(x for x in scan_rows
              if x["entry"] == "layer" and x["r_dtype"] == "bfloat16")

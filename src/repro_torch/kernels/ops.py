@@ -8,11 +8,17 @@ gradient: attention has a backward kernel, and every other route raises
 when an input needs a gradient.  A call on CPU tensors runs the plain PyTorch version in
 ``kernels/ref``.  There is no switch that sends CUDA tensors to the plain
 version.  The aggregation and update entries also take a multi-scenario
-sweep's leading scenario axis, on either route.
+sweep's leading scenario axis, on either route.  On the meta device
+(shapes only, as the dry run reckons a step's memory) ``flash_attention``
+and ``slstm_scan`` return the new tensor their kernel allocates, and
+compute nothing.  Within ``logged_calls()`` each call of those two also
+notes its operands' shapes, so that the dry run can count the kernels'
+work, which ``torch.utils.flop_counter`` cannot see.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import List, Optional
 
 import torch
 
@@ -183,6 +189,28 @@ def _training_wait(q, v, cross: bool) -> str:
             f"the model zoo: {item})")
 
 
+_CALL_LOGS: List[list] = []
+
+
+@contextlib.contextmanager
+def logged_calls():
+    """Yields a list to which each ``flash_attention`` call within appends
+    ``("flash_attention", q shape, k shape, v shape, causal, window, q
+    dtype)`` and each ``slstm_scan`` call ``("slstm_scan", wx shape,
+    r_gates shape, r_gates dtype)``."""
+    log: list = []
+    _CALL_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _CALL_LOGS.remove(log)
+
+
+def _note(*entry) -> None:
+    for log in _CALL_LOGS:
+        log.append(entry)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     cross: bool = False) -> torch.Tensor:
     """Online-softmax attention; q (B,S,H,D), k (B,T,KV,D), v (B,T,KV,Dv)
@@ -194,6 +222,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     function, and a gradient the backward kernel does not take (fp32, D =
     32, 80, 96 or 192, MLA's D != Dv, or a cross-attention) raises
     rather than come back without one."""
+    if _CALL_LOGS:
+        _note("flash_attention", tuple(q.shape), tuple(k.shape),
+              tuple(v.shape), causal, window, q.dtype)
+    if q.is_meta:
+        return q.new_empty(tuple(q.shape[:3]) + (v.shape[-1],))
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if not _needs_grad(q, k, v):
@@ -214,6 +247,11 @@ def slstm_scan(wx, r_gates, b_gates) -> torch.Tensor:
     """Forward sLSTM recurrence; wx (B,S,4d) fp32, r_gates (H,P,4P), b_gates
     (4d,) fp32; hidden states (B,S,d) fp32.  The CUDA kernel has no
     backward: a CUDA call that needs a gradient raises."""
+    if _CALL_LOGS:
+        _note("slstm_scan", tuple(wx.shape), tuple(r_gates.shape),
+              r_gates.dtype)
+    if wx.is_meta:
+        return wx.new_empty(tuple(wx.shape[:2]) + (wx.shape[2] // 4,))
     if not wx.is_cuda:
         return ref.slstm_scan_ref(wx, r_gates, b_gates)
     _no_backward("slstm_scan", wx, r_gates, b_gates,

@@ -25,12 +25,14 @@ backward, attention through kernel #4 and its backward kernel on the card.
 Every rank is handed the same global host arrays (batch ``(LAR, A, b, S)``,
 mask ``(LAR, A)``, n_data ``(A,)``, delays ``(LAR, A)``) and takes its own
 agent's column (``HierarchyTopology.agent_rows``), as the reference's
-``shard_map`` hands each shard its block.  The tensor-parallel model axis
-(and so ``round_input_specs``, the dry run's) waits for ``launch/sharding``.
+``shard_map`` hands each shard its block.  ``round_input_specs`` builds
+the round's arguments for the dry run on the meta device.  The
+tensor-parallel model axis waits for ``launch/sharding`` (ROADMAP queue
+1, item 11b).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -138,7 +140,7 @@ def make_h2fed_round(cfg: ArchConfig, hp: H2FedParams, mesh=None, *,
     if model_axis_size(mesh) > 1:
         raise NotImplementedError(
             "a model axis larger than 1 (tensor parallelism) waits for the "
-            "port of launch/sharding (ROADMAP queue 1, item 11)")
+            "port of launch/sharding (ROADMAP queue 1, item 11b)")
     topo = HierarchyTopology.from_mesh(mesh)
     pod = topo.pod_axis
     if isinstance(staleness_decay, (tuple, list)):
@@ -311,3 +313,51 @@ def comm_model(cfg: ArchConfig, hp: H2FedParams, mesh, *,
     return {"ici_bytes_per_dev": ici, "dci_bytes_per_dev": dci,
             "ici_s": ici / ici_bw, "dci_s": dci / dci_bw,
             "per_local_round_s": (ici / ici_bw + dci / dci_bw) / hp.lar}
+
+
+# --------------------------------------------------------------------------
+# dry-run input specs
+# --------------------------------------------------------------------------
+
+def round_input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
+                      hp: Optional[H2FedParams] = None,
+                      quantize_cloud: bool = False, flat_agg: bool = False,
+                      *, device=None) -> Dict[str, Any]:
+    """The round's cell of the dry run (the reference's
+    ``round_input_specs``): dict(fn, args, cfg, desc, kind, batch, seq),
+    the args (params, batch (LAR, A, b, S), mask (LAR, A), n_data (A,))
+    on the meta device with the reference's shapes and dtypes.  Training
+    shapes only.  ``fn`` is ``make_h2fed_round`` on ``mesh`` (None: the
+    one-rank mesh) for ``device``; it raises at a model axis above 1.  No
+    ``in_shardings`` until ``launch/sharding`` is ported (item 11b)."""
+    from repro_torch.launch.steps import SHAPES, shape_adapted_config
+
+    info = SHAPES[shape_name]
+    assert info["kind"] == "train", "h2fed_round lowers training shapes only"
+    cfg = shape_adapted_config(cfg, shape_name)
+    hp = hp or H2FedParams(local_epochs=1, lar=4)
+    mesh = _one_rank_mesh() if mesh is None else mesh
+    fn = make_h2fed_round(cfg, hp, mesh, quantize_cloud=quantize_cloud,
+                          flat_agg=flat_agg, device=device)
+
+    A = HierarchyTopology.from_mesh(mesh).n_agents
+    b = max(info["batch"] // A, 1)
+    seq = info["seq"]
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    batch_tree = {"tokens": meta((hp.lar, A, b, seq), torch.int32),
+                  "labels": meta((hp.lar, A, b, seq), torch.int32)}
+    extra = (hp.lar, A, b, cfg.encoder.n_positions, cfg.encoder.d_embed)
+    if cfg.encoder.kind == "vision":
+        batch_tree["patch_embeds"] = meta(extra, torch.float32)
+    if cfg.encoder.kind == "audio":
+        batch_tree["memory"] = meta(extra, torch.float32)
+    return dict(
+        fn=fn,
+        args=(M.meta_params(cfg), batch_tree,
+              meta((hp.lar, A), torch.float32), meta((A,), torch.float32)),
+        cfg=cfg, kind="h2fed_round", batch=info["batch"], seq=seq,
+        desc=f"h2fed_round LAR={hp.lar} E={hp.local_epochs} A={A} b={b} "
+             f"S={seq}" + (" q8" if quantize_cloud else ""))

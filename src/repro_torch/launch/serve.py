@@ -52,6 +52,7 @@ import torch
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.registry import get_config, get_reduced_config
 from repro_torch.device import resolve_device
+from repro_torch.launch import steps
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import model as M
 
@@ -98,34 +99,19 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-CARD_BYTES = 80e9     # one H100's device memory
-
-
 def peak_bytes(cfg, batch: int, cache_len: int) -> dict:
     """The device memory a launcher run is reckoned to need at its peak,
-    from shapes alone (nothing is allocated): the params, the cache of
-    ``batch`` x ``cache_len``, and the larger of two transients:
-
-    - the draw's: the fp32 copy of the largest slice a leaf is drawn in
-      (``layers.dense_init`` draws a stacked leaf one slice of its leading
-      axis at a time and a 2-D leaf whole, ``embed_init`` the table whole),
-      counted as if every other param were already held;
-    - a decode step's: one layer's cache read in fp32 (``decode_attention``
-      widens K and V), and per row fp32 logits with their bf16 product and
-      the MLP's hidden width in fp32 four times over.
-
-    The prompt goes through the cache one token at a time, so the
-    launcher has no prefill of its own.  Returns the parts and their sum
-    (``"total"``), in bytes."""
-    params = M.param_bytes(cfg)
-    cache = M.cache_bytes(cfg, batch, cache_len)
-    layers = max(1, cfg.n_layers)
-    step = (2 * cache // layers
-            + batch * (6 * cfg.vocab_size
-                       + 16 * max(cfg.d_ff, cfg.d_model)))
-    draw = 4 * M.largest_draw_slice(cfg)
-    return {"params": params, "cache": cache, "transient": max(draw, step),
-            "total": params + cache + max(draw, step)}
+    from shapes alone (nothing is allocated): ``steps.peak_bytes`` of a
+    decode step at ``batch`` over ``cache_len`` positions, the dry run's
+    reckoning (the params, the cache, the step's inputs beside the
+    previous step's logits, the larger of the params' draw and the step's
+    own transient, and the runtime's workspaces).  The prompt goes through
+    the cache one token at a time, so the launcher has no prefill of its
+    own.  Returns the parts and their sum (``"total"``), in bytes."""
+    return steps.peak_bytes(dict(cfg=cfg, kind="decode", batch=batch,
+                                 seq=cache_len,
+                                 args=steps.decode_args(cfg, batch,
+                                                        cache_len)))
 
 
 def check_fits_one_card(cfg, dev: torch.device, batch: int,
@@ -135,8 +121,7 @@ def check_fits_one_card(cfg, dev: torch.device, batch: int,
     nemotron-4-340b's params alone do); on the host, against one H100's
     80 GB.  Returns the reckoning."""
     need = peak_bytes(cfg, batch, cache_len)
-    have = (torch.cuda.get_device_properties(dev).total_memory
-            if dev.type == "cuda" else CARD_BYTES)
+    have = steps.card_bytes(dev)
     if need["total"] > have:
         n = M.count_params_analytic(cfg)
         raise ValueError(

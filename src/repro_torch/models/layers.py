@@ -4,6 +4,7 @@ of tensors; initialisers draw from an explicit ``torch.Generator`` that
 lies on the target device."""
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -29,6 +30,8 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:              # shapes only (``model.meta_params``)
+        return out
     for part in (out if out.dim() > 2 else (out,)):
         t = torch.empty(part.shape, dtype=torch.float32, device=gen.device)
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -128,8 +131,25 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """1 / theta^(2i / head_dim) in fp32: the exponent rounded to fp32, the
+    power and the reciprocal taken in fp64 and rounded once.  That is the
+    value the reference's compiled ``rope_freqs`` gives at every head dim
+    of the configs; torch's fp32 ``pow`` misses it by an ulp in about a
+    third of the entries, which moves an angle near position 2^19 by up
+    to 0.03 rad.  Built once a (head_dim, theta, device), so that a
+    decode step launches nothing for it (not to be written to); built
+    afresh on the meta device, where a step's memory is reckoned."""
+    dev = torch.device("cpu" if device is None else device)
+    build = _rope_freqs.__wrapped__ if dev.type == "meta" else _rope_freqs
+    return build(head_dim, float(theta), dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=device) / head_dim
+    return (1.0 / theta ** e.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

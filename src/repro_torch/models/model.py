@@ -153,11 +153,17 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
+def meta_params(cfg: ArchConfig) -> Dict[str, Any]:
+    """``init_params(cfg)``'s tree on the meta device: every leaf's shape
+    and dtype, nothing allocated or drawn."""
+    return init_params(cfg, _MetaGenerator(), device="meta")
+
+
 @functools.lru_cache(maxsize=64)
 def _param_paths(cfg: ArchConfig):
     """(path, shape, bytes an element) of every leaf of
     ``init_params(cfg)``, built on the meta device."""
-    params = init_params(cfg, _MetaGenerator(), device="meta")
+    params = meta_params(cfg)
     return tuple((path, tuple(leaf.shape), leaf.element_size())
                  for path, leaf in tree.leaves_with_paths(params))
 

@@ -66,7 +66,7 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                  "stream_path", "serve_path", "sharded_path", "serving_path",
                  "xlstm_serving", "moe_serving", "hybrid_serving",
                  "audio_serving", "vision_serving", "dense_serving",
-                 "train_path")
+                 "dryrun_path", "dryrun_matrix", "train_path")
 
 
 @pytest.mark.parametrize("flag,runs", [("--attention", ["attention_cases"]),
@@ -83,7 +83,9 @@ PHASE_RUNNERS = ("aggregation_cases", "attention_cases", "slstm_cases",
                                        ("--hybrid", ["hybrid_serving"]),
                                        ("--audio", ["audio_serving"]),
                                        ("--vision", ["vision_serving"]),
-                                       ("--dense", ["dense_serving"])])
+                                       ("--dense", ["dense_serving"]),
+                                       ("--cells", ["dryrun_path"]),
+                                       ("--dryrun", ["dryrun_matrix"])])
 def test_modes_run_their_phase_and_print_no_result(monkeypatch, capsys,
                                                    flag, runs):
     """A mode runs the build and its kernel's phase, nothing else, and
@@ -119,7 +121,10 @@ def test_phase_selection():
     assert cs.selected_phases(["--audio"]) == ("1", "4e")
     assert cs.selected_phases(["--vision"]) == ("1", "4f")
     assert cs.selected_phases(["--dense"]) == ("1", "4g")
-    assert "4g" in cs.FULL_RUN
+    assert cs.selected_phases(["--cells"]) == ("1", "4h")
+    assert cs.selected_phases(["--dryrun"]) == ("1", "dryrun")
+    assert "4g" in cs.FULL_RUN and "4h" in cs.FULL_RUN
+    assert "dryrun" not in cs.FULL_RUN
     assert "4c" in cs.FULL_RUN and "4d" in cs.FULL_RUN
     assert "4e" in cs.FULL_RUN and "4f" in cs.FULL_RUN
     assert "3b" in cs.FULL_RUN and "3t" in cs.FULL_RUN
@@ -310,6 +315,16 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "yi-34b": {"flash_attention": 60},
         "command-r-35b": {"flash_attention": 40},
         "nemotron-4-340b": {"flash_attention_d192": 2}})
+    dry_row = {"kernel": "flash_attention_cross",
+               "entry": "whisper_decode_32k", "kernel_route": "split_keys",
+               "device_ms": 0.05, "host_us": 40.0, "library_device_ms": 0.04,
+               "max_abs_err": 2e-3, "ms": 0.06, "plain_ms": 3.0,
+               "bound_ms": 0.03, "bound_by": "bytes", "library_ms": 0.2,
+               "shape": {"B": 128}, "dtype": "bfloat16"}
+    monkeypatch.setattr(cs, "dryrun_path", lambda dev: (
+        {"flash_attention_cross": 4}, dry_row))
+    monkeypatch.setattr(cs, "dryrun_matrix", lambda dev: pytest.fail(
+        "the full run does not run the whole dry-run matrix"))
     monkeypatch.setattr(cs, "train_path",
                         lambda dev: (train_rows, train_counts))
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
@@ -317,7 +332,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert cs.main([]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     # each phase's wall time on a line of its own, before the result
-    assert sum(line.startswith("time: ") for line in lines[:-3]) == 17
+    assert sum(line.startswith("time: ") for line in lines[:-3]) == 18
     assert lines[-2] == card
     assert json.loads(lines[-1])["device"] == {"platform": "gpu",
                                                "kind": card, "count": 1}
@@ -329,7 +344,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "flash_attention_mla", "flash_attention_d80", "flash_attention_d96",
         "flash_attention", "flash_attention", "flash_attention_d192",
         "flash_attention", "flash_attention_cross", "flash_attention_cross",
-        "slstm_scan",
+        "flash_attention_cross", "slstm_scan",
         "flash_attention",
         "flash_attention_bwd", "dual_proximal_sgd"]
     for k in kernels:
@@ -344,7 +359,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["launches"] for k in kernels] == [
         50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
         120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
-        27, 9, 32, 60, 40, 2, 4, 4, 4, 3, 300, 150, 176]
+        27, 9, 32, 60, 40, 2, 4, 4, 4, 4, 3, 300, 150, 176]
     # the training path's rows: #4 forward and backward at the layer
     # shape, #3's bf16 mode at the embedding leaf
     assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
@@ -390,6 +405,12 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert kernels[14]["device_ms"] == 0.009
     assert kernels[14]["host_us"] == 35.0
     assert kernels[14]["library_device_ms"] == 0.02
+    # the same kernel at whisper decode_32k's step, with phase 4h's
+    # counted step's launches
+    assert kernels[15]["entry"] == "whisper_decode_32k"
+    assert kernels[15]["kernel_route"] == "split_keys"
+    assert kernels[15]["shape"] == {"B": 128}
+    assert kernels[15]["ms"] == 0.06 and kernels[15]["device_ms"] == 0.05
     assert kernels[-2]["products_per_pair"] == 5
     assert kernels[0]["launches_by_path"] == {"flat": 50, "async": 150,
                                               "sweep": 30, "serve": 9,
@@ -428,3 +449,92 @@ def test_reduced_card_vs_host_callers_pass_counts_by_key():
         assert all(isinstance(k, ast.Constant)
                    and k.value.startswith(("flash_attention", "slstm_scan"))
                    for k in counted.keys), ast.unparse(call)
+
+
+def _cell(arch="qwen3-0.6b", shape="long_500k", peak=10, draw_peak=None,
+          launches=None, routes=None):
+    return {"arch": arch, "shape": shape,
+            "reckoned": {"params": 4, "draw": 3, "runtime": 1, "total": 12},
+            "measured": {"peak_bytes": peak, "draw_peak_bytes": draw_peak},
+            "launches": launches or {}, "routes": routes or {}}
+
+
+@pytest.mark.parametrize("peak,draw_peak,ok", [
+    (12, None, True), (13, None, False), (10, 8, True), (10, 9, False)])
+def test_held_to_reckoning_holds_the_step_and_the_draw(peak, draw_peak, ok):
+    """A run cell's peak may reach its reckoned total and no further; the
+    draw's peak, where the cell drew its params, the reckoning's draw term
+    (params + draw + runtime: 8 here)."""
+    cs = _chip_smoke()
+    rec = _cell(peak=peak, draw_peak=draw_peak)
+    if ok:
+        cs._held_to_reckoning(rec)
+    else:
+        with pytest.raises(AssertionError):
+            cs._held_to_reckoning(rec)
+
+
+def test_held_to_launches_is_each_run_cell_s_own():
+    """Each run cell's launches and #4's routes a call are held to
+    ``DRYRUN_RUNS``: qwen3's prefill 28 tma_wgmma launches, its long_500k
+    decode none."""
+    cs = _chip_smoke()
+    want = cs.DRYRUN_RUNS[("qwen3-0.6b", "prefill_32k")]
+    assert want == ({"flash_attention": 28},
+                    {"flash_attention:tma_wgmma": 28})
+    cs._held_to_launches(_cell(shape="prefill_32k", launches=want[0],
+                               routes=want[1]))
+    cs._held_to_launches(_cell())
+    with pytest.raises(AssertionError):
+        cs._held_to_launches(_cell(launches={"flash_attention": 28}))
+    with pytest.raises(AssertionError):
+        cs._held_to_launches(_cell(shape="prefill_32k", launches=want[0],
+                                   routes={"flash_attention:fma": 28}))
+    assert cs.DRYRUN_RUNS[("whisper-tiny", "decode_32k")][0] == \
+        cs.WHISPER_STEP
+
+
+def test_cell_kernel_rows_check_each_distinct_call_once(monkeypatch):
+    """``--dryrun`` holds each distinct kernel call of the run cells to
+    its plain version once, at the call's own shapes and dtypes."""
+    cs = _chip_smoke()
+    seen = []
+    monkeypatch.setattr(cs, "attention_call_row",
+                        lambda dev, tag, *a: seen.append(("attn", tag, a)))
+    monkeypatch.setattr(cs, "slstm_call_row",
+                        lambda dev, tag, *a: seen.append(("scan", tag, a)))
+    attn = ["flash_attention", [32, 32768, 16, 128], [32, 32768, 8, 128],
+            [32, 32768, 8, 128], True, 0, "bfloat16"]
+    scan = ["slstm_scan", [32, 32768, 3072], [4, 192, 768], "bfloat16"]
+    recs = [dict(_cell(shape="prefill_32k"), calls=[attn]),
+            dict(_cell(arch="xlstm-125m", shape="prefill_32k"),
+                 calls=[scan]),
+            dict(_cell(arch="xlstm-125m"), calls=[scan, attn]),
+            dict(_cell(), calls=[])]
+    assert len(cs.cell_kernel_rows("cuda", recs)) == 2
+    assert seen == [("attn", "qwen3-0.6b_prefill_32k", tuple(attn[1:])),
+                    ("scan", "xlstm-125m_prefill_32k", tuple(scan[1:]))]
+
+
+@pytest.mark.parametrize("causal,T,max_heads", [(True, 40, 2),
+                                                (False, 23, 1),
+                                                (True, 40, 32)])
+def test_plain_in_chunks_is_the_plain_version(causal, T, max_heads):
+    """The plain version a batch row and a few heads at a time is the
+    plain version over the whole batch, causal or across keys of their own
+    length; ``compare_rows`` gives the largest row's error and raises on a
+    row that disagrees."""
+    import torch
+    from repro_torch.kernels import ref
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(3, 40, 4, 16, generator=gen)
+    k, v = (torch.randn(3, T, 2, 16, generator=gen) for _ in range(2))
+    got = cs.plain_in_chunks(q, k, v, max_heads=max_heads, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert cs.compare_rows(got, want, torch.float32, "rows") <= 1e-6
+    bad = want.clone()
+    bad[2, 5, 1, 3] += 1.0
+    with pytest.raises(AssertionError, match="row 2"):
+        cs.compare_rows(got, bad, torch.float32, "rows")

@@ -225,4 +225,4 @@ def test_serve_launcher_refuses_nemotron_full_before_any_draw(monkeypatch):
         need = tserve.check_fits_one_card(tregistry.get_config(arch),
                                           torch.device("cpu"), 8, 64)
         assert need["params"] == 2 * FULL_PARAMS[arch]
-        assert need["total"] < tserve.CARD_BYTES
+        assert need["total"] < tsteps.CARD_BYTES

@@ -422,3 +422,38 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
         train.main(["--mesh", "1,1,1", "--rounds", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         steps.init_train_state(cfg, torch.Generator().manual_seed(0))
+
+
+def test_dryrun_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.dryrun, "
+            "repro_torch.launch.steps, repro_torch.launch.h2fed_round; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+            "for m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
+
+
+def test_dryrun_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The dry run, its specs and ``materialize`` take cuda unless asked
+    for the CPU and raise when it is absent; the reckoning alone needs no
+    device (shapes on the meta device)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, h2fed_round, steps
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-0.6b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.input_specs(cfg, "long_500k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        h2fed_round.round_input_specs(cfg, "train_4k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.run_cell("qwen3-0.6b", "long_500k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "qwen3-0.6b", "--shape", "long_500k",
+                     "--out", str(tmp_path)])
+    spec = steps.input_specs(cfg, "long_500k", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.materialize(spec, torch.Generator().manual_seed(0))
+    assert steps.peak_bytes(spec)["total"] < 3e9
