@@ -361,14 +361,21 @@ Phases, each printing its own lines and then its wall time (``time:
    backward attention launches a step, and one step under
    ``torch.profiler`` (device busy share, top kernels).  (d) The launcher with
    ``--full-config``, 2 rounds of LAR 2, E 1, S=1024, b=2 an agent, at
-   ``--mesh 1,1,1`` (1 rank, nccl) and ``1,2,1`` (2 ranks sharing the
-   card, gloo): eval loss each round (finite and falling), ms a round,
-   each round's launches and collectives (calls and bytes by axis, beside
-   ``comm_model``'s bytes) and each rank's peak memory.  (e) One round on
-   the card against the host at the reduced qwen3 (D=64), the same params:
-   per-leaf, ``flat_agg``, ``async_rounds=2`` with ``buffer_keep=0.5``
-   (1 rank) and ``quantize_cloud`` at ``--mesh 2,2,1`` (4 gloo ranks); the
-   new cloud within 5e-3 absolute and relative, the masses equal.
+   ``--mesh 1,1,1`` (1 rank, nccl), ``1,2,1`` (2 ranks sharing the
+   card, gloo) and ``1,1,2`` (one agent's model split over 2 ranks
+   sharing the card, gloo: tensor parallel, H/2 and KV/2 heads a rank):
+   eval loss each round (finite and falling), ms a round, each round's
+   launches and collectives (calls and bytes by axis, beside
+   ``comm_model``'s bytes) and each rank's peak memory; at ``1,1,2`` the
+   final cloud (gathered) within 5e-3 of the ``1,1,1`` run's and every
+   round's ``tp``, ``round``, ``lar`` and ``cloud`` collectives equal to
+   ``round_collectives``'s reckoning.  (e) One round on the card against
+   the host at the reduced qwen3 (D=64), the same params: per-leaf,
+   ``flat_agg``, ``async_rounds=2`` with ``buffer_keep=0.5`` (1 rank),
+   and in one spawn of 4 gloo ranks ``quantize_cloud`` at ``--mesh
+   2,2,1`` and the per-leaf round at ``1,2,2`` (2 agents, each split over
+   2 ranks); the new cloud within 5e-3 absolute and relative, the masses
+   equal.
 6. The kernels' JSON line (each kernel's launches are those of the
    counted runs of the flat path, the async path, the sweep, the serve
    loop, the streamed rounds and the sharded rounds, also given by path;
@@ -4944,17 +4951,28 @@ BWD_CASES = (("layer", 1, 4096, 16, 8, 128, True, 0),
 BWD_TOL = 2.0 ** -7
 # (c): A agents x b sequences of S tokens (the train_4k length), 3 steps
 STEP_A, STEP_B, STEP_S, STEP_N = 2, 1, 4096, 3
-# (d): the launcher at full width, 2 rounds of LAR 2, E 1
+# (d): the launcher at full width, 2 rounds of LAR 2, E 1; at 1,1,2 the
+# agent's model is split over 2 ranks (tensor parallel) sharing the card
 LAUNCH_ARGS = ("--full-config", "--rounds", "2", "--lar", "2", "--epochs",
                "1", "--seq", "1024", "--batch", "2")
-LAUNCH_MESHES = ("1,1,1", "1,2,1")
+LAUNCH_MESHES = ("1,1,1", "1,2,1", "1,1,2")
 # (e): card against host at the reduced qwen3 (D = 64); the reference's own
-# bf16 round tolerance (tests/test_launch.py)
+# bf16 round tolerance (tests/test_launch.py); the two 4-rank cases share
+# one spawn, per_leaf_tp at 2 agents x a model split over 2 ranks
 ROUND_TOL = dict(atol=5e-3, rtol=5e-3)
-ROUND_CASES = (("per_leaf", 1, {}), ("flat", 1, dict(flat_agg=True)),
-               ("async", 1, dict(flat_agg=True, async_rounds=2,
-                                 buffer_keep=0.5)),
-               ("quantized", 4, dict(quantize_cloud=True)))
+# (d): the split run's update (its final cloud less the drawn params) held
+# to the 1-rank run's, relative in the 2-norm over all leaves and over each
+# leaf, and its eval losses to the 1-rank run's (absolute), so that a
+# wrong tensor-parallel gradient fails even where the cloud's elementwise
+# ROUND_TOL is wider than the update itself
+UPDATE_TOL = {"update_vs_1,1,1_rel_gap": 0.25,
+              "update_vs_1,1,1_max_leaf_rel_gap": 0.5}
+LOSS_TOL = 5e-3
+ROUND_CASES = (("per_leaf", None, {}), ("flat", None, dict(flat_agg=True)),
+               ("async", None, dict(flat_agg=True, async_rounds=2,
+                                    buffer_keep=0.5)),
+               ("quantized", (2, 2, 1), dict(quantize_cloud=True)),
+               ("per_leaf_tp", (1, 2, 2), {}))
 
 
 def attention_bwd_bound(B, S, H, KV, D, causal, window):
@@ -5130,21 +5148,27 @@ def train_step_run(dev) -> dict:
 
 def launcher_runs(dev) -> dict:
     """Phase 5d: ``python -m repro_torch.launch.train --full-config`` at 1
-    rank (nccl) and 2 ranks sharing the card (gloo), in process through
+    rank (nccl), 2 agents (2 ranks sharing the card over gloo) and one
+    agent split over 2 ranks (tensor parallel, gloo), in process through
     its ``main``; each round's launches and collectives were counted by
-    the ranks themselves (set to 0 just before the round)."""
+    the ranks themselves (set to 0 just before the round).  The split run
+    is held to the 1-rank run (the same seed and draws, A = 1): the final
+    cloud within ``ROUND_TOL``, its update and eval losses within
+    ``UPDATE_TOL`` and ``LOSS_TOL`` (``update_gap``), and its collectives
+    each round to ``round_collectives``'s reckoning."""
+    from repro_torch import tree
     from repro_torch.configs.registry import get_config
     from repro_torch.core.h2fed import H2FedParams
     from repro_torch.launch import train
-    from repro_torch.launch.h2fed_round import comm_model
+    from repro_torch.launch.h2fed_round import comm_model, round_collectives
+    from repro_torch.launch.mesh import ShapeMesh
 
-    out = {}
+    out, base = {}, None
     for mesh in LAUNCH_MESHES:
         t0 = time.perf_counter()
         res = train.main([*LAUNCH_ARGS, "--mesh", mesh])
         shape = tuple(int(x) for x in mesh.split(","))
-        fake = type("M", (), {"shape": dict(zip(("pod", "data", "model"),
-                                                shape))})()
+        fake = ShapeMesh(shape, ("pod", "data", "model"))
         cm = comm_model(get_config("qwen3-0.6b"), H2FedParams(lar=2), fake)
         losses = [res["init_loss"], *res["loss"]]
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -5157,19 +5181,99 @@ def launcher_runs(dev) -> dict:
                "comm_model_bytes": {"data": cm["ici_bytes_per_dev"],
                                     "pod": cm["dci_bytes_per_dev"]},
                "peak_bytes_by_rank": res["peak_bytes_by_rank"]}
+        cloud = res.pop("cloud")
+        if mesh == "1,1,1":
+            base, base_losses = cloud, losses
+        if shape[2] > 1:
+            rec.update(update_gap(dev, cloud, base))
+            rec["eval_loss_vs_1,1,1_max_abs_gap"] = max(
+                abs(a - b) for a, b in zip(losses, base_losses))
+            print("launcher hold " + json.dumps({
+                k: rec[k] for k in rec if "1,1,1" in k}))
+            want = round_collectives(get_config("qwen3-0.6b"),
+                                     H2FedParams(lar=2, local_epochs=1),
+                                     fake, 2, 1024)   # b, S of LAUNCH_ARGS
+            rec["collectives_reckoned"] = want
+            for r, got in enumerate(res["collectives"]):
+                mine = {k: v for k, v in got.items()
+                        if k.split("/")[0] in ("tp", "round", "lar",
+                                               "cloud")}
+                if mine != want:
+                    raise AssertionError(f"launcher {mesh} round {r + 1}: "
+                                         f"collectives {mine}, reckoned "
+                                         f"{want}")
+            err = 0.0
+            for a, b in zip(tree.leaves(cloud), tree.leaves(base)):
+                err = max(err, compare(a, b, torch.bfloat16,
+                                       f"launcher {mesh} vs 1,1,1 cloud",
+                                       tol=(ROUND_TOL["atol"],
+                                            ROUND_TOL["rtol"])))
+            rec["cloud_vs_1,1,1_max_abs_err"] = err
+            if any(rec[k] > v for k, v in UPDATE_TOL.items()):
+                raise AssertionError(f"launcher {mesh}: update "
+                                     f"{ {k: rec[k] for k in UPDATE_TOL} } "
+                                     f"from 1,1,1's, limits {UPDATE_TOL}")
+            if rec["eval_loss_vs_1,1,1_max_abs_gap"] > LOSS_TOL:
+                raise AssertionError(f"launcher {mesh}: eval loss {losses} "
+                                     f"against 1,1,1's {base_losses}, "
+                                     f"limit {LOSS_TOL}")
+            rec["kernel_launches_per_round"] = [
+                {k: c.get(k, 0) for k in ("flash_attention",
+                                          "flash_attention_bwd",
+                                          "dual_proximal_sgd")}
+                for c in res["launches"]]
         print("launcher " + json.dumps(rec))
         out[mesh] = rec
         torch.cuda.empty_cache()
     return out
 
 
+def update_gap(dev, cloud, base) -> dict:
+    """How far the split run's update (``cloud`` less the params that the
+    launcher draws from its seed) is from the 1-rank run's (``base`` less
+    the same): ||d - d_base|| / ||d_base||, over all leaves and the most
+    of any leaf, with ||d_base|| / ||params||.  Raises unless the update
+    is under half the params' norm (else the draw is not the
+    launcher's)."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    init = M.init_params(get_config("qwen3-0.6b"),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    gap = upd = par = leaf = 0.0
+    for p, a, b in zip(tree.leaves(init), tree.leaves(cloud),
+                       tree.leaves(base)):
+        p = p.float()
+        d_base = b.to(dev).float() - p
+        g = (a.to(dev).float() - p - d_base).norm().item() ** 2
+        u = d_base.norm().item() ** 2
+        gap, upd, par = gap + g, upd + u, par + p.norm().item() ** 2
+        leaf = max(leaf, (g / u) ** 0.5 if u else
+                   (float("inf") if g else 0.0))
+    del init
+    torch.cuda.empty_cache()
+    if not upd ** 0.5 < 0.5 * par ** 0.5:
+        raise AssertionError(f"launcher: the 1,1,1 update {upd ** 0.5:.4g} "
+                             f"is not under half the drawn params' "
+                             f"{par ** 0.5:.4g}: not the launcher's draw")
+    return {"update_vs_1,1,1_rel_gap": (gap / upd) ** 0.5,
+            "update_vs_1,1,1_max_leaf_rel_gap": leaf,
+            "update_1,1,1_rel_size": (upd / par) ** 0.5}
+
+
 def train_round_rank(device: str, params_cpu: dict) -> dict:
-    """Runs on every rank of phase 5e's 4-rank case (module level, spawned
-    by ``run_ranks``): the quantized round on the card and on the host."""
+    """Runs on every rank of phase 5e's 4-rank cases (module level,
+    spawned by ``run_ranks`` once): each case's round on the card and on
+    the host, on its own mesh of the same 4 ranks."""
     from repro_torch.launch.mesh import FleetMesh
-    mesh = FleetMesh((2, 2, 1), ("pod", "data", "model"))
-    return {d: _one_round(d, params_cpu, mesh, dict(quantize_cloud=True))
-            for d in (device, "cpu")}
+    out = {}
+    for name, shape, kw in ROUND_CASES:
+        if shape is not None:
+            mesh = FleetMesh(shape, ("pod", "data", "model"))
+            out[name] = {d: _one_round(d, params_cpu, mesh, kw)
+                         for d in (device, "cpu")}
+    return out
 
 
 def _round_inputs(A: int):
@@ -5184,28 +5288,45 @@ def _round_inputs(A: int):
 
 
 def _one_round(device, params_cpu, mesh, kw) -> dict:
+    """One round on ``device``: the params handed in as this rank's blocks
+    of the round's layout, the new cloud gathered whole; the kernels'
+    launches of the round."""
     from repro_torch import tree
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.core.h2fed import H2FedParams
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shard
     from repro_torch.launch.h2fed_round import make_h2fed_round
+    from repro_torch.launch.mesh import n_agents
     dev = torch.device(device)
     params = tree.map_tree(lambda t: t.to(dev), params_cpu)
-    A = 1 if mesh is None else 4
-    batch, mask, n_data, delays = _round_inputs(A)
+    layout = None
+    if mesh is not None:
+        layout = shard.param_shardings_model_only(params, mesh)
+        params = shard.shard_tree(params, layout)
+    batch, mask, n_data, delays = _round_inputs(
+        1 if mesh is None else n_agents(mesh))
     fn = make_h2fed_round(get_reduced_config("qwen3-0.6b"),
                           H2FedParams(mu1=0.05, mu2=0.01, lar=2,
                                       local_epochs=1, lr=0.1),
                           mesh, device=dev, **kw)
+    ops.reset_launch_counts()
     cloud, m = fn(params, batch, mask, n_data,
                   *((delays,) if kw.get("async_rounds") else ()))
+    launches = ops.launch_counts()
+    if layout is not None:
+        cloud = shard.gather_tree(cloud, layout)
     return {"cloud": tree.map_tree(lambda t: t.cpu(), cloud),
-            "mass": float(m["surviving_mass"])}
+            "mass": float(m["surviving_mass"]), "launches": launches}
 
 
 def round_card_vs_host(dev) -> dict:
     """Phase 5e: one round of each case on the card and on the host, the
     same params (reduced qwen3, bf16, D = 64): the new cloud within the
-    reference's bf16 round tolerance, the surviving masses equal."""
+    reference's bf16 round tolerance, the surviving masses equal.  The
+    4-rank cases run in one spawn; ``per_leaf_tp`` splits each of 2
+    agents' model over 2 ranks.  Returns the cases' records and the
+    split case's card launches (rank 0's)."""
     from repro_torch import tree
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.launch.mesh import run_ranks
@@ -5213,15 +5334,16 @@ def round_card_vs_host(dev) -> dict:
 
     params = M.init_params(get_reduced_config("qwen3-0.6b"),
                            torch.Generator().manual_seed(0), device="cpu")
-    out = {}
-    for name, ranks, kw in ROUND_CASES:
-        if ranks == 1:
+    out, spawned = {}, None
+    for name, shape, kw in ROUND_CASES:
+        if shape is None:
             card, host = (_one_round(d, params, None, kw)
                           for d in (str(dev), "cpu"))
         else:
-            both = run_ranks(ranks, train_round_rank, str(dev), params,
-                             backend="gloo", device="cuda")
-            card, host = both[str(dev)], both["cpu"]
+            if spawned is None:
+                spawned = run_ranks(4, train_round_rank, str(dev), params,
+                                    backend="gloo", device="cuda")
+            card, host = spawned[name][str(dev)], spawned[name]["cpu"]
         err = 0.0
         for a, b in zip(tree.leaves(card["cloud"]),
                         tree.leaves(host["cloud"])):
@@ -5233,22 +5355,23 @@ def round_card_vs_host(dev) -> dict:
             raise AssertionError(f"round {name}: surviving mass "
                                  f"{card['mass']} on the card, "
                                  f"{host['mass']} on the host")
-        out[name] = {"ranks": ranks, "max_abs_err": err,
-                     "mass": card["mass"]}
+        out[name] = {"mesh": shape, "max_abs_err": err,
+                     "mass": card["mass"], "launches": card["launches"]}
         print("round card-vs-host " + json.dumps({"case": name, **out[name]}))
-    return out
+    return out, spawned["per_leaf_tp"][str(dev)]["launches"]
 
 
 def train_path(dev):
     """Phase 5; returns (kernel rows, the training runs' launch counts:
-    the train step's 3 steps and both launcher runs' rounds)."""
+    the train step's 3 steps, every launcher run's rounds and the split
+    card-vs-host round's card run)."""
     rows = attention_bwd_cases(dev) + dps_bf16_cases(dev)
     step = train_step_run(dev)
     launch = launcher_runs(dev)
-    round_card_vs_host(dev)
+    _, tp_launches = round_card_vs_host(dev)
     counts: dict = {}
     for c in step["launches"] + [c for r in launch.values()
-                                 for c in r["launches"]]:
+                                 for c in r["launches"]] + [tp_launches]:
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
     return rows, counts

@@ -26,6 +26,20 @@ On ``gloo`` a CUDA tensor is staged through host memory explicitly (a
 copy down, the collective on the host tensor, a copy up), so the same
 calls serve ranks that share one card; ``nccl`` takes CUDA tensors as
 they are.
+
+The tensor-parallel layers (a model split over the mesh's ``model``
+group, ``launch/sharding.ModelAxis``) use four collectives that autograd
+differentiates, all counted at ``where="tp"`` on ``model``:
+
+  ``tp_copy``           identity forward, fp32 sum backward: the input
+                        of products whose weight columns are split;
+  ``tp_reduce``         sum forward, identity backward: the partial
+                        outputs of products whose weight rows are split;
+  ``tp_embed``          the vocab-split embedding: this rank's rows
+                        looked up, the others' tokens zero, summed;
+  ``tp_cross_entropy``  the vocab-split cross-entropy: the max, the sum
+                        of exponentials and the label's logit, each
+                        summed (the max: its maximum) over the group.
 """
 from __future__ import annotations
 
@@ -98,6 +112,104 @@ def all_gather_objects(obj, mesh, axes, *, where: str) -> list:
     dist.all_gather_object(out, obj, group=group)
     _note(where, axes, len(pickle.dumps(obj)))
     return out
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel collectives (autograd)
+# --------------------------------------------------------------------------
+
+def _tp_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the model group in fp32, back in ``t``'s dtype."""
+    return all_reduce(t.float(), mesh, "model", where="tp").to(t.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_sum(g, ctx.mesh), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x, mesh, "model", where="tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` as it is; its gradient summed (in fp32) over the model group.
+    Goes before products whose weights hold this rank's columns."""
+    return _Copy.apply(x, mesh)
+
+
+def tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the model group in its own dtype (pass fp32
+    partials: they are rounded once, after the sum); the gradient passes
+    as it is."""
+    return _Reduce.apply(x, mesh)
+
+
+def _vocab_rows(mesh, rows: int) -> int:
+    """The first vocab row that this rank holds of a table split in
+    ``rows``-row blocks over the model group."""
+    return mesh.coordinate("model") * rows
+
+
+def tp_embed(table: torch.Tensor, tokens: torch.Tensor,
+             mesh) -> torch.Tensor:
+    """Rows of a vocab-split embedding ``table`` (this rank's rows) for
+    ``tokens`` (int64 ids into the whole vocab): each rank looks up the
+    tokens that fall in its rows, zero for the rest, and the group sums
+    (exactly: one rank is nonzero a token) in the table's dtype."""
+    rows = table.shape[0]
+    local = tokens - _vocab_rows(mesh, rows)
+    inside = (local >= 0) & (local < rows)
+    x = table[torch.where(inside, local, 0)]
+    return tp_reduce(torch.where(inside[..., None], x, 0), mesh)
+
+
+class _CrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, mesh):
+        rows = logits.shape[-1]
+        top = all_reduce(logits.max(dim=-1).values, mesh, "model",
+                         where="tp", op="max")
+        e = torch.exp(logits - top[..., None])
+        total = all_reduce(e.sum(dim=-1), mesh, "model", where="tp")
+        local = labels - _vocab_rows(mesh, rows)
+        inside = (local >= 0) & (local < rows)
+        local = torch.where(inside, local, 0)
+        picked = logits.gather(-1, local[..., None])[..., 0]
+        picked = all_reduce(torch.where(inside, picked, 0.0), mesh,
+                            "model", where="tp")
+        ctx.save_for_backward(e, total, local, inside)
+        return torch.log(total) + top - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, local, inside = ctx.saved_tensors
+        grad = e / total[..., None]
+        grad.scatter_add_(-1, local[..., None],
+                          -inside[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None
+
+
+def tp_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                     mesh) -> torch.Tensor:
+    """Next-token NLL (labels' shape) from fp32 logits over this rank's
+    vocab columns (``logits[..., j]`` is vocab id ``start + j``) and int64
+    ``labels`` >= 0 into the whole vocab: ``log sum exp - logit[label]``
+    with the max, the sum and the label's logit taken over the group.
+    The backward needs no collective."""
+    return _CrossEntropy.apply(logits, labels, mesh)
 
 
 def counts() -> Dict[str, Dict[str, int]]:

@@ -30,6 +30,13 @@ one H100 each cell goes through these steps, in order:
 5. A cell reckoned to fit that runs out of memory or raises is a failure:
    its ``*.FAIL.txt`` is written, the run goes on to the next cell and
    exits non-zero at the end.
+6. Every record (a skipped one too) names the reference's production
+   mesh, ``16x16`` (256 chips) or under ``--multi-pod`` ``2x16x16``
+   (512 chips, records suffixed ``__mp``), and a cell's
+   ``per_rank_argument_bytes``: the bytes of its arguments that one chip
+   of that mesh holds under the reference's ``in_shardings``
+   (``sharding.arg_bytes`` on the shape-only ``make_production_mesh``).
+   That is a reckoning from shapes; no cell runs on that mesh.
 
 The reference's ``hlo_analysis`` parses XLA's HLO text, which PyTorch
 never produces; the per-cell cost and footprint above are the part of it
@@ -39,6 +46,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
       --shape long_500k [--step h2fed_round] [--out results/dryrun_torch]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 40 cells
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
 
 ``--device cpu`` runs a cell's plain PyTorch versions on the host (a
 smoke run of a ``--reduced`` config: host-clock times, no peak, FLOPs as
@@ -67,7 +75,9 @@ from repro_torch.core.h2fed import H2FedParams
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding as shard
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.models.ssm import MambaCache
 
@@ -109,10 +119,11 @@ def apply_overrides(cfg, overrides: dict):
 
 def cell_spec(arch: str, shape: str, step: str = "default",
               overrides: Optional[dict] = None, *, reduced: bool = False,
-              device=None) -> dict:
+              device=None, mesh=None) -> dict:
     """The cell's spec (``steps.input_specs``, or ``h2fed_round.
     round_input_specs`` for ``step="h2fed_round"``, whose ``lar`` and
-    ``quantize_cloud`` overrides are the step's own)."""
+    ``quantize_cloud`` overrides are the step's own) on ``mesh`` (None:
+    one rank)."""
     cfg = (get_reduced_config if reduced else get_config)(arch)
     overrides = dict(overrides or {})
     qc = bool(overrides.pop("quantize_cloud", False))
@@ -120,10 +131,29 @@ def cell_spec(arch: str, shape: str, step: str = "default",
     cfg = apply_overrides(cfg, overrides)
     if step == "h2fed_round":
         from repro_torch.launch.h2fed_round import round_input_specs
-        return round_input_specs(cfg, shape,
+        return round_input_specs(cfg, shape, mesh,
                                  hp=H2FedParams(local_epochs=1, lar=lar),
                                  quantize_cloud=qc, device=device)
-    return steps_mod.input_specs(cfg, shape, device=device)
+    return steps_mod.input_specs(cfg, shape, mesh, device=device)
+
+
+def mesh_fields(multi_pod: bool) -> dict:
+    """The reference's production mesh of a record: its name and chips."""
+    return {"mesh": "2x16x16" if multi_pod else "16x16",
+            "n_chips": 512 if multi_pod else 256}
+
+
+def per_rank_argument_bytes(arch: str, shape: str, step: str = "default",
+                            overrides: Optional[dict] = None, *,
+                            reduced: bool = False,
+                            multi_pod: bool = False) -> int:
+    """The bytes of the cell's arguments that one chip of the reference's
+    production mesh holds under its ``in_shardings`` (shapes on the meta
+    device and a ``ShapeMesh``: a reckoning)."""
+    spec = cell_spec(arch, shape, step, overrides, reduced=reduced,
+                     device="meta",
+                     mesh=make_production_mesh(multi_pod=multi_pod))
+    return shard.arg_bytes(spec["args"], spec["in_shardings"])
 
 
 def reckon_cells(cells, step: str = "default") -> list:
@@ -338,7 +368,8 @@ class ParamStore:
 def run_cell(arch: str, shape: str, *, step: str = "default",
              overrides: Optional[dict] = None, reduced: bool = False,
              device=None, seed: int = 0,
-             store: Optional[ParamStore] = None) -> dict:
+             store: Optional[ParamStore] = None,
+             multi_pod: bool = False) -> dict:
     """Reckon one cell and, where it fits, run it; returns its record."""
     dev = resolve_device(device)
     spec = cell_spec(arch, shape, step, overrides, reduced=reduced,
@@ -347,6 +378,13 @@ def run_cell(arch: str, shape: str, *, step: str = "default",
     need = steps_mod.peak_bytes(spec)
     have = steps_mod.card_bytes(dev)
     rec = {"arch": arch, "shape": shape, "step": step, "desc": spec["desc"],
+           **mesh_fields(multi_pod),
+           "per_rank_argument_bytes": per_rank_argument_bytes(
+               arch, shape, step, overrides, reduced=reduced,
+               multi_pod=multi_pod),
+           "per_rank_argument_bytes_is": "reckoned from shapes under the "
+           "reference's in_shardings on its production mesh; the cell runs "
+           "on one card, not there",
            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "adapted_window": cfg.attn_window, "reduced": reduced,
@@ -405,8 +443,9 @@ def run_cell(arch: str, shape: str, *, step: str = "default",
 
 
 def _cell_tag(arch: str, shape: str, step: str = "default",
-              tag: str = "") -> str:
-    return (f"{arch}__{shape}" + ("" if step == "default" else f"__{step}")
+              tag: str = "", multi_pod: bool = False) -> str:
+    return (f"{arch}__{shape}" + ("__mp" if multi_pod else "")
+            + ("" if step == "default" else f"__{step}")
             + (f"__{tag}" if tag else ""))
 
 
@@ -438,7 +477,8 @@ def summary(rec: dict) -> str:
 
 def run_cells(cells, out_dir, *, step: str = "default",
               overrides: Optional[dict] = None, reduced: bool = False,
-              device=None, seed: int = 0, tag: str = "") -> tuple:
+              device=None, seed: int = 0, tag: str = "",
+              multi_pod: bool = False) -> tuple:
     """Each (arch, shape) cell in turn, arch by arch: one JSON record a
     cell in ``out_dir`` (``SKIPS`` cells as skipped; a cell whose record
     exists is not run again), a ``*.FAIL.txt`` for a cell that raised.
@@ -449,13 +489,13 @@ def run_cells(cells, out_dir, *, step: str = "default",
     store = ParamStore(dev, seed)
     records, failures = [], 0
     for arch, shape in cells:
-        name = _cell_tag(arch, shape, step, tag)
+        name = _cell_tag(arch, shape, step, tag, multi_pod)
         path = out_dir / f"{name}.json"
         if path.exists():
             print(f"[skip-cached] {name}")
             continue
         if (arch, shape) in steps_mod.SKIPS:
-            rec = {"arch": arch, "shape": shape,
+            rec = {"arch": arch, "shape": shape, **mesh_fields(multi_pod),
                    "skipped": steps_mod.SKIPS[(arch, shape)]}
             path.write_text(json.dumps(rec, indent=1))
             records.append(rec)
@@ -464,7 +504,7 @@ def run_cells(cells, out_dir, *, step: str = "default",
         try:
             rec = run_cell(arch, shape, step=step, overrides=overrides,
                            reduced=reduced, device=dev, seed=seed,
-                           store=store)
+                           store=store, multi_pod=multi_pod)
         except Exception:  # noqa: BLE001 — record and go on
             failures += 1
             text = traceback.format_exc()
@@ -486,8 +526,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=tuple(steps_mod.SHAPES))
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: the pod axis over many cards waits for "
-                         "launch/sharding")
+                    help="record the reference's 2x16x16 mesh (512 chips) "
+                         "in place of its 16x16; files suffixed __mp")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--step", default="default",
                     choices=("default", "h2fed_round"))
@@ -508,10 +548,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> list:
     args = _parser().parse_args(argv)
-    if args.multi_pod:
-        raise SystemExit("--multi-pod: a mesh of pods over many cards waits "
-                         "for the port of launch/sharding (ROADMAP queue 1, "
-                         "item 11b)")
     if args.all:
         cells = [(a, s) for a in ARCH_IDS for s in steps_mod.SHAPES]
     else:
@@ -521,7 +557,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     records, failures = run_cells(
         cells, args.out, step=args.step,
         overrides=parse_overrides(args.override), reduced=args.reduced,
-        device=args.device, seed=args.seed, tag=args.tag)
+        device=args.device, seed=args.seed, tag=args.tag,
+        multi_pod=args.multi_pod)
     if failures:
         raise SystemExit(f"{failures} dry-run cells failed")
     return records

@@ -26,9 +26,19 @@ Every rank is handed the same global host arrays (batch ``(LAR, A, b, S)``,
 mask ``(LAR, A)``, n_data ``(A,)``, delays ``(LAR, A)``) and takes its own
 agent's column (``HierarchyTopology.agent_rows``), as the reference's
 ``shard_map`` hands each shard its block.  ``round_input_specs`` builds
-the round's arguments for the dry run on the meta device.  The
-tensor-parallel model axis waits for ``launch/sharding`` (ROADMAP queue
-1, item 11b).
+the round's arguments and ``in_shardings`` for the dry run on the meta
+device.
+
+A mesh with a ``model`` axis above 1 splits each agent's model over the
+ranks of its model group (``launch/sharding.ModelAxis``): the round takes
+and returns this rank's blocks of the cloud params in the reference's
+``param_shardings_model_only`` layout, re-lays them into the compute
+layout at entry and back at exit (all-gathers over ``model`` at
+``where="round"``), runs the local epochs tensor-parallel (the model's
+functions with the local config and ``tp``, collectives at
+``where="tp"``) and reduces each compute shard over ``data`` and ``pod``.
+The decoder GQA family runs there; ``flat_agg`` raises, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -45,7 +55,8 @@ from repro_torch.core.topology import HierarchyTopology
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import collectives
-from repro_torch.launch.mesh import FleetMesh, model_axis_size
+from repro_torch.launch import sharding as shard
+from repro_torch.launch.mesh import FleetMesh, ShapeMesh, model_axis_size
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 
@@ -99,16 +110,24 @@ def _wmean_over_flat(mesh, axis, leaves, weight, old, where, *,
     return _unravel(out, leaves), mass
 
 
-def _quantized_pod_mean(mesh, leaves, anchor, weight, old, mass_ok):
+def _quantized_pod_mean(mesh, leaves, anchor, weight, old, mass_ok,
+                        split=None):
     """int8-quantized cross-pod weighted mean of (leaf - anchor) + anchor:
-    each leaf's delta is scaled to int8 by its absmax over the pods (a max
-    reduction), then the dequantized, normalized deltas are summed."""
+    each leaf's delta is scaled to int8 by its absmax over the whole leaf
+    (a max over ``model`` where ``split[i]`` says the leaf is split there)
+    and the pods (max reductions), then the dequantized, normalized deltas
+    are summed."""
     w_norm = weight / _safe(mass_ok)
+    split = split or [False] * len(leaves)
     out = []
-    for leaf, a, o in zip(leaves, anchor, old):
+    for leaf, a, o, sp in zip(leaves, anchor, old, split):
         delta = leaf.float() - a.float()
-        absmax = collectives.all_reduce(delta.abs().max(), mesh, "pod",
-                                        where="cloud", op="max")
+        absmax = delta.abs().max()
+        if sp:
+            absmax = collectives.all_reduce(absmax, mesh, "model",
+                                            where="cloud", op="max")
+        absmax = collectives.all_reduce(absmax, mesh, "pod", where="cloud",
+                                        op="max")
         scale = torch.where(absmax > 0, absmax / 127.0,
                             torch.ones_like(absmax))
         q = torch.clamp(torch.round(delta / scale), -127, 127).to(torch.int8)
@@ -125,22 +144,31 @@ def make_h2fed_round(cfg: ArchConfig, hp: H2FedParams, mesh=None, *,
                      buffer_keep: float = 0.0, fleet_dtype: str = "float32",
                      device=None):
     """Build this rank's round function (the reference's options and
-    checks).  ``mesh`` is a ``FleetMesh`` over (pod, data, model) with one
-    agent a rank; None is the one-rank mesh.  Runs on ``device`` (``cuda``
-    when None; raises without a GPU).
+    checks).  ``mesh`` is a ``FleetMesh`` over (pod, data, model), one
+    agent a (pod, data) position; None is the one-rank mesh.  Runs on
+    ``device`` (``cuda`` when None; raises without a GPU).
 
     ``round_fn(cloud_params, batch, mask, n_data[, delays])`` returns (new
     cloud params, {"surviving_mass": fp32 scalar, "lar_masses": (LAR,)}),
-    the same on every rank.  ``flat_agg`` reduces the raveled buffer, one
-    collective a layer; ``fleet_dtype="bfloat16"`` (flat only) reduces it
-    in bf16; ``async_rounds=D`` runs the semi-async tick with a one-slot
-    in-flight buffer (flat only; needs ``delays``)."""
+    the same on every rank; the params in and out are this rank's blocks
+    in the ``param_shardings_model_only`` layout (whole at a model axis of
+    1).  ``flat_agg`` reduces the raveled buffer, one collective a layer
+    (model axis 1 only); ``fleet_dtype="bfloat16"`` (flat only) reduces
+    it in bf16; ``async_rounds=D`` runs the semi-async tick with a
+    one-slot in-flight buffer (flat only; needs ``delays``)."""
     dev = resolve_device(device)
     mesh = _one_rank_mesh() if mesh is None else mesh
-    if model_axis_size(mesh) > 1:
-        raise NotImplementedError(
-            "a model axis larger than 1 (tensor parallelism) waits for the "
-            "port of launch/sharding (ROADMAP queue 1, item 11b)")
+    if flat_agg and quantize_cloud:
+        raise ValueError(
+            "flat_agg composes with the exact cloud reduction only")
+    if flat_agg and model_axis_size(mesh) > 1:
+        raise ValueError(
+            "flat_agg requires model-axis size 1: raveling tensor-parallel-"
+            "sharded params would all-gather over `model` before the psum "
+            "(use the per-leaf path on TP meshes)")
+    axis = shard.ModelAxis(cfg, mesh) if model_axis_size(mesh) > 1 else None
+    tp = None if axis is None else mesh
+    run_cfg = cfg if axis is None else axis.local_cfg
     topo = HierarchyTopology.from_mesh(mesh)
     pod = topo.pod_axis
     if isinstance(staleness_decay, (tuple, list)):
@@ -152,9 +180,6 @@ def make_h2fed_round(cfg: ArchConfig, hp: H2FedParams, mesh=None, *,
                                          if "pod" in mesh.shape else 0])
     else:
         my_decay = float(staleness_decay)
-    if flat_agg and quantize_cloud:
-        raise ValueError(
-            "flat_agg composes with the exact cloud reduction only")
     if async_rounds and not flat_agg:
         raise ValueError(
             "async_rounds requires flat_agg: the staleness-bounded in-flight "
@@ -176,7 +201,7 @@ def make_h2fed_round(cfg: ArchConfig, hp: H2FedParams, mesh=None, *,
         params = tree.unflatten(like, [l.detach().requires_grad_()
                                        for l in leaves])
         with torch.enable_grad():
-            loss, _ = M.loss_fn(cfg, params, local_batch)
+            loss, _ = M.loss_fn(run_cfg, params, local_batch, tp=tp)
             return torch.autograd.grad(loss, tree.leaves(params))
 
     def local_epochs(w_k, w_cloud, like, local_batch):
@@ -204,6 +229,8 @@ def make_h2fed_round(cfg: ArchConfig, hp: H2FedParams, mesh=None, *,
 
     def round_fn(cloud_params, batch, mask, n_data):
         cloud = tree.leaves(cloud_params)
+        if axis is not None:
+            cloud = axis.to_compute(cloud, where="round")
         local, my_mask, my_n, _ = inputs(batch, mask, n_data)
         w_k = cloud
         mass_total = scalar(0.0)
@@ -221,10 +248,13 @@ def make_h2fed_round(cfg: ArchConfig, hp: H2FedParams, mesh=None, *,
             pod_mass = collectives.all_reduce(mass_total, mesh, pod,
                                               where="cloud")
             if quantize_cloud:
-                new_cloud = _quantized_pod_mean(mesh, w_k, cloud, mass_total,
-                                                cloud, pod_mass)
+                new_cloud = _quantized_pod_mean(
+                    mesh, w_k, cloud, mass_total, cloud, pod_mass,
+                    None if axis is None else axis.split)
             else:
                 new_cloud, _ = wmean(pod, w_k, mass_total, cloud, "cloud")
+        if axis is not None:
+            new_cloud = axis.to_storage(new_cloud, where="round")
         return (tree.unflatten(cloud_params, new_cloud),
                 {"surviving_mass": pod_mass,
                  "lar_masses": torch.stack(masses)})
@@ -315,6 +345,73 @@ def comm_model(cfg: ArchConfig, hp: H2FedParams, mesh, *,
             "per_local_round_s": (ici / ici_bw + dci / dci_bw) / hp.lar}
 
 
+def round_collectives(cfg: ArchConfig, hp: H2FedParams, mesh, b: int,
+                      seq: int, *, quantize_cloud: bool = False
+                      ) -> Dict[str, Dict[str, int]]:
+    """The collectives that one synchronous per-leaf round makes on each
+    rank, reckoned from shapes: ``"where/axes"`` -> {"calls", "bytes"}, as
+    ``collectives.counts()`` reports them after the round (an axis of one
+    rank makes none).  ``b`` sequences of ``seq`` tokens an agent a local
+    round.
+
+      lar/data     a mass and an fp32 sum a leaf, each local round;
+      cloud/pod    the pod mass, then a mass and an fp32 sum a leaf (with
+                   ``quantize_cloud`` a max and a sum a leaf);
+      cloud/model  with ``quantize_cloud``, a max a leaf split over model;
+      round/model  the re-lays' all-gathers (``ModelAxis``);
+      tp/model     each local epoch: the embedding's sum (b S d in the
+                   params' dtype), the vocab-split cross-entropy's three
+                   (b S fp32 each), the head's input gradient, and five a
+                   layer (b S d fp32 each): the sums after ``wo`` and
+                   ``w_down``, ``wo``'s again when the backward recomputes
+                   the layer (torch's checkpoint stops its recompute after
+                   the last tensor the backward saved, before
+                   ``w_down``'s sum), and the input gradients of the
+                   column-split products of the attention and the MLP.
+
+    Leaf sizes are the compute shards' (the whole leaf at a model axis of
+    1).  The ``tp`` count assumes the ``decoder`` GQA layer's call sites
+    (``tp_copy`` before ``_gqa_qkv`` and the MLP, ``tp_reduce`` after
+    ``wo`` and ``w_down``) and ``transformer.stack_prefill``'s
+    ``checkpoint(..., early_stop=True)``; ``collectives.counts()`` after a
+    round is what holds it to the calls made."""
+    m = model_axis_size(mesh)
+    axis = shard.ModelAxis(cfg, mesh) if m > 1 else None
+    if axis is None:
+        numels = [l.numel() for l in tree.leaves(M.meta_params(cfg))]
+    else:
+        numels = axis.shard_numels()
+    n_leaf, n = len(numels), sum(numels)
+    out: Dict[str, Dict[str, int]] = {}
+
+    def add(key, calls, nbytes):
+        if calls:
+            out[key] = {"calls": calls, "bytes": nbytes}
+    if mesh.shape.get("data", 1) > 1:
+        add("lar/data", hp.lar * (1 + n_leaf), hp.lar * 4 * (1 + n))
+    if mesh.shape.get("pod", 1) > 1:
+        if quantize_cloud:
+            add("cloud/pod", 1 + 2 * n_leaf, 4 * (1 + n_leaf + n))
+        else:
+            add("cloud/pod", 2 + n_leaf, 4 * (2 + n))
+    if axis is None:
+        return dict(sorted(out.items()))
+    if quantize_cloud and mesh.shape.get("pod", 1) > 1:
+        k = sum(axis.split)
+        add("cloud/model", k, 4 * k)
+    relay = axis.relay_collectives()
+    add("round/model", relay["calls"], relay["bytes"])
+    tokens = b * seq
+    act = tokens * cfg.d_model * 4
+    w_bytes = torch.finfo(cfg.weight_dtype).bits // 8
+    per_epoch_calls = 5 * cfg.n_layers + 5
+    per_epoch_bytes = (tokens * cfg.d_model * w_bytes + 3 * tokens * 4
+                       + act + 5 * cfg.n_layers * act)
+    epochs = hp.lar * hp.local_epochs
+    add("tp/model", epochs * per_epoch_calls, epochs * per_epoch_bytes)
+    return dict(sorted(out.items()))
+
+
 # --------------------------------------------------------------------------
 # dry-run input specs
 # --------------------------------------------------------------------------
@@ -324,12 +421,16 @@ def round_input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
                       quantize_cloud: bool = False, flat_agg: bool = False,
                       *, device=None) -> Dict[str, Any]:
     """The round's cell of the dry run (the reference's
-    ``round_input_specs``): dict(fn, args, cfg, desc, kind, batch, seq),
-    the args (params, batch (LAR, A, b, S), mask (LAR, A), n_data (A,))
-    on the meta device with the reference's shapes and dtypes.  Training
-    shapes only.  ``fn`` is ``make_h2fed_round`` on ``mesh`` (None: the
-    one-rank mesh) for ``device``; it raises at a model axis above 1.  No
-    ``in_shardings`` until ``launch/sharding`` is ported (item 11b)."""
+    ``round_input_specs``): dict(fn, args, in_shardings, cfg, desc, kind,
+    batch, seq), the args (params, batch (LAR, A, b, S), mask (LAR, A),
+    n_data (A,)) on the meta device with the reference's shapes and
+    dtypes, and the reference's ``in_shardings`` on ``mesh``: the params
+    in ``param_shardings_model_only``'s layout, the batch and the mask
+    over the agent axes after LAR, n_data over the agent axes.  Training
+    shapes only.  ``mesh`` is a ``FleetMesh`` (None: the one-rank mesh),
+    and ``fn`` is ``make_h2fed_round`` on it for ``device``; or a
+    ``ShapeMesh`` (``make_production_mesh``), which runs nothing, and
+    ``fn`` is None."""
     from repro_torch.launch.steps import SHAPES, shape_adapted_config
 
     info = SHAPES[shape_name]
@@ -337,10 +438,12 @@ def round_input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
     cfg = shape_adapted_config(cfg, shape_name)
     hp = hp or H2FedParams(local_epochs=1, lar=4)
     mesh = _one_rank_mesh() if mesh is None else mesh
-    fn = make_h2fed_round(cfg, hp, mesh, quantize_cloud=quantize_cloud,
-                          flat_agg=flat_agg, device=device)
+    fn = None if isinstance(mesh, ShapeMesh) else make_h2fed_round(
+        cfg, hp, mesh, quantize_cloud=quantize_cloud, flat_agg=flat_agg,
+        device=device)
 
-    A = HierarchyTopology.from_mesh(mesh).n_agents
+    topo = HierarchyTopology.from_mesh(mesh)
+    A = topo.n_agents
     b = max(info["batch"] // A, 1)
     seq = info["seq"]
 
@@ -354,10 +457,15 @@ def round_input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
         batch_tree["patch_embeds"] = meta(extra, torch.float32)
     if cfg.encoder.kind == "audio":
         batch_tree["memory"] = meta(extra, torch.float32)
+    params = M.meta_params(cfg)
+    stacked = shard.NamedSharding(mesh, topo.stacked_spec())
     return dict(
         fn=fn,
-        args=(M.meta_params(cfg), batch_tree,
+        args=(params, batch_tree,
               meta((hp.lar, A), torch.float32), meta((A,), torch.float32)),
+        in_shardings=(shard.param_shardings_model_only(params, mesh),
+                      {k: stacked for k in batch_tree}, stacked,
+                      shard.NamedSharding(mesh, topo.agent_spec)),
         cfg=cfg, kind="h2fed_round", batch=info["batch"], seq=seq,
         desc=f"h2fed_round LAR={hp.lar} E={hp.local_epochs} A={A} b={b} "
              f"S={seq}" + (" q8" if quantize_cloud else ""))

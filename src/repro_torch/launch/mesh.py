@@ -23,6 +23,11 @@ in every rank's process.
 ``torch.multiprocessing.spawn``, a ``FileStore`` in a temporary directory
 for the rendezvous (no port, no network), and rank 0's return value
 handed back to the caller.  One rank runs in the calling process.
+
+A ``ShapeMesh`` is a mesh of shapes alone: ``.shape`` and ``.axis_names``
+and nothing to run a collective on.  ``make_production_mesh`` builds the
+reference's 256- and 512-chip meshes that way, for reckoning what each
+rank of them would hold (``launch/sharding``, ``launch/dryrun``).
 """
 from __future__ import annotations
 
@@ -129,10 +134,13 @@ class FleetMesh:
 
     def group(self, axes):
         """The process group spanning ``axes``; ``None`` when they hold one
-        rank (every collective over them is then the identity)."""
+        rank (every collective over them is then the identity).  Every
+        axis in mesh order is the whole process group."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         if self.axis_size(axes) == 1:
             return None
+        if axes == self.axis_names:
+            return dist.group.WORLD
         return self._groups[axes]
 
     def describe(self) -> str:
@@ -140,6 +148,34 @@ class FleetMesh:
                 f"backend {self.backend})")
 
     __repr__ = describe
+
+
+class ShapeMesh:
+    """A mesh of shapes alone: ``shape`` (axis -> size) and ``axis_names``,
+    as a JAX ``AbstractMesh`` has them.  It has no ranks and no process
+    group, so nothing can run a collective on it; the sharding rules and
+    ``NamedSharding.shard_shape`` / ``block`` read it."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              (int(s) for s in shape)))
+        self.size = prod(self.shape.values())
+
+    def group(self, axes):
+        raise TypeError(f"{self!r} holds shapes alone and cannot run a "
+                        f"collective over {axes}")
+
+    def __repr__(self) -> str:
+        return f"ShapeMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The reference's production mesh as shapes: (data 16, model 16), 256
+    chips, or (pod 2, data 16, model 16), 512 chips."""
+    if multi_pod:
+        return ShapeMesh((2, 16, 16), ("pod", "data", "model"))
+    return ShapeMesh((16, 16), ("data", "model"))
 
 
 # --------------------------------------------------------------------------

@@ -23,7 +23,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import tree
 from repro_torch.core.h2fed import H2FedParams
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import n_agents
+from repro_torch.launch import sharding as shard
+from repro_torch.launch.mesh import ShapeMesh, n_agents
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
@@ -186,43 +187,58 @@ def _extra_model_inputs(cfg: ArchConfig, lead: Tuple[int, ...]):
     return extras
 
 
-def decode_args(cfg: ArchConfig, batch: int, cache_len: int) -> tuple:
+def decode_args(cfg: ArchConfig, batch: int, cache_len: int,
+                params=None) -> tuple:
     """A decode step's arguments on the meta device: (params, cache of
     ``batch`` x ``cache_len``, tokens (B, 1), cur_pos (B,), memory (B, M,
     d_embed) for an audio model, else None).  A VLM decodes text tokens
-    only: its image context lives in the prefilled cache."""
+    only: its image context lives in the prefilled cache.  ``params``:
+    the meta params when already built."""
     cache = tf.stack_init_cache(cfg, batch, cache_len, device="meta")
     memory = _extra_model_inputs(cfg, (batch,)).get("memory")
-    return (M.meta_params(cfg), cache, _meta((batch, 1), torch.int32),
+    return (M.meta_params(cfg) if params is None else params, cache,
+            _meta((batch, 1), torch.int32),
             _meta((batch,), torch.int32), memory)
 
 
 def input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
                 hp: Optional[H2FedParams] = None, *, device=None):
     """One (arch x shape) cell of the dry run (the reference's
-    ``input_specs``): dict(fn, args, cfg, desc) and the cell's ``kind``,
-    ``batch`` and ``seq``.  ``args`` has the reference's tree, every leaf
-    on the meta device with the reference's shape and dtype (nothing is
-    allocated): (``TrainState``, batch, mask) for a train shape, (params,
-    batch) for prefill, (params, cache, tokens, cur_pos, memory) for
-    decode.  ``fn`` is the port's step for those arguments, built for
-    ``device`` (``cuda`` when None); ``materialize`` draws the arguments.
-    ``mesh`` (a ``FleetMesh``; None is the one-rank mesh) gives the
-    agents a train batch is split over.  The reference's
-    ``in_shardings`` has no counterpart until ``launch/sharding`` is
-    ported (ROADMAP queue 1, item 11b), so the key is left out."""
+    ``input_specs``): dict(fn, args, in_shardings, cfg, desc) and the
+    cell's ``kind``, ``batch`` and ``seq``.  ``args`` has the reference's
+    tree, every leaf on the meta device with the reference's shape and
+    dtype (nothing is allocated): (``TrainState``, batch, mask) for a
+    train shape, (params, batch) for prefill, (params, cache, tokens,
+    cur_pos, memory) for decode.  ``in_shardings`` is the reference's, a
+    ``sharding.NamedSharding`` a leaf on ``mesh`` (a ``FleetMesh`` or a
+    ``ShapeMesh``, e.g. ``make_production_mesh``; None is the one-rank
+    (pod, data, model) mesh): the params by ``param_shardings`` (the
+    config's ``shard_strategy``), a train batch by ``act_spec`` /
+    ``act_spec_dp`` and its mask replicated, a prefill batch and the
+    decode tokens, positions and memory by ``act_spec`` (None where the
+    memory is None), the cache by ``cache_shardings``.  ``fn`` is the
+    port's one-process step for those arguments, built for ``device``
+    (``cuda`` when None); ``materialize`` draws the arguments.  The
+    mesh's agents split a train batch."""
     cfg = shape_adapted_config(cfg, shape_name)
     info = SHAPES[shape_name]
     seq, batch = info["seq"], info["batch"]
     hp = hp or H2FedParams()
+    mesh = ShapeMesh((1, 1, 1), ("pod", "data", "model")) if mesh is None \
+        else mesh
     i32 = torch.int32
     cell = dict(cfg=cfg, kind=info["kind"], batch=batch, seq=seq)
+    params = M.meta_params(cfg)
+    p_shard = shard.param_shardings(params, mesh,
+                                    strategy=cfg.shard_strategy)
+
+    def on(spec_fn, t):
+        return shard.NamedSharding(mesh, spec_fn(tuple(t.shape), mesh))
 
     if info["kind"] == "train":
-        A = 1 if mesh is None else n_agents(mesh)
+        A = n_agents(mesh)
         b = batch // A
         assert b >= 1, f"{shape_name}: global batch {batch} < {A} agents"
-        params = M.meta_params(cfg)
         state = TrainState(
             params=params,
             momentum=tree.map_tree(lambda l: _meta(l.shape, torch.float32),
@@ -231,19 +247,35 @@ def input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
         batch_tree = {"tokens": _meta((A, b, seq), i32),
                       "labels": _meta((A, b, seq), i32)}
         batch_tree.update(_extra_model_inputs(cfg, (A, b)))
+        act = shard.act_spec_dp if cfg.shard_strategy == "dp" \
+            else shard.act_spec
         return dict(fn=make_train_step(cfg, hp, device=device),
                     args=(state, batch_tree, _meta((A,), torch.float32)),
+                    in_shardings=(TrainState(p_shard, p_shard, p_shard,
+                                             p_shard),
+                                  {k: on(act, v)
+                                   for k, v in batch_tree.items()},
+                                  shard.replicated(mesh)),
                     desc=f"train A={A} b={b} S={seq}", **cell)
 
     if info["kind"] == "prefill":
         batch_tree = {"tokens": _meta((batch, seq), i32)}
         batch_tree.update(_extra_model_inputs(cfg, (batch,)))
         return dict(fn=make_prefill_step(cfg, device=device),
-                    args=(M.meta_params(cfg), batch_tree),
+                    args=(params, batch_tree),
+                    in_shardings=(p_shard, {
+                        k: on(shard.act_spec, v)
+                        for k, v in batch_tree.items()}),
                     desc=f"prefill B={batch} S={seq}", **cell)
 
-    return dict(fn=make_serve_step(cfg, device=device),
-                args=decode_args(cfg, batch, seq),
+    args = decode_args(cfg, batch, seq, params=params)
+    _, cache, tokens, cur_pos, memory = args
+    return dict(fn=make_serve_step(cfg, device=device), args=args,
+                in_shardings=(p_shard, shard.cache_shardings(cache, mesh),
+                              on(shard.act_spec, tokens),
+                              on(shard.act_spec, cur_pos),
+                              None if memory is None
+                              else on(shard.act_spec, memory)),
                 desc=f"decode B={batch} T={seq}"
                      + (f" win={cfg.attn_window}" if cfg.attn_window else ""),
                 **cell)

@@ -10,9 +10,16 @@ of an LLM over a mesh of ranks, one rank an agent.
 Runs the paper's Algorithms 1-3 (``launch/h2fed_round``) over synthetic
 Non-IID token streams, one per agent, with checkpointing and the optional
 adaptive-mu orchestration (``core/orchestrator``), and prints the JAX
-launcher's lines.  ``--mesh pod,data,1`` gives the rank count, pod x data;
-``run_ranks`` starts them over ``nccl`` when every rank has a card of its
-own and over ``gloo`` when ranks share one card or run on the CPU.
+launcher's lines.  ``--mesh pod,data,model`` gives the rank count, pod x
+data x model: one agent a (pod, data) position, its model split over the
+``model`` ranks (tensor parallelism, the decoder GQA family; each rank
+draws the params from the seed and keeps its blocks in the round's
+layout, ``sharding.param_shardings_model_only``, which is the reference's
+``in_shardings``).  The eval loss runs the same split forward;
+checkpoints and the returned ``cloud`` are the gathered tree, written
+and returned by rank 0.  ``run_ranks`` starts the ranks over ``nccl``
+when every rank has a card of its own and over ``gloo`` when ranks share
+one card or run on the CPU.
 ``--devices`` (the reference's host-device count) is only checked against
 that product.  ``--device cpu`` runs the plain PyTorch versions on the
 host.
@@ -47,7 +54,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--devices", type=int, default=None,
                     help="checked against the mesh's rank count when given")
     ap.add_argument("--mesh", default="2,4,1",
-                    help="pod,data,model mesh shape (model must be 1)")
+                    help="pod,data,model mesh shape")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--lar", type=int, default=4)
     ap.add_argument("--epochs", type=int, default=1)
@@ -173,6 +180,7 @@ def _train_rank(args) -> dict:
     from repro_torch.core.topology import HierarchyTopology
     from repro_torch.kernels import ops
     from repro_torch.launch import collectives
+    from repro_torch.launch import sharding as shard
     from repro_torch.launch.h2fed_round import comm_model, make_h2fed_round
     from repro_torch.launch.mesh import FleetMesh
     from repro_torch.models import model as M
@@ -191,9 +199,13 @@ def _train_rank(args) -> dict:
         raise SystemExit("text-only archs for the LM training launcher")
     base_hp = H2FedParams(mu1=args.mu1, mu2=args.mu2, lar=args.lar,
                           local_epochs=args.epochs, lr=args.lr)
+    axis = shard.ModelAxis(cfg, mesh) if mesh.shape["model"] > 1 else None
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
         args.seed), device=dev)
     n_par = sum(l.numel() for l in tree.leaves(params))
+    layout = shard.param_shardings_model_only(params, mesh)
+    cloud = shard.shard_tree(params, layout)     # this rank's blocks
+    del params
     cm = comm_model(cfg, base_hp, mesh, quantize_cloud=args.quantize_cloud)
     say(f"[mesh] {mesh.shape}  agents={A}  backend={mesh.backend}")
     say(f"[model] {args.arch}{' (reduced)' if args.reduced else ''}: "
@@ -207,16 +219,25 @@ def _train_rank(args) -> dict:
     mu_state, mu_cfg = orch.init_state(), orch.AdaptiveMuConfig()
     hp = base_hp
     round_fns = {}
-    cloud = params
     n_ev = args.batch * args.seq
     ev = {"tokens": torch.as_tensor(streams[0][:n_ev].reshape(
               args.batch, args.seq)).to(dev),
           "labels": torch.as_tensor(streams[0][1:n_ev + 1].reshape(
               args.batch, args.seq)).to(dev)}
 
-    def eval_loss(p) -> float:
+    def eval_loss(blocks) -> float:
+        """The eval batch's loss, through the split forward on a model
+        axis above 1."""
         with torch.no_grad():
-            return float(M.loss_fn(cfg, p, ev)[0])
+            if axis is None:
+                return float(M.loss_fn(cfg, blocks, ev)[0])
+            shards = axis.to_compute(tree.leaves(blocks), where="eval")
+            return float(M.loss_fn(axis.local_cfg, tree.unflatten(
+                blocks, shards), ev, tp=mesh)[0])
+
+    def gathered():
+        """The whole cloud tree on every rank (a collective)."""
+        return shard.gather_tree(cloud, layout)
 
     out = {"init_loss": eval_loss(cloud), "loss": [], "csr_obs": [],
            "mu": [], "mass": [], "round_ms": [], "launches": [],
@@ -258,14 +279,16 @@ def _train_rank(args) -> dict:
             out[k].append(v)
         say(f"[round {r+1:3d}] loss {loss:.4f} csr_obs {observed:.2f} "
             f"mu=({hp.mu1:.4f},{hp.mu2:.4f}) mass {mass:.0f}")
-        if lead and args.ckpt_dir and (r + 1) % args.ckpt_every == 0:
-            path = ckpt.save(args.ckpt_dir, r + 1, cloud)
-            say(f"[ckpt] {path}")
+        if args.ckpt_dir and (r + 1) % args.ckpt_every == 0:
+            full = gathered()
+            if lead:
+                say(f"[ckpt] {ckpt.save(args.ckpt_dir, r + 1, full)}")
+            del full
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     out["peak_bytes_by_rank"] = collectives.all_gather_objects(
-        peak, mesh, ("pod", "data"), where="gather")
-    out["cloud"] = tree.map_tree(lambda t: t.detach().cpu(), cloud)
+        peak, mesh, mesh.axis_names, where="gather")
+    out["cloud"] = tree.map_tree(lambda t: t.detach().cpu(), gathered())
     say("[done]")
     return out
 
@@ -273,8 +296,8 @@ def _train_rank(args) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse ``argv``, run, print the JAX launcher's lines and return rank
     0's record (eval losses, masses, the mus, and each round's wall time,
-    kernel launches and collectives; the final cloud params on the host;
-    each rank's peak device memory)."""
+    kernel launches and collectives; the final cloud params, gathered, on
+    the host; each rank's peak device memory, in rank order)."""
     args = _parser().parse_args(argv)
     if args.scenario_json:
         return _run_scenario_json(args)

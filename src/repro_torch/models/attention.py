@@ -14,6 +14,11 @@ the S decoder tokens over the M memory frames, non-causal, through the
 same ``ops.flash_attention`` with keys of their own length, in prefill
 and in decode alike (where S = 1 and the memory is projected again at
 every step, as the reference does).
+
+GQA's prefill takes an optional ``tp`` (``models/layers``): with a model
+group, ``wq`` / ``wk`` / ``wv`` (and their biases) hold this rank's
+columns, its q and kv heads, and ``wo`` the matching rows; the config is
+the local one (heads over the group, ``head_dim`` pinned).
 """
 from __future__ import annotations
 
@@ -22,8 +27,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch import collectives
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_init, rms_normalize
+from repro_torch.models.layers import (apply_rope, dense_init, rms_normalize,
+                                       row_product)
 
 NEG_INF = -1e30
 
@@ -122,9 +129,11 @@ def gqa_init(cfg: ArchConfig, gen: torch.Generator, *, lead=()):
     return p
 
 
-def _gqa_qkv(cfg: ArchConfig, p, x, positions):
+def _gqa_qkv(cfg: ArchConfig, p, x, positions, tp=None):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if tp is not None:
+        x = collectives.tp_copy(x, tp)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -141,20 +150,22 @@ def _gqa_qkv(cfg: ArchConfig, p, x, positions):
     return q, k, v
 
 
-def gqa_prefill(cfg: ArchConfig, p, x, positions, *, causal: bool = True):
+def gqa_prefill(cfg: ArchConfig, p, x, positions, *, causal: bool = True,
+                tp=None):
     """positions: (S,), shared across the batch; they must be 0..S-1, as
-    ``model.hidden_states`` builds them (see the kernel call)."""
+    ``model.hidden_states`` builds them (see the kernel call).  ``tp``: a
+    model group splitting the heads (module docstring)."""
     if tuple(positions.shape) != (x.shape[1],):
         raise ValueError(f"gqa_prefill: positions of shape "
                          f"{tuple(positions.shape)} for {x.shape[1]} tokens; "
                          f"prefill attends positions 0..S-1 only")
-    q, k, v = _gqa_qkv(cfg, p, x, positions[None, :])
+    q, k, v = _gqa_qkv(cfg, p, x, positions[None, :], tp)
     # the kernel's causal and window masks take the query and key
     # positions to be 0..S-1; offset positions (a chunked or continued
     # prefill) are not supported
     out = ops.flash_attention(q, k, v, causal=causal, window=cfg.attn_window)
     B, S = x.shape[:2]
-    return out.reshape(B, S, -1) @ p["wo"]
+    return row_product(out.reshape(B, S, -1), p["wo"], tp)
 
 
 def gqa_decode(cfg: ArchConfig, p, x, cache: KVCache, cur_pos):

@@ -1,7 +1,15 @@
 """Core layers: init helpers, norms, MLPs, RoPE, embeddings and the head
 (``repro/models/layers.py``).  Plain functions on tensors; params are dicts
 of tensors; initialisers draw from an explicit ``torch.Generator`` that
-lies on the target device."""
+lies on the target device.
+
+The MLP, the embedding and the head take an optional ``tp``: a
+``launch.mesh.FleetMesh`` whose ``model`` group splits them (tensor
+parallelism, ``launch/sharding.ModelAxis``).  Then the params are this
+rank's shards: ``w_gate`` / ``w_up`` / ``b_up`` by columns, ``w_down``
+by rows, the embedding table (and the tied head) by vocab rows; the
+config is the local one (``d_ff`` over the group).  ``tp=None`` is the
+unsplit model."""
 from __future__ import annotations
 
 import functools
@@ -10,6 +18,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import collectives
 from repro_torch.models.config import ArchConfig
 
 
@@ -107,7 +116,19 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, *,
     return p
 
 
-def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+def row_product(h: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``h @ w``.  With a model group ``tp``, ``w`` holds this rank's rows
+    of the weight and ``h`` the matching columns: the partial products are
+    taken in fp32, summed over the group and rounded once to ``h``'s
+    dtype, as one product over the whole contraction rounds once."""
+    if tp is None:
+        return h @ w
+    return collectives.tp_reduce(h.float() @ w.float(), tp).to(h.dtype)
+
+
+def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    if tp is not None:
+        x = collectives.tp_copy(x, tp)
     if cfg.mlp_type == "swiglu":
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
@@ -120,7 +141,7 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
             h = torch.relu(h).square()
         else:    # gelu, tanh form (jax.nn.gelu's default)
             h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    y = h @ p["w_down"]
+    y = row_product(h, p["w_down"], tp)
     if "b_down" in p:
         y = y + p["b_down"]
     return y
@@ -183,8 +204,13 @@ def embedding_init(cfg: ArchConfig, gen: torch.Generator):
 
 
 def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = p["tok"][tokens.long()].to(cfg.activation_dtype)
+                 positions: Optional[torch.Tensor] = None,
+                 tp=None) -> torch.Tensor:
+    if tp is None:
+        x = p["tok"][tokens.long()]
+    else:
+        x = collectives.tp_embed(p["tok"], tokens.long(), tp)
+    x = x.to(cfg.activation_dtype)
     if cfg.pos_embed == "learned":
         pos = positions if positions is not None else torch.arange(
             tokens.shape[-1], device=tokens.device)
@@ -192,7 +218,10 @@ def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor,
     return x
 
 
-def lm_logits(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32; the tied head is ``tok.T``."""
+def lm_logits(cfg: ArchConfig, p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits in fp32; the tied head is ``tok.T``.  With ``tp``, this
+    rank's vocab columns."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    if tp is not None:
+        x = collectives.tp_copy(x, tp)
     return (x @ w.to(x.dtype)).float()

@@ -11,6 +11,13 @@ prepends to the token embeddings (the head drops those P positions
 again); an audio model's batch carries ``memory`` (B, M, d_embed), the
 encoder frames its cross-attention attends.  Both are cast to the
 activation dtype.
+
+The forward and the losses take an optional ``tp``: a
+``launch.mesh.FleetMesh`` whose ``model`` group splits a ``decoder``
+GQA model (``launch/sharding.ModelAxis``: the params are this rank's
+shards, the config the local one).  The logits are then this rank's
+vocab columns and the NLL the vocab-split cross-entropy
+(``collectives.tp_cross_entropy``).  None is the unsplit model.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (dense_init, embed_tokens,
@@ -48,14 +56,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *,
     return params
 
 
-def _merge_inputs(cfg: ArchConfig, params, batch: Dict[str, Any]):
+def _merge_inputs(cfg: ArchConfig, params, batch: Dict[str, Any], tp=None):
     """(the input embeddings (B, P + S, d), their positions 0..P+S-1, P):
     the token embeddings, and for a VLM the projected patch embeddings
     prepended (P of them), learned positions offset by P."""
     tokens = batch["tokens"]
     S = tokens.shape[-1]
     if cfg.encoder.kind != "vision":
-        x = embed_tokens(cfg, params["embed"], tokens)
+        x = embed_tokens(cfg, params["embed"], tokens, tp=tp)
         return x, torch.arange(S, device=tokens.device), 0
     patches = batch["patch_embeds"].to(cfg.activation_dtype)
     pe = patches @ params["patch_proj"]
@@ -71,29 +79,34 @@ def _memory(cfg: ArchConfig, memory):
     return None if memory is None else memory.to(cfg.activation_dtype)
 
 
-def hidden_states(cfg: ArchConfig, params, batch: Dict[str, Any]):
+def hidden_states(cfg: ArchConfig, params, batch: Dict[str, Any], tp=None):
     """(the final-normed hidden states (B, S, d) of the batch's S tokens,
     the summed MoE load-balance loss: an fp32 scalar, 0 without MoE).  A
     VLM's patch positions are dropped; an audio model attends
     ``batch["memory"]``."""
-    x, positions, n_prefix = _merge_inputs(cfg, params, batch)
+    x, positions, n_prefix = _merge_inputs(cfg, params, batch, tp)
     x, aux = tf.stack_prefill(cfg, params["stack"], x, positions,
-                              _memory(cfg, batch.get("memory")))
+                              _memory(cfg, batch.get("memory")), tp)
     x = norm_apply(cfg, params["final_norm"], x)
     return (x[:, n_prefix:] if n_prefix else x), aux
 
 
-def forward(cfg: ArchConfig, params, batch: Dict[str, Any]):
+def forward(cfg: ArchConfig, params, batch: Dict[str, Any], tp=None):
     """Full-sequence forward.  Returns (fp32 logits (B, S, V), aux), aux
-    the layers' summed MoE load-balance loss (0 without MoE)."""
-    x, aux = hidden_states(cfg, params, batch)
-    return lm_logits(cfg, params["embed"], x), aux
+    the layers' summed MoE load-balance loss (0 without MoE); with ``tp``
+    the logits of this rank's vocab columns."""
+    x, aux = hidden_states(cfg, params, batch, tp)
+    return lm_logits(cfg, params["embed"], x, tp), aux
 
 
-def _nll(cfg: ArchConfig, params, batch: Dict[str, Any]):
+def _nll(cfg: ArchConfig, params, batch: Dict[str, Any], tp=None):
     """(next-token NLL (B, S) fp32, valid-label mask (B, S), aux)."""
-    logits, aux = forward(cfg, params, batch)
+    logits, aux = forward(cfg, params, batch, tp)
     labels = batch["labels"].long()
+    if tp is not None:
+        nll = collectives.tp_cross_entropy(logits.float(),
+                                           labels.clamp(min=0), tp)
+        return nll, labels >= 0, aux
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     return nll, labels >= 0, aux
@@ -104,20 +117,23 @@ def aux_weight(cfg: ArchConfig) -> float:
     return cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
 
 
-def loss_fn(cfg: ArchConfig, params, batch: Dict[str, Any]):
+def loss_fn(cfg: ArchConfig, params, batch: Dict[str, Any], tp=None):
     """Mean next-token cross-entropy over valid labels (labels >= 0), plus
-    ``router_aux_weight`` times the MoE aux loss."""
-    nll, valid, aux = _nll(cfg, params, batch)
+    ``router_aux_weight`` times the MoE aux loss; ``tp`` as for
+    ``forward``."""
+    nll, valid, aux = _nll(cfg, params, batch, tp)
     task = (nll * valid).sum() / valid.sum().clamp(min=1)
     return task + aux_weight(cfg) * aux, {"task_loss": task,
                                            "aux_loss": aux}
 
 
-def per_example_loss(cfg: ArchConfig, params, batch: Dict[str, Any]):
+def per_example_loss(cfg: ArchConfig, params, batch: Dict[str, Any],
+                     tp=None):
     """Per-example mean NLL (B,) and the MoE aux loss: the federated train
     step weights the NLL per agent and adds ``router_aux_weight * aux``
-    (the reference's ``per_example_loss`` returns the two apart too)."""
-    nll, valid, aux = _nll(cfg, params, batch)
+    (the reference's ``per_example_loss`` returns the two apart too);
+    ``tp`` as for ``forward``."""
+    nll, valid, aux = _nll(cfg, params, batch, tp)
     return (nll * valid).sum(-1) / valid.sum(-1).clamp(min=1), aux
 
 

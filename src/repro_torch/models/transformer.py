@@ -24,6 +24,10 @@ n applications share (``params["shared_attn"]``), each application
 followed by ``cfg.shared_every`` Mamba layers: their params stacked on
 (n, shared_every), the shared block's KV caches on (n,), the Mamba caches
 on (n, shared_every), as in the JAX tree.
+
+The prefill functions pass an optional ``tp`` (a model group splitting
+the ``decoder`` layer's attention heads and MLP, ``models/layers``) down
+to the sub-blocks; None is the unsplit model.
 """
 from __future__ import annotations
 
@@ -104,23 +108,26 @@ def sub_init(cfg: ArchConfig, kind: str, gen: torch.Generator, *, lead=()):
             "inner": init(cfg, gen, lead=lead)}
 
 
-def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions, memory=None):
+def sub_prefill(cfg: ArchConfig, kind: str, p, x, positions, memory=None,
+                tp=None):
     """Returns (residual delta, aux loss): the MoE layer's load-balance
     loss, None for every other kind (the reference's zero).  ``memory``
-    (B, M, d_embed) is what ``xattn`` attends."""
+    (B, M, d_embed) is what ``xattn`` attends; ``tp`` splits GQA and the
+    MLP over a model group."""
     _check(kind)
     xn = norm_apply(cfg, p["norm"], x)
     if kind == "attn":
         if cfg.attn_impl == "mla":
             return attn_mod.mla_prefill(cfg, p["inner"], xn, positions), None
-        return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions), None
+        return attn_mod.gqa_prefill(cfg, p["inner"], xn, positions,
+                                    tp=tp), None
     if kind == "xattn":
         return attn_mod.xattn_apply(cfg, p["inner"], xn, memory), None
     if kind in _PREFILL:
         return _PREFILL[kind](cfg, p["inner"], xn), None
     if cfg.moe is not None:
         return moe_mod.moe_apply(cfg, p["inner"], xn)
-    return mlp_apply(cfg, p["inner"], xn), None
+    return mlp_apply(cfg, p["inner"], xn, tp), None
 
 
 def sub_init_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, *,
@@ -177,11 +184,11 @@ def layer_init(cfg: ArchConfig, pattern: str, gen, *, lead=()):
     return {k: sub_init(cfg, k, gen, lead=lead) for k in _kinds(pattern)}
 
 
-def layer_prefill(cfg, pattern, p, x, positions, memory=None):
+def layer_prefill(cfg, pattern, p, x, positions, memory=None, tp=None):
     """Returns (x, the layer's aux loss, or None without MoE)."""
     aux = None
     for kind in _kinds(pattern):
-        delta, a = sub_prefill(cfg, kind, p[kind], x, positions, memory)
+        delta, a = sub_prefill(cfg, kind, p[kind], x, positions, memory, tp)
         x = x + delta
         if a is not None:
             aux = a if aux is None else aux + a
@@ -241,10 +248,12 @@ def _applications(cfg: ArchConfig, params, seg_params, pattern: str,
     return out
 
 
-def stack_prefill(cfg: ArchConfig, params, x, positions, memory=None):
+def stack_prefill(cfg: ArchConfig, params, x, positions, memory=None,
+                  tp=None):
     """Returns (x, aux): aux is the fp32 sum of the layers' MoE
     load-balance losses, 0 without MoE.  ``memory``: the encoder frames
-    the ``encdec`` layers attend (None for the other patterns)."""
+    the ``encdec`` layers attend (None for the other patterns); ``tp``: a
+    model group splitting the ``decoder`` layers."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (pattern, repeat) in zip(params["segments"], cfg.layout_):
         grad = torch.is_grad_enabled() and (
@@ -253,11 +262,12 @@ def stack_prefill(cfg: ArchConfig, params, x, positions, memory=None):
         for kind, p in _applications(cfg, params, seg_params, pattern,
                                      repeat, grad):
             if grad:
-                x, a = checkpoint(functools.partial(layer_prefill, cfg, kind),
+                x, a = checkpoint(functools.partial(layer_prefill, cfg, kind,
+                                                    tp=tp),
                                   p, x, positions, memory,
-                                  use_reentrant=False)
+                                  use_reentrant=False, early_stop=True)
             else:
-                x, a = layer_prefill(cfg, kind, p, x, positions, memory)
+                x, a = layer_prefill(cfg, kind, p, x, positions, memory, tp)
             aux = aux if a is None else aux + a
     return x, aux
 

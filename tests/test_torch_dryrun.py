@@ -8,7 +8,11 @@
 - ``input_specs`` gives the reference's tree of shapes and dtypes (its
   ``ShapeDtypeStruct``s on a one-device ``make_test_mesh((1, 1, 1))``,
   ``eval_shape`` only) for every cell of the ten full configs, and its
-  ``desc``; ``round_input_specs`` the same for ``train_4k``.
+  ``desc``; ``round_input_specs`` the same for ``train_4k``.  Their
+  ``in_shardings`` are the reference's spec for spec on that mesh and on
+  both production meshes (``AbstractMesh`` (16, 16) and (2, 16, 16),
+  against the port's ``make_production_mesh``), and ``sharding.
+  arg_bytes`` is the sum of the reference's ``shard_shape`` bytes.
 - The two cells of the reference's ``TestDryRunMini``
   (``tests/test_launch.py:239-291``): the reduced deepseek's train cell
   (S=32, B=8) and the reduced zamba2's decode cell (S=64, B=4), in fp32,
@@ -33,6 +37,7 @@ import torch
 from repro.configs import registry as jregistry
 from repro.launch import h2fed_round as jround
 from repro.launch import steps as jsteps
+from jax.sharding import AbstractMesh
 from repro.launch.mesh import make_test_mesh
 from repro.models import model as JM
 
@@ -42,7 +47,9 @@ from repro_torch.kernels import ops
 from repro_torch.launch import dryrun
 from repro_torch.launch import h2fed_round as tround
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import sharding as tshard
 from repro_torch.launch import steps as tsteps
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as TM
 
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -95,6 +102,40 @@ def _same_tree(jtree, ttree):
         assert t.device.type == "meta", where
 
 
+# the reference's production meshes, as shapes (no device needed)
+PROD = {False: AbstractMesh((16, 16), ("data", "model")),
+        True: AbstractMesh((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _same_shardings(want, got):
+    """The reference's ``in_shardings`` (a tree of ``NamedSharding``,
+    None where an argument is None) and the port's, spec for spec in leaf
+    order; returns the sum of the reference's ``shard_shape`` bytes over
+    ``want["args"]``."""
+    jsh = jax.tree.leaves(want["in_shardings"])
+    tsh = tree.leaves(got["in_shardings"])
+    assert [tuple(j.spec) for j in jsh] == [t.spec for t in tsh]
+    return sum(int(np.prod(j.shard_shape(a.shape))) * a.dtype.itemsize
+               for a, j in zip(jax.tree.leaves(want["args"]), jsh))
+
+
+def _prod_specs(jc, tc, shape, multi_pod):
+    """Both packages' cell on a production mesh: the same in_shardings,
+    and the port's argument bytes a rank equal to the reference's."""
+    mesh, tmesh = PROD[multi_pod], make_production_mesh(multi_pod=multi_pod)
+    if shape == "round":
+        want = jround.round_input_specs(jc, "train_4k", mesh)
+        got = tround.round_input_specs(tc, "train_4k", tmesh, device="cpu")
+        assert got["fn"] is None
+    else:
+        want = jsteps.input_specs(jc, shape, mesh)
+        got = tsteps.input_specs(tc, shape, tmesh, device="cpu")
+    assert got["desc"] == want["desc"]
+    nbytes = _same_shardings(want, got)
+    assert tshard.arg_bytes(got["args"], got["in_shardings"]) == nbytes
+    return nbytes
+
+
 def test_shapes_window_and_skips_are_the_reference_s():
     assert tsteps.SHAPES == jsteps.SHAPES
     assert tsteps.LONG_CONTEXT_WINDOW == jsteps.LONG_CONTEXT_WINDOW
@@ -104,8 +145,9 @@ def test_shapes_window_and_skips_are_the_reference_s():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_specs_match_the_reference(arch, mesh):
     """For each shape: ``shape_adapted_config`` field for field, and
-    ``input_specs``'s args tree, desc and config; for ``train_4k`` also
-    ``round_input_specs``'s."""
+    ``input_specs``'s args tree, desc, config and in_shardings; for
+    ``train_4k`` also ``round_input_specs``'s.  The in_shardings also on
+    both production meshes, with the argument bytes a rank."""
     jc, tc = jregistry.get_config(arch), tregistry.get_config(arch)
     for shape in tsteps.SHAPES:
         ja = jsteps.shape_adapted_config(jc, shape)
@@ -116,21 +158,29 @@ def test_specs_match_the_reference(arch, mesh):
         assert got["desc"] == want["desc"]
         assert dataclasses.asdict(got["cfg"]) == dataclasses.asdict(
             want["cfg"])
-        assert "in_shardings" not in got
         _same_tree(want["args"], got["args"])
+        _same_shardings(want, got)
+        for multi_pod in PROD:
+            _prod_specs(jc, tc, shape, multi_pod)
     want = jround.round_input_specs(jc, "train_4k", mesh)
     got = tround.round_input_specs(tc, "train_4k", device="cpu")
     assert got["desc"] == want["desc"]
     _same_tree(want["args"], got["args"])
+    _same_shardings(want, got)
+    for multi_pod in PROD:
+        _prod_specs(jc, tc, "round", multi_pod)
 
 
-def test_round_specs_and_multi_pod_refused():
-    cfg = tregistry.get_reduced_config("qwen3-0.6b")
-    with pytest.raises(AssertionError, match="training shapes only"):
-        tround.round_input_specs(cfg, "prefill_32k", device="cpu")
-    with pytest.raises(SystemExit, match="item 11b"):
-        dryrun.main(["--arch", "qwen3-0.6b", "--shape", "long_500k",
-                     "--multi-pod", "--device", "cpu"])
+def test_round_and_decode_argument_bytes():
+    """qwen3-0.6b's arguments a chip on the 16x16 mesh are the reference's
+    0.077 GB (the round) and 1.886 GB (decode_32k), and the dry run
+    records the round's."""
+    jc, tc = (r.get_config("qwen3-0.6b") for r in (jregistry, tregistry))
+    assert round(_prod_specs(jc, tc, "round", False) / 1e9, 3) == 0.077
+    assert round(_prod_specs(jc, tc, "decode_32k", False) / 1e9, 3) == 1.886
+    assert dryrun.per_rank_argument_bytes(
+        "qwen3-0.6b", "train_4k", "h2fed_round") == _prod_specs(
+            jc, tc, "round", False)
 
 
 def _to_jax(like, ours):
@@ -218,6 +268,8 @@ def test_dryrun_writes_a_mini_cell_record(mini_shapes, tmp_path, capsys):
     rec = json.loads((tmp_path / "zamba2-2.7b__mini_dec.json").read_text())
     assert rec["fits"] and rec["reduced"] and rec["desc"] == \
         "decode B=4 T=64"
+    assert (rec["mesh"], rec["n_chips"]) == ("16x16", 256)
+    assert rec["per_rank_argument_bytes"] > 0
     assert rec["measured"]["peak_bytes"] is None
     assert rec["measured"]["reps"] >= 3 and rec["measured"]["ms_median"] > 0
     assert rec["launches"] == {}
@@ -232,6 +284,40 @@ def test_dryrun_writes_a_mini_cell_record(mini_shapes, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[ok] zamba2-2.7b__mini_dec: fits=True" in out
     assert "[SKIP] whisper-tiny__long_500k" in out
+
+
+def test_round_specs_and_multi_pod_refused(mini_shapes, tmp_path, capsys):
+    """The round takes training shapes only.  ``--multi-pod`` is no longer
+    refused: it records the reference's 2x16x16 mesh (512 chips) under
+    files of their own (``__mp``), the one-card run as without it, and
+    the argument bytes a chip of that mesh equal to the reference's
+    ``shard_shape`` bytes of the same cell; a ``SKIPS`` cell names the
+    mesh too."""
+    cfg = tregistry.get_reduced_config("qwen3-0.6b")
+    with pytest.raises(AssertionError, match="training shapes only"):
+        tround.round_input_specs(cfg, "prefill_32k", device="cpu")
+    dryrun.main(["--arch", "zamba2-2.7b", "--shape", "mini_dec",
+                 "--reduced", "--multi-pod", "--device", "cpu", "--out",
+                 str(tmp_path)])
+    rec = json.loads((tmp_path / "zamba2-2.7b__mini_dec__mp.json")
+                     .read_text())
+    assert (rec["mesh"], rec["n_chips"]) == ("2x16x16", 512)
+    assert rec["fits"] and rec["desc"] == "decode B=4 T=64"
+    assert rec["per_rank_argument_bytes_is"].startswith("reckoned")
+    jc = jregistry.get_reduced_config("zamba2-2.7b")
+    want = jsteps.input_specs(jc, "mini_dec", PROD[True])
+    got = tsteps.input_specs(tregistry.get_reduced_config("zamba2-2.7b"),
+                             "mini_dec", make_production_mesh(
+                                 multi_pod=True), device="cpu")
+    assert rec["per_rank_argument_bytes"] == _same_shardings(want, got)
+    dryrun.main(["--arch", "whisper-tiny", "--shape", "long_500k",
+                 "--multi-pod", "--device", "cpu", "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "whisper-tiny__long_500k__mp.json")
+                     .read_text())
+    assert rec["mesh"] == "2x16x16" and "skipped" in rec
+    assert not (tmp_path / "whisper-tiny__long_500k.json").exists()
+    assert "[ok] zamba2-2.7b__mini_dec__mp: fits=True" in \
+        capsys.readouterr().out
 
 
 # the cells that fit one 80 GB card by the reckoning: every long_500k cell

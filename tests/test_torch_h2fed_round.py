@@ -131,8 +131,8 @@ def test_refusals():
         make_h2fed_round(cfg, hp, device="cpu", async_rounds=2)
     with pytest.raises(ValueError):
         make_h2fed_round(cfg, hp, device="cpu", fleet_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="launch/sharding"):
-        make_h2fed_round(cfg, hp, device="cpu",
+    with pytest.raises(ValueError, match="model-axis size 1"):
+        make_h2fed_round(cfg, hp, device="cpu", flat_agg=True,
                          mesh=type("M", (), {"shape": {"pod": 1, "data": 1,
                                                        "model": 2},
                                              "axis_names": ("pod", "data",
