@@ -6,9 +6,10 @@
 // with the forward kernel's masks (t < S; t <= s when causal; t > s - window
 // when window > 0).  The TPU reference has no such kernel: the JAX package
 // differentiates its jnp attention.  q, O, dO and dQ are contiguous
-// (B,S,H,D) bf16, k, v, dK and dV contiguous (B,S,KV,D) bf16; D is 64 or
-// 128; products take bf16 operands and accumulate in fp32, and everything
-// between them is fp32.  With lse the forward's log-sum-exp of each row (in
+// (B,S,H,D) bf16, k, v, dK and dV contiguous (B,S,KV,D) bf16; D is 64, 80
+// (zamba2-2.7b), 96 (phi-3-vision-4.2b) or 128; products take bf16 operands
+// and accumulate in fp32, and everything between them is fp32.  With lse
+// the forward's log-sum-exp of each row (in
 // log2 units of the scores times D^-1/2 log2 e, saved by the forward
 // kernel), P = 2^(S D^-1/2 log2 e - lse) and Delta_s = sum_d dO[s,d] O[s,d]:
 //
@@ -28,15 +29,21 @@
 //   and their live 64-row query tiles, so they need no atomics; each query
 //   tile's dQ share goes into the scratch by the TMA's bulk reduce-add
 //   (cp.reduce.async.bulk .add.f32), staged in shared memory in the
-//   accumulator's own order (scratch tile [D/64][8][128 threads][4]).  The
-//   sums into dQ run in no fixed order, so dQ may differ in its last bits
-//   from run to run.
+//   accumulator's own order (scratch tile [D/8][128 threads][4]: column
+//   block n of 8 columns, then thread, then the thread's four values; at
+//   80 and 96 the last 64-column box holds 2 or 4 blocks).  The sums into
+//   dQ run in no fixed order, so dQ may differ in its last bits from run
+//   to run.
 // - dq, per element: the scratch times D^-1/2 into the bf16 dQ.
 // Score tiles that cross the causal diagonal, the window's edge or S take
 // the mask; the others no per-element test.
 //
-// D = 128 (the qwen3-0.6b layer): a block of two consumer warpgroups per
-// 128-key tile, each owning 64 keys (warp w 16 of them).  Thread 0 also
+// D = 128 (the qwen3-0.6b layer), 96 and 80: one template on D, a block of
+// two consumer warpgroups per 128-key tile, each owning 64 keys (warp w 16
+// of them).  A row of Q, K, V or dO is two TMA boxes of 64 columns whose
+// tensor maps are D columns wide, so at 80 and 96 the TMA zero-fills
+// columns D..127 of the second box (as the forward's maps do at those
+// widths) and the shared-memory plan is the same at every D.  Thread 0 also
 // starts the TMA loads: K and V once (128-byte swizzle), then each query
 // tile's Q and dO (64 rows) with its 64 lse and Delta values (1-D bulk
 // copies), one step ahead, into a 2-stage ring of mbarriers ("full" by
@@ -44,20 +51,35 @@
 // For each query tile, every product a wgmma.mma_async with fp32
 // accumulators:
 //   S^T = K Q^T, dP^T = V dO^T   (m64n32k16 for each half of the tile's 64
-//                                 queries, both operands K-major)
+//                                 queries, both operands K-major; D / 16
+//                                 k-steps: 8, 6 at 96, 5 at 80)
 //   P^T, dS^T                    (on the accumulators, then bf16 into two
 //                                 128 x 64 tiles with the 128-byte swizzle)
-//   dV += P^T dO, dK += dS^T Q   (m64n128k16: A the consumer's rows of those
-//                                 tiles, K-major; dO / Q read MN-major
-//                                 through the descriptor, no copy)
+//   dV += P^T dO, dK += dS^T Q   (m64nDk16, D = 128, 96 or 80: A the
+//                                 consumer's rows of those tiles, K-major;
+//                                 dO / Q read MN-major through the
+//                                 descriptor, no copy, across one whole
+//                                 64-column atom and D - 64 columns of
+//                                 the next)
 //   dQ[:, 64c:64c+64] = dS K     (m64n64k16, consumer c: A the dS^T tile
-//                                 read MN-major, B K read MN-major)
+//                                 read MN-major, B K's box c read
+//                                 MN-major; the D columns split by box)
+// dQ by box: at 80 and 96 consumer 1's box holds D - 64 = 16 or 32 live
+// columns and the rest zeros, and it still runs the m64n64k16 product over
+// the whole box and sends only its live columns to the scratch.  A product
+// of 16 or 32 columns for consumer 1 alone would be a wgmma under a branch
+// on the warpgroup, which ptxas answers by serializing every wgmma of the
+// kernel; and halves of D (n40, n48) would start the MN-major B operand
+// inside a swizzle atom, which the descriptor cannot name.  The cost is
+// 48 or 32 zero columns of one product of five: 1.12x the products a live
+// pair at 80, 1.07x at 96.
 // dS^T's tile is double-buffered, so one named barrier between the
 // consumers an iteration suffices.  Register budget of a consumer thread:
-// dK and dV (64 keys x 128) stay in 2 x 64 = 128 fp32 registers for the
-// whole loop; S^T and dP^T of half a tile (64 x 32) take 2 x 16 = 32 more,
-// the dQ share (64 x 64) 32 at another time; addressing, the softmax and
-// the load requests take the rest of the 236 ptxas reports, with no spill.
+// dK and dV (64 keys x D) stay in 2 x D / 2 fp32 registers for the whole
+// loop (128 at D = 128, 96 at 96, 80 at 80); S^T and dP^T of half a tile
+// (64 x 32) take 2 x 16 = 32 more, the dQ share (64 x 64) 32 at another
+// time; addressing, the softmax and the load requests take the rest of
+// the 236 ptxas reports at D = 128, with no spill.
 // Two choices follow from that budget.  No producer warpgroup: with a third
 // warpgroup the kernel's limit is 65,536 / 384 = 168 registers a thread,
 // and ptxas judges whether the products can stay in flight by that limit,
@@ -66,7 +88,7 @@
 // S^T and dP^T by halves: a whole tile's (64 registers more) put a
 // consumer past 255.  Shared memory: K, V 64 KB; 2 stages of Q, dO 64 KB;
 // dS^T 2 x 16 KB; P^T 16 KB; dQ staging 2 x 16 KB; lse, Delta, barriers:
-// 210 KB, one block an SM.
+// 210 KB, one block an SM, at every D.
 //
 // D = 64 (test shapes and the reduced qwen3): the same structure on
 // mma.sync m16n8k16, one block of 4 warps per 64-key tile, each warp 16
@@ -144,10 +166,10 @@ __device__ __forceinline__ int64_t dq_tile(const Bwd& p, int b, int h, int qt,
 constexpr int kPassThreads = 256;
 
 // A warp a padded row (b, h, s): Delta, the padded lse, and the row's D
-// fp32 of dQ scratch zeroed.
+// fp32 of dQ scratch zeroed; lane l takes the row's bf16 pairs l, l + 32.
 template <int D>
 __global__ void __launch_bounds__(kPassThreads) attn_bwd_prep_kernel(Bwd p) {
-  constexpr int kPer = D / 32;  // values a lane
+  constexpr int kPairs = D / 2;  // bf16 pairs a row
   const int lane = threadIdx.x & 31;
   const int64_t rows = (int64_t)p.B * p.H * p.S_pad;
   for (int64_t r = (int64_t)blockIdx.x * (kPassThreads / 32) + threadIdx.x / 32;
@@ -157,13 +179,13 @@ __global__ void __launch_bounds__(kPassThreads) attn_bwd_prep_kernel(Bwd p) {
     const int b = (int)(bh / p.H), h = (int)(bh % p.H);
     float acc = 0.f;
     if (s < p.S) {
-      const int64_t off = (((int64_t)b * p.S + s) * p.H + h) * D + lane * kPer;
+      const int64_t off = (((int64_t)b * p.S + s) * p.H + h) * D;
 #pragma unroll
-      for (int j = 0; j < kPer; j += 2) {
+      for (int j = lane; j < kPairs; j += 32) {
         const float2 o2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(p.o + off + j));
+            *reinterpret_cast<const __nv_bfloat162*>(p.o + off + 2 * j));
         const float2 d2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(p.dout + off + j));
+            *reinterpret_cast<const __nv_bfloat162*>(p.dout + off + 2 * j));
         acc += o2.x * d2.x + o2.y * d2.y;
       }
     }
@@ -175,17 +197,18 @@ __global__ void __launch_bounds__(kPassThreads) attn_bwd_prep_kernel(Bwd p) {
       p.delta[r] = acc;
       p.lse_pad[r] = s < p.S ? p.lse[bh * p.S + s] : INFINITY;
     }
-    float* z = p.dq_acc + r * D + lane * kPer;
+    float* z = p.dq_acc + r * D;
 #pragma unroll
-    for (int j = 0; j < kPer; j += 2) {
-      *reinterpret_cast<float2*>(z + j) = make_float2(0.f, 0.f);
+    for (int j = lane; j < kPairs; j += 32) {
+      *reinterpret_cast<float2*>(z + 2 * j) = make_float2(0.f, 0.f);
     }
   }
 }
 
 // A thread a float4 of the scratch: the accumulator's (rows g, g + 8;
-// columns 2 tig, 2 tig + 1) of block n of column group c, times D^-1/2,
-// into the bf16 dQ; rows past S are not stored.
+// columns 2 tig, 2 tig + 1) of column block n (8 columns: 64 c + 8 n over
+// the 64-column boxes c), times D^-1/2, into the bf16 dQ; rows past S are
+// not stored.
 template <int D>
 __global__ void __launch_bounds__(kPassThreads) attn_bwd_dq_kernel(Bwd p) {
   constexpr int kTile4 = kBQ * D / 4;  // float4s a query tile
@@ -217,17 +240,16 @@ __global__ void __launch_bounds__(kPassThreads) attn_bwd_dq_kernel(Bwd p) {
 }
 
 // ---------------------------------------------------------------------------
-// D = 128: TMA ring, wgmma, two consumer warpgroups
+// D = 128, 96, 80: TMA ring, wgmma, two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kWD = 128;
 constexpr int kWBK = 128;            // keys a block, 64 a consumer
 constexpr int kWStages = 2;          // depth of the Q / dO ring
 constexpr int kWThreads = 256;       // 2 consumer warpgroups
 constexpr uint32_t kKVBox = kWBK * 128;          // 128 rows x 64 columns
-constexpr uint32_t kKVTile = 2 * kKVBox;         // 128 rows of D = 128
+constexpr uint32_t kKVTile = 2 * kKVBox;         // 128 rows of D <= 128
 constexpr uint32_t kQBox = kBQ * 128;            // 64 rows x 64 columns
-constexpr uint32_t kQTile = 2 * kQBox;           // 64 rows of D = 128
+constexpr uint32_t kQTile = 2 * kQBox;           // 64 rows of D <= 128
 constexpr uint32_t kDSBytes = kWBK * kBQ * 2;    // dS^T: 128 keys x 64 rows
 constexpr uint32_t kDQBytes = kBQ * 64 * 4;      // a consumer's dQ share
 constexpr uint32_t kStatBytes = kBQ * 4;         // 64 lse or Delta values
@@ -317,11 +339,15 @@ __device__ __forceinline__ void load_step(const Bwd& p, const CUtensorMap* tq,
 
 // Two consumer warpgroups and no producer warpgroup (see the header):
 // thread 0 also starts the loads, each step's one iteration ahead.
+template <int D>
 __global__ void __launch_bounds__(kWThreads, 1)
     attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, Bwd p) {
+  static_assert(D == 80 || D == 96 || D == 128, "two boxes a row");
+  constexpr int kAcc = D / 2;   // fp32 a thread of 64 keys x D (dK or dV)
+  constexpr int kKSteps = D / 16;
   extern __shared__ __align__(16) unsigned char smem_bwd[];
   const uint32_t base = (smem_addr(smem_bwd) + 1023u) & ~1023u;  // swizzle
   const uint32_t full_kv = base + kOffBar;        // K and V, once
@@ -372,9 +398,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const uint64_t d16 = smem_desc(base, 16, 1024);
   const uint64_t dmn = smem_desc(base, kQBox, 1024);
 
-  float dv[64], dk[64];
+  float dv[kAcc], dk[kAcc];
 #pragma unroll
-  for (int j = 0; j < 64; ++j) dv[j] = dk[j] = 0.f;
+  for (int j = 0; j < kAcc; ++j) dv[j] = dk[j] = 0.f;
   mbar_wait(full_kv, 0);
 
   for (int i = 0; i < n_iter; ++i) {
@@ -400,12 +426,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
     const bool masked = tile_needs_mask(p, q0, kc0, 64);
 #pragma unroll
     for (int hq = 0; hq < 2; ++hq) {
-      // 8 k-steps over D; k-steps 0-3 walk 32 bytes at a time through
-      // the first 64-column box, 4-7 the second
+      // D / 16 k-steps over D; k-steps 0-3 walk 32 bytes at a time
+      // through the first 64-column box, the rest the second
       float s[16], dp[16];
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kWD / 16; ++ks) {
+      for (int ks = 0; ks < kKSteps; ++ks) {
         const uint32_t ka = c * 64 * 128 + (ks / 4) * kKVBox + (ks % 4) * 32;
         const uint32_t qb =
             oQ + (ks / 4) * kQBox + hq * 32 * 128 + (ks % 4) * 32;
@@ -414,7 +440,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_commit();
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kWD / 16; ++ks) {
+      for (int ks = 0; ks < kKSteps; ++ks) {
         const uint32_t ka = c * 64 * 128 + (ks / 4) * kKVBox + (ks % 4) * 32;
         const uint32_t qb = oQ + (kOffDO - kOffQ) + (ks / 4) * kQBox +
                             hq * 32 * 128 + (ks % 4) * 32;
@@ -462,7 +488,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     // dV += P^T dO, dK += dS^T Q: A = this consumer's 64 rows of the P^T
     // / dS^T tile (K-major, the 64 queries are the k of the product, 32
     // bytes a step), B = dO / Q read MN-major (16 query rows a step,
-    // 2048 bytes; the halves of D one box apart)
+    // 2048 bytes; D's two boxes one box apart)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -478,7 +504,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
 
     // dQ[:, 64c .. 64c+63] = dS K over the block's 128 keys, once both
     // consumers' halves of dS^T are stored: A = dS^T read MN-major, B =
-    // K's box c read MN-major, keys the k of the product (16 a step)
+    // K's box c read MN-major, keys the k of the product (16 a step); at
+    // D < 128 box 1's columns past D are zeros and its product's too
     named_sync(kBarDS, kWThreads);
     float dq[32];
     wgmma_fence();
@@ -496,7 +523,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
     mbar_arrive(empty + 8 * st);
 
     // the dQ share into the scratch: staged in the accumulator's order,
-    // then one bulk reduce-add of 16 KB by one thread
+    // then one bulk reduce-add by one thread of the share's live columns
+    // (its first min(64, D - 64 c) / 8 column blocks: 16 KB, and 4 or 8
+    // KB from box 1 at 80 or 96)
     const uint32_t stage = base + kOffDQ + c * kDQBytes;
     if (t == 0) bulk_wait_read();  // the last tile's share has left
     named_sync(kBarDQ + c, 128);
@@ -508,8 +537,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
     fence_proxy_async();
     named_sync(kBarDQ + c, 128);
     if (t == 0) {
-      bulk_reduce_add_f32(p.dq_acc + dq_tile(p, b, h, qt, kWD) + c * 4096,
-                          stage, kDQBytes);
+      bulk_reduce_add_f32(p.dq_acc + dq_tile(p, b, h, qt, D) + c * 4096,
+                          stage, (uint32_t)min(64, D - 64 * c) * kBQ * 4);
     }
   }
   if (t == 0) bulk_wait();
@@ -519,10 +548,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key < p.S) {
-      const int64_t off = (((int64_t)b * p.S + key) * p.KV + kvh) * kWD +
+      const int64_t off = (((int64_t)b * p.S + key) * p.KV + kvh) * D +
                           2 * tig;
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         *reinterpret_cast<uint32_t*>(p.dk + off + 8 * n) =
             pack_bf16(dk[4 * n + 2 * r] * p.scale,
                       dk[4 * n + 2 * r + 1] * p.scale);
@@ -788,7 +817,7 @@ cudaError_t launch_bwd(const Bwd& p, cudaStream_t stream) {
       <<<pass_blocks((int64_t)p.B * p.H * p.S_pad, kPassThreads / 32),
          kPassThreads, 0, stream>>>(p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if constexpr (D == kWD) {
+  if constexpr (D != 64) {
     CUtensorMap tq, tdo, tk, tv;
     const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KV * D;
     if (!encode_map(&tq, p.q, D, p.S, p.H, p.B, qs, D, p.S * qs, kBQ) ||
@@ -799,13 +828,13 @@ cudaError_t launch_bwd(const Bwd& p, cudaStream_t stream) {
     }
     const int64_t blocks = (int64_t)((p.S + kWBK - 1) / kWBK) * p.KV * p.B;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
-    if ((e = cudaFuncSetAttribute(attn_bwd_wgmma_kernel,
+    if ((e = cudaFuncSetAttribute(attn_bwd_wgmma_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   kWSmem)) != cudaSuccess) {
       return e;
     }
-    attn_bwd_wgmma_kernel<<<(unsigned)blocks, kWThreads, kWSmem, stream>>>(
-        tq, tdo, tk, tv, p);
+    attn_bwd_wgmma_kernel<D>
+        <<<(unsigned)blocks, kWThreads, kWSmem, stream>>>(tq, tdo, tk, tv, p);
   } else {
     const int64_t blocks = (int64_t)((p.S + kMBK - 1) / kMBK) * p.KV * p.B;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -827,9 +856,10 @@ cudaError_t launch_bwd(const Bwd& p, cudaStream_t stream) {
 }  // namespace
 
 // Returns cudaGetLastError() after the last launch (0 == cudaSuccess), or
-// cudaErrorInvalidValue for a head dim other than 64 or 128, a tensor map
-// cuTensorMapEncodeTiled refuses or a grid of 2^31 blocks or more.  lse is the
-// forward's fp32 (B, H, S); lse_pad and delta are fp32 (B, H, S_pad) and
+// cudaErrorInvalidValue for a head dim other than 64, 80, 96 or 128, a
+// tensor map cuTensorMapEncodeTiled refuses or a grid of 2^31 blocks or
+// more.  lse is the forward's fp32 (B, H, S); lse_pad and delta are fp32
+// (B, H, S_pad) and
 // dq_acc fp32 (B, H, S_pad, D) workspaces, S_pad = S rounded up to 64.
 // The caller checks dtypes, shapes, devices and contiguity and guarantees
 // H % KV == 0.
@@ -858,6 +888,8 @@ extern "C" int repro_flash_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)launch_bwd<64>(p, s);
+    case 80: return (int)launch_bwd<80>(p, s);
+    case 96: return (int)launch_bwd<96>(p, s);
     case 128: return (int)launch_bwd<128>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -53,18 +53,20 @@ the kernel's epilogue; without it the kernel stores nothing more.
 
 The backward, ``csrc/flash_attention_bwd.cu``, has no TPU counterpart
 (the JAX package differentiates its jnp attention): dQ, dK and dV of the
-same function for bf16 q / k / v with D = 64 or 128 and T == S, from the
-forward's
-output and saved lse.  It does 5 products a live (query, key) pair (S,
-dP, dV, dK, dQ) in one fused kernel a (key tile, KV head, batch row): at
-D = 128 two wgmma warpgroups of 64 keys each, fed by TMA through a
-2-stage ring (register budget of a thread: 128 fp32 for the dK and dV
-accumulators across the loop, 32 for half a tile's S^T and dP^T, 32 for
-the dQ share; 236 in all with addressing, under the 255 of a 256-thread
-block, see the source); at D = 64 mma.sync with cp.async double
-buffering.  dQ of the key tiles sums into an fp32 scratch by bulk
-reduce-adds in no fixed order, so it may differ in its last bits from run
-to run.  ``FlashAttention`` ties the two into one
+same function for bf16 q / k / v with D = 64, 80 (zamba2-2.7b), 96
+(phi-3-vision-4.2b) or 128 and T == S (``BWD_HEAD_DIMS``), from the
+forward's output and saved lse.  It does 5 products a live (query, key)
+pair (S, dP, dV, dK, dQ) in one fused kernel a (key tile, KV head, batch
+row): at D = 128, 96 and 80 one template of two wgmma warpgroups of 64
+keys each, fed by TMA through a 2-stage ring, a row two 64-column boxes
+(zero past D at 80 and 96), dV and dK as wgmma m64n<D>k16 and dQ split
+between the warpgroups by box (register budget of a thread at 128: 128
+fp32 for the dK and dV accumulators across the loop, D at 80 and 96, 32
+for half a tile's S^T and dP^T, 32 for the dQ share; 236 in all with
+addressing, under the 255 of a 256-thread block, see the source); at D =
+64 mma.sync with cp.async double buffering.  dQ of the key tiles sums
+into an fp32 scratch by bulk reduce-adds in no fixed order, so it may
+differ in its last bits from run to run.  ``FlashAttention`` ties the two into one
 ``torch.autograd.Function``, which is what ``kernels/ops.flash_attention``
 calls on CUDA tensors.
 
@@ -88,7 +90,7 @@ from repro_torch.kernels import _lib
 HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
              (192, 128), (192, 192))                       # (D, Dv)
 DTYPES = (torch.bfloat16, torch.float32)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 80, 96, 128)
 BWD_DTYPES = (torch.bfloat16,)
 MAX_GRID_YZ = 65535     # H on gridDim.y, B on gridDim.z
 # the split-key route: queries a call at most (whisper's decode step has
@@ -106,11 +108,10 @@ launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_mla": 0,
                             "flash_attention_d192": 0,
                             "flash_attention_cross": 0,
                             "flash_attention_bwd": 0}
-# head dims with a count of their own: (count key, the model whose
-# training on the card waits for a backward kernel at that dim)
-BY_HEAD_DIM = {80: ("flash_attention_d80", "zamba2"),
-               96: ("flash_attention_d96", "phi-3-vision"),
-               192: ("flash_attention_d192", "nemotron-4-340b")}
+# head dims whose forward launches have a count of their own: zamba2's,
+# phi-3-vision's and nemotron-4-340b's
+BY_HEAD_DIM = {80: "flash_attention_d80", 96: "flash_attention_d96",
+               192: "flash_attention_d192"}
 
 
 def _launch_key(D: int, Dv: int, cross: bool = False) -> str:
@@ -120,7 +121,7 @@ def _launch_key(D: int, Dv: int, cross: bool = False) -> str:
         return "flash_attention_cross"
     if D != Dv:
         return "flash_attention_mla"
-    return BY_HEAD_DIM.get(D, ("flash_attention",))[0]
+    return BY_HEAD_DIM.get(D, "flash_attention")
 
 
 def forward_route(dtype: torch.dtype, D: int, Dv: int, S: int,
@@ -297,7 +298,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` at the upstream
     gradient ``dout``, given its output ``out`` and log-sum-exp ``lse``
-    (``flash_attention(..., return_lse=True)``); bf16, D = 64 or 128.
+    (``flash_attention(..., return_lse=True)``); bf16, D in
+    ``BWD_HEAD_DIMS`` (64, 80, 96, 128), keys the queries' own (T == S).
     Every operand is made contiguous; the gradients are new contiguous
     tensors in q's (k's) shape."""
     dev = q.device

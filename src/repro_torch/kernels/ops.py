@@ -175,18 +175,20 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
 
 def _training_wait(q, v, cross: bool) -> str:
     """Which model's training on the card waits for a backward kernel that
-    takes these operands, as the error's tail ("" when none is named)."""
+    takes these operands, as the error's tail: whisper's cross-attention
+    (T != S), deepseek-v2-lite's MLA head dims (192, 128) and
+    nemotron-4-340b's (192, 192); "" for the other refusals (fp32, D =
+    32), which no model's training on the card takes."""
     if cross:
-        who, item = "whisper", "whisper training"
+        who = "whisper"
     elif v.shape[-1] != q.shape[-1]:
-        who, item = "MLA", "deepseek-v2-lite training"
-    elif q.shape[-1] in _fa.BY_HEAD_DIM:
-        who = _fa.BY_HEAD_DIM[q.shape[-1]][1]
-        item = f"{who} training"
+        who = "deepseek-v2-lite"
+    elif q.shape[-1] == 192:
+        who = "nemotron-4-340b"
     else:
         return ""
     return (f"; {who} training on the card waits for one (ROADMAP queue 1, "
-            f"the model zoo: {item})")
+            f"the model zoo, item 11c: {who} training)")
 
 
 _CALL_LOGS: List[list] = []
@@ -220,8 +222,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``torch.no_grad``: a no-grad prefill of trainable params saves
     nothing); with one the forward and backward kernels as one autograd
     function, and a gradient the backward kernel does not take (fp32, D =
-    32, 80, 96 or 192, MLA's D != Dv, or a cross-attention) raises
-    rather than come back without one."""
+    32 or 192, MLA's D != Dv, or a cross-attention) raises rather than
+    come back without one."""
     if _CALL_LOGS:
         _note("flash_attention", tuple(q.shape), tuple(k.shape),
               tuple(v.shape), causal, window, q.dtype)

@@ -83,6 +83,33 @@ def init_train_state(cfg: ArchConfig, gen: torch.Generator, *,
     return train_state(M.init_params(cfg, gen, device=device))
 
 
+# values of a leaf that the train step's update takes at once: its fp32
+# temporaries are a chunk's (256 MB each), not a stacked leaf's (3.2 GB
+# each at phi-3-vision's 32 x 3072 x 8192 MLP leaves)
+UPDATE_CHUNK = 1 << 26
+
+
+def _update_leaf(w, m, g, a1, a2, hp: H2FedParams, beta: float):
+    """(w', m') of one leaf: ``m' = beta m + g + mu1 (w - a1) + mu2 (w -
+    a2)`` and ``w' = w - lr m'`` in fp32, w' cast to w's dtype, computed
+    ``UPDATE_CHUNK`` values at a time into new tensors (elementwise, so
+    the chunks change no value)."""
+    new_w = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    new_m = torch.empty(m.shape, dtype=torch.float32, device=m.device)
+    flat = [t.detach().contiguous().view(-1)
+            for t in (w, m, g, a1, a2)] + [new_w.view(-1), new_m.view(-1)]
+    for i in range(0, w.numel(), UPDATE_CHUNK):
+        wc, mc, gc, x1, x2, out_w, out_m = (t[i:i + UPDATE_CHUNK]
+                                            for t in flat)
+        wf = wc.float()
+        gf = (gc.float() + hp.mu1 * (wf - x1.float())
+              + hp.mu2 * (wf - x2.float()))
+        m_new = beta * mc + gf
+        out_m.copy_(m_new)
+        out_w.copy_((wf - hp.lr * m_new).to(w.dtype))
+    return new_w, new_m
+
+
 def make_train_step(cfg: ArchConfig, hp: H2FedParams, beta: float = 0.9, *,
                     device=None):
     """The federated train step: the CSR-masked mean of the agents' losses,
@@ -91,8 +118,10 @@ def make_train_step(cfg: ArchConfig, hp: H2FedParams, beta: float = 0.9, *,
     The update is the reference's, outside any kernel: in fp32,
     ``m' = beta m + g + mu1 (w - a1) + mu2 (w - a2)`` and ``w' = w - lr m'``
     cast back to the leaf's dtype (round to nearest even).  It runs leaf by
-    leaf and out of place, so the peak holds the fp32 temporaries of one
-    leaf; the state handed in is left as it is."""
+    leaf, ``UPDATE_CHUNK`` values at a time, out of place, and lets each
+    leaf's gradient go once it is used, so the peak holds the state, the
+    new params and momentum and one chunk's fp32 temporaries; the state
+    handed in is left as it is."""
     dev = resolve_device(device)
     aux_w = M.aux_weight(cfg)
 
@@ -111,17 +140,17 @@ def make_train_step(cfg: ArchConfig, hp: H2FedParams, beta: float = 0.9, *,
             nll, aux = M.per_example_loss(cfg, params, flat)
             per_agent = nll.reshape(A, b).mean(dim=1)
             loss = (per_agent * mf).sum() / mf.sum().clamp(min=1.0)
-            grads = torch.autograd.grad(loss + aux_w * aux, leaves)
+            grads = list(torch.autograd.grad(loss + aux_w * aux, leaves))
+        del leaves, params
         new_p, new_m = [], []
-        for w, m, g, a1, a2 in zip(
+        for i, (w, m, a1, a2) in enumerate(zip(
                 tree.leaves(state.params), tree.leaves(state.momentum),
-                grads, tree.leaves(state.anchor_rsu),
-                tree.leaves(state.anchor_cloud)):
-            wf = w.detach().float()
-            gf = (g.float() + hp.mu1 * (wf - a1.float())
-                  + hp.mu2 * (wf - a2.float()))
-            m_new = beta * m + gf
-            new_p.append((wf - hp.lr * m_new).to(w.dtype))
+                tree.leaves(state.anchor_rsu),
+                tree.leaves(state.anchor_cloud))):
+            g, grads[i] = grads[i], None
+            w_new, m_new = _update_leaf(w, m, g, a1, a2, hp, beta)
+            del g
+            new_p.append(w_new)
             new_m.append(m_new)
         new_state = TrainState(
             params=tree.unflatten(state.params, new_p),

@@ -2,8 +2,10 @@
 and how the split-key kernel cuts the keys (``split_plan``), on the CPU:
 both are pure functions of the call's shapes and, for the plan, of the
 kernel's blocks the card holds at once, so they are checked here without
-a card.  The kernels themselves are held to the plain version on the
-card (``tests/test_torch_cuda_kernels.py``)."""
+a card; likewise which calls the backward kernel takes
+(``backward_supported``) and which model's training the refusal of the
+others names (``ops._training_wait``).  The kernels themselves are held
+to the plain version on the card (``tests/test_torch_cuda_kernels.py``)."""
 from __future__ import annotations
 
 import pytest
@@ -94,3 +96,57 @@ def test_forward_route(dtype, D, Dv, S, causal, window, want):
     wgmma kernel otherwise, as do 80 to 192; D = 32 stays on mma.sync;
     fp32 runs on the FMA units."""
     assert tfa.forward_route(dtype, D, Dv, S, causal, window) == want
+
+
+# (dtype, D, Dv, T) of q (1, 64, 4, D), k (1, T, 2, D), v (1, T, 2, Dv):
+# the backward kernel takes bf16 self-attention (T == S) at one head dim
+# in (64, 80, 96, 128); fp32, D = 32, MLA's (192, 128), (192, 192) and T
+# != S (whisper's cross-attention) are refused
+BWD_CASES = [(torch.bfloat16, 64, 64, 64, True),
+             (torch.bfloat16, 80, 80, 64, True),
+             (torch.bfloat16, 96, 96, 64, True),
+             (torch.bfloat16, 128, 128, 64, True),
+             (torch.float32, 80, 80, 64, False),
+             (torch.float32, 96, 96, 64, False),
+             (torch.float32, 128, 128, 64, False),
+             (torch.bfloat16, 32, 32, 64, False),
+             (torch.bfloat16, 192, 128, 64, False),
+             (torch.bfloat16, 192, 192, 64, False),
+             (torch.bfloat16, 64, 64, 100, False),
+             (torch.bfloat16, 80, 80, 100, False)]
+
+
+def _qkv(dtype, D, Dv, T):
+    return (torch.zeros(1, 64, 4, D, dtype=dtype),
+            torch.zeros(1, T, 2, D, dtype=dtype),
+            torch.zeros(1, T, 2, Dv, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,D,Dv,T,want", BWD_CASES)
+def test_backward_supported(dtype, D, Dv, T, want):
+    q, _, v = _qkv(dtype, D, Dv, T)
+    assert tfa.backward_supported(q, v) is want
+    assert (want and D in tfa.BWD_HEAD_DIMS) or not want
+
+
+@pytest.mark.parametrize("dtype,D,Dv,T,who", [
+    (torch.bfloat16, 64, 64, 100, "whisper"),
+    (torch.bfloat16, 192, 128, 64, "deepseek-v2-lite"),
+    (torch.bfloat16, 192, 192, 64, "nemotron-4-340b"),
+    (torch.float32, 80, 80, 64, None), (torch.float32, 96, 96, 64, None),
+    (torch.bfloat16, 32, 32, 64, None)])
+def test_training_wait_names_item_11c(dtype, D, Dv, T, who):
+    """The tail of ``ops.flash_attention``'s refusal under grad on the card:
+    whisper's (T != S), deepseek-v2-lite's (MLA) and nemotron-4-340b's
+    (192, 192) training under ROADMAP item 11c; nothing for fp32 or D =
+    32, which no model trains on the card, and no longer zamba2 or
+    phi-3-vision (80 and 96 have a backward kernel)."""
+    from repro_torch.kernels import ops
+    q, _, v = _qkv(dtype, D, Dv, T)
+    tail = ops._training_wait(q, v, cross=T != q.shape[1])
+    if who is None:
+        assert tail == ""
+    else:
+        assert f"item 11c: {who} training" in tail
+        assert "the model zoo" in tail
+    assert "zamba2" not in tail and "phi-3" not in tail

@@ -186,6 +186,14 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
              "max_abs_err": 8e-3, "ms": 1.2, "plain_ms": 60.0,
              "bound_ms": 0.42, "bound_by": "operations", "library_ms": 1.0,
              "shape": {}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_d80", "entry": "d80_layer",
+             "max_abs_err": 7e-3, "ms": 0.29, "plain_ms": 12.5,
+             "bound_ms": 0.087, "bound_by": "operations", "library_ms": 0.29,
+             "shape": {"D": 80}, "dtype": "bfloat16"},
+            {"kernel": "flash_attention_d96", "entry": "d96_layer",
+             "max_abs_err": 6e-3, "ms": 0.31, "plain_ms": 12.8,
+             "bound_ms": 0.104, "bound_by": "operations", "library_ms": 0.28,
+             "shape": {"D": 96}, "dtype": "bfloat16"},
             {"kernel": "flash_attention", "entry": "yi_prefill",
              "kernel_route": "tma_wgmma", "max_abs_err": 8e-3, "ms": 9.8,
              "plain_ms": 430.0, "bound_ms": 3.9, "bound_by": "operations",
@@ -234,14 +242,28 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     train_rows = [
         {"kernel": "flash_attention_bwd", "entry": "layer",
          "max_abs_err": 0.03, "ms": 1.9, "plain_ms": 40.0, "bound_ms": 0.17,
-         "bound_by": "operations", "library_ms": 1.2, "shape": {},
+         "bound_by": "operations", "library_ms": 1.2, "shape": {"D": 128},
          "dtype": "bfloat16", "tol": "2^-7"},
+        {"kernel": "flash_attention_bwd", "entry": "zamba2_layer",
+         "max_abs_err": 0.02, "ms": 1.5, "plain_ms": 160.0, "bound_ms": 0.43,
+         "bound_by": "operations", "library_ms": 1.3, "shape": {"D": 80},
+         "dtype": "bfloat16", "tol": "2^-7", "launches_per_step": 9},
+        {"kernel": "flash_attention_bwd", "entry": "d80_gqa_w",
+         "max_abs_err": 0.04, "ms": 0.1, "plain_ms": 5.0, "bound_ms": 0.01,
+         "bound_by": "operations", "library_ms": 0.2, "shape": {"D": 80},
+         "dtype": "bfloat16", "tol": "2^-7"},
+        {"kernel": "flash_attention_bwd", "entry": "phi3_layer",
+         "max_abs_err": 0.01, "ms": 1.7, "plain_ms": 170.0, "bound_ms": 0.52,
+         "bound_by": "operations", "library_ms": 1.4, "shape": {"D": 96},
+         "dtype": "bfloat16", "tol": "2^-7", "launches_per_step": 32},
         {"kernel": "dual_proximal_sgd", "entry": "bf16_embed",
          "max_abs_err": 4e-3, "ms": 0.7, "plain_ms": 5.0, "bound_ms": 0.46,
          "bound_by": "bytes", "library_ms": None, "shape": {"N": 1},
          "dtype": "bfloat16"}]
     train_counts = {"flash_attention": 300, "flash_attention_bwd": 150,
                     "dual_proximal_sgd": 176}
+    zoo_counts = {80: {"flash_attention_d80": 130, "flash_attention_bwd": 65},
+                  96: {"flash_attention_d96": 332, "flash_attention_bwd": 166}}
     scan = [{"entry": "layer", "r_dtype": "bfloat16", "max_abs_err": 4e-7,
              "ms": 8.7, "plain_ms": 3000.0, "bound_ms": 0.58,
              "bound_by": "operations", "shape": {}, "latency_floor_ms": 4.3}]
@@ -326,7 +348,7 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     monkeypatch.setattr(cs, "dryrun_matrix", lambda dev: pytest.fail(
         "the full run does not run the whole dry-run matrix"))
     monkeypatch.setattr(cs, "train_path",
-                        lambda dev: (train_rows, train_counts))
+                        lambda dev: (train_rows, train_counts, zoo_counts))
     monkeypatch.setattr(cs, "flat_round", lambda dev: pytest.fail(
         "the full run profiles its round inside the main path"))
     assert cs.main([]) == 0
@@ -346,7 +368,8 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "flash_attention", "flash_attention_cross", "flash_attention_cross",
         "flash_attention_cross", "slstm_scan",
         "flash_attention",
-        "flash_attention_bwd", "dual_proximal_sgd"]
+        "flash_attention_bwd", "dual_proximal_sgd", "flash_attention_d80",
+        "flash_attention_bwd", "flash_attention_d96", "flash_attention_bwd"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
     # the flat path's, the async path's, the sweep's, the serve loop's,
@@ -359,12 +382,26 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
     assert [k["launches"] for k in kernels] == [
         50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
         120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
-        27, 9, 32, 60, 40, 2, 4, 4, 4, 4, 3, 300, 150, 176]
+        27, 9, 32, 60, 40, 2, 4, 4, 4, 4, 3, 300, 150, 176, 130, 65, 332,
+        166]
     # the training path's rows: #4 forward and backward at the layer
-    # shape, #3's bf16 mode at the embedding leaf
-    assert [k["entry"] for k in kernels[-3:]] == ["train", "train",
-                                                  "bf16_embed"]
-    assert kernels[-2]["source"].endswith("flash_attention_bwd.cu")
+    # shape, #3's bf16 mode at the embedding leaf; then zamba2's and
+    # phi-3-vision's: #4's forward at 80 / 96 at its layer row, the
+    # backward at the train step's layer row with its launches a step, and
+    # the error the most of that width's backward rows
+    assert [k["entry"] for k in kernels[-7:]] == [
+        "train", "train", "bf16_embed", "train", "train_d80", "train",
+        "train_d96"]
+    assert kernels[-6]["source"].endswith("flash_attention_bwd.cu")
+    assert kernels[-3]["source"] == kernels[-1]["source"] == kernels[-6][
+        "source"]
+    assert kernels[-4]["ms"] == 0.29 and kernels[-4]["shape"] == {"D": 80}
+    assert kernels[-3]["ms"] == 1.5 and kernels[-3]["launches_per_step"] == 9
+    assert kernels[-3]["max_abs_err"] == 0.04
+    assert kernels[-1]["ms"] == 1.7 and kernels[-1]["launches_per_step"] == 32
+    assert kernels[-1]["max_abs_err"] == 0.01
+    assert kernels[-1]["products_per_pair"] == 5
+    kernels = kernels[:-4]
     # #4 at MLA's head dims, with phase 4c's prefill launches
     assert kernels[9]["source"].endswith("flash_attention.cu")
     assert kernels[9]["replaces"] == kernels[8]["replaces"]

@@ -642,9 +642,9 @@ WIDE_CASES = [(1, 4096, 32, 32, True, 0), (1, 4096, 32, 32, True, 1024),
               (1, 8191, 4, 4, True, 0), (2, 2048, 32, 32, True, 1024),
               (3, 700, 12, 4, True, 0), (1, 4096, 96, 8, True, 0),
               (2, 1000, 24, 2, True, 256)]
-# the model whose training a grad at each dim names
-WIDE_TRAINING = {80: "zamba2 training", 96: "phi-3-vision training",
-                 192: "nemotron-4-340b training"}
+# the model whose training a grad at each dim names: at 192 no backward
+# kernel takes the dim (80 and 96 have one)
+WIDE_TRAINING = {192: "nemotron-4-340b training"}
 
 
 def _wide_inputs(dev, B, S, H, KV, D, dtype, seed):
@@ -729,11 +729,11 @@ def test_cuda_flash_attention_wide_head_lse_matches_plain(cuda, D, B, S, H,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("D", sorted(WIDE_TRAINING))
 def test_cuda_flash_attention_wide_head_refuses_grad(cuda, D):
-    """Under grad at D = 80 / 96 / 192 the route raises, naming zamba2 /
-    phi-3-vision / nemotron-4-340b training (no backward kernel takes
-    any), in bf16 and fp32; without grad it runs."""
+    """Under grad at D = 192 the route raises, naming nemotron-4-340b
+    training (no backward kernel takes the dim), in bf16 and fp32; without
+    grad it runs."""
     from repro_torch.kernels import ops
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _wide_inputs(cuda, 1, 64, 4, 2, D, dtype, 3)
@@ -741,6 +741,34 @@ def test_cuda_flash_attention_wide_head_refuses_grad(cuda, D):
             ops.flash_attention(q.requires_grad_(), k, v)
         with torch.no_grad():
             assert ops.flash_attention(q, k, v).shape == (1, 64, 4, D)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [80, 96])
+def test_cuda_flash_attention_wide_head_grad_runs_backward_kernel(cuda, D):
+    """Under grad at D = 80 / 96 (zamba2-2.7b's and phi-3-vision's head
+    dims) a bf16 call runs the forward kernel with the log-sum-exp and,
+    in the backward pass, the backward kernel once (one
+    ``flash_attention_bwd`` launch, one ``flash_attention_d80`` / ``_d96``
+    forward launch, nothing else); an fp32 call still raises, since the
+    backward kernel takes bf16 only."""
+    from repro_torch.kernels import ops
+    q, k, v = _wide_inputs(cuda, 1, 64, 4, 2, D, torch.bfloat16, 3)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = dict(tfa.launches)
+    out = ops.flash_attention(*leaves, causal=True)
+    out.float().square().sum().backward()
+    after = dict(tfa.launches)
+    want = dict(before, flash_attention_bwd=before["flash_attention_bwd"] + 1)
+    want[f"flash_attention_d{D}"] += 1
+    assert after == want
+    for t in leaves:
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert torch.isfinite(t.grad.float()).all()
+    q, k, v = _wide_inputs(cuda, 1, 64, 4, 2, D, torch.float32, 3)
+    with pytest.raises(NotImplementedError, match="bf16 self-attention"):
+        ops.flash_attention(q.requires_grad_(), k, v)
     torch.cuda.synchronize()
 
 
@@ -1469,14 +1497,20 @@ def test_cuda_flash_attention_output_same_with_lse(cuda, B, S, H, KV, D,
     (1, 1024, 16, 8, 128, True, 256), (2, 64, 4, 4, 64, False, 0),
     (1, 257, 4, 4, 128, True, 100), (1, 513, 8, 2, 128, True, 200),
     (2, 300, 4, 1, 64, True, 0), (1, 200, 8, 2, 128, False, 70),
-    (1, 257, 8, 2, 64, True, 100), (2, 1000, 4, 4, 64, False, 0)])
+    (1, 257, 8, 2, 64, True, 100), (2, 1000, 4, 4, 64, False, 0),
+    (2, 130, 4, 4, 80, True, 0), (1, 257, 8, 2, 80, True, 100),
+    (1, 1000, 16, 8, 80, False, 0), (1, 700, 12, 4, 80, True, 33),
+    (2, 130, 4, 4, 96, True, 0), (1, 513, 8, 2, 96, True, 200),
+    (1, 1000, 16, 4, 96, False, 0), (1, 300, 8, 1, 96, True, 70)])
 def test_cuda_flash_attention_backward_matches_autograd_of_plain(
         cuda, B, S, H, KV, D, causal, window):
     """``ops.flash_attention`` under autograd on the card (the forward and
     backward kernels) against autograd of the plain version: dQ, dK, dV
     within 2^-7 (max|want| + |want|), the bf16 rounding of P and dS as
-    product operands and of the outputs.  GQA groups 1, 2 and 4; windows
-    that are not a multiple of the tiles."""
+    product operands and of the outputs.  GQA groups 1, 2, 3, 4 and 8;
+    windows that are not a multiple of the tiles; at D = 80 and 96 (rows
+    of two boxes, the second zero past column 16 or 32) S ragged against
+    the 64-row query and 128-key tiles."""
     from repro_torch.kernels import ops
     q, k, v, do = _bwd_inputs(cuda, B, S, H, KV, D)
     kw = dict(causal=causal, window=window)
@@ -1498,7 +1532,8 @@ def test_cuda_flash_attention_backward_matches_autograd_of_plain(
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
-    (1, 1024, 16, 8, 128, True, 0), (2, 300, 4, 2, 64, True, 100)])
+    (1, 1024, 16, 8, 128, True, 0), (2, 300, 4, 2, 64, True, 100),
+    (1, 700, 8, 2, 80, True, 0), (1, 513, 8, 4, 96, True, 100)])
 def test_cuda_flash_attention_backward_repeats_within_tolerance(
         cuda, B, S, H, KV, D, causal, window):
     """Two backward calls on the same inputs: dK and dV bit for bit (each
