@@ -451,6 +451,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -482,7 +483,9 @@ SOURCES = {"fused_agg_blend": "src/repro_torch/kernels/csrc/fused_agg_blend.cu",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-           "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu"}
+           "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+           "slstm_scan_bwd":
+               "src/repro_torch/kernels/csrc/slstm_scan_bwd.cu"}
 REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             "weighted_agg_matmul": "src/repro/kernels/masked_hier_agg.py:86",
             "dual_proximal_sgd": "src/repro/kernels/dual_proximal_sgd.py:44",
@@ -514,7 +517,10 @@ REPLACES = {"fused_agg_blend": "src/repro/kernels/masked_hier_agg.py:199",
             # no TPU kernel: the reference differentiates its jnp
             # chunked_attention (the training forward) with jax.grad
             "flash_attention_bwd": "src/repro/models/attention.py:70",
-            "slstm_scan": "src/repro/kernels/slstm_scan.py:90"}
+            "slstm_scan": "src/repro/kernels/slstm_scan.py:90",
+            # no TPU kernel: the reference trains the sLSTM by
+            # differentiating its lax.scan with jax.grad
+            "slstm_scan_bwd": "src/repro/models/xlstm.py:261"}
 AUDIO_B, AUDIO_S = 32, 448     # whisper-tiny's prefill: its decoder context
 # (name, B, S, H, KV, D, causal, window); "layer" is qwen3-0.6b's; the
 # two ragged D = 128 cases end one row past a 128-row tile and mid-tile;
@@ -644,6 +650,19 @@ def cuda_ms(fn, reps: int = 11, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def once_ms(fn) -> float:
+    """One call of ``fn`` bracketed by CUDA events, no warm-up: for a plain
+    version that runs seconds (a Python loop over thousands of steps),
+    timed once."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def cuda_ms_pair(fa, fb, reps: int = 12, inner: int = 10) -> tuple:
@@ -3674,8 +3693,9 @@ def slstm_cases(dev):
                    "r_dtype": str(r_dtype)[6:], "plan": ss.plan(d, P, r_dtype),
                    "max_abs_err": err,
                    "ms": cuda_ms(lambda: ss.slstm_scan(wx, r, b)),
-                   "plain_ms": cuda_ms(lambda: ref.slstm_scan_ref(wx, r, b),
-                                       reps=3, inner=1),
+                   "plain_ms": (once_ms if name == "layer" else partial(
+                       cuda_ms, reps=3, inner=1))(
+                       lambda: ref.slstm_scan_ref(wx, r, b)),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
             if name == "layer":
                 # the same S steps at the smallest width the kernel runs
@@ -3690,16 +3710,20 @@ def slstm_cases(dev):
     return rows
 
 
-def device_profile(fn, n: int):
+def device_profile(fn, n: int, cpu_ops: bool = True):
     """``fn`` run ``n`` times under ``torch.profiler``: (wall s, kernel
     launches the host API saw, device busy s, {kernel: device s},
     {device activity: executions}).  Wall includes the profiler's own
-    cost."""
+    cost.  ``cpu_ops=False`` records the device and the CUDA runtime's
+    calls only, not every PyTorch op on the host (a step of ~65,000
+    launches took 73.5 s to record and read with them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -4992,6 +5016,31 @@ BWD_CASES = (("layer", 1, 4096, 16, 8, 128, True, 0),
 # |got - want| <= BWD_TOL * (max|want| + |want|): the backward rounds P and
 # dS to bf16 as product operands (2^-9 each) and its outputs to bf16
 BWD_TOL = 2.0 ** -7
+# (name, B, S, T, H, KV): #4's backward with keys of their own length (D =
+# 64, non-causal): whisper-tiny's cross layer in phase (c)'s train step
+# (4,096 tokens over 1500 frames), and T past and short of S, ragged
+# against the 64-key and 64-query tiles, GQA 4/2
+BWD_CROSS_CASES = (("whisper_train_cross", 2, 4096, 1500, 6, 6),
+                   ("cross_long_keys", 2, 100, 257, 4, 2),
+                   ("cross_short_keys", 2, 300, 100, 4, 2))
+# (name, B, S, H, P, input scale): #5's backward at xlstm-125m's layer in
+# phase (c)'s train step, the reduced xlstm's P = 64, P = 32 at a ragged
+# S and saturated gates (as SLSTM_CASES), each with bf16 and fp32 R
+SLSTM_BWD_CASES = (("xlstm_train_layer", 2, 4096, 4, 192, 1.0),
+                   ("p64", 2, 256, 4, 64, 1.0),
+                   ("p32_ragged", 3, 77, 2, 32, 1.0),
+                   ("saturated", 2, 48, 4, 32, 25.0))
+# |got - want| <= tol * (max|want| + |want|) against autograd of the plain
+# scan, for dwx, db and an fp32 dR: fp32 sums in another order and
+# transcendentals within an ulp, carried back through the steps (9e-7 at
+# most in the first runs, at up to 512 steps); a bf16 dR rounds once to
+# bf16.  A reverse scan that halves dR, drops the forget gate's path or
+# the soft cap's derivative fails it (tools/slstm_bwd_mutations.py, on the
+# CPU); one that drops the stabiliser's path passes, as it must: m scales
+# c and n alike and h = o c / max(n, 1) with n >= 1 at every step, so no
+# gradient reaches m in exact arithmetic
+SLSTM_BWD_TOL = 1e-5
+SLSTM_BWD_BF16_TOL = 2.0 ** -7
 # (c): A agents x b sequences of S positions (the train_4k length), 3 steps
 STEP_A, STEP_B, STEP_S, STEP_N = 2, 1, 4096, 3
 # (c): each model's train step: (arch, #4's forward launch key, text tokens
@@ -5003,11 +5052,32 @@ TRAIN_MODELS = (("qwen3-0.6b", "flash_attention", STEP_S, 0, 28),
                 ("zamba2-2.7b", "flash_attention_d80", STEP_S, 0, 9),
                 ("phi-3-vision-4.2b", "flash_attention_d96",
                  STEP_S - VLM_PATCHES, VLM_PATCHES, 32))
+# (c): whisper-tiny and xlstm-125m, each step's exact launches of #4 and
+# #5 (every other count of theirs 0): whisper's 4 decoder layers, each a
+# self- and a cross-attention over the 1500 drawn frames (forward twice,
+# backward once a layer and kind, the cross backward also counted apart);
+# xlstm's 3 sLSTM layers (forward twice, backward once)
+AUDIO_FRAMES = 1500
+XLSTM_ARCH = "xlstm-125m"
+TRAIN_ZOO = (("whisper-tiny", {"flash_attention": 8,
+                               "flash_attention_cross": 8,
+                               "flash_attention_bwd": 8,
+                               "flash_attention_bwd_cross": 4}),
+             (XLSTM_ARCH, {"slstm_scan": 6, "slstm_scan_bwd": 3}))
 # (d): the launcher at full width, 2 rounds of LAR 2, E 1; at 1,1,2 the
 # agent's model is split over 2 ranks (tensor parallel) sharing the card
 LAUNCH_ARGS = ("--full-config", "--rounds", "2", "--lar", "2", "--epochs",
                "1", "--seq", "1024", "--batch", "2")
 LAUNCH_MESHES = ("1,1,1", "1,2,1", "1,1,2")
+# (d): xlstm-125m's launcher at LAUNCH_ARGS is not held to a falling eval
+# loss: at the launcher's lr 0.1 the full xlstm's eval loss rises on the
+# card, on the host and in the reference alike, and at no lr of 0.01-0.1,
+# LAR 2 or 4, does it fall round on round (tools/xlstm_launcher_lr.py,
+# PERF.md §6).  Its losses are held finite, and its first round's rise to
+# at most the reference's own at the same arguments (ROUND1_RISE: the JAX
+# package's launcher CLI on the host, eval loss 10.9828 -> 15.0608)
+FALLING_LAUNCH = {HYBRID_ARCH: True, XLSTM_ARCH: False}
+ROUND1_RISE = {XLSTM_ARCH: 15.0608 - 10.9828}
 # (e): card against host at the reduced qwen3 (D = 64); the reference's own
 # bf16 round tolerance (tests/test_launch.py); the two 4-rank cases share
 # one spawn, per_leaf_tp at 2 agents x a model split over 2 ranks
@@ -5025,8 +5095,39 @@ LOSS_TOL = 5e-3
 VLM_ROUND_TOKENS = 1024 - VLM_PATCHES
 # (e): zamba2 and phi-3-vision reduced at their full models' head dims,
 # card against host in bf16: (arch, head dim, #4's forward launch key)
-ZOO_REDUCED = (("zamba2-2.7b", 80, "flash_attention_d80"),
-               ("phi-3-vision-4.2b", 96, "flash_attention_d96"))
+ZOO_REDUCED = (("zamba2-2.7b", dict(head_dim=80), ("flash_attention_d80",
+                                                   "flash_attention_bwd")),
+               ("phi-3-vision-4.2b", dict(head_dim=96),
+                ("flash_attention_d96", "flash_attention_bwd")),
+               # whisper at its own D = 64 over 100 drawn frames (two key
+               # tiles of the backward, the second ragged); xlstm with its
+               # mLSTM chunkwise
+               ("whisper-tiny", {}, ("flash_attention",
+                                     "flash_attention_cross",
+                                     "flash_attention_bwd",
+                                     "flash_attention_bwd_cross")),
+               ("xlstm-125m", dict(mlstm_chunk=16), ("slstm_scan",
+                                                     "slstm_scan_bwd")))
+ZOO_FRAMES = 100
+# (e): each reduced model's round (LAR, local epochs), else (2, 1): xlstm's
+# at one local step, as tests/test_torch_train_whisper_xlstm.py holds it;
+# at LAR 2 and lr 0.1 the reduced xlstm is chaotic (tools/xlstm_chaos.py:
+# 1e-6 of noise in its params moves its round by 0.02-1.24), which no gap
+# rule can hold (tools/zoo_gap_faults.py reads what this one catches)
+ZOO_ROUND = {"xlstm-125m": (1, 1)}
+# (e): xlstm's train step also in fp32, the card's update held to the
+# host's, each leaf within ZOO_FP32_TOL of the host's update (2-norm): in
+# fp32 the two differ by the order of their sums (each package's fp32
+# gradient lies 1e-5 to 6e-5 from float64 a leaf, tools/xlstm_f64_gap.py),
+# while a fault in #5's backward that the bf16 rule lets through (its
+# rounding gap is ~0.5 of a leaf's update), such as a halved dR, moves a
+# leaf by far more (tools/zoo_gap_faults.py)
+ZOO_FP32 = ("xlstm-125m",)
+ZOO_FP32_TOL = 1e-3
+# (e): leaves whose gradient is zero in exact arithmetic, whose update is
+# rounding alone and has no gap to hold: whisper's self-attention key
+# bias (a softmax ignores a shift of all its scores)
+ZERO_GRAD_LEAVES = ("attn/inner/bk",)
 # (e): tests/test_torch_train.py's bf16 train-step loss tolerance; each
 # leaf's update on the card within ZOO_GAP x the host bf16 update's 2-norm
 # gap from the host's fp32 run (+ 1e-3).  Not elementwise at ROUND_TOL:
@@ -5045,12 +5146,14 @@ ROUND_CASES = (("per_leaf", None, {}), ("flat", None, dict(flat_agg=True)),
                ("per_leaf_tp", (1, 2, 2), {}))
 
 
-def attention_bwd_bound(B, S, H, KV, D, causal, window):
+def attention_bwd_bound(B, S, H, KV, D, causal, window, T=None):
     """(bound ms, bound_by) of the backward: q, k, v, O and dO read once,
     dQ, dK, dV written once (bf16); the 5 products of the live pairs (S,
-    dP, dV, dQ, dK: 2*D flops each per pair and head) at 989 TFLOP/s."""
-    nbytes = 2 * (5 * B * S * H * D + 4 * B * S * KV * D)
-    flops = 5 * 2 * D * B * H * live_pairs(S, causal, window)
+    dP, dV, dQ, dK: 2*D flops each per pair and head) at 989 TFLOP/s.
+    T: the keys' length when it is not S (S x T pairs)."""
+    T = S if T is None else T
+    nbytes = 2 * (5 * B * S * H * D + 4 * B * T * KV * D)
+    flops = 5 * 2 * D * B * H * live_pairs(S, causal, window, T)
     return bound(nbytes, flops, BF16_FLOPS_PER_S)
 
 
@@ -5110,6 +5213,147 @@ def attention_bwd_cases(dev):
         print("kernel " + json.dumps(rows[-1]))
         del q, k, v, do, leaves, out_ref, out, lse
         torch.cuda.empty_cache()
+    return rows + [attention_cross_bwd_row(dev, case)
+                   for case in BWD_CROSS_CASES]
+
+
+def attention_cross_bwd_row(dev, case) -> dict:
+    """Phase 5a with keys of their own length (``BWD_CROSS_CASES``, bf16,
+    D = 64, non-causal): dQ, dK, dV against autograd of the plain version
+    at ``BWD_TOL``, the kernel's time beside its bound over the S x T
+    pairs, the plain version's and SDPA's backward; prints and returns
+    the row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    name, B, S, T, H, KV = case
+    D = 64
+    gen = torch.Generator(device=dev).manual_seed(S + T)
+    q, do = (torch.randn(B, S, H, D, device=dev, generator=gen).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, T, KV, D, device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=False, window=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_ref = ref.flash_attention_ref(*leaves, **kw)
+    want = torch.autograd.grad(out_ref, leaves, do, retain_graph=True)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    errs = {}
+    for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = w.float().abs().max().item()
+        errs[g_name] = compare(g, w, torch.bfloat16,
+                               f"flash_attention_bwd {name} {g_name}",
+                               tol=(BWD_TOL * scale, BWD_TOL))
+    del got, want
+    b_ms, b_by = attention_bwd_bound(B, S, H, KV, D, False, 0, T=T)
+    row = {"kernel": "flash_attention_bwd", "entry": name,
+           "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "D": D,
+                     "causal": False, "window": 0},
+           "dtype": "bfloat16", "max_abs_err": max(errs.values()),
+           "max_abs_err_by_grad": errs,
+           "tol": f"{BWD_TOL} * (max|want| + |want|)",
+           "ms": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do,
+                                                        lse, **kw)),
+           "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+               out_ref, leaves, do, retain_graph=True), reps=5, inner=2),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": sdpa_backward_ms(q, k, v, do, False, 0),
+           "products_per_pair": 5}
+    print("kernel " + json.dumps(row))
+    del q, k, v, do, leaves, out_ref, out, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def slstm_bwd_bound(B, S, H, P, r_dtype):
+    """(bound ms, bound_by) of #5's backward: dh, the gates' inputs (wx to
+    recompute them, or the gates themselves had the forward saved them:
+    4d fp32 a (b, t) either way), h and the (c, n, m) state read once and
+    dwx written once (fp32), R read and dR written once, the bias read and
+    db written; the two products of 2 d 4P flops a (b, t) that the
+    gradient needs (the recurrent R . dg and dR's h^T dg) at 67 TFLOP/s
+    fp32.  The gates' recompute (h @ R, a third product, which
+    ``slstm_scan_bwd`` runs) is a choice of the design, not counted."""
+    d = H * P
+    nbytes = 4 * B * S * (d + 4 * d + d + 3 * d + 4 * d) \
+        + 2 * H * P * 4 * P * (2 if r_dtype == torch.bfloat16 else 4) \
+        + 2 * 4 * d * 4
+    return bound(nbytes, 2 * 2 * B * S * d * 4 * P)
+
+
+def slstm_bwd_cases(dev):
+    """Phase 5a': #5's backward (``slstm_scan_bwd``: the gates recomputed,
+    the reverse-scan kernel, dR and db) against autograd of
+    ``ref.slstm_scan_ref`` at ``SLSTM_BWD_TOL``, bf16 and fp32 R, from
+    the forward kernel's saved state; its time beside its bound and the
+    plain reverse scan's (``ref.slstm_scan_bwd_ref``; at the layer shape,
+    4,096 Python steps, one call, ``once_ms``); and at the train layer the
+    forward with its saved state.  Launches here are comparisons, not the
+    training path's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as ss
+
+    rows = []
+    for name, B, S, H, P, scale in SLSTM_BWD_CASES:
+        for r_dtype in (torch.bfloat16, torch.float32):
+            wx, r, b = slstm_inputs(dev, B, S, H, P, r_dtype, scale, seed=S)
+            dh = torch.randn(B, S, H * P, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(P))
+            leaves = [t.clone().requires_grad_() for t in (wx, r, b)]
+            want = torch.autograd.grad(ref.slstm_scan_ref(*leaves), leaves,
+                                       dh)
+            out, state = ss.slstm_scan(wx, r, b, return_state=True)
+            got = ss.slstm_scan_bwd(dh, wx, r, b, out, state)
+            errs = {}
+            for g_name, g, w in zip(("dwx", "dR", "db"), got, want):
+                tol = (SLSTM_BWD_BF16_TOL if g.dtype == torch.bfloat16
+                       else SLSTM_BWD_TOL)
+                scale_w = w.float().abs().max().item()
+                errs[g_name] = compare(g, w, torch.float32,
+                                       f"slstm_scan_bwd {name} {r_dtype} "
+                                       f"{g_name}", tol=(tol * scale_w, tol))
+            del got, want, leaves
+            b_ms, b_by = slstm_bwd_bound(B, S, H, P, r_dtype)
+            layer = name == "xlstm_train_layer"
+            row = {"kernel": "slstm_scan_bwd", "entry": name,
+                   "shape": {"B": B, "S": S, "H": H, "P": P,
+                             "scale": scale},
+                   "r_dtype": str(r_dtype)[6:],
+                   "plan": ss.bwd_plan(H * P, P, r_dtype),
+                   "max_abs_err": max(errs.values()),
+                   "max_abs_err_by_grad": errs,
+                   "tol": f"{SLSTM_BWD_TOL} * (max|want| + |want|), bf16 dR "
+                          f"{SLSTM_BWD_BF16_TOL}",
+                   "ms": cuda_ms(lambda: ss.slstm_scan_bwd(
+                       dh, wx, r, b, out, state), reps=5, inner=2),
+                   "plain_ms": (once_ms if layer else partial(
+                       cuda_ms, reps=3, inner=1))(
+                       lambda: ref.slstm_scan_bwd_ref(dh, wx, r, b, out,
+                                                      state)),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            row["us_per_step"] = row["ms"] / S * 1e3
+            if layer:
+                # the forward that training runs: with its saved state
+                d = H * P
+                fb_ms, fb_by = bound(
+                    4 * B * S * (4 * d + d + 3 * d) + 4 * 4 * d
+                    + r.numel() * r.element_size(), 2 * B * S * d * 4 * P)
+                row.update({
+                    "forward_with_state_ms": cuda_ms(
+                        lambda: ss.slstm_scan(wx, r, b, return_state=True),
+                        reps=5, inner=2),
+                    "forward_ms": cuda_ms(lambda: ss.slstm_scan(wx, r, b),
+                                          reps=5, inner=2),
+                    "forward_plain_ms": once_ms(
+                        lambda: ref.slstm_scan_ref(wx, r, b,
+                                                   return_state=True)),
+                    "forward_bound_ms": fb_ms, "forward_bound_by": fb_by})
+            rows.append(row)
+            print("kernel " + json.dumps(row))
+            del wx, r, b, dh, out, state
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -5149,11 +5393,12 @@ def dps_bf16_cases(dev):
 
 
 def _train_batch(A: int, b: int, S: int, patches: int = 0,
-                 d_embed: int = 1024) -> dict:
+                 d_embed: int = 1024, frames: int = 0) -> dict:
     """A Non-IID Markov stream an agent (the launcher's), cut into b
     sequences of S tokens and their next tokens; with ``patches``, a
     VLM's (A, b, patches, d_embed) fp32 patch embeddings drawn from a
-    seed."""
+    seed; with ``frames``, an audio model's (A, b, frames, d_embed) fp32
+    encoder memory drawn from a seed."""
     from repro_torch.data.synthetic import lm_token_task
     toks = np.zeros((A, b, S), np.int32)
     labs = np.zeros_like(toks)
@@ -5165,21 +5410,27 @@ def _train_batch(A: int, b: int, S: int, patches: int = 0,
     if patches:
         out["patch_embeds"] = np.random.default_rng(7).standard_normal(
             (A, b, patches, d_embed)).astype(np.float32)
+    if frames:
+        out["memory"] = np.random.default_rng(8).standard_normal(
+            (A, b, frames, d_embed)).astype(np.float32)
     return out
 
 
-def _attention_counts(counts: dict) -> dict:
+def _model_counts(counts: dict) -> dict:
+    """The launch counts of #4 and #5, the models' kernels."""
     return {k: v for k, v in counts.items() if k.startswith(
-        "flash_attention")}
+        ("flash_attention", "slstm_scan"))}
 
 
-def train_step_run(dev, arch: str, key: str, text: int, patches: int,
-                   layers: int) -> dict:
+def train_step_run(dev, arch: str, per_step: dict, text: int,
+                   patches: int = 0, frames: int = 0) -> dict:
     """Phase 5c: ``make_train_step`` of ``arch`` at full width and depth,
-    counted and timed: each step exactly 2 ``key`` forward launches and 1
-    backward launch an attention layer, no other attention; finite losses,
-    ms a step, positions/s, peak memory, and one step under
-    ``torch.profiler`` with #4's backward's share of device time."""
+    counted and timed: each step exactly ``per_step``'s launches of #4 and
+    #5 (2 forward a layer, again under the checkpoint's recompute, and 1
+    backward), none other; finite losses, ms a step, positions/s, peak
+    memory beside ``steps.peak_bytes``'s reckoning of the step (which it
+    must not pass), and one step under ``torch.profiler`` with the
+    backward kernels' share of device time."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.h2fed import H2FedParams
     from repro_torch.kernels import ops
@@ -5194,10 +5445,15 @@ def train_step_run(dev, arch: str, key: str, text: int, patches: int,
     step = steps.make_train_step(cfg, H2FedParams(mu1=0.001, mu2=0.005,
                                                   lr=0.05), device=dev)
     batch = _train_batch(STEP_A, STEP_B, text, patches,
-                         cfg.encoder.d_embed)
+                         cfg.encoder.d_embed, frames)
     mask = np.ones((STEP_A,), np.float32)
-    want = {**dict.fromkeys(_attention_counts(ops.launch_counts()), 0),
-            key: 2 * layers, "flash_attention_bwd": layers}
+    want = {**dict.fromkeys(_model_counts(ops.launch_counts()), 0),
+            **per_step}
+    t0 = time.perf_counter()
+    reckoned = steps.peak_bytes(dict(cfg=cfg, kind="train",
+                                     args=steps.train_args(cfg, STEP_A,
+                                                           STEP_B, text)))
+    reckon_s = time.perf_counter() - t0
     losses, ms, launches = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5212,31 +5468,47 @@ def train_step_run(dev, arch: str, key: str, text: int, patches: int,
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{arch} train step: non-finite loss {losses}")
     for c in launches:
-        if _attention_counts(c) != want:
+        if _model_counts(c) != want:
             raise AssertionError(
-                f"{arch} train step: attention launches "
-                f"{_attention_counts(c)}, want {want}: 2 forward (the layer "
+                f"{arch} train step: #4 / #5 launches "
+                f"{_model_counts(c)}, want {want}: 2 forward (the layer "
                 f"recomputed in the backward) and 1 backward a layer")
     positions = STEP_A * STEP_B * (text + patches)
     out = {"arch": arch, "A": STEP_A, "b": STEP_B, "S": text + patches,
-           "patches": patches, "loss": losses, "step_ms": ms,
+           "patches": patches, "frames": frames, "loss": losses,
+           "step_ms": ms,
            "tokens_per_s": positions / (statistics.median(ms[1:]) / 1e3),
            "peak_bytes": torch.cuda.max_memory_allocated(dev),
-           "params_drawn_s": draw_s,
+           "reckoned_peak_bytes": reckoned["total"],
+           "params_drawn_s": draw_s, "reckoning_s": reckon_s,
            "launches_per_step": {k: v for k, v in want.items() if v},
            "launches": launches}
     print("train step " + json.dumps(out))
-    prof = device_profile(lambda: step(state, batch, mask), 1)
+    if out["peak_bytes"] > reckoned["total"]:
+        raise AssertionError(f"{arch} train step: peak {out['peak_bytes']} "
+                             f"bytes past the reckoned {reckoned}")
+    t0 = time.perf_counter()
+    # xlstm's step launches ~65,000 kernels (its mLSTM chunk loop): its
+    # host ops are not recorded
+    prof = device_profile(lambda: step(state, batch, mask), 1,
+                          cpu_ops=arch != XLSTM_ARCH)
     print_profile(f"{arch} train step (A=2, b=1, S={text + patches})", 1,
                   *prof)
+    out["profile_s"] = time.perf_counter() - t0
+    print(f"train step {arch}: reckoning {reckon_s:.1f} s, one step under "
+          f"the profiler {out['profile_s']:.1f} s")
     busy, kernels = prof[2], prof[3]
     if busy:
-        bwd = sum(v for k, v in kernels.items() if "attn_bwd" in k)
-        fwd = sum(v for k, v in kernels.items() if "flash_attention" in k)
+        bwd = sum(v for k, v in kernels.items()
+                  if "attn_bwd" in k or "slstm_scan_bwd" in k)
+        fwd = sum(v for k, v in kernels.items()
+                  if "flash_attention" in k or "slstm_scan_" in k
+                  and "bwd" not in k)
         out["bwd_share"], out["device_ms"] = bwd / busy, busy * 1e3
         print(f"profile: {arch} train step: device time {busy * 1e3:.1f} ms; "
-              f"#4's backward kernels {bwd * 1e3:.2f} ms ({bwd / busy:.1%}), "
-              f"its forward {fwd * 1e3:.2f} ms ({fwd / busy:.1%})")
+              f"#4's / #5's backward kernels {bwd * 1e3:.2f} ms "
+              f"({bwd / busy:.1%}), their forward {fwd * 1e3:.2f} ms "
+              f"({fwd / busy:.1%})")
         print_kinds(f"{arch} train step", prof)
     del state
     torch.cuda.empty_cache()
@@ -5458,32 +5730,40 @@ def round_card_vs_host(dev) -> dict:
     return out, spawned["per_leaf_tp"][str(dev)]["launches"]
 
 
-def zamba2_launcher_run(dev) -> dict:
-    """Phase 5d, zamba2: ``python -m repro_torch.launch.train --arch
-    zamba2-2.7b --full-config`` at ``--mesh 1,1,1`` (nccl), 2 rounds of
+def zoo_launcher_run(dev, arch: str, per_step: dict) -> dict:
+    """Phase 5d, zamba2 and xlstm: ``python -m repro_torch.launch.train
+    --arch <arch> --full-config`` at ``--mesh 1,1,1`` (nccl), 2 rounds of
     LAR 2, E 1, S=1024, b=2, in process through its ``main``: the eval
-    loss finite and falling; each round's attention launches exactly LAR x
-    E local steps of the shared block's 2 x 9 forward and 9 backward
-    launches; ms a round, peak memory.  Returns the record."""
+    loss finite, falling where ``FALLING_LAUNCH`` says so (zamba2), and
+    rising in round 1 by at most ``ROUND1_RISE`` where that has a bound
+    (xlstm);
+    each round's #4 / #5 launches exactly LAR x E
+    local steps of ``per_step`` (zamba2's shared block: 2 x 9 forward and
+    9 backward; xlstm's 3 sLSTM layers: 6 forward and 3 backward); ms a
+    round, peak memory.  Returns the record."""
     from repro_torch.launch import train
 
     t0 = time.perf_counter()
-    res = train.main(["--arch", HYBRID_ARCH, *LAUNCH_ARGS, "--mesh",
-                      "1,1,1"])
+    res = train.main(["--arch", arch, *LAUNCH_ARGS, "--mesh", "1,1,1"])
     losses = [res["init_loss"], *res["loss"]]
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"launcher {HYBRID_ARCH}: eval loss {losses} "
-                             f"is not finite and falling")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"launcher {arch}: eval loss {losses} is not "
+                             f"finite")
+    if FALLING_LAUNCH[arch] and not losses[-1] < losses[0]:
+        raise AssertionError(f"launcher {arch}: eval loss {losses} is not "
+                             f"falling")
+    if arch in ROUND1_RISE and not losses[1] - losses[0] <= ROUND1_RISE[arch]:
+        raise AssertionError(f"launcher {arch}: eval loss {losses} rises "
+                             f"past {ROUND1_RISE[arch]:.4f} in round 1")
     steps_a_round = 2 * 1       # --lar 2, --epochs 1
-    want = {**dict.fromkeys(_attention_counts(res["launches"][0]), 0),
-            "flash_attention_d80": steps_a_round * 2 * 9,
-            "flash_attention_bwd": steps_a_round * 9}
+    want = {**dict.fromkeys(_model_counts(res["launches"][0]), 0),
+            **{k: steps_a_round * v for k, v in per_step.items()}}
     for r, c in enumerate(res["launches"]):
-        if _attention_counts(c) != want:
-            raise AssertionError(f"launcher {HYBRID_ARCH} round {r + 1}: "
-                                 f"attention launches "
-                                 f"{_attention_counts(c)}, want {want}")
-    rec = {"arch": HYBRID_ARCH, "mesh": "1,1,1",
+        if _model_counts(c) != want:
+            raise AssertionError(f"launcher {arch} round {r + 1}: "
+                                 f"#4 / #5 launches "
+                                 f"{_model_counts(c)}, want {want}")
+    rec = {"arch": arch, "mesh": "1,1,1",
            "seconds": time.perf_counter() - t0, "eval_loss": losses,
            "mass": res["mass"], "round_ms": res["round_ms"],
            "launches": res["launches"],
@@ -5494,12 +5774,14 @@ def zamba2_launcher_run(dev) -> dict:
     return rec
 
 
-def vision_round_run(dev) -> dict:
-    """Phase 5d, phi-3-vision: one ``make_h2fed_round`` round at full width
-    and depth on one rank (LAR 2, E 1, one agent's sequence of 576 drawn
-    patch embeddings + 448 tokens): the new cloud finite and moved from
-    the drawn params, exactly LAR x E steps of 2 x 32 ``flash_attention_d96``
-    and 32 backward launches, ms and peak memory.  Returns the record."""
+def zoo_round_run(dev, arch: str, per_step: dict) -> dict:
+    """Phase 5d, phi-3-vision and whisper: one ``make_h2fed_round`` round
+    at full width and depth on one rank (LAR 2, E 1, one agent's sequence:
+    phi-3's 576 drawn patch embeddings + 448 tokens, whisper's 448 tokens
+    over 1500 drawn frames): the new cloud finite and moved from the drawn
+    params, exactly LAR x E steps of ``per_step``'s #4 launches (phi-3: 2 x
+    32 ``flash_attention_d96`` and 32 backward; whisper: 8 self, 8 cross
+    and 8 backward), ms and peak memory.  Returns the record."""
     from repro_torch import tree
     from repro_torch.configs.registry import get_config
     from repro_torch.core.h2fed import H2FedParams
@@ -5507,15 +5789,17 @@ def vision_round_run(dev) -> dict:
     from repro_torch.launch.h2fed_round import make_h2fed_round
     from repro_torch.models import model as M
 
-    cfg = get_config(VISION_ARCH)
+    cfg = get_config(arch)
     lar = 2
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     fn = make_h2fed_round(cfg, H2FedParams(mu1=0.001, mu2=0.005, lar=lar,
                                            local_epochs=1, lr=0.1),
                           device=dev)
-    one = _train_batch(lar, 1, VLM_ROUND_TOKENS, VLM_PATCHES,
-                       cfg.encoder.d_embed)
+    vision = cfg.encoder.kind == "vision"
+    tokens = VLM_ROUND_TOKENS if vision else AUDIO_S
+    one = _train_batch(lar, 1, tokens, VLM_PATCHES if vision else 0,
+                       cfg.encoder.d_embed, 0 if vision else AUDIO_FRAMES)
     batch = {k: v[:, None] for k, v in one.items()}   # (LAR, A=1, b=1, ...)
     mask = np.ones((lar, 1), np.float32)
     n_data = np.ones((1,), np.float32)
@@ -5527,34 +5811,35 @@ def vision_round_run(dev) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
-    want = {**dict.fromkeys(_attention_counts(counts), 0),
-            "flash_attention_d96": lar * 2 * 32,
-            "flash_attention_bwd": lar * 32}
-    if _attention_counts(counts) != want:
-        raise AssertionError(f"{VISION_ARCH} round: attention launches "
-                             f"{_attention_counts(counts)}, want {want}")
+    want = {**dict.fromkeys(_model_counts(counts), 0),
+            **{k: lar * v for k, v in per_step.items()}}
+    if _model_counts(counts) != want:
+        raise AssertionError(f"{arch} round: #4 launches "
+                             f"{_model_counts(counts)}, want {want}")
     moved, finite = 0.0, True
     for a, b in zip(tree.leaves(cloud), tree.leaves(params)):
         finite = finite and bool(torch.isfinite(a).all())
         moved = max(moved, (a.float() - b.float()).abs().max().item())
     if not finite or moved == 0.0:
-        raise AssertionError(f"{VISION_ARCH} round: cloud finite {finite}, "
+        raise AssertionError(f"{arch} round: cloud finite {finite}, "
                              f"largest update {moved}")
-    rec = {"arch": VISION_ARCH, "lar": lar, "epochs": 1,
-           "positions": VLM_PATCHES + VLM_ROUND_TOKENS, "round_ms": ms,
+    rec = {"arch": arch, "lar": lar, "epochs": 1,
+           "positions": tokens + (VLM_PATCHES if vision else 0),
+           "frames": 0 if vision else AUDIO_FRAMES, "round_ms": ms,
            "surviving_mass": float(m["surviving_mass"]),
            "max_abs_update": moved,
            "peak_bytes": torch.cuda.max_memory_allocated(dev),
            "launches": counts}
-    print("vision round " + json.dumps(rec))
+    print("zoo round " + json.dumps(rec))
     del params, cloud
     torch.cuda.empty_cache()
     return rec
 
 
 def _zoo_batch(cfg, lead, S: int, seed: int) -> dict:
-    """Tokens and labels ``lead + (S,)`` from a numpy seed, and for the VLM
-    fp32 patch embeddings ``lead + (P, d_embed)``."""
+    """Tokens and labels ``lead + (S,)`` from a numpy seed, for the VLM fp32
+    patch embeddings ``lead + (P, d_embed)`` and for the audio model fp32
+    memory ``lead + (ZOO_FRAMES, d_embed)``."""
     rng = np.random.default_rng(seed)
     out = {k: rng.integers(0, cfg.vocab_size, lead + (S,)).astype(np.int32)
            for k in ("tokens", "labels")}
@@ -5562,6 +5847,9 @@ def _zoo_batch(cfg, lead, S: int, seed: int) -> dict:
         out["patch_embeds"] = rng.standard_normal(
             lead + (cfg.encoder.n_positions, cfg.encoder.d_embed)).astype(
                 np.float32)
+    if cfg.encoder.kind == "audio":
+        out["memory"] = rng.standard_normal(
+            lead + (ZOO_FRAMES, cfg.encoder.d_embed)).astype(np.float32)
     return out
 
 
@@ -5576,18 +5864,24 @@ def _update_gaps(final, truth, init) -> list:
 
 
 def zoo_card_vs_host(dev) -> dict:
-    """Phase 5e, zamba2 and phi-3-vision: each reduced at its full model's
-    head dim (80, 96; the stock reduced configs land on 64), bf16, the same
-    params on the card and on the host: one train step (2 agents x 1 x 48
-    tokens, phi-3's after 16 patches), the loss within 0.15 + 0.05 |loss|
+    """Phase 5e, zamba2, phi-3-vision, whisper and xlstm (``ZOO_REDUCED``):
+    zamba2 and phi-3 reduced at their full models' head dims (80, 96; the
+    stock reduced configs land on 64), whisper at its own 64 over
+    ``ZOO_FRAMES`` drawn frames, xlstm with its mLSTM chunkwise; bf16, the
+    same params on the card and on the host: one train step (2 agents x 1
+    x 48 tokens, phi-3's after 16 patches), the loss within 0.15 + 0.05 |loss|
     (``tests/test_torch_train.py``'s bf16 tolerance), and one round (LAR 2,
-    E 1), the masses equal.  The new params (step) and cloud (round) are
+    E 1; xlstm's ``ZOO_ROUND``), the masses equal.  The new params (step) and cloud (round) are
     held to the host's fp32 run from the same bf16 params: each leaf's
     update on the card as near it as the host's bf16 update is, within
     ``ZOO_GAP`` x its 2-norm gap + 1e-3 (``_update_gaps``; the largest
-    elementwise gap to the host's bf16 run is printed beside it).  The
-    card's runs must launch #4 at the dim and its backward.  Returns {head
-    dim: the card runs' launch counts summed}."""
+    elementwise gap to the host's bf16 run is printed beside it), but for
+    ``ZERO_GRAD_LEAVES``.  xlstm's train step runs in fp32 as well, each
+    leaf's update on the card within ``ZOO_FP32_TOL`` of the host's.  The
+    card's runs must launch each of the model's kernels (``ZOO_REDUCED``:
+    #4 at the dim and its backward, or #5 and its backward), whisper's
+    cross backward once a decoder layer and local step.  Returns
+    {arch: the card runs' launch counts summed}."""
     from repro_torch import tree
     from repro_torch.configs.registry import get_reduced_config
     from repro_torch.core.h2fed import H2FedParams
@@ -5597,22 +5891,26 @@ def zoo_card_vs_host(dev) -> dict:
     from repro_torch.models import model as M
 
     out = {}
-    for arch, hd, key in ZOO_REDUCED:
-        cfg = get_reduced_config(arch).replace(head_dim=hd, dtype="bfloat16",
-                                               param_dtype="bfloat16")
+    for arch, kw, keys in ZOO_REDUCED:
+        cfg = get_reduced_config(arch).replace(dtype="bfloat16",
+                                               param_dtype="bfloat16", **kw)
         c32 = cfg.replace(dtype="float32", param_dtype="float32")
         host = M.init_params(cfg, torch.Generator().manual_seed(3),
                              device="cpu")
         host32 = tree.map_tree(lambda t: t.float(), host)
         card = tree.map_tree(lambda t: t.to(dev), host)
         init = tree.leaves(host)
+        paths = [path for path, _ in tree.leaves_with_paths(host)]
+        lar, epochs = ZOO_ROUND.get(arch, (2, 1))
         hp = H2FedParams(mu1=0.05, mu2=0.01, lr=0.1)
-        rhp = H2FedParams(mu1=0.05, mu2=0.01, lar=2, local_epochs=1, lr=0.1)
+        rhp = H2FedParams(mu1=0.05, mu2=0.01, lar=lar, local_epochs=epochs,
+                          lr=0.1)
         batch = _zoo_batch(cfg, (2, 1), 48, 5)
         mask = np.array([1.0, 1.0], np.float32)
-        rb = _zoo_batch(cfg, (2, 1, 1), 32, 6)        # (LAR, A, b, ...)
-        rmask, n_data = np.ones((2, 1), np.float32), np.ones((1,),
-                                                              np.float32)
+        rb = _zoo_batch(cfg, (lar, 1, 1), 32, 6)      # (LAR, A, b, ...)
+        rmask, n_data = np.ones((lar, 1), np.float32), np.ones((1,),
+                                                               np.float32)
+        local_steps = {"train_step": 1, "round": lar * epochs}
 
         def step_on(c, params, device):
             state, m = steps.make_train_step(c, hp, device=device)(
@@ -5624,7 +5922,7 @@ def zoo_card_vs_host(dev) -> dict:
                 params, rb, rmask, n_data)
             return tree.leaves(cloud), float(m["surviving_mass"])
 
-        rec = {"arch": arch, "head_dim": hd}
+        rec = {"arch": arch, **kw, "round_lar_epochs": [lar, epochs]}
         counts = {}
         for what, run in (("train_step", step_on), ("round", round_on)):
             ops.reset_launch_counts()
@@ -5646,27 +5944,52 @@ def zoo_card_vs_host(dev) -> dict:
                                      f"host")
             card_gap = _update_gaps(got, truth, init)
             host_gap = _update_gaps(want, truth, init)
-            worse = [(i, g, h) for i, (g, h) in enumerate(zip(card_gap,
-                                                              host_gap))
-                     if not g <= ZOO_GAP * h + 1e-3]
+            held = [(path, g, h) for path, g, h in zip(paths, card_gap,
+                                                       host_gap)
+                    if not any(z in path for z in ZERO_GRAD_LEAVES)]
+            worse = [x for x in held if not x[1] <= ZOO_GAP * x[2] + 1e-3]
             if worse:
                 raise AssertionError(
                     f"reduced {arch} {what}: the card's update is farther "
                     f"from the host's fp32 run than the host's bf16 update "
                     f"(leaf, card gap, host gap): {worse}")
+            if what == "train_step" and arch in ZOO_FP32:
+                ops.reset_launch_counts()
+                got32, _ = run(c32, tree.map_tree(lambda t: t.to(dev),
+                                                  host32), dev)
+                torch.cuda.synchronize()
+                counts["train_step_fp32"] = c32_counts = ops.launch_counts()
+                gap32 = _update_gaps(got32, truth, init)
+                far = [(path, g) for path, g in zip(paths, gap32)
+                       if not g <= ZOO_FP32_TOL]
+                if far or not all(c32_counts[k] > 0 for k in keys):
+                    raise AssertionError(
+                        f"reduced {arch} fp32 train step: the card's update "
+                        f"past {ZOO_FP32_TOL} of the host's (leaf, gap): "
+                        f"{far}; launches {_model_counts(c32_counts)}")
+                rec["train_step_fp32"] = {
+                    "max_gap": max(gap32),
+                    "launches": _model_counts(c32_counts)}
+                del got32
             err = max((a.float().cpu() - b.float()).abs().max().item()
                       for a, b in zip(got, want))
             c = counts[what]
-            if not (c[key] > 0 and c["flash_attention_bwd"] > 0):
+            if not all(c[k] > 0 for k in keys):
                 raise AssertionError(f"reduced {arch} {what}: launches {c}, "
-                                     f"want {key} and its backward")
+                                     f"want each of {keys}")
+            if arch == AUDIO_ARCH and c["flash_attention_bwd_cross"] != (
+                    cfg.n_layers * local_steps[what]):
+                raise AssertionError(
+                    f"reduced {arch} {what}: "
+                    f"{c['flash_attention_bwd_cross']} cross backward "
+                    f"launches, want {cfg.n_layers} a local step")
             rec[what] = {"card": c_val, "host": h_val, "max_abs_err": err,
-                         "max_card_gap": max(card_gap),
-                         "max_host_gap": max(host_gap),
-                         "launches": _attention_counts(c)}
+                         "max_card_gap": max(x[1] for x in held),
+                         "max_host_gap": max(x[2] for x in held),
+                         "launches": _model_counts(c)}
             del got, want, truth
-        out[hd] = {k: counts["train_step"][k] + counts["round"][k]
-                   for k in counts["round"]}
+        out[arch] = {k: sum(c[k] for c in counts.values())
+                     for k in counts["round"]}
         print("zoo card-vs-host " + json.dumps(rec))
     return out
 
@@ -5674,31 +5997,51 @@ def zoo_card_vs_host(dev) -> dict:
 def train_path(dev):
     """Phase 5; returns (kernel rows; the qwen3 training runs' launch
     counts: the train step's 3 steps, every launcher run's rounds and the
-    split card-vs-host round's card run; and zamba2's and phi-3-vision's,
-    by head dim (80, 96): each model's 3 full-width steps, zamba2's
-    launcher rounds or phi-3's full-width round, and the reduced model's
-    card-vs-host step and round on the card)."""
+    split card-vs-host round's card run; and zamba2's, phi-3-vision's,
+    whisper's and xlstm's, by arch: each model's 3 full-width steps, its
+    launcher rounds (zamba2, xlstm) or its full-width round (phi-3,
+    whisper), and the reduced model's card-vs-host step and round on the
+    card)."""
     def part(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
         print(f"phase 5 part {name}: {time.perf_counter() - t0:.1f} s")
         return out
-    rows = part("5a", attention_bwd_cases, dev) + part("5b", dps_bf16_cases,
-                                                       dev)
-    runs = {arch: part(f"5c {arch}", train_step_run, dev, arch, key, text,
-                       patches, layers)
-            for arch, key, text, patches, layers in TRAIN_MODELS}
+    rows = (part("5a", attention_bwd_cases, dev)
+            + part("5a'", slstm_bwd_cases, dev)
+            + part("5b", dps_bf16_cases, dev))
+    per_step = {arch: {key: 2 * layers, "flash_attention_bwd": layers}
+                for arch, key, _, _, layers in TRAIN_MODELS}
+    per_step.update(TRAIN_ZOO)
+    runs = {arch: part(f"5c {arch}", train_step_run, dev, arch,
+                       per_step[arch], text, patches)
+            for arch, _, text, patches, _ in TRAIN_MODELS}
+    runs.update({arch: part(f"5c {arch}", train_step_run, dev, arch,
+                            per_step[arch], STEP_S, 0,
+                            AUDIO_FRAMES if arch == AUDIO_ARCH else 0)
+                 for arch, _ in TRAIN_ZOO})
     for r in rows:
-        arch = {"zamba2_layer": HYBRID_ARCH,
-                "phi3_layer": VISION_ARCH}.get(r["entry"])
+        arch = {"zamba2_layer": HYBRID_ARCH, "phi3_layer": VISION_ARCH,
+                "xlstm_train_layer": XLSTM_ARCH}.get(r["entry"])
         if arch:
             r["launches_per_step"] = runs[arch]["launches_per_step"][
-                "flash_attention_bwd"]
+                "slstm_scan_bwd" if arch == XLSTM_ARCH
+                else "flash_attention_bwd"]
+        elif r["entry"] == "whisper_train_cross":
+            r["launches_per_step"] = runs[AUDIO_ARCH]["launches_per_step"][
+                "flash_attention_bwd_cross"]
     launch = part("5d qwen3 launcher", launcher_runs, dev)
     _, tp_launches = part("5e qwen3", round_card_vs_host, dev)
-    zamba = part("5d zamba2 launcher", zamba2_launcher_run, dev)
-    vision = part("5d phi-3 round", vision_round_run, dev)
-    reduced = part("5e zamba2 and phi-3", zoo_card_vs_host, dev)
+    zamba = part("5d zamba2 launcher", zoo_launcher_run, dev, HYBRID_ARCH,
+                 per_step[HYBRID_ARCH])
+    xlstm = part("5d xlstm launcher", zoo_launcher_run, dev, XLSTM_ARCH,
+                 per_step[XLSTM_ARCH])
+    vision = part("5d phi-3 round", zoo_round_run, dev, VISION_ARCH,
+                  per_step[VISION_ARCH])
+    audio = part("5d whisper round", zoo_round_run, dev, AUDIO_ARCH,
+                 per_step[AUDIO_ARCH])
+    reduced = part("5e zamba2, phi-3, whisper and xlstm", zoo_card_vs_host,
+                   dev)
 
     def total(runs_counts) -> dict:
         counts: dict = {}
@@ -5709,10 +6052,12 @@ def train_path(dev):
     counts = total(runs["qwen3-0.6b"]["launches"]
                    + [c for r in launch.values() for c in r["launches"]]
                    + [tp_launches])
-    zoo = {80: total(runs[HYBRID_ARCH]["launches"] + zamba["launches"]
-                     + [reduced[80]]),
-           96: total(runs[VISION_ARCH]["launches"] + [vision["launches"]]
-                     + [reduced[96]])}
+    zoo = {arch: total(runs[arch]["launches"] + rounds + [reduced[arch]])
+           for arch, rounds in (
+               (HYBRID_ARCH, zamba["launches"]),
+               (XLSTM_ARCH, xlstm["launches"]),
+               (VISION_ARCH, [vision["launches"]]),
+               (AUDIO_ARCH, [audio["launches"]]))}
     return rows, counts, zoo
 
 
@@ -6127,7 +6472,8 @@ def main(argv=None) -> int:
     # train step's layer shape (phase 5a), each with the launches of that
     # model's training runs (its 3 steps, zamba2's launcher rounds or
     # phi-3's round, the reduced model's card-vs-host step and round)
-    for D, layer in ((80, "zamba2_layer"), (96, "phi3_layer")):
+    for D, layer, arch in ((80, "zamba2_layer", HYBRID_ARCH),
+                           (96, "phi3_layer", VISION_ARCH)):
         fwd_key = f"flash_attention_d{D}"
         r = next(x for x in attn_rows if x["kernel"] == fwd_key
                  and x["entry"] == f"d{D}_layer"
@@ -6135,7 +6481,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": fwd_key, "route": "cuda", "source": SOURCES[fwd_key],
             "replaces": REPLACES[fwd_key],
-            "launches": zoo_counts[D][fwd_key],
+            "launches": zoo_counts[arch][fwd_key],
             "max_abs_err": max(x["max_abs_err"] for x in attn_rows
                                if x["kernel"] == fwd_key),
             **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -6146,7 +6492,7 @@ def main(argv=None) -> int:
             "name": "flash_attention_bwd", "route": "cuda",
             "source": SOURCES["flash_attention_bwd"],
             "replaces": REPLACES["flash_attention_bwd"],
-            "launches": zoo_counts[D]["flash_attention_bwd"],
+            "launches": zoo_counts[arch]["flash_attention_bwd"],
             "max_abs_err": max(x["max_abs_err"] for x in train_rows
                                if x["kernel"] == "flash_attention_bwd"
                                and x["shape"]["D"] == D),
@@ -6154,6 +6500,53 @@ def main(argv=None) -> int:
                                  "library_ms", "shape", "dtype", "tol",
                                  "launches_per_step")},
             "products_per_pair": 5, "entry": f"train_d{D}"})
+    # whisper's training (phase 5): #4's backward with keys of their own
+    # length (D = 64) at the train step's cross layer (phase 5a), with the
+    # D = 64 backward launches of whisper's training runs (self- and
+    # cross-attention) and, apart, the cross share (the wrapper's count of
+    # its T != S calls)
+    audio = zoo_counts[AUDIO_ARCH]
+    r = next(x for x in train_rows if x["entry"] == "whisper_train_cross")
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": SOURCES["flash_attention_bwd"],
+        "replaces": REPLACES["flash_attention_bwd"],
+        "launches": audio["flash_attention_bwd"],
+        "launches_cross": audio["flash_attention_bwd_cross"],
+        "max_abs_err": max(x["max_abs_err"] for x in train_rows
+                           if x["kernel"] == "flash_attention_bwd"
+                           and "T" in x["shape"]),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "dtype", "tol",
+                             "launches_per_step")},
+        "products_per_pair": 5, "entry": "train_cross"})
+    # xlstm's training (phase 5): #5's forward with its saved state and its
+    # backward at the train step's layer (B=2, S=4096, bf16 R; phase 5a'),
+    # with the launches of xlstm's training runs
+    xl = zoo_counts[XLSTM_ARCH]
+    bwd_rows = [x for x in train_rows if x["kernel"] == "slstm_scan_bwd"]
+    r = next(x for x in bwd_rows if x["entry"] == "xlstm_train_layer"
+             and x["r_dtype"] == "bfloat16")
+    kernels.append({
+        "name": "slstm_scan", "route": "cuda", "source": SOURCES["slstm_scan"],
+        "replaces": REPLACES["slstm_scan"], "launches": xl["slstm_scan"],
+        "max_abs_err": max(x["max_abs_err"] for x in scan_rows),
+        "ms": r["forward_with_state_ms"], "plain_ms": r["forward_plain_ms"],
+        "bound_ms": r["forward_bound_ms"],
+        "bound_by": r["forward_bound_by"], "library_ms": None,
+        "entry": "train", "shape": {k: r["shape"][k]
+                                    for k in ("B", "S", "H", "P")},
+        "r_dtype": r["r_dtype"], "saves_state": True})
+    kernels.append({
+        "name": "slstm_scan_bwd", "route": "cuda",
+        "source": SOURCES["slstm_scan_bwd"],
+        "replaces": REPLACES["slstm_scan_bwd"],
+        "launches": xl["slstm_scan_bwd"],
+        "max_abs_err": max(x["max_abs_err"] for x in bwd_rows),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape", "r_dtype", "tol",
+                             "plan", "us_per_step", "launches_per_step")},
+        "entry": "train"})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

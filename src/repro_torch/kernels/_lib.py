@@ -25,7 +25,8 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_agg_blend.cu", "dual_proximal_sgd.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu", "slstm_scan.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "slstm_scan.cu",
+           "slstm_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,9 +47,11 @@ _SIGNATURES = {
     "repro_flash_attention_split": (*(_P,) * 7, *(_I,) * 7, *(_LL,) * 9,
                                     _P),
     "repro_flash_attention_split_occupancy": (_I, _P),
-    "repro_flash_attention_bwd": (*(_P,) * 12, *(_I,) * 7, _P),
-    "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_flash_attention_bwd": (*(_P,) * 12, *(_I,) * 8, _P),
+    "repro_slstm_scan": (*(_P,) * 5, *(_I,) * 5, _P),
     "repro_slstm_scan_plan": (_I, _I, _I, _P, _P),
+    "repro_slstm_scan_bwd": (*(_P,) * 5, *(_I,) * 5, _P),
+    "repro_slstm_scan_bwd_plan": (_I, _I, _I, _P, _P, _P),
 }
 
 

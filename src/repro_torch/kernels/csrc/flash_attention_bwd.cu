@@ -3,11 +3,16 @@
 //
 //   O[b,s,h,:] = softmax_t(q[b,s,h,:] . k[b,t,h/G,:] * D^-1/2 + mask) @ v[b,t,h/G,:]
 //
-// with the forward kernel's masks (t < S; t <= s when causal; t > s - window
+// with the forward kernel's masks (t < T; t <= s when causal; t > s - window
 // when window > 0).  The TPU reference has no such kernel: the JAX package
 // differentiates its jnp attention.  q, O, dO and dQ are contiguous
-// (B,S,H,D) bf16, k, v, dK and dV contiguous (B,S,KV,D) bf16; D is 64, 80
-// (zamba2-2.7b), 96 (phi-3-vision-4.2b) or 128; products take bf16 operands
+// (B,S,H,D) bf16, k, v, dK and dV contiguous (B,T,KV,D) bf16; D is 64, 80
+// (zamba2-2.7b), 96 (phi-3-vision-4.2b) or 128; the keys are the queries'
+// own (T == S), or at D = 64 non-causal without a window they have a length
+// of their own (whisper-tiny's cross-attention: S decoder tokens over T =
+// 1500 encoder frames): the key side (key tiles, their tail masks, the K/V
+// loads, the dK/dV rows, the grid) runs on T, the query side (query tiles,
+// the padded lse, Delta, the dQ scratch and pass) on S; products take bf16 operands
 // and accumulate in fp32, and everything between them is fp32.  With lse
 // the forward's log-sum-exp of each row (in
 // log2 units of the scores times D^-1/2 log2 e, saved by the forward
@@ -35,7 +40,7 @@
 //   dQ run in no fixed order, so dQ may differ in its last bits from run
 //   to run.
 // - dq, per element: the scratch times D^-1/2 into the bf16 dQ.
-// Score tiles that cross the causal diagonal, the window's edge or S take
+// Score tiles that cross the causal diagonal, the window's edge or T take
 // the mask; the others no per-element test.
 //
 // D = 128 (the qwen3-0.6b layer), 96 and 80: one template on D, a block of
@@ -125,21 +130,21 @@ struct Bwd {
   const bf16* v;
   const bf16* o;
   const bf16* dout;
-  int B, S, S_pad, H, KV, group;
+  int B, S, T, S_pad, H, KV, group;  // S queries over T keys
   float scale;       // D^-1/2
   float scale_log2;  // D^-1/2 * log2(e)
   int causal, window;
 };
 
 __device__ __forceinline__ bool live(const Bwd& p, int s, int t) {
-  return t < p.S && (!p.causal || t <= s) &&
+  return t < p.T && (!p.causal || t <= s) &&
          (p.window <= 0 || t > s - p.window);
 }
 
 // The query tiles [lo, hi] with a live query for keys [k0, k0 + bk).
 __device__ __forceinline__ void query_tiles(const Bwd& p, int k0, int bk,
                                             int& lo, int& hi) {
-  const int k1 = min(k0 + bk, p.S) - 1;
+  const int k1 = min(k0 + bk, p.T) - 1;
   lo = p.causal ? k0 / kBQ : 0;
   hi = p.S_pad / kBQ - 1;
   if (p.window > 0) hi = min(hi, (k1 + p.window - 1) / kBQ);
@@ -149,7 +154,7 @@ __device__ __forceinline__ void query_tiles(const Bwd& p, int k0, int bk,
 // may be masked (query rows past S need no test: their lse is +inf).
 __device__ __forceinline__ bool tile_needs_mask(const Bwd& p, int q0, int k0,
                                                 int bk) {
-  return k0 + bk > p.S || (p.causal && k0 + bk - 1 > q0) ||
+  return k0 + bk > p.T || (p.causal && k0 + bk - 1 > q0) ||
          (p.window > 0 && k0 <= q0 + kBQ - 1 - p.window);
 }
 
@@ -543,12 +548,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
   if (t == 0) bulk_wait();
 
-  // dK (times D^-1/2) and dV, rows past S are not stored
+  // dK (times D^-1/2) and dV, rows past T are not stored
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
-    if (key < p.S) {
-      const int64_t off = (((int64_t)b * p.S + key) * p.KV + kvh) * D +
+    if (key < p.T) {
+      const int64_t off = (((int64_t)b * p.T + key) * p.KV + kvh) * D +
                           2 * tig;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
@@ -716,8 +721,8 @@ __global__ void __launch_bounds__(kMThreads) attn_bwd_mma_kernel(Bwd p) {
                  true);
     }
   };
-  load_tile<D>(Ks, p.k, b, kvh, p.KV, k0, p.S);
-  load_tile<D>(Vs, p.v, b, kvh, p.KV, k0, p.S);
+  load_tile<D>(Ks, p.k, b, kvh, p.KV, k0, p.T);
+  load_tile<D>(Vs, p.v, b, kvh, p.KV, k0, p.T);
   if (n_iter > 0) load_stage(0);
   cp_async_commit();
   if (n_iter > 1) load_stage(1);
@@ -801,8 +806,8 @@ __global__ void __launch_bounds__(kMThreads) attn_bwd_mma_kernel(Bwd p) {
   }
   cp_async_wait<0>();
   if (threadIdx.x == 0) bulk_wait();
-  store_rows<D>(p.dk, dk, p.scale, b, key0, kvh, p.KV, p.S, tig);
-  store_rows<D>(p.dv, dv, 1.f, b, key0, kvh, p.KV, p.S, tig);
+  store_rows<D>(p.dk, dk, p.scale, b, key0, kvh, p.KV, p.T, tig);
+  store_rows<D>(p.dv, dv, 1.f, b, key0, kvh, p.KV, p.T, tig);
 }
 
 int pass_blocks(int64_t work, int per_block) {
@@ -822,11 +827,11 @@ cudaError_t launch_bwd(const Bwd& p, cudaStream_t stream) {
     const int64_t qs = (int64_t)p.H * D, ks = (int64_t)p.KV * D;
     if (!encode_map(&tq, p.q, D, p.S, p.H, p.B, qs, D, p.S * qs, kBQ) ||
         !encode_map(&tdo, p.dout, D, p.S, p.H, p.B, qs, D, p.S * qs, kBQ) ||
-        !encode_map(&tk, p.k, D, p.S, p.KV, p.B, ks, D, p.S * ks, kWBK) ||
-        !encode_map(&tv, p.v, D, p.S, p.KV, p.B, ks, D, p.S * ks, kWBK)) {
+        !encode_map(&tk, p.k, D, p.T, p.KV, p.B, ks, D, p.T * ks, kWBK) ||
+        !encode_map(&tv, p.v, D, p.T, p.KV, p.B, ks, D, p.T * ks, kWBK)) {
       return cudaErrorInvalidValue;
     }
-    const int64_t blocks = (int64_t)((p.S + kWBK - 1) / kWBK) * p.KV * p.B;
+    const int64_t blocks = (int64_t)((p.T + kWBK - 1) / kWBK) * p.KV * p.B;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
     if ((e = cudaFuncSetAttribute(attn_bwd_wgmma_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -836,7 +841,7 @@ cudaError_t launch_bwd(const Bwd& p, cudaStream_t stream) {
     attn_bwd_wgmma_kernel<D>
         <<<(unsigned)blocks, kWThreads, kWSmem, stream>>>(tq, tdo, tk, tv, p);
   } else {
-    const int64_t blocks = (int64_t)((p.S + kMBK - 1) / kMBK) * p.KV * p.B;
+    const int64_t blocks = (int64_t)((p.T + kMBK - 1) / kMBK) * p.KV * p.B;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
     if ((e = cudaFuncSetAttribute(attn_bwd_mma_kernel<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -856,18 +861,22 @@ cudaError_t launch_bwd(const Bwd& p, cudaStream_t stream) {
 }  // namespace
 
 // Returns cudaGetLastError() after the last launch (0 == cudaSuccess), or
-// cudaErrorInvalidValue for a head dim other than 64, 80, 96 or 128, a
-// tensor map cuTensorMapEncodeTiled refuses or a grid of 2^31 blocks or
-// more.  lse is the forward's fp32 (B, H, S); lse_pad and delta are fp32
-// (B, H, S_pad) and
-// dq_acc fp32 (B, H, S_pad, D) workspaces, S_pad = S rounded up to 64.
-// The caller checks dtypes, shapes, devices and contiguity and guarantees
-// H % KV == 0.
+// cudaErrorInvalidValue for a head dim other than 64, 80, 96 or 128, keys of
+// a length of their own (T != S) other than at D = 64 non-causal without a
+// window, no keys, a tensor map cuTensorMapEncodeTiled refuses or a grid of
+// 2^31 blocks or more.  q, O, dO are (B, S, H, D), k and v (B, T, KV, D);
+// lse is the forward's fp32 (B, H, S); lse_pad and delta are fp32 (B, H,
+// S_pad) and dq_acc fp32 (B, H, S_pad, D) workspaces, S_pad = S rounded up
+// to 64.  The caller checks dtypes, shapes, devices and contiguity and
+// guarantees H % KV == 0.
 extern "C" int repro_flash_attention_bwd(
     void* dq, void* dk, void* dv, const void* lse, void* lse_pad, void* delta,
     void* dq_acc, const void* q, const void* k, const void* v, const void* o,
-    const void* dout, int B, int S, int H, int KV, int D, int causal,
+    const void* dout, int B, int S, int T, int H, int KV, int D, int causal,
     int window, void* stream) {
+  if (T < 1 || (T != S && (D != 64 || causal || window))) {
+    return (int)cudaErrorInvalidValue;
+  }
   const float scale = 1.f / sqrtf((float)D);
   Bwd p{static_cast<bf16*>(dq),         static_cast<bf16*>(dk),
         static_cast<bf16*>(dv),         static_cast<const float*>(lse),
@@ -877,6 +886,7 @@ extern "C" int repro_flash_attention_bwd(
         static_cast<const bf16*>(o),    static_cast<const bf16*>(dout),
         B,
         S,
+        T,
         (S + kBQ - 1) / kBQ * kBQ,
         H,
         KV,

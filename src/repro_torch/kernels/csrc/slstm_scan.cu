@@ -10,7 +10,10 @@
 //
 // out[b,t] = h, fp32.  wx is (B, S, 4d) fp32, R is (H, P, 4P) bf16 or fp32
 // (converted exactly to fp32), bias is (4d,) fp32, d = H*P; all contiguous.
-// Everything is fp32: no TF32, no fast math.
+// Everything is fp32: no TF32, no fast math.  When a gradient is wanted the
+// kernel also writes the state after every step, (B, S, 3, d) fp32 holding
+// (c, n, m), which the backward (slstm_scan_bwd.cu) reads; without it the
+// kernel stores nothing more.
 //
 // Replaces the Pallas kernel slstm_scan (body _slstm_kernel) of
 // src/repro/kernels/slstm_scan.py.  As there, R, the bias and the running
@@ -90,6 +93,7 @@ constexpr float kGateCap = 15.0f;
 
 struct Params {
   float* out;          // (B, S, d)
+  float* state;        // (B, S, 3, d): c, n, m after each step; or null
   const float* wx;     // (B, S, 4d)
   const void* r;       // (H, P, 4P)
   const float* bias;   // (4d,)
@@ -208,6 +212,8 @@ slstm_scan_kernel(Params p) {
   const size_t wx_step = (size_t)4 * d;
   const float* wx = p.wx + (size_t)row * p.S * wx_step + j;
   float* out = p.out + (size_t)row * p.S * d + u0 + k;
+  float* st = p.state ? p.state + (size_t)row * p.S * 3 * d + u0 + k
+                      : nullptr;
   float wx0 = p.S > 0 ? __ldg(wx) : 0.f;
   float wx1 = p.S > 1 ? __ldg(wx + wx_step) : 0.f;
   cluster.sync();  // R columns and h_0 in place in every CTA of the cluster
@@ -235,6 +241,11 @@ slstm_scan_kernel(Params p) {
       m = m_new;
       const float hv = (1.f / (1.f + expf(-go))) * c / fmaxf(n, 1.f);
       out[(size_t)t * d] = hv;
+      if (st) {
+        st[(size_t)t * 3 * d] = c;
+        st[(size_t)t * 3 * d + d] = n;
+        st[(size_t)t * 3 * d + 2 * d] = m;
+      }
       float* next = hbuf + ((t + 1) & 1) * d + u0 + k;
       for (int r = 0; r < C; ++r) *cluster.map_shared_rank(next, r) = hv;
     }
@@ -386,6 +397,10 @@ slstm_scan_reg_kernel(Params p) {
   const size_t wx_step = (size_t)4 * d;
   const float* wx = p.wx + (size_t)row * p.S * wx_step + j + mine;
   float* out = p.out + (size_t)row * p.S * d + u_first;
+  // lane (gate i, split s < NC) stores unit s's state, if one is wanted
+  float* st = p.state && gate == 0 && split < NC
+                  ? p.state + (size_t)row * p.S * 3 * d + unit + mine
+                  : nullptr;
   float wx0 = p.S > 0 ? __ldg(wx) : 0.f;
   float wx1 = p.S > 1 ? __ldg(wx + wx_step) : 0.f;
   cluster.sync();  // barriers armed and h_{-1} = 0 in every CTA
@@ -437,6 +452,11 @@ slstm_scan_reg_kernel(Params p) {
     n = f_p * n + i_p;
     m = m_new;
     const float hv = so * c / fmaxf(n, 1.f);
+    if (st) {
+      st[(size_t)t * 3 * d] = c;
+      st[(size_t)t * 3 * d + d] = n;
+      st[(size_t)t * 3 * d + 2 * d] = m;
+    }
     // gather chunk ch's 4 units of h into this lane: warp unit w is unit
     // w % NC of the block in lanes [w / NC * LANES, ...), held by split w % NC
     float4 h4;
@@ -618,9 +638,10 @@ extern "C" int repro_slstm_scan_plan(int d, int P, int r_bf16, int* cluster,
   return 0;
 }
 
-extern "C" int repro_slstm_scan(void* out, const void* wx, const void* r,
-                                const void* bias, int B, int S, int H, int P,
-                                int r_bf16, void* stream) {
+// ``state`` (B, S, 3, d) fp32, or null: the state after every step.
+extern "C" int repro_slstm_scan(void* out, void* state, const void* wx,
+                                const void* r, const void* bias, int B, int S,
+                                int H, int P, int r_bf16, void* stream) {
   const int optin = smem_optin();
   if (!optin) return static_cast<int>(cudaErrorInvalidDevice);
   const int d = H * P;
@@ -629,6 +650,7 @@ extern "C" int repro_slstm_scan(void* out, const void* wx, const void* r,
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.out = static_cast<float*>(out);
+  p.state = static_cast<float*>(state);
   p.wx = static_cast<const float*>(wx);
   p.r = r;
   p.bias = static_cast<const float*>(bias);

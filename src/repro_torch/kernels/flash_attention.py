@@ -54,8 +54,11 @@ the kernel's epilogue; without it the kernel stores nothing more.
 The backward, ``csrc/flash_attention_bwd.cu``, has no TPU counterpart
 (the JAX package differentiates its jnp attention): dQ, dK and dV of the
 same function for bf16 q / k / v with D = 64, 80 (zamba2-2.7b), 96
-(phi-3-vision-4.2b) or 128 and T == S (``BWD_HEAD_DIMS``), from the
-forward's output and saved lse.  It does 5 products a live (query, key)
+(phi-3-vision-4.2b) or 128 and T == S (``BWD_HEAD_DIMS``), and at D = 64
+also with keys of their own length (whisper-tiny's cross-attention, S
+tokens over T encoder frames, non-causal: the key tiles, their masks and
+dK / dV on T, the query side on S), from the forward's output and saved
+lse.  It does 5 products a live (query, key)
 pair (S, dP, dV, dK, dQ) in one fused kernel a (key tile, KV head, batch
 row): at D = 128, 96 and 80 one template of two wgmma warpgroups of 64
 keys each, fed by TMA through a 2-stage ring, a row two 64-column boxes
@@ -76,7 +79,9 @@ counts launches: one a forward call (under ``flash_attention_cross``
 for a caller's cross-attention, ``cross=True``, or keys of their own
 length, T != S; else ``flash_attention_mla`` at MLA's head dims and the
 key of ``BY_HEAD_DIM`` at 80, 96 and 192), and one a backward call (which runs the backward's
-three kernels: prep, the fused kernel, the dQ pass).
+three kernels: prep, the fused kernel, the dQ pass) under
+``flash_attention_bwd``, counted under ``flash_attention_bwd_cross`` as
+well where the keys have a length of their own (T != S).
 """
 from __future__ import annotations
 
@@ -92,6 +97,7 @@ HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
 DTYPES = (torch.bfloat16, torch.float32)
 BWD_HEAD_DIMS = (64, 80, 96, 128)
 BWD_DTYPES = (torch.bfloat16,)
+BWD_CROSS_HEAD_DIM = 64     # keys of their own length: whisper-tiny's D
 MAX_GRID_YZ = 65535     # H on gridDim.y, B on gridDim.z
 # the split-key route: queries a call at most (whisper's decode step has
 # 1), keys a range at most while the card has room for more blocks (one
@@ -107,7 +113,8 @@ launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_mla": 0,
                             "flash_attention_d96": 0,
                             "flash_attention_d192": 0,
                             "flash_attention_cross": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_cross": 0}
 # head dims whose forward launches have a count of their own: zamba2's,
 # phi-3-vision's and nemotron-4-340b's
 BY_HEAD_DIM = {80: "flash_attention_d80", 96: "flash_attention_d96",
@@ -287,9 +294,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def backward_supported(q: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether the backward kernel takes q's dtype and head dims (one D
-    for q, k and v) and v's length (the queries')."""
-    return (q.dtype in BWD_DTYPES and q.shape[-1] in BWD_HEAD_DIMS
-            and v.shape[-1] == q.shape[-1] and v.shape[1] == q.shape[1])
+    for q, k and v) and v's length: the queries' own, or at D =
+    ``BWD_CROSS_HEAD_DIM`` any (a cross-attention, non-causal)."""
+    D = q.shape[-1]
+    return (q.dtype in BWD_DTYPES and D in BWD_HEAD_DIMS
+            and v.shape[-1] == D
+            and (v.shape[1] == q.shape[1] or D == BWD_CROSS_HEAD_DIM))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -299,9 +309,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` at the upstream
     gradient ``dout``, given its output ``out`` and log-sum-exp ``lse``
     (``flash_attention(..., return_lse=True)``); bf16, D in
-    ``BWD_HEAD_DIMS`` (64, 80, 96, 128), keys the queries' own (T == S).
-    Every operand is made contiguous; the gradients are new contiguous
-    tensors in q's (k's) shape."""
+    ``BWD_HEAD_DIMS`` (64, 80, 96, 128); k and v (B, T, KV, D) with T ==
+    S, or at D = 64 any T with ``causal=False`` and ``window=0``.  Every
+    operand is made contiguous; the gradients are new contiguous tensors
+    in q's (k's) shape."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd: q must be on cuda, got {dev}")
@@ -313,8 +324,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t, name in ((k, "k"), (v, "v"), (out, "out"), (dout, "dout")):
         _check_operand(t, name, dev, q.dtype)
     B, S, H, D = q.shape
-    KV = k.shape[2]
-    if (tuple(k.shape) != (B, S, KV, D) or v.shape != k.shape
+    T, KV = k.shape[1], k.shape[2]
+    if (tuple(k.shape) != (B, T, KV, D) or v.shape != k.shape
             or out.shape != q.shape or dout.shape != q.shape):
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, out "
@@ -324,6 +335,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"or batch {B}")
     if window < 0:
         raise ValueError(f"flash_attention_bwd: window {window} < 0")
+    if T != S and (causal or window):
+        raise ValueError(f"flash_attention_bwd: {T} keys for {S} queries "
+                         f"take causal=False and window=0, got "
+                         f"causal={causal}, window={window}")
+    if T < 1 <= S:
+        raise ValueError(f"flash_attention_bwd: no keys for {S} queries")
     if (lse.device != dev or lse.dtype != torch.float32
             or tuple(lse.shape) != (B, H, S)):
         raise ValueError(f"flash_attention_bwd: lse must be a float32 "
@@ -343,10 +360,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
         lse_pad.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), B, S, H, KV, D, int(bool(causal)), int(window),
+        dout.data_ptr(), B, S, T, H, KV, D, int(bool(causal)), int(window),
         torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
+    if T != S:
+        launches["flash_attention_bwd_cross"] += 1
     return dq, dk, dv
 
 
@@ -355,16 +374,20 @@ class FlashAttention(torch.autograd.Function):
     gradient is wanted, the forward also writes the log-sum-exp and saves
     it with q, k, v and the output; under ``torch.utils.checkpoint`` the
     forward runs again in the backward pass (and writes it again), so it
-    launches twice a step."""
+    launches twice a step.  ``cross``: the caller's cross-attention, as
+    ``flash_attention`` counts it.  A cross-attention of at most
+    ``SPLIT_MAX_QUERIES`` queries runs the split-key forward, whose lse is
+    the same log-sum-exp (held to the plain version in phase 2b)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                cross: bool = False):
+        kw = dict(causal=causal, window=window, cross=cross)
         if any(ctx.needs_input_grad[:3]):
-            out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
+            out, lse = flash_attention(q, k, v, return_lse=True, **kw)
             ctx.save_for_backward(q, k, v, out, lse)
         else:
-            out = flash_attention(q, k, v, causal=causal, window=window)
+            out = flash_attention(q, k, v, **kw)
         ctx.causal, ctx.window = causal, window
         return out
 
@@ -374,4 +397,4 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
                                          causal=ctx.causal,
                                          window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None

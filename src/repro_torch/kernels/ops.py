@@ -4,8 +4,8 @@ A call whose fleet tensor (or query, or wx) lies on a CUDA device launches
 the hand-written Hopper kernel (``masked_hier_agg`` / ``dual_proximal_sgd``
 / ``flash_attention`` / ``slstm_scan``), which raises on anything it does
 not take.  Under autograd a CUDA route never returns an output without a
-gradient: attention has a backward kernel, and every other route raises
-when an input needs a gradient.  A call on CPU tensors runs the plain PyTorch version in
+gradient: attention and the sLSTM scan have backward kernels, and every
+other route raises when an input needs a gradient.  A call on CPU tensors runs the plain PyTorch version in
 ``kernels/ref``.  There is no switch that sends CUDA tensors to the plain
 version.  The aggregation and update entries also take a multi-scenario
 sweep's leading scenario axis, on either route.  On the meta device
@@ -36,14 +36,14 @@ def _needs_grad(*ts) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
-def _no_backward(name: str, *ts, wait: str = "") -> None:
+def _no_backward(name: str, *ts) -> None:
     """A CUDA route whose kernel has no backward raises where autograd
     would need one, rather than return an output without a gradient.
     The engines pass detached buffers and ``autograd.grad`` outputs."""
     if _needs_grad(*ts):
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward; pass tensors that "
-            f"need no gradient{wait}")
+            f"need no gradient")
 
 
 def dual_proximal_sgd(w, g, a1, a2, *, lr: float, mu1: float, mu2: float,
@@ -173,15 +173,13 @@ def cloud_blend(rsu_flat, rsu_weights, prev) -> torch.Tensor:
     return ref.cloud_blend_ref(rsu_flat, rsu_weights, prev)
 
 
-def _training_wait(q, v, cross: bool) -> str:
+def _training_wait(q, v) -> str:
     """Which model's training on the card waits for a backward kernel that
-    takes these operands, as the error's tail: whisper's cross-attention
-    (T != S), deepseek-v2-lite's MLA head dims (192, 128) and
-    nemotron-4-340b's (192, 192); "" for the other refusals (fp32, D =
-    32), which no model's training on the card takes."""
-    if cross:
-        who = "whisper"
-    elif v.shape[-1] != q.shape[-1]:
+    takes these operands, as the error's tail: deepseek-v2-lite's MLA head
+    dims (192, 128) and nemotron-4-340b's (192, 192); "" for the other
+    refusals (fp32, D = 32, keys of their own length at a head dim other
+    than 64), which no model's training on the card takes."""
+    if v.shape[-1] != q.shape[-1]:
         who = "deepseek-v2-lite"
     elif q.shape[-1] == 192:
         who = "nemotron-4-340b"
@@ -221,9 +219,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     forward kernel alone (also for operands that require grad under
     ``torch.no_grad``: a no-grad prefill of trainable params saves
     nothing); with one the forward and backward kernels as one autograd
-    function, and a gradient the backward kernel does not take (fp32, D =
-    32 or 192, MLA's D != Dv, or a cross-attention) raises rather than
-    come back without one."""
+    function (whisper's cross-attention too, at D = 64), and a gradient
+    the backward kernel does not take (fp32, D = 32 or 192, MLA's D !=
+    Dv, or keys of their own length at another D) raises rather than come
+    back without one."""
     if _CALL_LOGS:
         _note("flash_attention", tuple(q.shape), tuple(k.shape),
               tuple(v.shape), causal, window, q.dtype)
@@ -234,21 +233,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not _needs_grad(q, k, v):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    cross=cross)
-    cross = cross or v.shape[1] != q.shape[1]
-    if cross or not _fa.backward_supported(q, v):
+    if not _fa.backward_supported(q, v):
         raise NotImplementedError(
             f"flash_attention: the backward kernel takes bf16 self-attention "
-            f"with one head dim in {_fa.BWD_HEAD_DIMS}, got {q.dtype} head "
-            f"dims {q.shape[-1]} / {v.shape[-1]}, {q.shape[1]} queries over "
-            f"{v.shape[1]} keys{', cross-attention' if cross else ''}"
-            f"{_training_wait(q, v, cross)}")
-    return _fa.FlashAttention.apply(q, k, v, causal, window)
+            f"with one head dim in {_fa.BWD_HEAD_DIMS}, or keys of their own "
+            f"length at {_fa.BWD_CROSS_HEAD_DIM}, got {q.dtype} head dims "
+            f"{q.shape[-1]} / {v.shape[-1]}, {q.shape[1]} queries over "
+            f"{v.shape[1]} keys{_training_wait(q, v)}")
+    return _fa.FlashAttention.apply(q, k, v, causal, window, cross)
 
 
 def slstm_scan(wx, r_gates, b_gates) -> torch.Tensor:
     """Forward sLSTM recurrence; wx (B,S,4d) fp32, r_gates (H,P,4P), b_gates
-    (4d,) fp32; hidden states (B,S,d) fp32.  The CUDA kernel has no
-    backward: a CUDA call that needs a gradient raises."""
+    (4d,) fp32; hidden states (B,S,d) fp32.  On CUDA without a gradient the
+    forward kernel alone; with one the forward and backward kernels as one
+    autograd function (``slstm_scan.SLSTMScan``)."""
     if _CALL_LOGS:
         _note("slstm_scan", tuple(wx.shape), tuple(r_gates.shape),
               r_gates.dtype)
@@ -256,9 +255,8 @@ def slstm_scan(wx, r_gates, b_gates) -> torch.Tensor:
         return wx.new_empty(tuple(wx.shape[:2]) + (wx.shape[2] // 4,))
     if not wx.is_cuda:
         return ref.slstm_scan_ref(wx, r_gates, b_gates)
-    _no_backward("slstm_scan", wx, r_gates, b_gates,
-                 wait="; xlstm training on the card waits for one (ROADMAP "
-                      "queue 1, xlstm-125m training)")
+    if _needs_grad(wx, r_gates, b_gates):
+        return _ss.SLSTMScan.apply(wx, r_gates, b_gates)
     return _ss.slstm_scan(wx, r_gates, b_gates)
 
 

@@ -69,12 +69,14 @@ def attention_lse_ref(q, k, *, causal: bool = True,
     return lse.reshape(B, H, S)
 
 
-def slstm_scan_ref(wx, r_gates, b_gates) -> torch.Tensor:
+def slstm_scan_ref(wx, r_gates, b_gates, *, return_state: bool = False):
     """Per-step scan for the sLSTM kernel, all fp32 (R cast to fp32).
 
     wx: (B, S, 4d); r_gates: (H, P, 4P); b_gates: (4d,) -> (B, S, d) fp32.
     Mirrors ``models/xlstm._slstm_step`` with h kept in fp32, gate soft cap
-    included; h @ R is flattened head-major before the gate split."""
+    included; h @ R is flattened head-major before the gate split.  With
+    ``return_state`` also the state after every step, (B, S, 3, d) fp32
+    holding (c, n, m), as the kernel saves it for the backward."""
     B, S, _ = wx.shape
     H, P, _ = r_gates.shape
     d = H * P
@@ -83,7 +85,7 @@ def slstm_scan_ref(wx, r_gates, b_gates) -> torch.Tensor:
     c = torch.zeros((B, d), dtype=torch.float32, device=wx.device)
     n, h = torch.zeros_like(c), torch.zeros_like(c)
     m = torch.full_like(c, NEG_INF)
-    hs = []
+    hs, states = [], []
     for t in range(S):
         rec = torch.einsum("bhp,hpq->bhq", h.reshape(B, H, P),
                            rf).reshape(B, 4 * d)
@@ -100,9 +102,76 @@ def slstm_scan_ref(wx, r_gates, b_gates) -> torch.Tensor:
         h = torch.sigmoid(go) * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
+        if return_state:
+            states.append(torch.stack((c, n, m), dim=1))
     if not hs:
-        return torch.zeros((B, 0, d), dtype=torch.float32, device=wx.device)
-    return torch.stack(hs, dim=1)
+        out = torch.zeros((B, 0, d), dtype=torch.float32, device=wx.device)
+        return (out, out.new_zeros((B, 0, 3, d))) if return_state else out
+    out = torch.stack(hs, dim=1)
+    return (out, torch.stack(states, dim=1)) if return_state else out
+
+
+def slstm_scan_bwd_ref(dh, wx, r_gates, b_gates, h, state):
+    """The sLSTM scan's backward as an explicit reverse scan, the plain
+    version of ``kernels/slstm_scan.slstm_scan_bwd`` (its arithmetic in the
+    kernel's order): (dwx (B, S, 4d) fp32, dR in R's dtype, db (4d,) fp32)
+    of ``slstm_scan_ref(wx, r_gates, b_gates)`` at the upstream gradient
+    dh (B, S, d), given its output h and its saved state (B, S, 3, d) of
+    (c, n, m) after each step.  The gradient of every op of the forward:
+    the soft cap, ``log_sigmoid``, the stabiliser (``torch.maximum``
+    gives each side half of a tie's gradient, as ``jnp.maximum`` does; at
+    t = 0, m = -1e30 makes i the larger), and ``clamp(n, min=1)``, whose
+    gradient passes at n == 1.  Each step recomputes its gates from
+    h_{t-1} and adds its share of dR and db; the serial part carries (dc,
+    dn, dm) and the recurrent dh_{t-1} = R[head] . dg_t[head] from step
+    to step."""
+    B, S, d = h.shape
+    H, P, _ = r_gates.shape
+    rf, bf = r_gates.float(), b_gates.float()
+    dg = torch.empty((B, S, 4 * d), dtype=torch.float32, device=h.device)
+    dr = torch.zeros((H, P, 4 * P), dtype=torch.float32, device=h.device)
+    zero = torch.zeros((B, d), dtype=torch.float32, device=h.device)
+    dc, dn, dm, dh_rec = zero, zero, zero, zero
+    for t in reversed(range(S)):
+        if t:
+            c0, n0, m0 = state[:, t - 1].unbind(1)
+            h0 = h[:, t - 1].reshape(B, H, P)
+        else:
+            c0, n0, m0 = zero, zero, torch.full_like(zero, NEG_INF)
+            h0 = zero.reshape(B, H, P)
+        c, n = state[:, t, 0], state[:, t, 1]
+        g = wx[:, t].float() + torch.einsum(
+            "bhp,hpq->bhq", h0, rf).reshape(B, 4 * d) + bf
+        gi_r, gf_r, gz, go = g.chunk(4, dim=-1)
+        ti, tf = torch.tanh(gi_r / 15.0), torch.tanh(gf_r / 15.0)
+        gi, gf = 15.0 * ti, 15.0 * tf
+        a = torch.nn.functional.logsigmoid(gf) + m0
+        m_new = torch.maximum(a, gi)
+        i_p, f_p = torch.exp(gi - m_new), torch.exp(a - m_new)
+        tz, so = torch.tanh(gz), torch.sigmoid(go)
+        nc = torch.clamp(n, min=1.0)
+        x = so * c
+        dht = dh[:, t] + dh_rec
+        dx = dht / nc
+        dn = dn + torch.where(n >= 1.0, -dht * x / (nc * nc), 0.0)
+        dc = dc + dx * so
+        dgo = dx * c * (1.0 - so) * so
+        dgz = dc * i_p * (1.0 - tz * tz)
+        die = (dc * tz + dn) * i_p          # through exp(gi - m')
+        dfe = (dc * c0 + dn * n0) * f_p     # through exp(a - m')
+        dc, dn = dc * f_p, dn * f_p
+        dmn = dm - dfe - die
+        half = 0.5 * dmn
+        da = dfe + torch.where(a > gi, dmn, torch.where(a == gi, half, 0.0))
+        dgi = die + torch.where(gi > a, dmn, torch.where(a == gi, half, 0.0))
+        dm = da
+        dgf = da * torch.sigmoid(-gf)
+        dg[:, t] = torch.cat((dgi * (1.0 - ti * ti), dgf * (1.0 - tf * tf),
+                              dgz, dgo), dim=-1)
+        dg_t = dg[:, t].reshape(B, H, 4 * P)
+        dh_rec = torch.einsum("bhq,hpq->bhp", dg_t, rf).reshape(B, d)
+        dr = dr + torch.einsum("bhp,bhq->hpq", h0, dg_t)
+    return dg, dr.to(r_gates.dtype), dg.sum(dim=(0, 1))
 
 
 def dual_proximal_sgd_ref(w, g, a1, a2, *, lr, mu1, mu2, scale=None,

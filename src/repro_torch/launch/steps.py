@@ -230,6 +230,24 @@ def decode_args(cfg: ArchConfig, batch: int, cache_len: int,
             _meta((batch,), torch.int32), memory)
 
 
+def train_args(cfg: ArchConfig, A: int, b: int, seq: int,
+               params=None) -> tuple:
+    """A train step's arguments on the meta device: (``TrainState`` with
+    fp32 momentum, batch of A agents x b sequences of ``seq`` tokens with
+    a VLM's patch embeddings or an audio model's memory, mask (A,)).
+    ``params``: the meta params when already built."""
+    params = M.meta_params(cfg) if params is None else params
+    state = TrainState(
+        params=params,
+        momentum=tree.map_tree(lambda l: _meta(l.shape, torch.float32),
+                               params),
+        anchor_rsu=params, anchor_cloud=params)
+    batch_tree = {"tokens": _meta((A, b, seq), torch.int32),
+                  "labels": _meta((A, b, seq), torch.int32)}
+    batch_tree.update(_extra_model_inputs(cfg, (A, b)))
+    return state, batch_tree, _meta((A,), torch.float32)
+
+
 def input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
                 hp: Optional[H2FedParams] = None, *, device=None):
     """One (arch x shape) cell of the dry run (the reference's
@@ -268,18 +286,11 @@ def input_specs(cfg: ArchConfig, shape_name: str, mesh=None,
         A = n_agents(mesh)
         b = batch // A
         assert b >= 1, f"{shape_name}: global batch {batch} < {A} agents"
-        state = TrainState(
-            params=params,
-            momentum=tree.map_tree(lambda l: _meta(l.shape, torch.float32),
-                                   params),
-            anchor_rsu=params, anchor_cloud=params)
-        batch_tree = {"tokens": _meta((A, b, seq), i32),
-                      "labels": _meta((A, b, seq), i32)}
-        batch_tree.update(_extra_model_inputs(cfg, (A, b)))
+        args = train_args(cfg, A, b, seq, params=params)
+        batch_tree = args[1]
         act = shard.act_spec_dp if cfg.shard_strategy == "dp" \
             else shard.act_spec
-        return dict(fn=make_train_step(cfg, hp, device=device),
-                    args=(state, batch_tree, _meta((A,), torch.float32)),
+        return dict(fn=make_train_step(cfg, hp, device=device), args=args,
                     in_shardings=(TrainState(p_shard, p_shard, p_shard,
                                              p_shard),
                                   {k: on(act, v)
@@ -513,21 +524,27 @@ def _forward_transient(cfg: ArchConfig, batch_tree) -> int:
                           (M.meta_params(cut), batch_tree))
 
 
-def _train_transient(cfg: ArchConfig, batch_tree) -> int:
-    """A train step's (or a local epoch's) transient, reckoned from
-    shapes: the gradients in the params' dtypes; the fp32 temporaries of
-    the largest leaf's update; the fp32 (N, V) logits with their bf16
-    product, log-softmax and gradient (16 bytes an entry); the input of
-    every layer, which ``torch.utils.checkpoint`` keeps for the backward;
-    and twice the no-grad forward's own transient at the same tokens (a
-    layer's backward beside its recomputed forward).  Autograd through
-    the kernels' backward has no meta route, so this is not simulated."""
+def _train_transient(cfg: ArchConfig, batch_tree, *,
+                     momentum: bool = True) -> int:
+    """A train step's (or, ``momentum=False``, a local epoch's) transient,
+    reckoned from shapes: the gradients and the new params in the params'
+    dtypes, the train step's new fp32 momentum, and the update's fp32
+    temporaries (4 of ``min(largest leaf, UPDATE_CHUNK)`` values); the
+    fp32 (N, V) logits with their bf16 product, log-softmax and gradient
+    (16 bytes an entry); the input of every layer, which
+    ``torch.utils.checkpoint`` keeps for the backward; and twice the
+    no-grad forward's own transient at the same tokens (a layer's backward
+    beside its recomputed forward).  Autograd through the kernels'
+    backward has no meta route, so this is not simulated."""
     tokens = batch_tree["tokens"]
     n_seq, seq = prod(tokens.shape[:-1]), tokens.shape[-1]
     N = n_seq * seq
     leaves = [t for t in _leaves(M.meta_params(cfg))]
     grads = sum(t.numel() * t.element_size() for t in leaves)
-    update = 4 * 4 * max(t.numel() for t in leaves)
+    update = grads + 4 * 4 * min(max(t.numel() for t in leaves),
+                                 UPDATE_CHUNK)
+    if momentum:
+        update += 4 * sum(t.numel() for t in leaves)
     logits = 16 * N * cfg.vocab_size
     width = torch.finfo(cfg.activation_dtype).bits // 8
     apps = sum(r * (1 + cfg.shared_every if p == "zamba_super" else 1)
@@ -578,7 +595,7 @@ def peak_bytes(spec: dict) -> dict:
         parts["state"] = 2 * params
         parts["inputs"] = _bytes(batch_tree) + _bytes((mask, n_data))
         one = {k: v[0, 0] for k, v in batch_tree.items()}
-        parts["transient"] = _train_transient(cfg, one)
+        parts["transient"] = _train_transient(cfg, one, momentum=False)
     else:
         raise ValueError(f"peak_bytes: unknown step kind {kind!r}")
     parts["draw"] = 4 * M.largest_draw_slice(cfg)

@@ -1,13 +1,13 @@
 """xLSTM blocks [arXiv:2405.04517] (``repro/models/xlstm.py``): mLSTM
-(matrix memory) and sLSTM (scalar memory with recurrent gate connections),
-forward only.
+(matrix memory) and sLSTM (scalar memory with recurrent gate connections).
 
 Prefill: the mLSTM runs its chunkwise-parallel form when
 ``cfg.mlstm_chunk`` is set (the full config) and the per-step recurrence
 otherwise, both in plain PyTorch as in JAX (no Pallas kernel there).  The
 sLSTM recurrence goes through ``kernels.ops.slstm_scan`` where the JAX
-model runs a ``lax.scan``: the hand-written Hopper kernel on the card, the
-plain per-step version on the host.  Both keep h in fp32; the JAX step
+model runs a ``lax.scan``: the hand-written Hopper kernel on the card
+(under grad with its hand-written reverse scan as the gradient), the plain
+per-step version on the host.  Both keep h in fp32; the JAX step
 rounds h and h @ R to the weights' dtype, so in bf16 the two differ by that
 rounding.
 
@@ -125,7 +125,12 @@ def _mlstm_chunk_step(state: MLSTMState, qkvif, *, scale: float):
     b_j = sum_{s<=j} log sigmoid(f_s) and u_k = i_k - b_k, the running
     stabilizer is m_j = b_j + max(m_0, cummax_{k<=j} u_k), the carried state
     scales by c_j = exp(b_j + m_0 - m_j), and in-chunk pairs weigh
-    A_jk = exp(b_j - m_j + u_k) for k <= j.  Every exponent is <= 0."""
+    A_jk = exp(b_j - m_j + u_k) for k <= j.  Every exponent is <= 0.  The
+    pairs k > j are masked in the exponent (-inf) before ``exp``: the
+    reference masks after it, and a masked pair's exponent, up to the sum
+    of the chunk's -log sigmoid(f), overflows once the forget gates close
+    (past 88 in fp32), which leaves the forward's values alone but makes
+    ``where``'s gradient 0 * inf = NaN for i and f."""
     C0, n0, m0 = state                     # (B,H,P,P), (B,H,P), (B,H)
     q, k, v, i_t, f_t = qkvif              # (B,T,H,P) x3, (B,T,H) x2
     logf = F.logsigmoid(f_t)
@@ -137,7 +142,7 @@ def _mlstm_chunk_step(state: MLSTMState, qkvif, *, scale: float):
     expo = (b - m)[:, :, None, :] + u[:, None, :, :]      # (B,Tq,Tk,H)
     T = q.shape[1]
     mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-    A = torch.where(mask[None, :, :, None], torch.exp(expo), 0.0)
+    A = torch.exp(torch.where(mask[None, :, :, None], expo, float("-inf")))
 
     qs = q * scale
     inter_num = torch.einsum("bthq,bhpq->bthp", qs, C0) * c[..., None]

@@ -100,8 +100,8 @@ def test_forward_route(dtype, D, Dv, S, causal, window, want):
 
 # (dtype, D, Dv, T) of q (1, 64, 4, D), k (1, T, 2, D), v (1, T, 2, Dv):
 # the backward kernel takes bf16 self-attention (T == S) at one head dim
-# in (64, 80, 96, 128); fp32, D = 32, MLA's (192, 128), (192, 192) and T
-# != S (whisper's cross-attention) are refused
+# in (64, 80, 96, 128), and T != S at 64 (whisper's cross-attention);
+# fp32, D = 32, MLA's (192, 128), (192, 192) and T != S at 80 are refused
 BWD_CASES = [(torch.bfloat16, 64, 64, 64, True),
              (torch.bfloat16, 80, 80, 64, True),
              (torch.bfloat16, 96, 96, 64, True),
@@ -112,7 +112,7 @@ BWD_CASES = [(torch.bfloat16, 64, 64, 64, True),
              (torch.bfloat16, 32, 32, 64, False),
              (torch.bfloat16, 192, 128, 64, False),
              (torch.bfloat16, 192, 192, 64, False),
-             (torch.bfloat16, 64, 64, 100, False),
+             (torch.bfloat16, 64, 64, 100, True),
              (torch.bfloat16, 80, 80, 100, False)]
 
 
@@ -130,23 +130,25 @@ def test_backward_supported(dtype, D, Dv, T, want):
 
 
 @pytest.mark.parametrize("dtype,D,Dv,T,who", [
-    (torch.bfloat16, 64, 64, 100, "whisper"),
+    (torch.bfloat16, 64, 64, 100, None), (torch.bfloat16, 80, 80, 100, None),
     (torch.bfloat16, 192, 128, 64, "deepseek-v2-lite"),
     (torch.bfloat16, 192, 192, 64, "nemotron-4-340b"),
     (torch.float32, 80, 80, 64, None), (torch.float32, 96, 96, 64, None),
     (torch.bfloat16, 32, 32, 64, None)])
 def test_training_wait_names_item_11c(dtype, D, Dv, T, who):
     """The tail of ``ops.flash_attention``'s refusal under grad on the card:
-    whisper's (T != S), deepseek-v2-lite's (MLA) and nemotron-4-340b's
-    (192, 192) training under ROADMAP item 11c; nothing for fp32 or D =
-    32, which no model trains on the card, and no longer zamba2 or
-    phi-3-vision (80 and 96 have a backward kernel)."""
+    deepseek-v2-lite's (MLA) and nemotron-4-340b's (192, 192) training
+    under ROADMAP item 11c; nothing for fp32, D = 32 or keys of their own
+    length at 80, which no model trains on the card, and no longer
+    zamba2, phi-3-vision (80 and 96 have a backward kernel) or whisper
+    (its cross-attention's T != S at 64 has one)."""
     from repro_torch.kernels import ops
     q, _, v = _qkv(dtype, D, Dv, T)
-    tail = ops._training_wait(q, v, cross=T != q.shape[1])
+    tail = ops._training_wait(q, v)
     if who is None:
         assert tail == ""
     else:
         assert f"item 11c: {who} training" in tail
         assert "the model zoo" in tail
-    assert "zamba2" not in tail and "phi-3" not in tail
+    for other in ("zamba2", "phi-3", "whisper"):
+        assert other not in tail

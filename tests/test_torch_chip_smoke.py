@@ -256,14 +256,38 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
          "max_abs_err": 0.01, "ms": 1.7, "plain_ms": 170.0, "bound_ms": 0.52,
          "bound_by": "operations", "library_ms": 1.4, "shape": {"D": 96},
          "dtype": "bfloat16", "tol": "2^-7", "launches_per_step": 32},
+        {"kernel": "flash_attention_bwd", "entry": "whisper_train_cross",
+         "max_abs_err": 0.003, "ms": 0.5, "plain_ms": 30.0, "bound_ms": 0.05,
+         "bound_by": "operations", "library_ms": 0.6,
+         "shape": {"T": 1500, "D": 64}, "dtype": "bfloat16", "tol": "2^-7",
+         "launches_per_step": 4},
+        {"kernel": "slstm_scan_bwd", "entry": "xlstm_train_layer",
+         "r_dtype": "bfloat16", "max_abs_err": 1e-6, "ms": 25.0,
+         "plain_ms": 1500.0, "bound_ms": 0.6, "bound_by": "operations",
+         "library_ms": None, "shape": {"B": 2, "S": 4096, "H": 4, "P": 192,
+                                       "scale": 1.0},
+         "tol": "1e-5", "plan": {"cluster": 8}, "us_per_step": 6.1,
+         "launches_per_step": 3, "forward_with_state_ms": 4.4,
+         "forward_plain_ms": 800.0, "forward_bound_ms": 0.3,
+         "forward_bound_by": "operations"},
+        {"kernel": "slstm_scan_bwd", "entry": "p64", "r_dtype": "float32",
+         "max_abs_err": 2e-6, "ms": 2.0, "plain_ms": 90.0, "bound_ms": 0.01,
+         "bound_by": "operations", "library_ms": None, "shape": {}},
         {"kernel": "dual_proximal_sgd", "entry": "bf16_embed",
          "max_abs_err": 4e-3, "ms": 0.7, "plain_ms": 5.0, "bound_ms": 0.46,
          "bound_by": "bytes", "library_ms": None, "shape": {"N": 1},
          "dtype": "bfloat16"}]
     train_counts = {"flash_attention": 300, "flash_attention_bwd": 150,
                     "dual_proximal_sgd": 176}
-    zoo_counts = {80: {"flash_attention_d80": 130, "flash_attention_bwd": 65},
-                  96: {"flash_attention_d96": 332, "flash_attention_bwd": 166}}
+    zoo_counts = {"zamba2-2.7b": {"flash_attention_d80": 130,
+                                  "flash_attention_bwd": 65},
+                  "phi-3-vision-4.2b": {"flash_attention_d96": 332,
+                                        "flash_attention_bwd": 166},
+                  "whisper-tiny": {"flash_attention": 80,
+                                   "flash_attention_cross": 84,
+                                   "flash_attention_bwd": 80,
+                                   "flash_attention_bwd_cross": 40},
+                  "xlstm-125m": {"slstm_scan": 60, "slstm_scan_bwd": 30}}
     scan = [{"entry": "layer", "r_dtype": "bfloat16", "max_abs_err": 4e-7,
              "ms": 8.7, "plain_ms": 3000.0, "bound_ms": 0.58,
              "bound_by": "operations", "shape": {}, "latency_floor_ms": 4.3}]
@@ -369,7 +393,8 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         "flash_attention_cross", "slstm_scan",
         "flash_attention",
         "flash_attention_bwd", "dual_proximal_sgd", "flash_attention_d80",
-        "flash_attention_bwd", "flash_attention_d96", "flash_attention_bwd"]
+        "flash_attention_bwd", "flash_attention_d96", "flash_attention_bwd",
+        "flash_attention_bwd", "slstm_scan", "slstm_scan_bwd"]
     for k in kernels:
         assert KERNEL_KEYS <= set(k), k["name"]
     # the flat path's, the async path's, the sweep's, the serve loop's,
@@ -383,7 +408,23 @@ def test_full_run_prints_every_kernel_with_every_key(monkeypatch, capsys):
         50 + 150 + 30 + 9 + 6, 5 + 18 + 6 + 13 + 84 + 64,
         120 + 360 + 1350 + 36 + 160 + 512, 30, 6, 1350, 84, 64, 28,
         27, 9, 32, 60, 40, 2, 4, 4, 4, 4, 3, 300, 150, 176, 130, 65, 332,
-        166]
+        166, 80, 60, 30]
+    # whisper's and xlstm's training rows: #4's backward with keys of their
+    # own length at the train step's cross layer, with whisper's D = 64
+    # backward launches (the cross share apart, from its own count) and the
+    # error the most of the cross rows; #5's forward with its saved state and its backward
+    # at the train step's layer, with xlstm's training runs' launches
+    new, kernels = kernels[-3:], kernels[:-3]
+    assert [k["entry"] for k in new] == ["train_cross", "train", "train"]
+    assert new[0]["launches_cross"] == 40
+    assert new[0]["launches_per_step"] == 4 and new[0]["ms"] == 0.5
+    assert new[0]["max_abs_err"] == 0.003
+    assert new[1]["source"].endswith("slstm_scan.cu")
+    assert new[1]["ms"] == 4.4 and new[1]["plain_ms"] == 800.0
+    assert new[1]["saves_state"] is True
+    assert new[2]["source"].endswith("slstm_scan_bwd.cu")
+    assert new[2]["ms"] == 25.0 and new[2]["max_abs_err"] == 2e-6
+    assert new[2]["launches_per_step"] == 3 and new[2]["library_ms"] is None
     # the training path's rows: #4 forward and backward at the layer
     # shape, #3's bf16 mode at the embedding leaf; then zamba2's and
     # phi-3-vision's: #4's forward at 80 / 96 at its layer row, the

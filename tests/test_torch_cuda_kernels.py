@@ -857,9 +857,9 @@ def test_cuda_flash_attention_cross_lse_matches_plain(cuda, B, S, T, H, KV,
 @pytest.mark.gpu
 def test_cuda_flash_attention_cross_refusals(cuda):
     """Keys of their own length take causal=False and window=0 only (the
-    wrapper raises otherwise, and for no keys at all); under grad the
-    route raises, naming whisper training (the backward takes T == S);
-    without grad it runs."""
+    wrapper raises otherwise, and for no keys at all); under grad bf16 at
+    D = 64 runs the forward and one backward launch, and fp32 (no
+    backward kernel) raises; without grad both run."""
     from repro_torch.kernels import ops
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = _cross_inputs(cuda, 1, 20, 50, 4, 4, 64, dtype, 1)
@@ -868,8 +868,22 @@ def test_cuda_flash_attention_cross_refusals(cuda):
                 tfa.flash_attention(q, k, v, **kw)
         with pytest.raises(ValueError, match="no keys"):
             tfa.flash_attention(q, k[:, :0], v[:, :0], causal=False)
-        with pytest.raises(NotImplementedError, match="whisper training"):
-            ops.flash_attention(q.requires_grad_(), k, v, causal=False)
+        if dtype == torch.bfloat16:
+            before = dict(tfa.launches)
+            out = ops.flash_attention(q.clone().requires_grad_(), k, v,
+                                      causal=False)
+            out.float().sum().backward()
+            for key in ("flash_attention_bwd", "flash_attention_bwd_cross",
+                        "flash_attention_cross"):
+                assert tfa.launches[key] == before[key] + 1
+            with pytest.raises(ValueError, match="causal=False"):
+                tfa.flash_attention_bwd(q, k, v, out.detach(), out.detach(),
+                                        torch.zeros(1, 4, 20, device=cuda),
+                                        causal=True)
+        else:
+            with pytest.raises(NotImplementedError, match="backward"):
+                ops.flash_attention(q.clone().requires_grad_(), k, v,
+                                    causal=False)
         with torch.no_grad():
             assert ops.flash_attention(q, k, v, causal=False).shape \
                 == (1, 20, 4, 64)
@@ -881,7 +895,9 @@ def test_cuda_flash_attention_cross_flag_counts_equal_lengths(cuda):
     """A cross-attention whose memory is as long as its tokens (T == S)
     is counted under ``flash_attention_cross`` when the caller says so
     (``cross=True``, as ``xattn_apply`` does), takes causal=False and
-    window=0 only, and under grad raises naming whisper training."""
+    window=0 only, and under grad runs the backward kernel, its forward
+    still counted as a cross-attention and its backward not (the keys'
+    length is the queries')."""
     from repro_torch.kernels import ops
     q, k, v = _cross_inputs(cuda, 2, 64, 64, 4, 4, 64, torch.bfloat16, 2)
     before = dict(tfa.launches)
@@ -895,9 +911,16 @@ def test_cuda_flash_attention_cross_flag_counts_equal_lengths(cuda):
                if k != "flash_attention_cross")
     with pytest.raises(ValueError, match="causal=False"):
         tfa.flash_attention(q, k, v, causal=True, cross=True)
-    with pytest.raises(NotImplementedError, match="whisper training"):
-        ops.flash_attention(q.requires_grad_(), k, v, causal=False,
-                            cross=True)
+    before = dict(tfa.launches)
+    ops.flash_attention(q.clone().requires_grad_(), k, v, causal=False,
+                        cross=True).float().sum().backward()
+    assert tfa.launches["flash_attention_cross"] \
+        == before["flash_attention_cross"] + 1
+    assert tfa.launches["flash_attention_bwd"] \
+        == before["flash_attention_bwd"] + 1
+    assert tfa.launches["flash_attention_bwd_cross"] \
+        == before["flash_attention_bwd_cross"]
+    assert tfa.launches["flash_attention"] == before["flash_attention"]
     torch.cuda.synchronize()
 
 
@@ -1557,9 +1580,9 @@ def test_cuda_flash_attention_backward_repeats_within_tolerance(
 @pytest.mark.gpu
 def test_cuda_no_gradless_kernel_output(cuda):
     """Under grad, a CUDA route either carries a gradient or raises: the
-    forward kernel of a fp32 or D = 32 attention (no backward kernel), the
-    sLSTM scan and the aggregation and update kernels (no backward) raise
-    by name."""
+    forward kernel of a fp32 or D = 32 attention (no backward kernel) and
+    the aggregation and update kernels (no backward) raise by name; the
+    sLSTM scan carries its backward kernel's gradient."""
     from repro_torch.kernels import ops
     w = torch.randn(4, 10, device=cuda, requires_grad=True)
     weights = torch.ones(4, device=cuda)
@@ -1583,7 +1606,131 @@ def test_cuda_no_gradless_kernel_output(cuda):
     wx = torch.randn(1, 8, 4 * 64, device=cuda, requires_grad=True)
     r = torch.randn(4, 16, 64, device=cuda)
     b = torch.zeros(4 * 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="xlstm-125m training"):
-        ops.slstm_scan(wx, r, b)
+    out = ops.slstm_scan(wx, r, b)
+    assert out.grad_fn is not None and out.shape == (1, 8, 64)
     with torch.no_grad():
-        assert ops.slstm_scan(wx, r, b).shape == (1, 8, 64)
+        assert ops.slstm_scan(wx, r, b).grad_fn is None
+
+
+# (B, S, T, H, KV) of #4's backward with keys of their own length (D = 64,
+# non-causal): whisper's cross layer at its decoder context (448 tokens
+# over 1500 frames), T past and short of S, ragged against the 64-key and
+# 64-query tiles, GQA 2 and 4; and one and four queries, whose forward is
+# the split-key kernel (its lse is what the backward reads)
+CROSS_BWD_CASES = [(1, 448, 1500, 6, 6), (2, 100, 257, 4, 2),
+                   (2, 300, 100, 4, 4), (1, 65, 63, 8, 2),
+                   (3, 1, 257, 4, 2), (2, 4, 1500, 6, 6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,KV", CROSS_BWD_CASES)
+def test_cuda_flash_attention_cross_backward_matches_autograd_of_plain(
+        cuda, B, S, T, H, KV):
+    """``ops.flash_attention`` of S queries over T keys under autograd on
+    the card against autograd of the plain version: dQ, dK, dV within 2^-7
+    (max|want| + |want|), as at T == S; one forward launch counted as a
+    cross-attention and one backward launch.  Run again on the same
+    inputs, the backward gives dK and dV bit for bit and dQ within the
+    same tolerance (its key tiles' shares sum in no fixed order).  The
+    backward launch is also counted under ``flash_attention_bwd_cross``."""
+    from repro_torch.kernels import ops
+    q, k, v = _cross_inputs(cuda, B, S, T, H, KV, 64, torch.bfloat16, S + T)
+    do = torch.randn(B, S, H, 64, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(T)).bfloat16()
+    want_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_ref(*want_in, causal=False).backward(do)
+    got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(tfa.launches)
+    ops.flash_attention(*got_in, causal=False).backward(do)
+    for key in ("flash_attention_bwd", "flash_attention_bwd_cross",
+                "flash_attention_cross"):
+        assert tfa.launches[key] == before[key] + 1
+    tol = 2.0 ** -7
+    for g, w in zip(got_in, want_in):
+        torch.testing.assert_close(
+            g.grad.float(), w.grad.float(), rtol=tol,
+            atol=tol * w.grad.float().abs().max().item())
+    out, lse = tfa.flash_attention(q, k, v, causal=False, return_lse=True)
+    first = tfa.flash_attention_bwd(q, k, v, out, do, lse, causal=False)
+    second = tfa.flash_attention_bwd(q, k, v, out, do, lse, causal=False)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    torch.testing.assert_close(
+        second[0].float(), first[0].float(), rtol=tol,
+        atol=tol * first[0].float().abs().max().item())
+    torch.cuda.synchronize()
+
+
+# #5's backward against autograd of the plain scan: |got - want| <= tol
+# (max|want| + |want|), tol 1e-4, 1e-3 with saturated gates: fp32 sums in
+# another order (the recomputed gates' h @ R, dh's R . dg, dR's sum over
+# b and t) and transcendentals within an ulp of PyTorch's, carried back
+# through every step; a bf16 dR also rounds once to bf16 (2^-8 relative)
+SCAN_BWD_TOL = {1.0: 1e-4, 25.0: 1e-3}
+SCAN_BWD_BF16_TOL = 2.0 ** -7
+
+# (B, S, H, P, scale): xlstm-125m's layer width (H = 4, P = 192) at a
+# short S, the reduced xlstm's P = 64, P = 32 at a ragged S, saturated
+# gates, P = 24 (the shared-memory forward), S = 1 and 2 (the first steps'
+# carries), and P = 1024 (the backward reads R from device memory)
+SLSTM_BWD_CASES = [(2, 64, 4, 192, 1.0), (2, 100, 4, 64, 1.0),
+                   (3, 37, 2, 32, 1.0), (2, 48, 4, 32, 25.0),
+                   (2, 30, 2, 24, 1.0), (1, 1, 4, 192, 1.0),
+                   (2, 2, 2, 32, 1.0), (1, 20, 1, 1024, 1.0)]
+
+
+def _held(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,P,scale", SLSTM_BWD_CASES)
+def test_cuda_slstm_scan_backward_matches_autograd_of_plain(
+        cuda, r_dtype, B, S, H, P, scale):
+    """``ops.slstm_scan`` under autograd on the card (the forward with its
+    saved state, the reverse-scan kernel) against autograd of
+    ``ref.slstm_scan_ref``: dwx, dR and db within ``SCAN_BWD_TOL``, one
+    launch of each kernel.  The saved state equals the plain forward's
+    (c, n, m) at the forward's tolerance, and a second backward call on the
+    same inputs gives dwx bit for bit (one fixed order of sums)."""
+    from repro_torch.kernels import ops
+    wx, r, b = _scan_inputs(cuda, B, S, H, P, r_dtype, seed=S + P,
+                            scale=scale)
+    dh = torch.randn(B, S, H * P, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(5))
+    want_in = [t.clone().requires_grad_() for t in (wx, r, b)]
+    ref.slstm_scan_ref(*want_in).backward(dh)
+    got_in = [t.clone().requires_grad_() for t in (wx, r, b)]
+    before = dict(tss.launches)
+    ops.slstm_scan(*got_in).backward(dh)
+    assert tss.launches == {k: v + 1 for k, v in before.items()}
+    tol = SCAN_BWD_TOL[scale]
+    _held(got_in[0].grad, want_in[0].grad, tol)
+    _held(got_in[1].grad, want_in[1].grad,
+          SCAN_BWD_BF16_TOL if r_dtype == torch.bfloat16 else tol)
+    _held(got_in[2].grad, want_in[2].grad, tol)
+    out, state = tss.slstm_scan(wx, r, b, return_state=True)
+    assert torch.equal(out, tss.slstm_scan(wx, r, b))
+    want_out, want_state = ref.slstm_scan_ref(wx, r, b, return_state=True)
+    torch.testing.assert_close(state, want_state, **(
+        SCAN if scale == 1.0 else SCAN_SATURATED))
+    first = tss.slstm_scan_bwd(dh, wx, r, b, out, state)
+    second = tss.slstm_scan_bwd(dh, wx, r, b, out, state)
+    assert torch.equal(first[0], second[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,P,r_dtype,want", [
+    (768, 192, torch.bfloat16, (8, "shared memory")),
+    (768, 192, torch.float32, (16, "shared memory")),
+    (256, 64, torch.bfloat16, (1, "shared memory")),
+    (1024, 1024, torch.float32, (1, "device memory"))])
+def test_cuda_slstm_scan_backward_plans(cuda, d, P, r_dtype, want):
+    """The backward's cluster: the fewest CTAs whose rows of R fit their
+    shared memory (xlstm-125m's layer: 8 in bf16, 16 in fp32, past the
+    portable 8), else R read from device memory."""
+    got = tss.bwd_plan(d, P, r_dtype)
+    assert (got["cluster"], got["r_lives_in"]) == want
